@@ -1,0 +1,114 @@
+"""Plain PyTorch oracles for the kernel library (allclose/equal targets).
+
+Counterpart of ``repro.kernels.ref``: the gather menu, the reduce
+identities, and the dense edge-block and push-scatter reductions written
+as straightforward tensor code.  The CUDA kernels are held against these
+on the card, and the CPU tests hold these against the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+PAD = torch.iinfo(torch.int32).max
+
+# Static gather-op menu: the translator maps DSL gathers onto these
+# pre-built module configurations.
+GATHER_OPS = ("copy", "plus_one", "add_w", "mul_w", "div_deg")
+REDUCE_OPS = ("add", "min", "max")
+
+# Menu gathers whose message ignores the edge weight (pinned regression
+# oracle for the analyzer's weight-use probe).
+WEIGHT_FREE_GATHERS = ("copy", "plus_one", "div_deg")
+
+_ROW_REDUCE = {"add": lambda x, dim: torch.sum(x, dim=dim, dtype=x.dtype),
+               "min": torch.amin, "max": torch.amax}
+
+
+def _identity(reduce: str, dtype: torch.dtype):
+    """The reduce identity for ``dtype`` as a Python scalar."""
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        return {"add": 0, "min": info.max, "max": info.min}[reduce]
+    return {"add": 0.0, "min": float("inf"), "max": float("-inf")}[reduce]
+
+
+def gather_msg(gather: str, v, w, d):
+    """Evaluate a menu gather op: (src_value, weight, degree) → message."""
+    if gather == "copy":
+        return v
+    if gather == "plus_one":
+        return v + 1
+    if gather == "add_w":
+        return v + w
+    if gather == "mul_w":
+        return v * w
+    if gather == "div_deg":
+        return v / torch.clamp_min(d, 1).to(v.dtype)
+    raise ValueError(gather)
+
+
+def row_reduce(reduce: str, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Reduce along ``dim`` with add/min/max; min and max propagate NaN."""
+    return _ROW_REDUCE[reduce](x, dim=dim)
+
+
+def edge_block_reduce_ref(
+    nbr: torch.Tensor,        # (R, W) int32 neighbor ids, PAD-padded
+    wgt: torch.Tensor,        # (R, W) edge weights
+    values: torch.Tensor,     # (V,) vertex values
+    degrees: torch.Tensor,    # (V,) out-degrees (for div_deg)
+    active: torch.Tensor,     # (V,) bool frontier
+    *,
+    gather: str,
+    reduce: str,
+    mask_inactive: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (reduced (R,), any_active (R,) bool)."""
+    valid = nbr != PAD
+    safe = torch.where(valid, nbr, 0)
+    v = values[safe]
+    d = degrees[safe]
+    msg = gather_msg(gather, v, wgt.to(v.dtype), d)
+    live = valid
+    if mask_inactive:
+        live = live & active[safe]
+    msg = torch.where(live, msg, _identity(reduce, msg.dtype))
+    return row_reduce(reduce, msg, 1), torch.any(live, dim=1)
+
+
+def push_scatter_reduce_ref(
+    src: torch.Tensor,        # (E,) int32 source vertex ids (forward COO)
+    dst: torch.Tensor,        # (E,) int32 destination vertex ids
+    wgt: torch.Tensor,        # (E,) edge weights
+    values: torch.Tensor,     # (V,) vertex values
+    degrees: torch.Tensor,    # (V,) out-degrees
+    active: torch.Tensor,     # (V,) bool frontier
+    *,
+    gather: str,
+    reduce: str,
+    mask_inactive: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Push-direction oracle: scatter frontier messages over out-edges.
+
+    Dense over all E edges with inactive sources masked to the identity.
+    Returns ``(reduced (V,), touched (V,))``.
+    """
+    V = values.shape[0]
+    src = src.long()
+    dst = dst.long()
+    v = values[src]
+    d = degrees[src]
+    msg = gather_msg(gather, v, wgt.to(v.dtype), d)
+    live = active[src] if mask_inactive else torch.ones_like(src, dtype=bool)
+    ident = _identity(reduce, msg.dtype)
+    msg = torch.where(live, msg, ident)
+    red = torch.full((V,), ident, dtype=msg.dtype, device=values.device)
+    if reduce == "add":
+        red = red.index_add(0, dst, torch.where(live, msg, 0))
+    else:
+        red = red.scatter_reduce(0, dst, msg, "amin" if reduce == "min"
+                                 else "amax", include_self=True)
+    got = torch.zeros((V,), dtype=torch.uint8,
+                      device=values.device).scatter_reduce(
+        0, dst, live.to(torch.uint8), "amax", include_self=True) != 0
+    return red, got

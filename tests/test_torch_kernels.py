@@ -1,0 +1,240 @@
+"""Port parity: the CUDA kernels' plain PyTorch versions (what the kernel
+wrappers run on CPU tensors) against the JAX package's Pallas kernels in
+interpret mode, on the same numpy inputs.
+
+Min, max and integer reductions must match exactly.  A float add may
+differ by reassociation (the Pallas row sum and the PyTorch row sum add
+the W lanes in different orders): ``rtol=1e-5``.  The CUDA kernels
+themselves are held against these plain versions on the card by
+``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import repro.core  # noqa: F401  (import order: core before kernels)
+from repro.kernels import edge_block as reb
+from repro.kernels import ops as rops
+from repro.kernels import push_ell as rpe
+from repro.kernels import ref as rref
+
+import torch
+from repro_torch.core import graph as G
+from repro_torch.kernels import edge_block as teb
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pull_bitmap as tpb
+from repro_torch.kernels import push_ell as tpe
+from repro_torch.kernels import ref as tref
+
+PAD = 2**31 - 1
+GATHERS = tref.GATHER_OPS
+REDUCES = tref.REDUCE_OPS
+
+
+def _inputs(R, W, V, dtype, seed=0, pad_frac=0.3, nan=False):
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, V, (R, W)).astype(np.int32)
+    nbr[rng.random((R, W)) < pad_frac] = PAD
+    wgt = rng.uniform(0.0, 4.0, (R, W)).astype(np.float32)
+    if dtype == np.int32:
+        vals = rng.integers(0, 50, V).astype(np.int32)
+    else:
+        vals = rng.uniform(0.0, 5.0, V).astype(np.float32)
+        if nan:
+            vals[rng.integers(0, V, max(V // 10, 1))] = np.nan
+    deg = rng.integers(0, 9, V).astype(np.int32)
+    act = rng.random(V) < 0.5
+    return nbr, wgt, vals, deg, act
+
+
+def _t(*arrs):
+    return tuple(torch.as_tensor(a) for a in arrs)
+
+
+def _j(*arrs):
+    return tuple(jnp.asarray(a) for a in arrs)
+
+
+def _check(ref, got, dtype, reduce):
+    ref = np.asarray(ref)
+    got = got.numpy()
+    assert ref.dtype == got.dtype, (ref.dtype, got.dtype)
+    if dtype == np.float32 and reduce == "add":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+_CASES = [(g, r, d, m) for g in GATHERS for r in REDUCES
+          for d in (np.int32, np.float32) for m in (True, False)
+          if not (g == "div_deg" and d == np.int32)]
+
+
+@pytest.mark.parametrize("gather,reduce,dtype,mask", _CASES)
+def test_edge_block_plain_matches_pallas(gather, reduce, dtype, mask):
+    args = _inputs(37, 8, 101, dtype, seed=len(gather) + len(reduce))
+    r_red, r_any = reb.edge_block_reduce(*_j(*args), gather=gather,
+                                         reduce=reduce, mask_inactive=mask,
+                                         block_rows=16, interpret=True)
+    t_red, t_any = teb.edge_block_reduce_plain(*_t(*args), gather=gather,
+                                               reduce=reduce,
+                                               mask_inactive=mask)
+    _check(r_red, t_red, dtype, reduce)
+    np.testing.assert_array_equal(np.asarray(r_any), t_any.numpy())
+    # on CPU tensors the kernel wrapper is the plain version
+    w_red, w_any = teb.edge_block_reduce(*_t(*args), gather=gather,
+                                         reduce=reduce, mask_inactive=mask)
+    assert torch.equal(w_red, t_red) and torch.equal(w_any, t_any)
+
+
+@pytest.mark.parametrize("R,W,V,reduce", [
+    (1, 8, 33, "min"), (130, 8, 1000, "add"), (5, 1, 7, "max"),
+    (19, 16, 65, "add"), (257, 8, 31, "min")])
+def test_edge_block_ragged_shapes(R, W, V, reduce):
+    args = _inputs(R, W, V, np.float32, seed=R + W)
+    r_red, r_any = reb.edge_block_reduce(*_j(*args), gather="add_w",
+                                         reduce=reduce, block_rows=8,
+                                         interpret=True)
+    t_red, t_any = teb.edge_block_reduce_plain(*_t(*args), gather="add_w",
+                                               reduce=reduce)
+    _check(r_red, t_red, np.float32, reduce)
+    np.testing.assert_array_equal(np.asarray(r_any), t_any.numpy())
+
+
+@pytest.mark.parametrize("reduce", ["min", "max"])
+def test_edge_block_nan_propagates_like_pallas(reduce):
+    args = _inputs(64, 8, 50, np.float32, seed=11, pad_frac=0.1, nan=True)
+    r_red, _ = reb.edge_block_reduce(*_j(*args), gather="copy",
+                                     reduce=reduce, mask_inactive=False,
+                                     block_rows=16, interpret=True)
+    t_red, _ = teb.edge_block_reduce_plain(*_t(*args), gather="copy",
+                                           reduce=reduce, mask_inactive=False)
+    assert np.isnan(np.asarray(r_red)).any()
+    np.testing.assert_array_equal(np.asarray(r_red), t_red.numpy())
+
+
+def test_edge_block_refuses_non_menu_and_int_division():
+    args = _t(*_inputs(4, 8, 10, np.int32))
+    with pytest.raises(ValueError):
+        teb.edge_block_reduce(*args, gather="div_deg", reduce="add")
+    with pytest.raises(ValueError):
+        teb.edge_block_reduce(*args, gather="square", reduce="add")
+
+
+_PUSH_CASES = [(g, d, 20, 8, 77) for g in GATHERS
+               for d in (np.int32, np.float32)
+               if not (g == "div_deg" and d == np.int32)] \
+    + [("add_w", np.float32, 3, 4, 9), ("plus_one", np.int32, 1, 8, 5)]
+
+
+@pytest.mark.parametrize("gather,dtype,C,W,V", _PUSH_CASES)
+def test_push_message_plain_matches_pallas(gather, dtype, C, W, V):
+    nbr, wgt, vals, deg, _ = _inputs(C, W, V, dtype, seed=C * W)
+    src = np.random.default_rng(C).integers(0, V, C).astype(np.int32)
+    ref = rpe.push_ell_message_block(*_j(nbr, wgt, src, vals, deg),
+                                     gather=gather, block_rows=8,
+                                     interpret=True)
+    got = tpe.push_ell_message_block_plain(*_t(nbr, wgt, src, vals, deg),
+                                           gather=gather)
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    wrapped = tpe.push_ell_message_block(*_t(nbr, wgt, src, vals, deg),
+                                         gather=gather)
+    assert torch.equal(wrapped, got)
+
+
+def _graph_pair(V=300, E=2400, seed=0):
+    from repro.core import graph as RG
+    src, dst = RG.rmat_edges(V, E, seed=seed)
+    w = np.random.default_rng(seed).uniform(0.5, 3, len(src)) \
+        .astype(np.float32)
+    return (RG.from_edge_list(src, dst, num_vertices=V, weights=w),
+            G.from_edge_list(src, dst, num_vertices=V, weights=w))
+
+
+@pytest.mark.parametrize("gather,reduce,dtype", [
+    ("copy", "min", np.int32), ("plus_one", "min", np.int32),
+    ("add_w", "min", np.float32), ("mul_w", "max", np.float32),
+    ("copy", "add", np.int32)])
+@pytest.mark.parametrize("capacity", [None, 64])
+def test_compacted_push_reduce_matches(gather, reduce, dtype, capacity):
+    from repro.core import graph as RG
+    rg, tg = _graph_pair(seed=3)
+    rfe, tfe = RG.forward_ell(rg, width=8), G.forward_ell(tg, width=8)
+    rng = np.random.default_rng(5)
+    V = tg.num_vertices
+    vals = (rng.integers(0, 40, V) if dtype == np.int32
+            else rng.uniform(0, 4, V)).astype(dtype)
+    deg = np.asarray(rg.out_degrees).astype(np.int32)
+    act = rng.random(V) < (0.02 if capacity else 0.4)
+    rows = int(np.asarray(rfe.rows_per_vertex)[act].sum())
+    cap = capacity if capacity is not None else max(rfe.num_rows, 1)
+    assert rows <= cap
+    r_red, r_t = rops.push_ell_reduce(
+        rfe.row_src, rfe.dst, rfe.weights, *_j(vals, deg, act),
+        num_rows=rfe.num_rows, capacity=cap, gather=gather, reduce=reduce)
+    t_red, t_t = tops.push_ell_reduce(
+        tfe.row_src, tfe.dst, tfe.weights, *_t(vals, deg, act),
+        num_rows=tfe.num_rows, capacity=cap, gather=gather, reduce=reduce)
+    np.testing.assert_array_equal(np.asarray(r_red), t_red.numpy())
+    np.testing.assert_array_equal(np.asarray(r_t), t_t.numpy())
+    # and both equal the dense push-scatter oracle
+    src, dst, wts = G.to_coo(tg)
+    o_red, o_t = tref.push_scatter_reduce_ref(
+        *_t(src, dst, wts, vals, deg, act), gather=gather, reduce=reduce)
+    np.testing.assert_array_equal(o_red.numpy(), t_red.numpy())
+    np.testing.assert_array_equal(o_t.numpy(), t_t.numpy())
+
+
+@pytest.mark.parametrize("reduce", REDUCES)
+def test_oracles_match_reference_oracles(reduce):
+    args = _inputs(40, 8, 90, np.float32, seed=21)
+    r = rref.edge_block_reduce_ref(*_j(*args), gather="mul_w", reduce=reduce)
+    t = tref.edge_block_reduce_ref(*_t(*args), gather="mul_w", reduce=reduce)
+    _check(r[0], t[0], np.float32, reduce)
+    np.testing.assert_array_equal(np.asarray(r[1]), t[1].numpy())
+    rng = np.random.default_rng(2)
+    E, V = 300, 60
+    src = rng.integers(0, V, E).astype(np.int32)
+    dst = rng.integers(0, V, E).astype(np.int32)
+    w = rng.uniform(0, 2, E).astype(np.float32)
+    vals = rng.integers(0, 30, V).astype(np.int32)
+    deg = rng.integers(0, 5, V).astype(np.int32)
+    act = rng.random(V) < 0.5
+    r = rref.push_scatter_reduce_ref(*_j(src, dst, w, vals, deg, act),
+                                     gather="plus_one", reduce=reduce)
+    t = tref.push_scatter_reduce_ref(*_t(src, dst, w, vals, deg, act),
+                                     gather="plus_one", reduce=reduce)
+    np.testing.assert_array_equal(np.asarray(r[0]), t[0].numpy())
+    np.testing.assert_array_equal(np.asarray(r[1]), t[1].numpy())
+
+
+@pytest.mark.parametrize("reduce,dtype", [("min", np.int32),
+                                          ("add", np.float32),
+                                          ("max", np.float32)])
+def test_subrow_combine_and_message_table_match(reduce, dtype):
+    from repro.core import graph as RG
+    from repro.kernels import pull_bitmap as rpb
+    rg, tg = _graph_pair(seed=9)
+    rp = RG.pull_bitmap_plan(RG.bucketize(RG.reverse(rg), max_width=16))
+    tp = G.pull_bitmap_plan(G.bucketize(G.reverse(tg), max_width=16))
+    assert tp.num_dup > 0            # split hubs exercise the dup scatter
+    rng = np.random.default_rng(4)
+    ident = tref._identity(reduce, torch.from_numpy(np.zeros(1, dtype)).dtype)
+    sub = (rng.integers(0, 99, tp.num_subrows) if dtype == np.int32
+           else rng.uniform(0, 3, tp.num_subrows)).astype(dtype)
+    r = rpb.subrow_combine(jnp.asarray(sub), rp, ident, reduce,
+                           jnp.dtype(dtype))
+    t = tpb.subrow_combine(torch.as_tensor(sub), tp, ident, reduce,
+                           torch.as_tensor(sub).dtype)
+    _check(r, t, dtype, reduce)
+    V = tg.num_vertices
+    vals = rng.uniform(0, 5, V).astype(np.float32)
+    deg = np.asarray(rg.out_degrees).astype(np.int32)
+    act = rng.random(V) < 0.5
+    r = rpb.message_table(*_j(vals, deg, act), gather="div_deg",
+                          gather_fn=None, reduce="add", mask_inactive=True,
+                          dtype=jnp.float32)
+    t = tpb.message_table(*_t(vals, deg, act), gather="div_deg",
+                          gather_fn=None, reduce="add", mask_inactive=True,
+                          dtype=torch.float32)
+    np.testing.assert_array_equal(np.asarray(r), t.numpy())
