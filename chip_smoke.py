@@ -7,22 +7,39 @@ It takes no arguments and runs every phase, in order (any failure raises
 and the script exits non-zero):
 
 1. device  — the card's name and power limit (nvidia-smi), torch/CUDA.
-2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
-3. kernels — each kernel against its plain PyTorch version over every
-   gather × reduce × dtype × mask_inactive the menu admits, ragged shapes
-   and NaN inputs: min, max and int32 exact, float add within
-   ``rtol=1e-5`` (the kernel sums a row's lanes in slot order, the plain
-   version in PyTorch's order).
+2. build   — compile the CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, in parallel).
+3. kernels — each kernel against its plain PyTorch version: kernels 1
+   and 3 over every gather × reduce × dtype × mask_inactive the menu
+   admits, ragged shapes and NaN inputs; kernel 2 (the block-skipping
+   edge block) over the same sweep at R not a multiple of its
+   block_rows, with random, all-dead and all-live block flags, exactly
+   equal to kernel 1's rows with dead blocks set to the identity; kernel
+   4 (segment reduce) for add/min/max × int32/float32 over empty
+   segments, one segment, ragged E, an INT_MAX tail, NaN values and a
+   100k-element hub segment.  Min, max and int32 exact, float add within
+   ``rtol=1e-5`` (the kernels add in element order, the plain versions in
+   PyTorch's order).
 4. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
-   from root 0 through ``algorithms.bfs`` under pull, push and auto,
-   held against a numpy level-synchronous BFS; the launch counts of both
-   kernels over the auto run; each kernel held against its plain version
-   at the main path's shapes and timed there (CUDA events, median of 30
-   launches after warm-up) beside its bound; run wall, MTEPS and the cost
-   of the one host sync per superstep.
-5. others  — at scale 20: SSSP (push == pull exactly, ≈ scipy Dijkstra),
-   WCC (= min vertex id per weak component, scipy), PageRank (20
-   iterations, rtol 1e-4 of a scipy power iteration).
+   from root 0 through ``algorithms.bfs`` under pull, push and auto on
+   three paths, each held against a numpy level-synchronous BFS, with the
+   launch counts set to 0 just before each run and read just after: the
+   dense plane (kernels 1 and 3), the bitmap plane (``pull_sweep=
+   'bitmap'``, kernel 2 on its narrow tiers) and the sparse backend
+   (``backend='sparse'``, after ``in_degrees`` on CUDA against
+   ``np.bincount``); steady run walls of every plane and direction (median
+   of 3, in turns), the walls that decide ``pull_sweep='auto'``, device
+   reads per run, profiles; each kernel held against its plain version
+   at the main path's shapes and timed there (CUDA events, median of 20
+   or 30 launches after warm-up) beside its bound: kernel 2 on three BFS
+   frontiers (the root, the narrow one the plane routes to it, the
+   widest), kernel 4 through ``ops.segment_reduce`` over the reverse
+   COO's sorted receiving ids with bfs's messages (its result must be the
+   BFS levels), beside ``scatter_reduce_``.
+5. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
+   ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
+   component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
+   iteration), ``k_core(k=4)`` (= a numpy peel).
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Longer logs go to ``chiprun_out/``.
@@ -118,15 +135,59 @@ def _max_err(a, b):
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
+def _check_segment_kernel(torch, rng):
+    """Kernel 4 against its plain version: add/min/max × int32/float32 over
+    empty segments, one segment, ragged E, an INT_MAX tail, NaN values and
+    a hub segment of 100k elements."""
+    from repro_torch.kernels import segment_sum as ss
+    dev = torch.device("cuda")
+    checked, worst = 0, 0.0
+    cases = [(1000, 97, 0, 0), (5000, 1, 0, 0), (12345, 30011, 7, 0),
+             (1, 5, 3, 0), (20000, 1000, 0, 100_000)]
+    for E, S, tail, hub in cases:
+        seg = rng.integers(0, S, E)
+        if hub:
+            seg = np.concatenate([seg, np.full(hub, S // 3)])
+        seg = np.sort(seg).astype(np.int32)
+        n = len(seg)
+        seg = np.concatenate([seg, np.full(tail, 2**31 - 1, np.int32)])
+        for dtype in (np.int32, np.float32):
+            val = (rng.integers(-1000, 1000, n + tail) if dtype == np.int32
+                   else rng.uniform(-5, 5, n + tail)).astype(dtype)
+            if dtype == np.float32:
+                val[rng.integers(0, n + tail, max(n // 50, 1))] = np.nan
+            ts, tv = (torch.as_tensor(a).to(dev) for a in (seg, val))
+            for reduce in ("add", "min", "max"):
+                got = ss.segment_reduce(ts, tv, S, reduce=reduce)
+                want = ss.segment_reduce_ref(ts, tv, S, reduce=reduce)
+                torch.cuda.synchronize()
+                exact = not (dtype == np.float32 and reduce == "add")
+                if not (_same if exact else _close)(got, want):
+                    raise AssertionError(
+                        f"segment_reduce {reduce}/{dtype.__name__} E={E} "
+                        f"S={S} tail={tail} hub={hub}: max err "
+                        f"{_max_err(got, want)}")
+                worst = max(worst, _max_err(got, want))
+                checked += 1
+    return checked, worst
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
-    from repro_torch.kernels.ref import GATHER_OPS, PAD, REDUCE_OPS
+    from repro_torch.kernels.ref import GATHER_OPS, PAD, REDUCE_OPS, _identity
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    live_rng = np.random.default_rng(1)     # kernel 2's block flags
     checked = 0
-    worst = {"edge_block": 0.0, "push_ell": 0.0}
-    for R, W, V in ((1037, 8, 4099), (1, 8, 33), (300, 16, 97), (5, 1, 7)):
+    worst = {"edge_block": 0.0, "edge_block_skip": 0.0, "push_ell": 0.0}
+    # (R, W, V, block_rows of kernel 2): R is never a multiple of it
+    for R, W, V, br in ((1037, 8, 4099, 128), (1, 8, 33, 128),
+                        (300, 16, 97, 32), (5, 1, 7, 2)):
+        nb = -(-R // br)
+        lives = [torch.as_tensor(live_rng.random(nb) < 0.5).to(dev),
+                 torch.zeros(nb, dtype=torch.bool, device=dev),
+                 torch.ones(nb, dtype=torch.bool, device=dev)]
         nbr = rng.integers(0, V, (R, W)).astype(np.int32)
         nbr[rng.random((R, W)) < 0.3] = PAD
         wgt = rng.uniform(0, 4, (R, W)).astype(np.float32)
@@ -145,26 +206,49 @@ def phase_kernels(torch):
                         continue
                     for reduce in REDUCE_OPS:
                         for mask in (True, False):
-                            got = eb.edge_block_reduce(
-                                *t, gather=gather, reduce=reduce,
-                                mask_inactive=mask)
-                            want = eb.edge_block_reduce_plain(
-                                *t, gather=gather, reduce=reduce,
-                                mask_inactive=mask)
+                            kw = dict(gather=gather, reduce=reduce,
+                                      mask_inactive=mask)
+                            tag = (f"{gather}/{reduce}/{dtype.__name__}/"
+                                   f"mask={mask}/nan={nan} R={R} W={W} "
+                                   f"V={V}")
+                            got = eb.edge_block_reduce(*t, **kw)
+                            want = eb.edge_block_reduce_plain(*t, **kw)
                             torch.cuda.synchronize()
                             exact = not (dtype == np.float32
                                          and reduce == "add")
                             ok = (_same if exact else _close)(got[0], want[0])
                             if not ok or not _same(got[1], want[1]):
                                 raise AssertionError(
-                                    f"edge_block {gather}/{reduce}/"
-                                    f"{dtype.__name__}/mask={mask}/nan={nan}"
-                                    f" R={R} W={W} V={V}: max err "
+                                    f"edge_block {tag}: max err "
                                     f"{_max_err(got[0], want[0])}")
                             worst["edge_block"] = max(
                                 worst["edge_block"],
                                 _max_err(got[0], want[0]))
                             checked += 1
+                            # kernel 2: a dead block is the identity, a
+                            # live one kernel 1's row, exactly
+                            ident = _identity(reduce, got[0].dtype)
+                            for live in lives:
+                                sk = eb.edge_block_reduce(
+                                    *t, **kw, block_live=live, block_rows=br)
+                                plain = eb.edge_block_reduce_plain(
+                                    *t, **kw, block_live=live, block_rows=br)
+                                dead = ~live.repeat_interleave(br)[:R]
+                                k1 = (torch.where(dead, ident, got[0]),
+                                      got[1] & ~dead)
+                                torch.cuda.synchronize()
+                                if not (_same(sk[0], k1[0])
+                                        and _same(sk[1], k1[1])
+                                        and _same(sk[1], plain[1])
+                                        and (_same if exact else _close)(
+                                            sk[0], plain[0])):
+                                    raise AssertionError(
+                                        f"edge_block_skip {tag} br={br}: max "
+                                        f"err {_max_err(sk[0], plain[0])}")
+                                worst["edge_block_skip"] = max(
+                                    worst["edge_block_skip"],
+                                    _max_err(sk[0], plain[0]))
+                                checked += 1
                     src = torch.as_tensor(
                         rng.integers(0, V, R).astype(np.int32)).to(dev)
                     got = pe.push_ell_message_block(
@@ -177,9 +261,11 @@ def phase_kernels(torch):
                             f"push_ell {gather}/{dtype.__name__}/nan={nan} "
                             f"C={R} W={W}: max err {_max_err(got, want)}")
                     checked += 1
-    log(f"[kernels] {checked} kernel/plain comparisons agree "
-        "(min/max/int exact, float add rtol 1e-5); max abs err "
-        f"{worst}")
+    n_seg, worst["segment_reduce"] = _check_segment_kernel(torch, live_rng)
+    checked += n_seg
+    log(f"[kernels] {checked} kernel/plain comparisons agree (min/max/int "
+        "exact, float add rtol 1e-5; kernel 2 also exactly equal to kernel "
+        f"1's rows with dead blocks set to the identity); max abs err {worst}")
     return worst
 
 
@@ -249,16 +335,121 @@ def numpy_bfs(offsets, dst, root, V):
     return level
 
 
-def phase_main(torch, dev_info):
-    from repro_torch.core import algorithms as alg
-    from repro_torch.core import dsl
-    from repro_torch.core import graph as G
-    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
-    from repro_torch.core.translator import translate
+def _counters():
+    """Each kernel wrapper's launch count: name → (function, attribute)."""
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels import segment_sum as ss
+    return {"edge_block": (eb.edge_block_reduce, "launches"),
+            "edge_block_skip": (eb.edge_block_reduce, "skip_launches"),
+            "push_ell": (pe.push_ell_message_block, "launches"),
+            "segment_reduce": (ss.segment_reduce, "launches")}
 
-    scale, device = SCALE, "cuda"
+
+def _zero_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def _read_counts():
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+def _bfs_runs(torch, g, oracle, label, **kw):
+    """``algorithms.bfs`` from root 0 under pull, push and auto, each held
+    against the numpy oracle, with its launch counts (set to 0 just
+    before the run, read just after)."""
+    from repro_torch.core import algorithms as alg
+    results = {}
+    for direction in ("pull", "push", "auto"):
+        _zero_counts()
+        t1 = time.perf_counter()
+        levels, iters, rep = alg.bfs(g, root=0, direction=direction,
+                                     device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = _read_counts()
+        lv = levels.cpu().numpy()
+        if not np.array_equal(lv.astype(np.int64), oracle):
+            raise AssertionError(
+                f"bfs {label} {direction} disagrees with the numpy oracle at "
+                f"{int((lv != oracle).sum())} vertices")
+        results[direction] = {"levels": lv, "iters": iters, "rep": rep,
+                              "launches": launches, "wall": wall}
+        bd = {k: round(v, 3) if isinstance(v, float) else v
+              for k, v in rep.translate_breakdown.items()}
+        log(f"[main] bfs {label} {direction}: iters={iters} "
+            f"backend={rep.backend} pull_sweep={rep.pull_sweep} "
+            f"push_layout={rep.push_layout} first call {wall:.2f} s "
+            f"(translate {rep.translate_time_s:.2f} s: {json.dumps(bd)}) "
+            f"launches={launches} run_stats={json.dumps(rep.run_stats)}")
+    return results
+
+
+def _steady(torch, g, schedules, traversed, smi, repeats=3):
+    """Steady run walls (layouts cached, kernels loaded) of the BFS
+    programs ``{label: ScheduleConfig}``, one warm-up each, then runs in
+    turns; median of ``repeats``.  Returns ``{label: {...}}``."""
+    from repro_torch.core import dsl
+    from repro_torch.core.translator import translate
+    progs = {k: translate(dsl.bfs_program(INT_MAX), g, cfg, device="cuda")
+             for k, cfg in schedules.items()}
+    walls = {k: [] for k in progs}
+    for prog in progs.values():
+        prog.run(roots=0)
+    for _ in range(repeats):
+        for k, prog in progs.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, iters = prog.run(roots=0)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t1)
+    out = {}
+    for k, prog in progs.items():
+        w = float(np.median(walls[k]))
+        st = prog.last_run_stats
+        iters = st["push_supersteps"] + st["pull_supersteps"]
+        out[k] = {"run_wall_s": w, "walls_s": walls[k], "iters": iters,
+                  "ms_per_superstep": 1e3 * w / iters,
+                  "mteps": traversed / w / 1e6,
+                  "syncs_per_run": prog.last_run_syncs,
+                  "run_stats": prog.last_run_stats, "prog": prog}
+        log(f"[main] bfs {k} steady: run wall {w * 1e3:.3f} ms (runs "
+            f"{[round(x * 1e3, 3) for x in walls[k]]}), {iters} supersteps, "
+            f"{1e3 * w / iters:.3f} ms/superstep, MTEPS "
+            f"{traversed / w / 1e6:.1f}, {prog.last_run_syncs} device→host "
+            f"reads a run, on {smi}")
+    return out
+
+
+def _frontier_live_blocks(torch, lay, g, level_mask, grid_br=128):
+    """The bitmap plane's kernel-path block flags for a frontier: its
+    touched table (capacity = the frontier's forward-ELL rows), owners per
+    sub-row, ``grid_br`` sub-rows a flag."""
+    from repro_torch.kernels import pull_bitmap as pb
+    fe = lay.on(lay.forward_ell(8), "cuda")
+    pplan = lay.on(lay.pull_plan(64), "cuda")
+    active = torch.as_tensor(level_mask).to("cuda")
+    cap = max(int(torch.where(active, fe.rows_per_vertex, 0).sum()), 1)
+    touched = pb.touched_table(fe.row_src, fe.dst, active,
+                               num_rows=fe.num_rows, capacity=cap,
+                               num_vertices=g.num_vertices)
+    return active, pb.grid_block_live(touched, pplan.owner8, grid_br)
+
+
+def phase_main(torch, dev_info):
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import graph as G
+    from repro_torch.core import passes
+    from repro_torch.core import preprocess
+    from repro_torch.core.scheduler import (DirectionPolicy, ScheduleConfig,
+                                            push_capacity_tiers)
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels import segment_sum as ss
+
+    scale, device, smi = SCALE, "cuda", dev_info["smi"]
     V, E = 1 << scale, 16 << scale
     t0 = time.perf_counter()
     src, dst = G.rmat_edges(V, E, seed=0)
@@ -269,79 +460,66 @@ def phase_main(torch, dev_info):
         f"{gen_s:.1f} s")
     offsets = g.edge_offsets.numpy().astype(np.int64)
     oracle = numpy_bfs(offsets, g.edges_dst.numpy(), 0, V)
+    deg = np.diff(offsets)
+    levels_n = [(k, int((oracle == k).sum()), int(deg[oracle == k].sum()))
+                for k in range(int(oracle[oracle < INT_MAX].max()) + 1)]
+    log(f"[main] oracle levels (level, vertices, out-edges): {levels_n}")
 
-    results = {}
-    for direction in ("pull", "push", "auto"):
-        eb.edge_block_reduce.launches = 0
-        pe.push_ell_message_block.launches = 0
-        t1 = time.perf_counter()
-        levels, iters, rep = alg.bfs(g, root=0, direction=direction,
-                                     device=device)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = {"edge_block": eb.edge_block_reduce.launches,
-                    "push_ell": pe.push_ell_message_block.launches}
-        lv = levels.cpu().numpy()
-        if not np.array_equal(lv.astype(np.int64), oracle):
-            raise AssertionError(f"bfs {direction} disagrees with the numpy "
-                                 f"oracle at {int((lv != oracle).sum())} "
-                                 "vertices")
-        results[direction] = (lv, iters, rep, launches, wall)
-        log(f"[main] bfs {direction}: iters={iters} backend={rep.backend} "
-            f"translate_s={rep.translate_time_s:.2f} "
-            f"breakdown={json.dumps({k: round(v, 3) if isinstance(v, float) else v for k, v in rep.translate_breakdown.items()})} "
-            f"launches={launches} run_stats={json.dumps(rep.run_stats)}")
-    ref = results["pull"][0]
-    for direction in ("push", "auto"):
-        if not np.array_equal(results[direction][0], ref):
-            raise AssertionError(f"bfs {direction} != bfs pull")
-    auto_launches = results["auto"][3]
-    if min(auto_launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched on the auto run: "
-                             f"{auto_launches}")
+    # ---- path 1: the dense plane (kernels 1 and 3) ----------------------
+    dense = _bfs_runs(torch, g, oracle, "dense", pull_sweep="dense")
+    auto_launches = dense["auto"]["launches"]
+    if auto_launches["edge_block"] <= 0 or auto_launches["push_ell"] <= 0:
+        raise AssertionError(f"a kernel never launched on the dense auto "
+                             f"run: {auto_launches}")
+    traversed = alg.traversed_edges(g, dense["auto"]["levels"])
 
-    # steady-state run wall (layouts cached, kernels loaded), per mode
-    traversed = alg.traversed_edges(g, results["auto"][0])
-    perf = {}
-    for direction in ("pull", "push", "auto"):
-        prog = translate(dsl.bfs_program(INT_MAX), g, ScheduleConfig(
-            direction=DirectionPolicy(mode=direction)), device=device)
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            prog.run(roots=0)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t1)
-        w = float(np.median(walls))
-        iters = results[direction][1]
-        perf[direction] = {"run_wall_s": w, "iters": iters,
-                           "ms_per_superstep": 1e3 * w / iters,
-                           "mteps": traversed / w / 1e6}
-        log(f"[main] bfs {direction} steady: run wall {w * 1e3:.2f} ms, "
-            f"{iters} supersteps, {1e3 * w / iters:.3f} ms/superstep, "
-            f"MTEPS {traversed / w / 1e6:.1f} (traversed {traversed}) "
-            f"on {dev_info['smi']}")
-    # the one host sync per superstep: the occupancy read on its own
+    # ---- path 2: the bitmap plane (kernel 2) ----------------------------
+    bitmap = _bfs_runs(torch, g, oracle, "bitmap", pull_sweep="bitmap")
+    for d in ("pull", "push", "auto"):
+        if not np.array_equal(bitmap[d]["levels"], dense["pull"]["levels"]):
+            raise AssertionError(f"bfs bitmap {d} != bfs dense pull")
+    skip_launches = bitmap["pull"]["launches"]["edge_block_skip"]
+    if skip_launches <= 0:
+        raise AssertionError("kernel 2 never launched on the bitmap pull "
+                             f"run: {bitmap['pull']['launches']}")
+    rep = bitmap["pull"]["rep"]
+    log(f"[main] bitmap plane: tiers {rep.pull_block_tiers} of "
+        f"{rep.pull_blocks_total} blocks")
+
+    # steady walls of both planes in turns; the auto resolution's inputs
+    perf = _steady(torch, g, {
+        f"{plane} {d}": ScheduleConfig(direction=DirectionPolicy(mode=d),
+                                       pull_sweep=plane)
+        for d in ("pull", "push", "auto") for plane in ("dense", "bitmap")},
+        traversed, smi)
+    walls_ms = {d: (round(perf[f"dense {d}"]["run_wall_s"] * 1e3, 3),
+                    round(perf[f"bitmap {d}"]["run_wall_s"] * 1e3, 3))
+                for d in ("pull", "auto")}
+    pays = all(b <= dd for dd, b in walls_ms.values())
+    log(f"[main] pull_sweep='auto' decision on {smi}: steady walls ms "
+        f"(dense, bitmap) {json.dumps(walls_ms)} -> "
+        f"{'bitmap' if pays else 'dense'}; passes resolves dense on "
+        f"{passes.CUDA_AUTO_SWEEP_NOTE}")
+
+    # the one host read per superstep: the occupancy read on its own
+    prog = perf["dense auto"]["prog"]
     active = torch.zeros(V, dtype=torch.bool, device=device)
     active[:: 97] = True
     sync_ms = _time_ms(torch, lambda: prog._occupancy(active), reps=50)
     log(f"[main] host sync (occupancy read) {sync_ms:.4f} ms per superstep; "
-        f"auto run: {sync_ms * results['auto'][1]:.3f} ms of "
-        f"{perf['auto']['run_wall_s'] * 1e3:.2f} ms")
-    for direction in ("pull", "auto"):
-        perf[direction]["profile"] = _profile_run(
-            torch, translate(dsl.bfs_program(INT_MAX), g, ScheduleConfig(
-                direction=DirectionPolicy(mode=direction)), device=device),
-            perf[direction]["run_wall_s"], direction)
+        f"dense auto run: {sync_ms * perf['dense auto']['iters']:.3f} ms of "
+        f"{perf['dense auto']['run_wall_s'] * 1e3:.2f} ms")
+    for k in ("dense pull", "dense auto", "bitmap pull"):
+        perf[k]["profile"] = _profile_run(
+            torch, perf[k]["prog"], perf[k]["run_wall_s"],
+            k.replace(" ", "_"))
 
-    # each kernel at the main path's shapes: kernel vs plain, then timed
-    from repro_torch.core import preprocess
+    # ---- each kernel at the main path's shapes --------------------------
     lay = preprocess.layouts_for(g)
     pplan = lay.on(lay.pull_plan(64), device)
     fe = lay.on(lay.forward_ell(8), device)
     out_deg = g.out_degrees.to(device=device, dtype=torch.int32)
-    values = torch.as_tensor(results["auto"][0]).to(device)
+    values = torch.as_tensor(dense["auto"]["levels"]).to(device)
     rng = np.random.default_rng(1)
     act = torch.as_tensor(rng.random(V) < 0.5).to(device)
     kw = dict(gather="plus_one", reduce="min", mask_inactive=True)
@@ -362,7 +540,44 @@ def phase_main(torch, dev_info):
     eb_ops = 2 * R8 * W
     eb_bound = 1e3 * max(eb_bytes / _BANDWIDTH, eb_ops / _SCALAR_OPS)
 
-    from repro_torch.core.scheduler import push_capacity_tiers
+    # kernel 2 on three frontiers of the BFS: the root (first superstep),
+    # the last frontier the plane routes to kernel 2, the widest one
+    caps = rep.pull_block_tiers
+    narrow = [k for k, n, m in levels_n if 0 < m <= caps[1]]
+    widest = max(levels_n, key=lambda t: t[1])[0]
+    skip = {}
+    for label, lvl in (("root", 0), ("narrow", narrow[0] if narrow else 0),
+                       ("widest", widest)):
+        front, live = _frontier_live_blocks(torch, lay, g, oracle == lvl)
+        sargs = (pplan.flat_dst, pplan.flat_wgt, values, out_deg, front)
+        skw = dict(kw, block_live=live, block_rows=128)
+        got = eb.edge_block_reduce(*sargs, **skw)
+        want = eb.edge_block_reduce_plain(*sargs, **skw)
+        full = eb.edge_block_reduce(*sargs, **kw)
+        torch.cuda.synchronize()
+        if not (_same(got[0], want[0]) and _same(got[1], want[1])
+                and _same(got[0], full[0]) and _same(got[1], full[1])):
+            raise AssertionError(f"edge_block_skip disagrees at main shape "
+                                 f"({label} frontier)")
+        n_live, nb = int(live.sum()), live.shape[0]
+        ms = _time_ms(torch, lambda: eb.edge_block_reduce(*sargs, **skw),
+                      reps=20)
+        plain_ms = _time_ms(torch, lambda: eb.edge_block_reduce_plain(
+            *sargs, **skw), reps=20)
+        # ids of live blocks only, the value and frontier tables, the
+        # flags, the two outputs over all rows
+        nbytes = n_live * 128 * W * 4 + V * 5 + R8 * 5 + nb
+        nops = 2 * n_live * 128 * W
+        bound = 1e3 * max(nbytes / _BANDWIDTH, nops / _SCALAR_OPS)
+        skip[label] = {"level": lvl, "live_blocks": n_live, "blocks": nb,
+                       "live_share": n_live / nb, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "max_abs_err": _max_err(got[0], want[0])}
+        log(f"[main] edge_block_skip on the level-{lvl} ({label}) frontier: "
+            f"{n_live}/{nb} grid blocks live (share {n_live / nb:.4f}); "
+            f"{ms:.4f} ms (kernel 1 on the same rows {eb_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
+
     tiers = push_capacity_tiers(fe.num_rows)
     C = tiers[-1]
     rows = fe.rows_per_vertex.long()
@@ -390,6 +605,50 @@ def phase_main(torch, dev_info):
     pe_bytes = C * 4 + C * 4 + C * W * 4
     pe_bound = 1e3 * max(pe_bytes / _BANDWIDTH, C * W / _SCALAR_OPS)
 
+    # ---- path 3: the sparse backend, and kernel 4's entry point ----------
+    sparse = phase_sparse(torch, g, oracle, traversed, smi)
+    seg, rsrc, _ = lay.on(lay.reverse_coo(), device)
+    lv_t = torch.as_tensor(oracle.astype(np.int32)).to(device)
+    msgs = lv_t[rsrc.long()] + 1             # bfs's plus_one messages
+    _zero_counts()
+    red = ops.segment_reduce(seg, msgs, V, reduce="min")
+    torch.cuda.synchronize()
+    seg_launches = _read_counts()["segment_reduce"]
+    # BFS: a reached vertex's level is 1 + the least level of its
+    # in-neighbours (the root excepted)
+    reached = torch.as_tensor((oracle < INT_MAX) & (np.arange(V) != 0))
+    if seg_launches != 1 or not torch.equal(
+            red.cpu()[reached], lv_t.cpu()[reached]):
+        raise AssertionError(f"ops.segment_reduce path: launches "
+                             f"{seg_launches}, or min-of-messages != levels")
+    want = ss.segment_reduce_ref(seg, msgs, V, reduce="min")
+    torch.cuda.synchronize()
+    if not _same(red, want):
+        raise AssertionError("segment_reduce disagrees with plain at main "
+                             "shape")
+    seg_err = _max_err(red, want)
+    seg_ms = _time_ms(torch, lambda: ss.segment_reduce(seg, msgs, V,
+                                                       reduce="min"), reps=20)
+    seg_plain = _time_ms(torch, lambda: ss.segment_reduce_ref(
+        seg, msgs, V, reduce="min"), reps=20)
+    # the library call: an identity-filled table's amin scatter (amin is
+    # idempotent, so the repeated calls need no fresh table)
+    seg64 = seg.long()
+    table = torch.full((V,), 2**31 - 1, dtype=torch.int32, device=device)
+    seg_lib = _time_ms(torch, lambda: table.scatter_reduce_(
+        0, seg64, msgs, "amin", include_self=True), reps=20)
+    if not torch.equal(table, red):
+        raise AssertionError("scatter_reduce_ amin != segment_reduce")
+    in_deg = np.bincount(g.edges_dst.numpy(), minlength=V)
+    Es = int(seg.shape[0])
+    seg_bytes = Es * 8 + V * 4
+    seg_bound = 1e3 * max(seg_bytes / _BANDWIDTH, Es / _SCALAR_OPS)
+    log(f"[main] segment_reduce (min, E={Es}, V={V}, largest segment "
+        f"{int(in_deg.max())} elements): {seg_ms:.4f} ms, plain "
+        f"{seg_plain:.4f} ms, scatter_reduce_ amin {seg_lib:.4f} ms, bound "
+        f"{seg_bound:.4f} ms; ops.segment_reduce launches {seg_launches}")
+
+    sk = skip["narrow"]
     kernels = [
         {"name": "edge_block_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/edge_block.cu",
@@ -399,25 +658,55 @@ def phase_main(torch, dev_info):
          "bound_by": "bytes" if eb_bytes / _BANDWIDTH
          >= eb_ops / _SCALAR_OPS else "operations",
          "library_ms": None, "shape": [R8, W, V]},
+        {"name": "edge_block_reduce_skip", "route": "cuda",
+         "source": "src/repro_torch/csrc/edge_block.cu",
+         "replaces": "src/repro/kernels/edge_block.py:58",
+         "launches": skip_launches, "max_abs_err": sk["max_abs_err"],
+         "ms": sk["ms"], "plain_ms": sk["plain_ms"],
+         "bound_ms": sk["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": [R8, W, V, sk["live_blocks"],
+                                       sk["blocks"]]},
         {"name": "push_ell_message_block", "route": "cuda",
          "source": "src/repro_torch/csrc/push_ell.cu",
          "replaces": "src/repro/kernels/push_ell.py:89",
          "launches": auto_launches["push_ell"], "max_abs_err": pe_err,
          "ms": pe_ms, "plain_ms": pe_plain, "bound_ms": pe_bound,
          "bound_by": "bytes", "library_ms": None, "shape": [C, W, V]},
+        {"name": "segment_reduce", "route": "cuda",
+         "source": "src/repro_torch/csrc/segment_sum.cu",
+         "replaces": "src/repro/kernels/segment_sum.py:24",
+         "launches": seg_launches, "max_abs_err": seg_err,
+         "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": seg_bound,
+         "bound_by": "bytes", "library_ms": seg_lib, "shape": [Es, V]},
     ]
+    per_bfs = {"edge_block_reduce": auto_launches["edge_block"],
+               "edge_block_reduce_skip": skip_launches,
+               "push_ell_message_block": auto_launches["push_ell"],
+               "segment_reduce": dense["auto"]["launches"]["segment_reduce"]}
     for k in kernels:
         log(json.dumps({"kernel": k["name"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "launches_per_bfs": k["launches"],
+                        "library_ms": k["library_ms"],
+                        "launches_per_bfs": per_bfs[k["name"]],
                         "shape": k["shape"]}))
     summary = {"scale": scale, "V": V, "E": g.num_edges,
                "graph_build_s": gen_s, "traversed_edges": traversed,
-               "perf": perf, "host_sync_ms": sync_ms,
-               "launches": {d: r[3] for d, r in results.items()},
-               "run_stats": {d: r[2].run_stats for d, r in results.items()},
-               "translate_breakdown": results["pull"][2].translate_breakdown,
-               "card": dev_info["smi"]}
+               "oracle_levels": levels_n,
+               "perf": {k: {kk: vv for kk, vv in v.items() if kk != "prog"}
+                        for k, v in perf.items()},
+               "auto_decision_walls_ms": walls_ms, "bitmap_pays": pays,
+               "host_sync_ms": sync_ms, "edge_block_skip": skip,
+               "sparse": sparse,
+               "launches": {f"{p} {d}": r[d]["launches"]
+                            for p, r in (("dense", dense),
+                                         ("bitmap", bitmap))
+                            for d in r},
+               "run_stats": {f"{p} {d}": r[d]["rep"].run_stats
+                             for p, r in (("dense", dense),
+                                          ("bitmap", bitmap))
+                             for d in r},
+               "translate_breakdown": dense["pull"]["rep"].translate_breakdown,
+               "card": smi}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_main.json"), "w") as f:
         json.dump({"summary": summary, "kernels": kernels}, f, indent=1,
@@ -425,11 +714,69 @@ def phase_main(torch, dev_info):
     return kernels
 
 
+def phase_sparse(torch, g, oracle, traversed, smi):
+    """The sparse backend at the main scale: ``in_degrees`` on CUDA (its
+    unmatched gather routes sparse) against ``np.bincount``, then BFS with
+    ``backend='sparse'`` under pull, push (coo_chunks) and auto."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import preprocess
+    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
+    lay = preprocess.layouts_for(g)
+    before = dict(lay.build_times_s)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    deg = alg.in_degrees(g, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    want = np.bincount(g.edges_dst.numpy(), minlength=g.num_vertices)
+    if not np.array_equal(deg.cpu().numpy(), want.astype(np.float32)):
+        raise AssertionError("in_degrees on CUDA != np.bincount")
+    built = {k: round(v, 2) for k, v in lay.build_times_s.items()
+             if k not in before}
+    log(f"[sparse] in_degrees on CUDA = np.bincount of the destinations "
+        f"({wall:.2f} s first call); sparse layouts built on the host "
+        f"{built} s")
+    runs = _bfs_runs(torch, g, oracle, "sparse", backend="sparse")
+    grown = torch.cuda.memory_allocated() - mem0
+    log(f"[sparse] device memory held by the sparse layouts: "
+        f"{grown / 2**30:.2f} GiB")
+    perf = _steady(torch, g, {
+        f"sparse {d}": ScheduleConfig(backend="sparse",
+                                      direction=DirectionPolicy(mode=d))
+        for d in ("pull", "push", "auto")}, traversed, smi)
+    prof = _profile_run(torch, perf["sparse pull"]["prog"],
+                        perf["sparse pull"]["run_wall_s"], "sparse_pull")
+    return {"in_degrees_first_call_s": wall, "host_layouts_s": built,
+            "device_bytes": grown,
+            "run_stats": {d: r["rep"].run_stats for d, r in runs.items()},
+            "perf": {k: {kk: vv for kk, vv in v.items() if kk != "prog"}
+                     for k, v in perf.items()},
+            "profile_pull": prof}
+
+
+def numpy_k_core(src, dst, V, k):
+    """k-core membership by peeling on the undirected multigraph (each
+    edge both ways), independent of the port."""
+    s = np.concatenate([src, dst])
+    d = np.concatenate([dst, src])
+    alive = np.ones(V, bool)
+    while True:
+        cnt = np.bincount(d, weights=alive[s], minlength=V)
+        nxt = alive & (cnt >= k)
+        if np.array_equal(nxt, alive):
+            return alive
+        alive = nxt
+
+
 def phase_others(torch):
     import scipy.sparse as sp
     from scipy.sparse.csgraph import connected_components, dijkstra
     from repro_torch.core import algorithms as alg
+    from repro_torch.core import dsl
     from repro_torch.core import graph as G
+    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
+    from repro_torch.core.translator import translate
 
     scale, device = OTHERS_SCALE, "cuda"
     V, E = 1 << scale, 16 << scale
@@ -441,27 +788,44 @@ def phase_others(torch):
     A = sp.csr_matrix((g.edge_weights.numpy().astype(np.float64),
                        g.edges_dst.numpy(), off), shape=(V, V))
 
-    d_pull, _, _ = alg.sssp(g, 0, direction="pull", device=device)
-    d_push, it, rep = alg.sssp(g, 0, direction="push", device=device)
-    if not torch.equal(d_pull, d_push):
-        raise AssertionError("sssp push != pull")
     want = dijkstra(A, indices=0)
-    got = d_push.cpu().numpy().astype(np.float64)
-    if not (np.array_equal(np.isinf(got), np.isinf(want)) and np.allclose(
-            got[np.isfinite(want)], want[np.isfinite(want)], rtol=1e-5)):
-        raise AssertionError("sssp disagrees with scipy dijkstra")
-    log(f"[others] sssp scale {scale}: {it} supersteps, push == pull, "
-        f"allclose(rtol=1e-5) to scipy dijkstra; run_stats "
-        f"{json.dumps(rep.run_stats)}")
+    for sweep in ("dense", "bitmap"):
+        _zero_counts()
+        d_pull, _, _ = alg.sssp(g, 0, direction="pull", device=device,
+                                pull_sweep=sweep)
+        d_push, it, rep = alg.sssp(g, 0, direction="push", device=device,
+                                   pull_sweep=sweep)
+        if not torch.equal(d_pull, d_push):
+            raise AssertionError(f"sssp {sweep}: push != pull")
+        got = d_push.cpu().numpy().astype(np.float64)
+        if not (np.array_equal(np.isinf(got), np.isinf(want)) and np.allclose(
+                got[np.isfinite(want)], want[np.isfinite(want)], rtol=1e-5)):
+            raise AssertionError(f"sssp {sweep} disagrees with scipy")
+        log(f"[others] sssp scale {scale} ({sweep} pull plane): {it} "
+            f"supersteps, push == pull, allclose(rtol=1e-5) to scipy "
+            f"dijkstra; launches {_read_counts()}; run_stats "
+            f"{json.dumps(rep.run_stats)}")
 
-    labels, it, _ = alg.wcc(g, device=device)
     n, comp = connected_components(A, directed=True, connection="weak")
     mins = np.full(n, V, np.int64)
     np.minimum.at(mins, comp, np.arange(V))
-    if not np.array_equal(labels.cpu().numpy(), mins[comp]):
-        raise AssertionError("wcc labels disagree with scipy components")
-    log(f"[others] wcc: {it} supersteps, {n} components, labels = min id "
-        "per scipy weak component")
+    # wcc's own undirected graph, built once so its layouts are cached
+    und = G.from_edge_list(np.concatenate([src, dst]),
+                           np.concatenate([dst, src]), num_vertices=V)
+    for sweep in ("dense", "bitmap"):
+        labels = {}
+        for d in ("pull", "push"):
+            prog = translate(dsl.wcc_program(), und, ScheduleConfig(
+                direction=DirectionPolicy(mode=d), pull_sweep=sweep),
+                device=device)
+            labels[d], it = prog.run()
+        if not torch.equal(labels["pull"], labels["push"]):
+            raise AssertionError(f"wcc {sweep}: push != pull")
+        if not np.array_equal(labels["push"].cpu().numpy(), mins[comp]):
+            raise AssertionError(f"wcc {sweep} labels disagree with scipy")
+        log(f"[others] wcc ({sweep} pull plane): {it} supersteps, {n} "
+            "components, push == pull, labels = min id per scipy weak "
+            "component")
 
     ranks, it, _ = alg.pagerank(g, iters=20, device=device)
     deg = np.maximum(np.diff(off), 1).astype(np.float64)
@@ -473,6 +837,15 @@ def phase_others(torch):
     if not np.allclose(ranks.cpu().numpy(), r, rtol=1e-4):
         raise AssertionError("pagerank disagrees with scipy power iteration")
     log(f"[others] pagerank: {it} iterations within rtol 1e-4 of scipy")
+
+    t1 = time.perf_counter()
+    member, rounds = alg.k_core(g, 4, device=device)
+    wall = time.perf_counter() - t1
+    want_core = numpy_k_core(src, dst, V, 4)
+    if not np.array_equal(member, want_core):
+        raise AssertionError("k_core(k=4) disagrees with the numpy peel")
+    log(f"[others] k_core(k=4): {int(member.sum())} of {V} vertices in the "
+        f"core after {rounds} rounds ({wall:.2f} s), = numpy peel")
 
 
 def main():

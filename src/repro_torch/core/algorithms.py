@@ -21,31 +21,35 @@ INT_MAX = 2**30
 
 
 def _schedule(pipelines: int, pes: int, backend: str,
-              direction: str | DirectionPolicy = "auto") -> ScheduleConfig:
+              direction: str | DirectionPolicy = "auto",
+              pull_sweep: str = "auto") -> ScheduleConfig:
     if isinstance(direction, str):
         direction = DirectionPolicy(mode=direction)
     return ScheduleConfig(pipelines=pipelines, pes=pes, backend=backend,
-                          direction=direction)
+                          direction=direction, pull_sweep=pull_sweep)
 
 
 def bfs(g: Graph, root: int = 0, *, pipelines: int = 8, pes: int = 1,
         backend: str = "auto", direction: str | DirectionPolicy = "auto",
-        comm: CommManager | None = None, device=None):
+        comm: CommManager | None = None, device=None,
+        pull_sweep: str = "auto"):
     """Paper Algorithm 1. Returns ``(levels (V,), iterations, report)``;
-    the levels are the same under 'pull', 'push' and 'auto'."""
+    the levels are the same under every direction and ``pull_sweep``
+    (``'auto'``, ``'bitmap'`` or ``'dense'``)."""
     prog = translate(dsl.bfs_program(INT_MAX), g,
-                     _schedule(pipelines, pes, backend, direction), comm,
-                     device=device)
+                     _schedule(pipelines, pes, backend, direction,
+                               pull_sweep), comm, device=device)
     levels, iters = prog.run(roots=root)
     return levels, iters, prog.report
 
 
 def sssp(g: Graph, root: int = 0, *, pipelines: int = 8, pes: int = 1,
          backend: str = "auto", direction: str | DirectionPolicy = "auto",
-         comm: CommManager | None = None, device=None):
+         comm: CommManager | None = None, device=None,
+         pull_sweep: str = "auto"):
     prog = translate(dsl.sssp_program(), g,
-                     _schedule(pipelines, pes, backend, direction), comm,
-                     device=device)
+                     _schedule(pipelines, pes, backend, direction,
+                               pull_sweep), comm, device=device)
     dist, iters = prog.run(roots=root)
     return dist, iters, prog.report
 
@@ -61,15 +65,16 @@ def pagerank(g: Graph, *, iters: int = 20, damping: float = 0.85,
 
 def wcc(g: Graph, *, pipelines: int = 8, pes: int = 1,
         backend: str = "auto", direction: str | DirectionPolicy = "auto",
-        comm: CommManager | None = None, device=None):
+        comm: CommManager | None = None, device=None,
+        pull_sweep: str = "auto"):
     """Weakly connected components: label propagation on G ∪ Gᵀ."""
     src, dst, _ = to_coo(g)
     und = from_edge_list(np.concatenate([src, dst]),
                          np.concatenate([dst, src]),
                          num_vertices=g.num_vertices)
     prog = translate(dsl.wcc_program(), und,
-                     _schedule(pipelines, pes, backend, direction), comm,
-                     device=device)
+                     _schedule(pipelines, pes, backend, direction,
+                               pull_sweep), comm, device=device)
     labels, iters = prog.run()
     return labels, iters, prog.report
 
@@ -85,10 +90,46 @@ def spmv(g: Graph, x, *, pipelines: int = 8, pes: int = 1,
     return y, prog.report
 
 
+def k_core(g: Graph, k: int, *, rounds: int | None = None,
+           backend: str = "auto", device=None):
+    """k-core decomposition by iterative peeling, in the DSL: activity in
+    {0, 1} is the vertex value; each superstep counts active undirected
+    neighbors (gather copy, reduce add) and the apply keeps a vertex alive
+    iff it was alive with at least ``k`` of them.  The peel loop is a host
+    loop that stops when a round changes nothing (one device→host read a
+    round) or after ``rounds`` (default V) rounds.  Returns ``(membership
+    (V,) bool numpy array, rounds run)``."""
+    src, dst, _ = to_coo(g)
+    und = from_edge_list(np.concatenate([src, dst]),
+                         np.concatenate([dst, src]),
+                         num_vertices=g.num_vertices)
+    prog = dsl.VertexProgram(
+        name="k_core",
+        gather=lambda v, w, d: v,
+        reduce="add",
+        apply=lambda old, s: torch.where((old > 0) & (s >= k), 1.0, 0.0),
+        init_value=1.0,
+        frontier="all",
+        value_dtype=torch.float32,
+        mask_inactive=False,
+        max_iters=rounds if rounds is not None else g.num_vertices,
+    )
+    compiled = translate(prog, und, _schedule(8, 1, backend), device=device)
+    prev, active = compiled.init_state(
+        values=torch.ones(g.num_vertices, dtype=torch.float32))
+    vals, _ = compiled.superstep(prev, active)
+    it = 1
+    while it < compiled.max_iters and bool((vals != prev).any()):
+        prev = vals
+        vals, _ = compiled.superstep(vals, active)
+        it += 1
+    return (vals > 0).cpu().numpy(), it
+
+
 def in_degrees(g: Graph, *, backend: str = "auto", device=None):
     """In-degree per vertex.  Its gather (``ones_like``) matches no menu
-    module, so with the CUDA kernels on it plans the sparse backend, which
-    is not ported yet (``ROADMAP.md`` §1 item 5.5)."""
+    module: with the CUDA kernels on it plans the sparse backend (only the
+    plain path keeps it dense, through the one-gather-per-slot table)."""
     prog = translate(dsl.degree_program(), g, _schedule(8, 1, backend),
                      device=device)
     values, active = prog.init_state(

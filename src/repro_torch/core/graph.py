@@ -79,6 +79,13 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     return (b.reshape(-1, BITMAP_BITS) << shifts[None, :]).sum(dim=1)
 
 
+def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: 32-bit words → ``(n,)`` bool mask."""
+    shifts = torch.arange(BITMAP_BITS, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[:, None] >> shifts[None, :]) & 1
+    return bits.reshape(-1)[:n].to(torch.bool)
+
+
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
     """Per-word set-bit counts (int32) of 32-bit patterns."""
     x = words.to(torch.int64)
@@ -273,6 +280,17 @@ def to_coo(g: Graph) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return src, _np(g.edges_dst), _np(g.edge_weights)
 
 
+def coo_arrays(g: Graph) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """COO ``(src, dst, wgt)`` of the CSR, on the graph's device: edge
+    ``i``'s source is the ``v`` with ``offsets[v] <= i < offsets[v+1]``,
+    found by ``searchsorted`` as in the JAX package (no host round trip)."""
+    idx = torch.arange(g.num_edges, dtype=torch.int32,
+                       device=g.edge_offsets.device)
+    src = torch.searchsorted(g.edge_offsets[1:].contiguous(), idx,
+                             right=True)
+    return src.to(torch.int32), g.edges_dst, g.edge_weights
+
+
 def reverse(g: Graph) -> Graph:
     """Transpose the graph (CSR ↔ CSC): out-edges become in-edges."""
     src, dst, w = to_coo(g)
@@ -414,9 +432,10 @@ class PullBitmapPlan:
     to its vertex).  Sub-row reductions fold back to bucket rows by static
     per-bucket reshapes (``bucket_shapes``/``bucket_sub_offsets``) and to
     vertices through ``row_map`` plus the split-hub ``dup_rows`` scatter.
-    The block fields serve the block-skipping plane, which the port has
-    not taken over yet; they are built so the layouts stay equal to the
-    JAX package's.
+    The block fields serve the block-skipping plane: ``block_rows``
+    consecutive sub-rows form a block, ``block_edges`` counts its real
+    slots (the swept-edge accounting) and ``block_word_lo/hi`` bound its
+    owners' bitmap words (the conservative range liveness).
     """
 
     flat_dst: torch.Tensor       # (R8p, 8) int32 destinations, PAD-padded

@@ -3,7 +3,8 @@
 Counterpart of ``repro.core.ir``; only the dtype handling differs (torch
 dtypes).  Backend flavors are ``'dense_cuda'`` (the hand-written CUDA
 kernels), ``'dense_torch'`` (plain PyTorch on the CPU) and
-``'sparse_torch'`` (the sparse backend, not ported yet).
+``'sparse_torch'`` (the sparse backend's PyTorch scatters, on either
+device).
 
 The paper's light-weight translator avoids general HLS by staging a DSL
 program through a *small number of well-chosen representations* before

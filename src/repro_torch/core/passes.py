@@ -7,9 +7,10 @@ order (:func:`default_pipeline`).  What differs:
   is CUDA), ``'dense_torch'`` and ``'sparse_torch'``;
 * every fact comes from the probe-only analyzer
   (:mod:`repro_torch.core.analysis`);
-* ``pull_sweep='auto'`` resolves to the dense sweep on both dense
-  flavors — the block-skipping plane is unmeasured on the H100 and not
-  ported — where the JAX package picks the bitmap plane under Pallas;
+* ``pull_sweep='auto'`` resolves dense on both flavors: on
+  ``'dense_torch'`` as the JAX package's XLA path does, on
+  ``'dense_cuda'`` by the H100 walls in :data:`CUDA_AUTO_SWEEP_NOTE`
+  (the JAX package picks the bitmap plane under Pallas unmeasured);
 * plans are single-PE (``scheduler.plan`` refuses more), so the exchange
   op is always elided and the multi-PE legality rules are not here.
 """
@@ -55,6 +56,17 @@ __all__ = [
 # Reduce ops that commute and have a two-sided identity — the algebraic
 # requirement for reordering per-edge contributions in push mode.
 COMMUTATIVE_REDUCES = ("add", "min", "max")
+
+# Why pull_sweep='auto' resolves dense on the CUDA path as well:
+# chip_smoke.py's steady BFS run walls at Graph500 scale 22 (root 0,
+# median of 3), where the bitmap plane was slower under direction='pull'
+# (its touched pre-pass and block flags cost more than kernel 2 saves on
+# the two narrow supersteps) and level under 'auto' (PERF.md section 6).
+# The plane would be chosen only if it were no slower under both.
+CUDA_AUTO_SWEEP_NOTE = (
+    "scale-22 BFS walls on NVIDIA H100 80GB HBM3, 700.00 W (pull: dense "
+    "5.973 ms, bitmap 7.062 ms; auto: dense 11.732 ms, bitmap 11.727 ms; "
+    "chip_smoke.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -512,10 +524,10 @@ class SuperstepFusionPass(Pass):
     * the backend is dense (the skippable blocks are the reversed
       bucketed ELL's);
     * the graph has edges (an edgeless sweep has nothing to skip);
-    * the schedule asks for it: ``pull_sweep='auto'`` resolves to the
-      dense sweep on both dense flavors, because the plane's cost on the
-      H100 is unmeasured and the plane is not ported (``ROADMAP.md`` §2
-      item 2); the translator refuses ``'bitmap'``.
+    * the schedule asks for it: ``pull_sweep='auto'`` resolves dense on
+      the plain PyTorch path (as the JAX package's XLA path, whose flat
+      sweep beats the skip bookkeeping) and on the CUDA path, where the
+      note records the H100 walls of :data:`CUDA_AUTO_SWEEP_NOTE`.
     """
 
     name = "superstep-fusion"
@@ -537,17 +549,21 @@ class SuperstepFusionPass(Pass):
         reasons = []
         if ctx.schedule.pull_sweep == "dense":
             reasons.append("schedule pins pull_sweep='dense'")
+        elif ctx.schedule.pull_sweep == "auto" and not ctx.use_kernels:
+            reasons.append("pull_sweep='auto' resolves dense on the plain "
+                           "PyTorch path (as the JAX package's XLA path)")
         elif ctx.schedule.pull_sweep == "auto":
-            reasons.append("pull_sweep='auto' resolves dense (the "
-                           "block-skipping plane is unmeasured on the H100 "
-                           "and not ported)")
+            reasons.append("pull_sweep='auto' resolves dense on the CUDA "
+                           "path: the bitmap plane is not faster, "
+                           + CUDA_AUTO_SWEEP_NOTE)
         if not program.mask_inactive:
             reasons.append("mask_inactive=False (every block contributes)")
         if program.frontier != "changed":
             reasons.append(f"frontier='{program.frontier}' keeps every "
                            "block live")
         if not (ir.backend or "").startswith("dense"):
-            reasons.append("sparse backend has no blocked reversed ELL")
+            reasons.append("sparse backend has no blocked reversed ELL "
+                           "(and its multi-PE plan shards the pull plane)")
         if ctx.num_edges == 0:
             reasons.append("edgeless graph")
         if reasons:

@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 
+from ..kernels import push_scatter
 from . import graph as G
 
 # ---------------------------------------------------------------------------
@@ -64,6 +65,8 @@ class GraphLayouts:
     build_times_s: dict = dataclasses.field(default_factory=dict)
     _reverse: G.Graph | None = None
     _reverse_bucketed: G.BucketedGraph | None = None
+    _reverse_coo: tuple | None = None
+    _forward_coo_chunks: dict = dataclasses.field(default_factory=dict)
     _forward_ell: dict = dataclasses.field(default_factory=dict)
     _pull_plan: dict = dataclasses.field(default_factory=dict)
     _on_device: dict = dataclasses.field(default_factory=dict)
@@ -90,6 +93,27 @@ class GraphLayouts:
             self._reverse_bucketed = self._timed(
                 "reverse_bucketed", lambda: G.bucketize(self.reverse()))
         return self._reverse_bucketed
+
+    def reverse_coo(self) -> tuple:
+        """``(dst, src, wgt)`` COO of the transposed graph (sparse pull):
+        sorted by receiving vertex ``dst``."""
+        if self._reverse_coo is None:
+            self._reverse_coo = self._timed(
+                "reverse_coo", lambda: G.coo_arrays(self.reverse()))
+        return self._reverse_coo
+
+    def forward_coo_chunks(self, num_chunks: int) -> tuple:
+        """``(dst_c, src_c, wgt_c)`` forward-COO edge chunks of the
+        chunk-streamed push scatter (``coo_chunks``), keyed per chunk
+        count; only the chunked form is kept."""
+        if num_chunks not in self._forward_coo_chunks:
+            def build():
+                src, dst, wgt = G.coo_arrays(self.graph)
+                return push_scatter.chunk_coo(dst, src, wgt,
+                                              num_chunks=num_chunks)
+            self._forward_coo_chunks[num_chunks] = self._timed(
+                f"forward_coo_chunks_c{num_chunks}", build)
+        return self._forward_coo_chunks[num_chunks]
 
     def pull_plan(self, block_slots: int = 64) -> G.PullBitmapPlan:
         """The flat width-8 pull view, keyed per ``block_slots``."""

@@ -42,14 +42,19 @@ class DirectionPolicy:
 class ScheduleConfig:
     """Paper Algorithm 1, line 5: ``Set Pipeline = 8, PE = 1``.
 
-    ``pull_sweep``: ``'auto'`` resolves to the dense sweep on the port
-    (the block-skipping plane is unmeasured on the H100 and not ported);
-    ``'bitmap'`` selects that plane and is refused at translation.
+    ``pull_sweep``: ``'bitmap'`` selects the block-skipping pull plane
+    wherever it is legal, ``'dense'`` pins the flat full sweep, and
+    ``'auto'`` resolves dense on both paths, as the superstep-fusion pass
+    says (on the CUDA path by the H100 walls recorded in
+    ``passes.CUDA_AUTO_SWEEP_NOTE``).  All are bit-exact.
+    ``block_rows`` is the kernel path's skip granularity: the rows per
+    ``block_live`` flag of the early-out edge-block kernel.
     """
 
     pipelines: int = 8           # edge-stream chunks per superstep
     pes: int = 1                 # processing elements (only 1 is ported)
     backend: str = "auto"        # 'auto' | 'dense' | 'sparse'
+    block_rows: int = 128        # early-out kernel rows per liveness flag
     direction: DirectionPolicy = DirectionPolicy()  # push/pull/auto policy
     push_ell_width: int = 8      # forward-ELL row width (compacted push)
     pull_sweep: str = "auto"     # 'auto' | 'bitmap' | 'dense'
@@ -68,6 +73,8 @@ class ScheduleConfig:
             raise ValueError("pipelines and pes must be >= 1")
         if self.push_ell_width < 1:
             raise ValueError("push_ell_width must be >= 1")
+        if self.block_rows < 1:
+            raise ValueError("block_rows must be >= 1")
         if self.pull_sweep not in ("auto", "bitmap", "dense"):
             raise ValueError(f"unsupported pull_sweep: {self.pull_sweep}")
         if self.pull_block_slots < 8 or self.pull_block_slots % 8:
@@ -128,13 +135,16 @@ def push_capacity_tiers(num_rows: int) -> tuple[int, int]:
     return small, large
 
 
-# Live-block capacity fractions of the block-skipping pull plane (kept for
-# the plane's port; see pull_block_capacities).
+# Capacity fractions of the block-skipping pull plane's two narrow tiers,
+# as in the JAX package: a frontier whose out-edge count m_f is at most
+# caps[t] takes tier t (touched pre-pass with caps[t] row slots, up to
+# 4·caps[t] swept blocks on the gathered path); a wider one takes the
+# dense full sweep.
 PULL_BLOCK_TIERS = (1 / 64, 1 / 16)
 
 
 def pull_block_capacities(num_blocks: int) -> tuple:
-    """Per-tier live-block capacities of the block-skipping pull plane:
+    """Per-tier capacities of the block-skipping pull plane:
     ``caps[t] = max(1, ceil(num_blocks * PULL_BLOCK_TIERS[t]))``."""
     return tuple(max(1, math.ceil(num_blocks * f))
                  for f in PULL_BLOCK_TIERS)

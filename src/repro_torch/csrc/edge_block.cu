@@ -24,13 +24,29 @@
 // value/degree reads entirely.  Tables are read through the read-only
 // cache (__ldg).  Making it faster (a warp per group of rows, vector
 // loads of the slot stream, L2-aware ordering) is later work.
+//
+// The block-skipping variant (kSkip) replaces the Pallas kernel
+// repro/kernels/edge_block.py::_kernel_skip, dispatched when
+// edge_block_reduce gets block_live=: rows come in blocks of block_rows,
+// and a row whose block_live[r / block_rows] flag is 0 writes the reduce
+// identity and any = 0 and returns before reading an id or a table.  It
+// is bound by bytes too, but only the live blocks' id streams count: the
+// ids of live blocks, the vertex tables, the (R / block_rows) flags and
+// the two outputs over all R rows.  With block_rows >= 32 (the bitmap
+// plane uses 128) a warp reads one flag, so a dead block costs one byte
+// and two stores per row and nothing diverges; live rows run the body of
+// kernel 1 unchanged.  Dead rows still take a thread each (the whole grid
+// launches, as on the TPU); compacting live blocks into a smaller grid is
+// later work.
 #include "gather_ops.cuh"
 
 namespace repro_torch {
 namespace {
 
-template <typename T, int G, int R, bool kMask>
-__global__ void edge_block_kernel(const int* __restrict__ nbr,
+template <typename T, int G, int R, bool kMask, bool kSkip>
+__global__ void edge_block_kernel(const uint8_t* __restrict__ block_live,
+                                  long long block_rows,
+                                  const int* __restrict__ nbr,
                                   const float* __restrict__ wgt,
                                   const T* __restrict__ values,
                                   const int* __restrict__ degrees,
@@ -41,9 +57,14 @@ __global__ void edge_block_kernel(const int* __restrict__ nbr,
   const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (r >= rows) return;
+  const T ident = reduce_identity<T, R>();
+  if (kSkip && __ldg(block_live + r / block_rows) == 0) {
+    out[r] = ident;
+    any_out[r] = 0;
+    return;
+  }
   const int* row = nbr + r * width;
   const float* wrow = wgt + r * width;
-  const T ident = reduce_identity<T, R>();
   T acc = ident;
   bool any = false;
   for (int j = 0; j < width; ++j) {
@@ -64,6 +85,8 @@ __global__ void edge_block_kernel(const int* __restrict__ nbr,
 }
 
 struct Args {
+  const void* block_live;   // nullptr: no block skipping (kernel 1)
+  long long block_rows;
   const void* nbr;
   const void* wgt;
   const void* values;
@@ -76,11 +99,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int G, int R, bool kMask>
+template <typename T, int G, int R, bool kMask, bool kSkip>
 cudaError_t launch(const Args& a) {
   constexpr int kThreads = 256;
   const long long blocks = (a.rows + kThreads - 1) / kThreads;
-  edge_block_kernel<T, G, R, kMask><<<blocks, kThreads, 0, a.stream>>>(
+  edge_block_kernel<T, G, R, kMask, kSkip><<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<const uint8_t*>(a.block_live), a.block_rows,
       static_cast<const int*>(a.nbr), static_cast<const float*>(a.wgt),
       static_cast<const T*>(a.values), static_cast<const int*>(a.degrees),
       static_cast<const uint8_t*>(a.active), static_cast<T*>(a.out),
@@ -88,9 +112,15 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename T, int G, int R, bool kMask>
+cudaError_t by_skip(const Args& a) {
+  return a.block_live ? launch<T, G, R, kMask, true>(a)
+                      : launch<T, G, R, kMask, false>(a);
+}
+
 template <typename T, int G, int R>
 cudaError_t by_mask(const Args& a, int mask) {
-  return mask ? launch<T, G, R, true>(a) : launch<T, G, R, false>(a);
+  return mask ? by_skip<T, G, R, true>(a) : by_skip<T, G, R, false>(a);
 }
 
 template <typename T, int G>
@@ -125,17 +155,21 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 }  // namespace repro_torch
 
 // C entry point bound with ctypes.  value_is_float selects float32 (1) or
-// int32 (0) values.  Returns the cudaError_t of the launch (0 = success).
+// int32 (0) values; a null block_live launches kernel 1, a non-null one
+// the block-skipping variant over blocks of block_rows rows.  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int edge_block_reduce_launch(
     int device, int gather, int reduce, int value_is_float, int mask_inactive,
-    const void* nbr, const void* wgt, const void* values, const void* degrees,
+    const void* block_live, long long block_rows, const void* nbr,
+    const void* wgt, const void* values, const void* degrees,
     const void* active, void* out, void* any, long long rows, int width,
     void* stream) {
   using namespace repro_torch;
+  if (block_live != nullptr && block_rows < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Args a{nbr, wgt, values, degrees, active, out, any, rows, width,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{block_live, block_rows, nbr, wgt, values, degrees, active,
+               out, any, rows, width, static_cast<cudaStream_t>(stream)};
   return value_is_float ? by_gather<float>(a, gather, reduce, mask_inactive)
                         : by_gather<int>(a, gather, reduce, mask_inactive);
 }

@@ -1,3 +1,5 @@
-from . import edge_block, ops, pull_bitmap, push_ell, ref
+from . import (edge_block, ops, pull_bitmap, push_ell, push_scatter, ref,
+               segment_sum)
 
-__all__ = ["edge_block", "ops", "pull_bitmap", "push_ell", "ref"]
+__all__ = ["edge_block", "ops", "pull_bitmap", "push_ell", "push_scatter",
+           "ref", "segment_sum"]

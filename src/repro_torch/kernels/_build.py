@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("edge_block", "push_ell")
+SOURCES = ("edge_block", "push_ell", "segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -32,10 +32,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of each library's entry point: (symbol, argtypes)
 _ENTRY = {
     "edge_block": ("edge_block_reduce_launch",
-                   [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I,
-                    _P]),
+                   [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                    _L, _I, _P]),
     "push_ell": ("push_ell_message_launch",
                  [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P]),
+    "segment_sum": ("segment_reduce_launch",
+                    [_I, _I, _I, _P, _P, _P, _L, _L, _P]),
 }
 
 # Loaded libraries, one per source: a shared library is process-wide

@@ -5,9 +5,11 @@ Counterpart of ``repro.kernels.edge_block``.  The TPU kernel there keeps
 the vertex tables as ``(V/128, 128)`` VMEM tiles and streams
 ``(block_rows, W)`` edge tiles; on Hopper the tables live in device memory
 (the random reads hit L2) and ``csrc/edge_block.cu`` runs one thread per
-row, so the TPU tiling has no counterpart here.  The per-block early-out
-variant (``block_live=``) serves the block-skipping pull plane, which is
-not ported yet (``ROADMAP.md`` §2 item 2).
+row, so the TPU tiling has no counterpart here.  With ``block_live=``
+the wrapper launches the per-block early-out variant (the TPU's
+``_kernel_skip``), which the block-skipping pull plane runs: rows come in
+blocks of ``block_rows``, and a dead block writes the identity without
+gathering.  The two variants count their launches apart.
 
 :func:`edge_block_reduce` takes the plain version for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; it never falls back
@@ -18,17 +20,30 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import GATHER_OPS, REDUCE_OPS, edge_block_reduce_ref
+from .ref import GATHER_OPS, REDUCE_OPS, _identity, edge_block_reduce_ref
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
+_FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
 
 
 def edge_block_reduce_plain(nbr, wgt, values, degrees, active, *, gather: str,
-                            reduce: str, mask_inactive: bool = True):
-    """Plain PyTorch version of the kernel (the oracle it is held to)."""
-    return edge_block_reduce_ref(nbr, wgt, values, degrees, active,
-                                 gather=gather, reduce=reduce,
-                                 mask_inactive=mask_inactive)
+                            reduce: str, mask_inactive: bool = True,
+                            block_live=None, block_rows: int | None = None):
+    """Plain PyTorch version of the kernel (the oracle it is held to).
+
+    With ``block_live``, the full sweep's rows of every dead block are
+    overwritten with the identity and ``any=False``: what the early-out
+    kernel computes, also where a caller marks a live block dead.
+    """
+    red, any_live = edge_block_reduce_ref(nbr, wgt, values, degrees, active,
+                                          gather=gather, reduce=reduce,
+                                          mask_inactive=mask_inactive)
+    if block_live is None:
+        return red, any_live
+    R = nbr.shape[0]
+    dead = (block_live == 0).repeat_interleave(block_rows)[:R]
+    return (torch.where(dead, _identity(reduce, red.dtype), red),
+            any_live & ~dead)
 
 
 def edge_block_reduce(
@@ -41,13 +56,31 @@ def edge_block_reduce(
     gather: str,
     reduce: str,
     mask_inactive: bool = True,
+    block_live: torch.Tensor | None = None,  # (ceil(R/block_rows),) flags
+    block_rows: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row reduce of the menu gather over live slots.
 
     Returns ``(reduced (R,) values.dtype, any_live (R,) bool)``.  Neighbor
     ids must be ``PAD`` or lie in ``[0, V)`` (the layout builders
-    guarantee it; the kernel does not re-check per call).
+    guarantee it; the kernel does not re-check per call).  ``block_live``
+    (bool, int8 or uint8; nonzero is live) with ``block_rows`` selects the
+    early-out variant: the rows of a dead block hold the identity and
+    ``any=False``.  Callers pass a conservative liveness to get the full
+    sweep's result.
     """
+    if block_live is not None:
+        if block_rows is None or block_rows < 1:
+            raise ValueError("block_live needs block_rows >= 1")
+        nb = -(-nbr.shape[0] // block_rows)
+        if tuple(block_live.shape) != (nb,) or \
+                block_live.dtype not in _FLAG_DTYPES or \
+                block_live.device != values.device or \
+                not block_live.is_contiguous():
+            raise ValueError(
+                f"block_live: want a contiguous ({nb},) bool/int8/uint8 "
+                f"tensor on {values.device}, got {block_live.dtype} "
+                f"{tuple(block_live.shape)} on {block_live.device}")
     if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
         raise ValueError(f"not a menu module: gather={gather!r}, "
                          f"reduce={reduce!r}")
@@ -56,7 +89,9 @@ def edge_block_reduce(
     if values.device.type == "cpu":
         return edge_block_reduce_plain(nbr, wgt, values, degrees, active,
                                        gather=gather, reduce=reduce,
-                                       mask_inactive=mask_inactive)
+                                       mask_inactive=mask_inactive,
+                                       block_live=block_live,
+                                       block_rows=block_rows)
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_reduce runs on CPU or CUDA tensors, "
                          f"got {values.device}")
@@ -86,15 +121,22 @@ def edge_block_reduce(
     err = lib.edge_block_reduce_launch(
         values.device.index or 0, GATHER_OPS.index(gather),
         REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
-        int(mask_inactive), nbr.data_ptr(), wgt.data_ptr(),
+        int(mask_inactive),
+        block_live.data_ptr() if block_live is not None else None,
+        block_rows or 0, nbr.data_ptr(), wgt.data_ptr(),
         values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
         out.data_ptr(), any_live.data_ptr(), R, W, stream)
     if err != 0:
         raise RuntimeError(f"edge_block kernel launch failed: "
                            f"cudaError_t {err}")
-    edge_block_reduce.launches += 1
+    if block_live is None:
+        edge_block_reduce.launches += 1
+    else:
+        edge_block_reduce.skip_launches += 1
     return out, any_live.view(torch.bool)
 
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches since the counts were last set to 0: of the full-sweep kernel,
+# and of its block-skipping variant
 edge_block_reduce.launches = 0
+edge_block_reduce.skip_launches = 0

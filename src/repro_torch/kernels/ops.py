@@ -2,11 +2,13 @@
 
 Counterpart of ``repro.kernels.ops`` for tests and direct callers (the
 translator stages the modules itself).  The kernel wrappers dispatch by
-device on their own — ``edge_block.edge_block_reduce`` and
-``push_ell.push_ell_message_block`` take their plain version for CPU
-tensors and launch their CUDA kernel for CUDA tensors — so the one
-convenience left here is the compacted push reduce with the reduce
-identity folded from the menu names.
+device on their own — ``edge_block.edge_block_reduce``,
+``push_ell.push_ell_message_block`` and ``segment_sum.segment_reduce``
+take their plain version for CPU tensors and launch their CUDA kernel for
+CUDA tensors — so what is left here is argument plumbing: the touched
+summary of the bitmap pull plane, the segment reduce (kernel 4's one
+entry point, as in the JAX package) and the two push reduces with the
+reduce identity folded from the menu names.
 """
 from __future__ import annotations
 
@@ -14,8 +16,42 @@ from functools import partial
 
 import torch
 
+from . import pull_bitmap as _pull_bitmap
 from . import push_ell as _push_ell
+from . import push_scatter as _push_scatter
 from . import ref as _ref
+from . import segment_sum as _segment_sum
+
+
+def touched_frontier(row_src, ell_dst, active, *, num_rows, capacity,
+                     num_vertices):
+    """The bitmap pull plane's ``(V+1,)`` uint8 touched table (see
+    ``pull_bitmap.touched_table``)."""
+    return _pull_bitmap.touched_table(
+        row_src, ell_dst, active, num_rows=num_rows, capacity=capacity,
+        num_vertices=num_vertices)
+
+
+def segment_reduce(seg, val, num_segments, *, reduce="add"):
+    """Segment add/min/max of a sorted stream: the CUDA kernel for CUDA
+    tensors, its plain version for CPU ones."""
+    return _segment_sum.segment_reduce(seg, val, num_segments, reduce=reduce)
+
+
+def push_scatter_reduce(src, dst, wgt, values, degrees, active, *, gather,
+                        reduce, mask_inactive=True, num_chunks=8):
+    """Push-direction frontier scatter over flat forward-COO tensors,
+    streamed in ``num_chunks`` chunks; returns ``(red, touched)`` as the
+    dense oracle ``ref.push_scatter_reduce_ref`` does."""
+    dst_c, src_c, wgt_c = _push_scatter.chunk_coo(dst, src, wgt,
+                                                  num_chunks=num_chunks)
+    if not mask_inactive:
+        active = torch.ones_like(active)
+    return _push_scatter.push_scatter_reduce(
+        dst_c, src_c, wgt_c, values, degrees, active,
+        gather_fn=partial(_ref.gather_msg, gather), reduce=reduce,
+        identity=_ref._identity(reduce, values.dtype),
+        num_vertices=values.shape[0], dtype=values.dtype)
 
 
 def push_ell_reduce(row_src, ell_dst, ell_wgt, values, degrees, active, *,

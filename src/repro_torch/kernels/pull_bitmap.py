@@ -1,10 +1,23 @@
-"""Combine cascade and message table of the flat width-8 pull view.
+"""Bitmap-frontier pull plane over the flat width-8 pull view.
 
-Counterpart of the parts of ``repro.kernels.pull_bitmap`` that the dense
-pull sweep needs: :func:`subrow_combine` folds per-sub-row reductions back
-to per-vertex values, and :func:`message_table` precomputes the masked
-per-source messages of a weight-free gather.  The block-skipping plane
-(touched summary, block liveness) is queued in ``ROADMAP.md``.
+Counterpart of ``repro.kernels.pull_bitmap``, in plain PyTorch (none of
+these is a TPU kernel):
+
+* :func:`touched_table` — which vertices have an active in-neighbor: a
+  compacted forward scatter of frontier bits over the forward ELL;
+* :func:`block_liveness` — exact per-block liveness (any owner touched),
+  and :func:`block_range_live` / :func:`word_prefix`, the conservative
+  word-range form over the packed touched bitmap;
+* :func:`grid_block_live` — the kernel path's ``block_live`` flags, one
+  per grid block of sub-rows;
+* :func:`subrow_combine` — per-sub-row reductions back to per-vertex
+  values, scatter-free but for split hubs;
+* :func:`message_table` — the masked per-source messages of a
+  weight-free gather.
+
+The translator's bitmap plane (``translator._emit_pull_bitmap``) builds
+on these; its kernel path skips dead blocks inside
+``edge_block.edge_block_reduce(block_live=...)``.
 """
 from __future__ import annotations
 
@@ -12,7 +25,67 @@ from typing import Callable
 
 import torch
 
-from .ref import _identity, gather_msg, row_reduce
+from .push_ell import compact_rows
+from .ref import PAD, _identity, gather_msg, row_reduce
+
+
+def touched_table(row_src: torch.Tensor, ell_dst: torch.Tensor,
+                  active: torch.Tensor, *, num_rows: int, capacity: int,
+                  num_vertices: int) -> torch.Tensor:
+    """Per-superstep any-active summary: ``(V+1,)`` uint8, 1 where a
+    vertex has at least one active in-neighbor.
+
+    Live forward-ELL rows compact into ``capacity`` slots and their
+    destinations mark the table with an amax scatter; PAD destinations
+    write 0 into the dummy slot ``V``, which so stays 0.  Correct only
+    while ``capacity`` covers the live row count (the translator routes
+    on ``m_f``, which bounds it).
+    """
+    live = active[row_src.long()]
+    if num_rows == 0:
+        live = torch.zeros_like(live)
+    sel, ok = compact_rows(live, num_rows, capacity)
+    dst_blk = torch.where(ok[:, None], ell_dst[sel.long()], PAD)
+    valid = dst_blk != PAD
+    idx = torch.where(valid, dst_blk, num_vertices).reshape(-1).long()
+    table = torch.zeros((num_vertices + 1,), dtype=torch.uint8,
+                        device=active.device)
+    return table.scatter_reduce_(0, idx, valid.reshape(-1).to(torch.uint8),
+                                 "amax", include_self=True)
+
+
+def block_liveness(touched_u8: torch.Tensor, sid_blocked: torch.Tensor,
+                   block_rows: int) -> torch.Tensor:
+    """Exact per-block liveness: any sub-row owner touched (pad owners
+    are ``V`` and read the table's always-zero dummy slot)."""
+    t = touched_u8[sid_blocked.long()] != 0
+    return t.reshape(-1, block_rows).any(dim=1)
+
+
+def grid_block_live(touched_u8: torch.Tensor, owner8: torch.Tensor,
+                    grid_rows: int) -> torch.Tensor:
+    """``block_live`` flags for ``edge_block_reduce``: per grid block of
+    ``grid_rows`` sub-rows (the last one ragged), any owner touched."""
+    t8 = touched_u8[owner8.long()] != 0
+    pad = (-t8.shape[0]) % grid_rows
+    return torch.cat([t8, t8.new_zeros(pad)]).reshape(-1, grid_rows).any(1)
+
+
+def block_range_live(word_prefix: torch.Tensor, word_lo: torch.Tensor,
+                     word_hi: torch.Tensor) -> torch.Tensor:
+    """Conservative liveness: the block's owner word interval holds a set
+    bit (``word_prefix`` from :func:`word_prefix`).  Never misses a live
+    block; may keep a dead one."""
+    return (word_prefix[word_hi.long()] - word_prefix[word_lo.long()]) > 0
+
+
+def word_prefix(words: torch.Tensor) -> torch.Tensor:
+    """Exclusive popcount prefix over bitmap words, ``(nw+1,)`` int32."""
+    from ..core.graph import popcount_words   # core imports this package
+    c = popcount_words(words)
+    return torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                  device=words.device),
+                      torch.cumsum(c, dim=0).to(torch.int32)])
 
 
 def combine_rows(row_red_cat: torch.Tensor, plan, identity, reduce: str,

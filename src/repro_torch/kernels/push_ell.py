@@ -26,9 +26,8 @@ from typing import Callable
 import torch
 
 from . import _build
-from .ref import GATHER_OPS, PAD, REDUCE_OPS, gather_msg
+from .ref import _SCATTER_REDUCE, GATHER_OPS, PAD, REDUCE_OPS, gather_msg
 
-_SCATTER_REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
 
 

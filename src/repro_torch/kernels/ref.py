@@ -20,6 +20,8 @@ REDUCE_OPS = ("add", "min", "max")
 # oracle for the analyzer's weight-use probe).
 WEIGHT_FREE_GATHERS = ("copy", "plus_one", "div_deg")
 
+_SCATTER_REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
+
 _ROW_REDUCE = {"add": lambda x, dim: torch.sum(x, dim=dim, dtype=x.dtype),
                "min": torch.amin, "max": torch.amax}
 
@@ -112,3 +114,30 @@ def push_scatter_reduce_ref(
                       device=values.device).scatter_reduce(
         0, dst, live.to(torch.uint8), "amax", include_self=True) != 0
     return red, got
+
+
+def segment_reduce_ref(
+    seg: torch.Tensor,        # (E,) int32 segment (receiving vertex) ids
+    val: torch.Tensor,        # (E,) messages
+    num_segments: int,
+    *,
+    reduce: str = "add",
+) -> torch.Tensor:
+    """Segment add/min/max into ``(num_segments,)``.
+
+    An empty segment holds the reduce identity (``+inf``/``-inf`` for
+    float min/max, ``iinfo.max``/``iinfo.min`` for int32, 0 for add), as
+    ``jax.ops.segment_*`` and the Pallas kernel give; ids outside
+    ``[0, num_segments)`` (the padded tail's ``INT_MAX``) are dropped.
+    Min and max propagate NaN.
+    """
+    if reduce not in _SCATTER_REDUCE:
+        raise ValueError(reduce)
+    ident = _identity(reduce, val.dtype)
+    seg = seg.long()
+    valid = (seg >= 0) & (seg < num_segments)
+    idx = torch.where(valid, seg, num_segments)
+    table = torch.full((num_segments + 1,), ident, dtype=val.dtype,
+                       device=val.device)
+    return table.scatter_reduce_(0, idx, val, _SCATTER_REDUCE[reduce],
+                                 include_self=True)[:num_segments]

@@ -1,0 +1,74 @@
+"""Segment reduce over a stream sorted by segment: the CUDA kernel's
+wrapper and its plain version.
+
+Counterpart of ``repro.kernels.segment_sum``, the sparse path's companion
+of ``edge_block``.  The TPU kernel streams ``(block_e,)`` tiles through
+VMEM and keeps the whole ``(V/128, 128)`` output tile resident across its
+sequential grid; on Hopper grid blocks run in no order, so
+``csrc/segment_sum.cu`` turns the reduction around: one thread per output
+segment finds its run in the sorted ids by binary search and reduces it
+in element order, with no scatter and no atomics.
+
+:func:`segment_reduce` takes the plain version for tensors on the CPU
+and launches the kernel for tensors on a CUDA device; it never falls back
+from one to the other.  As in the JAX package, its one caller in the
+port is ``ops.segment_reduce``: the sparse backend's pull sweep scatters
+per chunk and does not use it.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import REDUCE_OPS, segment_reduce_ref
+
+_VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
+
+
+def segment_reduce(seg: torch.Tensor, val: torch.Tensor, num_segments: int,
+                   *, reduce: str = "add") -> torch.Tensor:
+    """``(num_segments,)`` add/min/max of ``val`` per segment id.
+
+    ``seg`` is ``(E,)`` int32 sorted ascending (the kernel does not
+    check); ids ``>= num_segments`` (a padded tail) are dropped, and an
+    empty segment holds the reduce identity.  Min and max propagate NaN.
+    The kernel adds a float segment in element order; the plain version
+    adds in ``scatter_reduce_``'s order.
+    """
+    if reduce not in REDUCE_OPS:
+        raise ValueError(f"not a menu reduce: {reduce!r}")
+    if val.device.type == "cpu":
+        return segment_reduce_ref(seg, val, num_segments, reduce=reduce)
+    if val.device.type != "cuda":
+        raise ValueError(f"segment_reduce runs on CPU or CUDA tensors, "
+                         f"got {val.device}")
+    if val.dtype not in _VALUE_DTYPES:
+        raise TypeError(f"the kernel takes int32 or float32 values, "
+                        f"got {val.dtype}")
+    E = seg.shape[0]
+    for name, t, dtype in (("seg", seg, torch.int32),
+                           ("val", val, val.dtype)):
+        if t.device != val.device or t.dtype != dtype \
+                or tuple(t.shape) != (E,) or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape ({E},) "
+                f"on {val.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    out = torch.empty((num_segments,), dtype=val.dtype, device=val.device)
+    if num_segments == 0:
+        return out
+    lib = _build.library("segment_sum")
+    stream = torch.cuda.current_stream(val.device).cuda_stream
+    err = lib.segment_reduce_launch(
+        val.device.index or 0, REDUCE_OPS.index(reduce),
+        _VALUE_DTYPES[val.dtype], seg.data_ptr(), val.data_ptr(),
+        out.data_ptr(), E, num_segments, stream)
+    if err != 0:
+        raise RuntimeError(f"segment_reduce kernel launch failed: "
+                           f"cudaError_t {err}")
+    segment_reduce.launches += 1
+    return out
+
+
+# launches of the CUDA kernel since the count was last set to 0
+segment_reduce.launches = 0

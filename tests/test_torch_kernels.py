@@ -24,6 +24,7 @@ from repro_torch.kernels import edge_block as teb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pull_bitmap as tpb
 from repro_torch.kernels import push_ell as tpe
+from repro_torch.kernels import push_scatter as tpsc
 from repro_torch.kernels import ref as tref
 
 PAD = 2**31 - 1
@@ -238,3 +239,151 @@ def test_subrow_combine_and_message_table_match(reduce, dtype):
                           gather_fn=None, reduce="add", mask_inactive=True,
                           dtype=torch.float32)
     np.testing.assert_array_equal(np.asarray(r), t.numpy())
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: the block-skipping edge-block reduce (_kernel_skip)
+# ---------------------------------------------------------------------------
+
+
+def _block_live(kind, nb, rng):
+    if kind == "all_dead":
+        return np.zeros(nb, np.int8)
+    if kind == "all_live":
+        return np.ones(nb, np.int8)
+    return (rng.random(nb) < 0.5).astype(np.int8)
+
+
+@pytest.mark.parametrize("reduce,dtype", [(r, d) for r in REDUCES
+                                          for d in (np.int32, np.float32)])
+@pytest.mark.parametrize("kind", ["random", "all_dead", "all_live"])
+def test_edge_block_skip_plain_matches_pallas(reduce, dtype, kind):
+    """Ragged R (not a multiple of block_rows) and a block_live that is not
+    conservative: rows of a block marked dead hold the identity and
+    any=False even where they have live slots, as _kernel_skip writes."""
+    R, br = 77, 16
+    args = _inputs(R, 8, 120, dtype, seed=R + len(reduce),
+                   nan=dtype == np.float32)
+    live = _block_live(kind, -(-R // br), np.random.default_rng(5))
+    gather = "add_w" if dtype == np.float32 else "plus_one"
+    r_red, r_any = reb.edge_block_reduce(
+        *_j(*args), gather=gather, reduce=reduce, block_rows=br,
+        interpret=True, block_live=jnp.asarray(live))
+    t_red, t_any = teb.edge_block_reduce_plain(
+        *_t(*args), gather=gather, reduce=reduce, block_rows=br,
+        block_live=torch.as_tensor(live))
+    _check(r_red, t_red, dtype, reduce)
+    np.testing.assert_array_equal(np.asarray(r_any), t_any.numpy())
+    w_red, w_any = teb.edge_block_reduce(
+        *_t(*args), gather=gather, reduce=reduce, block_rows=br,
+        block_live=torch.as_tensor(live).bool())
+    assert torch.equal(w_any, t_any)
+    assert torch.equal(w_red.isnan(), t_red.isnan())
+    assert torch.equal(torch.nan_to_num(w_red), torch.nan_to_num(t_red))
+    if kind == "random":
+        full_any = teb.edge_block_reduce_plain(*_t(*args), gather=gather,
+                                               reduce=reduce)[1]
+        dead = ~torch.as_tensor(live).bool().repeat_interleave(br)[:R]
+        assert bool((full_any & dead).any())   # a live row was marked dead
+
+
+def test_edge_block_skip_refuses_bad_liveness():
+    args = _t(*_inputs(20, 8, 30, np.int32))
+    for live, rows in ((torch.ones(2, dtype=torch.bool), 8),
+                       (torch.ones(2, dtype=torch.int32), 16),
+                       (torch.ones(2, dtype=torch.bool), None)):
+        with pytest.raises(ValueError):
+            teb.edge_block_reduce(*args, gather="copy", reduce="min",
+                                  block_live=live, block_rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: segment reduce over a sorted stream
+# ---------------------------------------------------------------------------
+
+
+def _segments(E, S, dtype, seed, nan=False, tail=0):
+    rng = np.random.default_rng(seed)
+    seg = np.sort(rng.integers(0, S, E)).astype(np.int32)
+    seg[seg == S // 2] = S // 2 + 1 if S > 2 else seg[seg == S // 2]
+    if dtype == np.int32:
+        val = rng.integers(-1000, 1000, E).astype(np.int32)
+    else:
+        val = rng.uniform(-5, 5, E).astype(np.float32)
+        if nan:
+            val[rng.integers(0, E, max(E // 20, 1))] = np.nan
+    if tail:
+        seg = np.concatenate([seg, np.full(tail, 2**31 - 1, np.int32)])
+        val = np.concatenate([val, np.ones(tail, dtype)])
+    return seg, val
+
+
+@pytest.mark.parametrize("reduce", REDUCES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("E,S,tail", [(500, 97, 0), (301, 1000, 11),
+                                      (64, 1, 0)])
+def test_segment_reduce_plain_matches_pallas(reduce, dtype, E, S, tail):
+    """Empty segments hold the identity, the INT_MAX tail is dropped, min
+    and max carry NaN; min, max and int exact, float add rtol 1e-5."""
+    from repro.kernels import segment_sum as rss
+    seg, val = _segments(E, S, dtype, seed=E + S, nan=dtype == np.float32,
+                         tail=tail)
+    ref = rss.segment_reduce(jnp.asarray(seg), jnp.asarray(val), S,
+                             reduce=reduce, block_e=128, interpret=True)
+    got = tops.segment_reduce(*_t(seg, val), S, reduce=reduce)
+    if dtype == np.float32 and reduce == "add":
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    assert got.dtype == torch.from_numpy(val).dtype
+    if S > E:
+        ident = tref._identity(reduce, got.dtype)
+        empty = np.setdiff1d(np.arange(S), seg)
+        assert bool((got[torch.as_tensor(empty)] == ident).all())
+
+
+@pytest.mark.parametrize("reduce", REDUCES)
+def test_segment_reduce_ref_matches_jax_segment_ops(reduce):
+    seg, val = _segments(400, 50, np.float32, seed=8)
+    ref = rref.segment_reduce_ref(jnp.asarray(seg), jnp.asarray(val), 50,
+                                  reduce=reduce)
+    got = tref.segment_reduce_ref(*_t(seg, val), 50, reduce=reduce)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the chunk-streamed push scatter (coo_chunks)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gather,reduce,dtype", [
+    ("plus_one", "min", np.int32), ("add_w", "min", np.float32),
+    ("copy", "max", np.int32), ("copy", "add", np.int32)])
+@pytest.mark.parametrize("num_chunks", [1, 8])
+def test_push_scatter_reduce_matches(gather, reduce, dtype, num_chunks):
+    from repro.kernels import push_scatter as rps
+    rng = np.random.default_rng(num_chunks)
+    E, V = 333, 70
+    src = rng.integers(0, V, E).astype(np.int32)
+    dst = rng.integers(0, V, E).astype(np.int32)
+    w = rng.uniform(0, 2, E).astype(np.float32)
+    vals = (rng.integers(0, 30, V) if dtype == np.int32
+            else rng.uniform(0, 3, V)).astype(dtype)
+    deg = rng.integers(0, 5, V).astype(np.int32)
+    act = rng.random(V) < 0.3
+    for r, t in zip(rps.chunk_coo(*_j(dst, src, w), num_chunks=num_chunks),
+                    tpsc.chunk_coo(*_t(dst, src, w), num_chunks=num_chunks)):
+        np.testing.assert_array_equal(np.asarray(r), t.numpy())
+    r = rops.push_scatter_reduce(*_j(src, dst, w, vals, deg, act),
+                                 gather=gather, reduce=reduce,
+                                 num_chunks=num_chunks)
+    t = tops.push_scatter_reduce(*_t(src, dst, w, vals, deg, act),
+                                 gather=gather, reduce=reduce,
+                                 num_chunks=num_chunks)
+    for a, b in zip(r, t):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    o = tref.push_scatter_reduce_ref(*_t(src, dst, w, vals, deg, act),
+                                     gather=gather, reduce=reduce)
+    assert all(torch.equal(a, b) for a, b in zip(o, t))

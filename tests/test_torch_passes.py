@@ -3,8 +3,9 @@ JAX package, for each of the seven DSL templates.
 
 Flavor names map ``dense_pallas``→``dense_cuda``, ``dense_xla``→
 ``dense_torch`` and ``sparse_xla``→``sparse_torch``.  The one intended
-difference: ``pull_sweep='auto'`` resolves dense on both port flavors,
-where the JAX package resolves the bitmap plane under Pallas.
+difference: ``pull_sweep='auto'`` on the kernel path resolves dense by the
+measured H100 walls (``passes.CUDA_AUTO_SWEEP_NOTE``), where the JAX
+package resolves the bitmap plane under Pallas unmeasured.
 """
 import pytest
 
@@ -105,9 +106,15 @@ def test_analyzer_facts_match(name):
 
 @pytest.mark.parametrize("kernels", [False, True])
 def test_auto_pull_sweep_resolves_dense(kernels):
+    """'auto' resolves dense on the plain path (as the JAX package's XLA
+    path) and on the kernel path, whose note carries the recorded H100
+    walls; an explicit 'bitmap' is honored on both."""
     _, ir = _port_ir("bfs", kernels, "auto")
     assert ir.find(TI.FusedSuperstepOp).pull_sweep == "dense"
-    assert any("unmeasured on the H100" in n for n in ir.notes)
+    if not kernels:
+        assert any("plain PyTorch path" in n for n in ir.notes)
+    else:
+        assert any(TPS.CUDA_AUTO_SWEEP_NOTE in n for n in ir.notes)
     _, ir = _port_ir("bfs", kernels, "bitmap")
     assert ir.find(TI.FusedSuperstepOp).pull_sweep == "bitmap"
 

@@ -194,9 +194,7 @@ def test_default_device_is_cuda_and_never_falls_back(graphs, monkeypatch):
 
 def test_unported_paths_raise_with_roadmap_item(graphs):
     _, tg = graphs
-    bad = [dict(schedule=TS.ScheduleConfig(backend="sparse")),
-           dict(schedule=TS.ScheduleConfig(pull_sweep="bitmap")),
-           dict(checkpoint_dir="/nonexistent")]
+    bad = [dict(checkpoint_dir="/nonexistent")]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TT.translate(TD.bfs_program(), tg, device="cpu", **kw)
