@@ -19,7 +19,14 @@ and the script exits non-zero):
    segments, one segment, ragged E, an INT_MAX tail, NaN values and a
    100k-element hub segment.  Min, max and int32 exact, float add within
    ``rtol=1e-5`` (the kernels add in element order, the plain versions in
-   PyTorch's order).
+   PyTorch's order).  Kernel 5 (decode attention) over float32/bf16 × h
+   in {16, 64, 128, 256} × G in {1, 4, 8} × K in {1, 8} × S in {1, 33,
+   100, 4097}, with row lengths 1, S and random, ``pos = -1`` holes in
+   the middle and at the front, NaN in every masked slot, and caches read
+   through strides; float32 within ``rtol=1e-4, atol=1e-5``
+   (``tests/test_kernels.py``'s), bf16 within ``rtol=1e-2`` (one bf16
+   rounding is at most 2**-8 of a value) plus ``1e-3 * max|out|``, a bound
+   that follows the size of the outputs compared.
 4. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
    from root 0 through ``algorithms.bfs`` under pull, push and auto on
    three paths, each held against a numpy level-synchronous BFS, with the
@@ -40,9 +47,24 @@ and the script exits non-zero):
    ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
    component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
    iteration), ``k_core(k=4)`` (= a numpy peel).
+6. lm      — the LM serving path at full width: ``launch.serve.main``
+   through qwen3-8b (all 36 layers and widths, bf16, weights from
+   ``torch.Generator`` seed 0), 8 slots at capacity 4096, 16 requests
+   with prompts of 256–2048 tokens (numpy seed 0), 64 new tokens each;
+   prefill seconds per request, ms per decode step and tokens/s beside
+   the step's byte bound, host syncs per step (counted by CUDA's sync
+   debug mode; must be 1, the token read),
+   kernel 5's launches (must be 36 per decode step) and a profile of one
+   steady step.  Then decode ≡ full forward in float32 at full width
+   (each decode step's logits against ``logits_seq``, which never
+   reaches kernel 5; max |Δ| / max |logit| <= 1e-3), and kernel 5 held
+   against its plain version on one layer's inputs of a mid-run step (in
+   bf16 as served and cast to float32) and timed there and on one 32,768-slot sequence, beside its bound, its
+   plain version and ``scaled_dot_product_attention``.
 
 The line before the last is the per-kernel JSON summary; the last line is
-``{"ok": true, "device": {...}}``.  Longer logs go to ``chiprun_out/``.
+``{"ok": true, "device": {...}}``.  Longer logs go to ``chiprun_out/``
+(``chip_smoke.log`` keeps every line the phases print).
 """
 from __future__ import annotations
 
@@ -59,6 +81,14 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 INT_MAX = 2**30
 SCALE = 22          # the main path's R-MAT (Graph500 scale, edge factor 16)
 OTHERS_SCALE = 20   # SSSP, WCC and PageRank against scipy
+# The LM serving path: the server's flags, the (decode step, layer) whose
+# kernel 5 inputs are kept, and the decode ≡ full forward check's shape
+LM_SERVE = dict(arch="qwen3-8b", slots=8, capacity=4096, requests=16,
+                min_prompt=256, max_prompt=2048, max_new=64, seed=0,
+                device="cuda")
+LM_KEEP = (32, 17)
+LM_EQUIV = (2, 32, 16)      # prompts, prefilled tokens, decode steps
+LONG_SHAPE = (1, 32768, 8, 4, 128)      # B, S, K, G, h of one long row
 
 # The H100 SXM's peak rates (NVIDIA data sheet), which the bounds assume:
 # device-memory bandwidth, and the scalar (non-tensor-core) float32 rate,
@@ -69,12 +99,19 @@ _SCALAR_OPS = 67e12
 
 
 def log(*a):
+    """Print, and keep the line in ``chiprun_out/chip_smoke.log``, so
+    that every line survives where only the end of the output is kept."""
     print(*a, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as f:
+        print(*a, file=f)
 
 
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -172,6 +209,83 @@ def _check_segment_kernel(torch, rng):
     return checked, worst
 
 
+def _decode_case(torch, gen, B, S, K, G, h, dtype, strided):
+    """Kernel 5's inputs: row lengths 1, S and random, ``pos = -1`` holes
+    in the middle of row 2 and over the front of row 3 (its first two
+    tiles wholly masked when it is long enough), NaN in k and v at every
+    masked slot.  ``strided`` reads the caches as two halves of one
+    ``(B, S, 2, K, h)`` buffer.  Returns the inputs and the valid mask."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(B * S + K * G + h)
+    lengths = [1, S] + [int(x) for x in rng.integers(1, S + 1, B - 2)]
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    slots = torch.arange(S, device=dev)
+    pos = torch.where(slots[None] < length[:, None], slots[None], -1)
+    n2, n3 = lengths[2], lengths[3]
+    holes = slots[n2 // 4:(3 * n2) // 4]
+    pos[2, holes[torch.as_tensor(rng.random(holes.numel()) < 0.5,
+                                 device=dev)]] = -1
+    pos[3, :min(n3 - 1, 133)] = -1
+    pos = pos.to(torch.int32).contiguous()
+    q = torch.randn((B, K, G, h), generator=gen, device=dev).to(dtype)
+    if strided:
+        kv = torch.randn((B, S, 2, K, h), generator=gen, device=dev).to(dtype)
+        kc, vc = kv[:, :, 0], kv[:, :, 1]
+    else:
+        kc, vc = (torch.randn((B, S, K, h), generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+    valid = (slots[None] < length[:, None]) & (pos >= 0)
+    kc[~valid] = float("nan")
+    vc[~valid] = float("nan")
+    return (q, kc, vc, pos, length), valid
+
+
+def _decode_agrees(got, want, bf16):
+    """Kernel 5's output against its plain version's (float32 copies):
+    finite, and within ``rtol=1e-4, atol=1e-5`` for float32 inputs or,
+    for bf16, ``rtol=1e-2`` (each side is rounded to bf16 once, at most
+    2**-8 of the value) plus ``1e-3 * max|want|``.  Returns whether they
+    agree, the max abs error and max |want|."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    tol = (dict(rtol=1e-2, atol=1e-3 * scale) if bf16
+           else dict(rtol=1e-4, atol=1e-5))
+    ok = bool(got.isfinite().all()) and _close(got, want, **tol)
+    return ok, _max_err(got, want), scale
+
+
+def _check_decode_kernel(torch):
+    """Kernel 5 against its plain version over dtype × h × G × K × S
+    (``_decode_case``'s rows); compared on rows with a valid slot."""
+    from repro_torch.kernels import decode_gqa as dg
+    from repro_torch.kernels.ref import decode_gqa_ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checked, worst, worst_rel = 0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h in (16, 64, 128, 256):
+            for G in (1, 4, 8):
+                for K in (1, 8):
+                    for S in (1, 33, 100, 4097):
+                        args, valid = _decode_case(torch, gen, 4, S, K, G, h,
+                                                   dtype, checked % 2 == 1)
+                        got = dg.decode_gqa(*args)
+                        want = decode_gqa_ref(*args)
+                        torch.cuda.synchronize()
+                        rows = valid.any(1)
+                        ok, err, scale = _decode_agrees(
+                            got[rows].float(), want[rows].float(),
+                            dtype == torch.bfloat16)
+                        if not ok:
+                            raise AssertionError(
+                                f"decode_gqa {dtype} h={h} G={G} K={K} "
+                                f"S={S}: max err {err}, max |out| {scale}")
+                        worst = max(worst, err)
+                        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+                        checked += 1
+    log(f"[kernels] decode_gqa: {checked} cases, max abs err {worst}, max "
+        f"err / max |out| of a case {worst_rel:.3e}")
+    return checked, worst
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
@@ -263,14 +377,19 @@ def phase_kernels(torch):
                     checked += 1
     n_seg, worst["segment_reduce"] = _check_segment_kernel(torch, live_rng)
     checked += n_seg
+    n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
+    checked += n_dec
     log(f"[kernels] {checked} kernel/plain comparisons agree (min/max/int "
         "exact, float add rtol 1e-5; kernel 2 also exactly equal to kernel "
-        f"1's rows with dead blocks set to the identity); max abs err {worst}")
+        f"1's rows with dead blocks set to the identity; kernel 5 float32 "
+        f"rtol 1e-4 atol 1e-5, bf16 rtol 1e-2 atol 1e-3 max|out|); max abs "
+        f"err {worst}")
     return worst
 
 
-def _time_ms(torch, fn, reps=30, warmup=3):
-    """Median CUDA-event milliseconds of ``reps`` calls after ``warmup``."""
+def _time_ms(torch, fn, reps=30, warmup=3, batch=1):
+    """Median CUDA-event milliseconds of one call after ``warmup``, over
+    ``reps`` samples of ``batch`` calls back to back."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -279,11 +398,33 @@ def _time_ms(torch, fn, reps=30, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
+
+
+def _device_ms(torch, fn, name, calls=10):
+    """Mean device milliseconds a launch of the kernels whose name holds
+    ``name``, over the launches torch.profiler recorded in ``calls`` calls
+    (it may drop some: the mean is over those it kept; ``None`` when it
+    kept none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kept = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    n = sum(e.count for e in kept)
+    return (sum(e.self_device_time_total for e in kept) / 1e3 / n
+            if n else None)
 
 
 def _profile_run(torch, prog, run_wall_s, label):
@@ -339,11 +480,13 @@ def _counters():
     """Each kernel wrapper's launch count: name → (function, attribute)."""
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels import decode_gqa as dg
     from repro_torch.kernels import segment_sum as ss
     return {"edge_block": (eb.edge_block_reduce, "launches"),
             "edge_block_skip": (eb.edge_block_reduce, "skip_launches"),
             "push_ell": (pe.push_ell_message_block, "launches"),
-            "segment_reduce": (ss.segment_reduce, "launches")}
+            "segment_reduce": (ss.segment_reduce, "launches"),
+            "decode_gqa": (dg.decode_gqa, "launches")}
 
 
 def _zero_counts():
@@ -848,6 +991,276 @@ def phase_others(torch):
         f"core after {rounds} rounds ({wall:.2f} s), = numpy peel")
 
 
+def _decode_timings(torch, args, label, smi):
+    """Kernel 5 on ``args`` (bf16, rows with a valid slot): held against
+    its plain version in bf16 and on the same inputs cast to float32
+    (``_decode_agrees``), then timed in bf16 beside its byte bound,
+    the plain version and ``scaled_dot_product_attention`` with a boolean
+    mask and ``enable_gqa`` (the library call, timed only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_gqa as dg
+    from repro_torch.kernels.ref import decode_gqa_ref
+    q, kc, vc, pos, length = args
+    B, S, K, h = kc.shape
+    G = q.shape[2]
+    slots = torch.arange(S, device=q.device)
+    valid = (slots[None] < length[:, None].long()) & (pos >= 0)
+    got = dg.decode_gqa(*args)
+    want = decode_gqa_ref(*args)
+    mask = valid[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.reshape(B, K * G, 1, h), kc.permute(0, 2, 1, 3),
+        vc.permute(0, 2, 1, 3), attn_mask=mask, enable_gqa=True)
+    lib_out = lib().reshape(B, K, G, h)
+    torch.cuda.synchronize()
+    rows = valid.any(1)
+    ok, err, scale = _decode_agrees(got[rows].float(), want[rows].float(),
+                                    True)
+    lib_err = _max_err(lib_out[rows].float(), want[rows].float())
+    args32 = tuple(a.float() if a.is_floating_point() else a for a in args)
+    got32 = dg.decode_gqa(*args32)
+    want32 = decode_gqa_ref(*args32)
+    ok32, err32, scale32 = _decode_agrees(got32[rows], want32[rows], False)
+    del args32, got32, want32
+    if not (ok and ok32):
+        raise AssertionError(f"decode_gqa at the {label} shape: max err "
+                             f"{err} in bf16, {err32} in float32 (max |out| "
+                             f"{scale}, {scale32})")
+    ms = _time_ms(torch, lambda: dg.decode_gqa(*args), batch=20)
+    dev_ms = _device_ms(torch, lambda: dg.decode_gqa(*args),
+                        "decode_gqa_kernel")
+    plain_ms = _time_ms(torch, lambda: decode_gqa_ref(*args), batch=20)
+    lib_ms = _time_ms(torch, lib, batch=20)
+    # each valid slot's k and v rows, its position, q and the output once
+    n_valid = int(valid.sum())
+    ends = torch.clamp(length.long(), 0, S)
+    nbytes = (n_valid * K * h * 2 * kc.element_size()
+              + int(ends.sum()) * 4 + 2 * q.numel() * q.element_size())
+    nops = 4 * n_valid * K * G * h
+    bound = 1e3 * max(nbytes / _BANDWIDTH, nops / _SCALAR_OPS)
+    log(f"[lm] decode_gqa at the {label} shape (B={B} S={S} K={K} G={G} "
+        f"h={h}, {n_valid} valid slots, {nbytes / 1e6:.1f} MB): {ms:.4f} ms "
+        f"a call in batches of 20 (device time "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+        f"bound {bound:.4f} ms ({bound / ms:.3f} of it), plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms; "
+        f"bf16 max abs err {err} (sdpa {lib_err}), max |out| {scale}; "
+        f"float32 max abs err {err32}, max |out| {scale32} on {smi}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "library_ms": lib_ms, "max_abs_err": err, "sdpa_err": lib_err,
+            "max_abs_out": scale, "f32_max_abs_err": err32,
+            "f32_max_abs_out": scale32,
+            "bytes": nbytes, "bound_by": "bytes" if nbytes / _BANDWIDTH
+            >= nops / _SCALAR_OPS else "operations",
+            "shape": [B, S, K, G, h], "valid_slots": n_valid}
+
+
+def _profile_decode_step(torch, sched, wall_s, label):
+    """Device time by kernel over one steady decode step of ``sched``
+    (torch.profiler): kernel 5's share and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        nxt, _, sched.cache = sched.serve_step(sched.last, sched.cache)
+        nxt.tolist()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k5_ms = sum(e.self_device_time_total for e in kernels
+                if "decode_gqa" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)
+    top = [(e.key[:60], round(e.self_device_time_total / 1e3, 4), e.count)
+           for e in top[:8]]
+    with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    idle = 1.0 - busy_ms / (1e3 * wall_s)
+    log(f"[profile] {label}: kernel time {busy_ms:.3f} ms of a "
+        f"{wall_s * 1e3:.3f} ms median step (device idle share {idle:.3f}); "
+        f"decode_gqa {k5_ms:.3f} ms, share {k5_ms / busy_ms:.3f} of kernel "
+        f"time; top kernels (ms, calls): {top}")
+    return {"kernel_ms": busy_ms, "decode_gqa_ms": k5_ms,
+            "decode_gqa_share": k5_ms / busy_ms, "idle_share": idle,
+            "top": top}
+
+
+def _decode_equiv(torch, cfg):
+    """Decode ≡ full forward in float32 at full width: each decode step's
+    logits against ``logits_seq`` at that position (the plain attention
+    path, which never reaches kernel 5)."""
+    from repro_torch.models.model import LModel
+    n, pre, steps = LM_EQUIV
+    model = LModel(cfg, device="cuda", dtype=torch.float32,
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (n, pre + steps)), device="cuda")
+    _zero_counts()
+    full = model.logits_seq(toks)
+    cache = model.init_cache(n, pre + steps, dtype=torch.float32)
+    lg, cache = model.prefill(toks[:, :pre], cache)
+    seq_launches = _read_counts()["decode_gqa"]
+    errs = [float((lg - full[:, pre - 1]).abs().max())]
+    for t in range(pre, pre + steps):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    launches = _read_counts()["decode_gqa"]
+    scale = float(full.abs().max())
+    rel = max(errs) / scale
+    log(f"[lm] decode ≡ full forward, float32, all {cfg.n_layers} layers at "
+        f"full width (no depth cut), {n} prompts of {pre} tokens + {steps} "
+        f"decode steps: max |Δ| {max(errs):.3e} (prefill {errs[0]:.3e}), max "
+        f"|logit| {scale:.4f}, ratio {rel:.3e} (bound 1e-3); decode_gqa "
+        f"launches {launches} (logits_seq and prefill: {seq_launches})")
+    if not rel <= 1e-3 or seq_launches != 0 \
+            or launches != cfg.n_layers * steps:
+        raise AssertionError("decode ≡ full forward failed")
+    return {"max_abs": max(errs), "max_logit": scale, "ratio": rel,
+            "errs": errs, "launches": launches}
+
+
+def phase_lm(torch, dev_info):
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import preprocess
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import param as P
+    from repro_torch.models import transformer as T
+
+    smi = dev_info["smi"]
+    preprocess.layout_cache_clear()          # the graphs' device layouts
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    cfg = get_config(LM_SERVE["arch"])
+    L = cfg.n_layers
+    n_req, max_new = LM_SERVE["requests"], LM_SERVE["max_new"]
+    slots, cap = LM_SERVE["slots"], LM_SERVE["capacity"]
+    argv = [a for k, v in LM_SERVE.items() for a in (
+        [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)]))]
+
+    # keep a copy of one layer's kernel 5 inputs at a mid-run decode step
+    # (the cache is written in place later); the kernel's count is kept
+    # by its wrapper, which this passes through
+    real = ops.decode_gqa
+    calls, kept = [0], []
+    target = LM_KEEP[0] * L + LM_KEEP[1]
+
+    def keep(*args, **kw):
+        if calls[0] == target:
+            kept.extend(a.clone() for a in args)
+        calls[0] += 1
+        return real(*args, **kw)
+
+    ops.decode_gqa = keep
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        sched = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        ops.decode_gqa = real
+    steps = sched.decode_steps
+    done = sched.done
+    if len(done) != n_req or any(len(r.out) != max_new for r in done) \
+            or any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+        raise AssertionError(f"the server did not answer all {n_req} "
+                             "requests")
+    syncs = sched.step_syncs
+    if len(syncs) != steps or set(syncs) != {1}:
+        raise AssertionError(f"host syncs of the {steps} decode steps, "
+                             f"counted by CUDA's sync debug mode: {syncs}")
+    if launches["decode_gqa"] != L * steps:
+        raise AssertionError(f"decode_gqa launched {launches['decode_gqa']} "
+                             f"times in {steps} decode steps of {L} layers")
+    step_ms = [1e3 * x for x in sched.step_walls_s]
+    med = float(np.median(step_ms))
+    new_tokens = sum(len(r.out) - 1 for r in done)
+    tok_s = new_tokens / sum(sched.step_walls_s)
+    weight_bytes = P.nbytes(T.model_specs(cfg))
+    kv_token = (P.nbytes(T.cache_specs(cfg, 1, 1)) - 4 - 4 * L)
+
+    def step_bound(length):
+        kv = int(torch.clamp(length.long(), max=cap).sum()) * kv_token
+        return 1e3 * (weight_bytes + kv) / _BANDWIDTH
+
+    bound_end = step_bound(sched.cache["length"])
+    bound_mid = step_bound(kept[4])
+    prefill = sched.prefill_walls_s
+    prompts = [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)]
+    log(f"[lm] served {len(done)} requests at full width (qwen3-8b, "
+        f"{P.count(T.model_specs(cfg)) / 1e9:.3f} B parameters, "
+        f"{weight_bytes / 1e9:.2f} GB bf16; cache "
+        f"{slots * cap * kv_token / 1e9:.2f} GB) in {wall:.2f} s with the "
+        f"model's build; prompts {prompts}")
+    log(f"[lm] prefill {float(np.mean(prefill)):.4f} s per request (median "
+        f"{float(np.median(prefill)):.4f}, first {prefill[0]:.4f}, "
+        f"{sum(prompts) / sum(prefill):.0f} prompt tokens/s); decode {steps} "
+        f"steps, median {med:.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}), {tok_s:.1f} tokens/s; step bound (weights + "
+        f"valid KV at 3.35 TB/s) {bound_mid:.3f} ms at decode step "
+        f"{LM_KEEP[0]}, {bound_end:.3f} ms at the end ({bound_mid / med:.3f} "
+        f"of the median step); host syncs a step (CUDA sync debug mode) "
+        f"{min(syncs)}–{max(syncs)} over {len(syncs)} steps; decode_gqa launches {launches['decode_gqa']} = {L} × "
+        f"{steps}; all launches {launches} on {smi}")
+    # one warm step, then one profiled, on the finished slots' caches
+    nxt, _, sched.cache = sched.serve_step(sched.last, sched.cache)
+    sched.last = nxt
+    nxt.tolist()
+    profile = _profile_decode_step(torch, sched, med / 1e3, "lm_decode_step")
+    del sched, done
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    server = _decode_timings(torch, kept, f"served (step {LM_KEEP[0]}, "
+                             f"layer {LM_KEEP[1]})", smi)
+    del kept
+    B, S, K, G, h = LONG_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    long_args = (torch.randn((B, K, G, h), generator=gen, device="cuda"),
+                 torch.randn((B, S, K, h), generator=gen, device="cuda"),
+                 torch.randn((B, S, K, h), generator=gen, device="cuda"),
+                 torch.arange(S, device="cuda", dtype=torch.int32)[None]
+                 .repeat(B, 1),
+                 torch.full((B,), S, dtype=torch.int32, device="cuda"))
+    long_args = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a
+                      for a in long_args)
+    long = _decode_timings(torch, long_args, "long", smi)
+    del long_args
+    equiv = _decode_equiv(torch, cfg)
+    summary = {"steps": steps, "step_ms": step_ms, "median_step_ms": med,
+               "tokens_per_s": tok_s, "prefill_s": prefill,
+               "prompts": prompts, "step_bound_ms": [bound_mid, bound_end],
+               "step_syncs": syncs,
+               "launches": launches, "profile": profile, "server": server,
+               "long": long, "equiv": equiv, "card": smi}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_lm.json"), "w") as f:
+        json.dump(summary, f, indent=1, default=str)
+    log(json.dumps({"kernel": "decode_gqa", "ms": server["ms"],
+                    "plain_ms": server["plain_ms"],
+                    "bound_ms": server["bound_ms"],
+                    "library_ms": server["library_ms"],
+                    "launches_per_decode_step": L, "shape": server["shape"],
+                    "device_ms": server["device_ms"],
+                    "long": {k: long[k] for k in ("ms", "device_ms",
+                                                  "plain_ms",
+                                                  "bound_ms", "library_ms",
+                                                  "shape")}}))
+    return {"name": "decode_gqa", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_gqa.cu",
+            "replaces": "src/repro/kernels/decode_gqa.py:32",
+            "launches": launches["decode_gqa"],
+            "max_abs_err": server["max_abs_err"], "ms": server["ms"],
+            "plain_ms": server["plain_ms"], "bound_ms": server["bound_ms"],
+            "bound_by": server["bound_by"],
+            "library_ms": server["library_ms"], "shape": server["shape"]}
+
+
 def main():
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py (no arguments)")
@@ -860,6 +1273,7 @@ def main():
     phase_kernels(torch)
     kernels = phase_main(torch, dev_info)
     phase_others(torch)
+    kernels.append(phase_lm(torch, dev_info))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(f"{dev_info['smi']}")
     log(json.dumps({"kernels": [{k: v for k, v in kern.items()

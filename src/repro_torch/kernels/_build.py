@@ -24,13 +24,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("edge_block", "push_ell", "segment_sum")
+SOURCES = ("decode_gqa", "edge_block", "push_ell", "segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of each library's entry point: (symbol, argtypes)
 _ENTRY = {
+    "decode_gqa": ("decode_gqa_launch",
+                   [_I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _L, _L, _L,
+                    _L, _L, _L, _P, _L, _P, _P, _P]),
     "edge_block": ("edge_block_reduce_launch",
                    [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
                     _L, _I, _P]),

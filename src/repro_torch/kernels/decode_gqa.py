@@ -1,0 +1,100 @@
+"""One-query flash-decode GQA attention: the CUDA kernel's wrapper.
+
+Counterpart of ``repro.kernels.decode_gqa``.  The TPU kernel swaps the
+caches to ``(B, K, S, h)`` so that its ``(block_s, h)`` sequence tiles are
+contiguous, and carries the running ``(m, l, acc)`` across a sequential
+grid axis in its output refs.  On the card that swap would copy the whole
+cache every layer and step, so ``csrc/decode_gqa.cu`` reads the caches in
+place, in their ``(B, S, K, h)`` layout with strides, and carries the
+running softmax in a loop inside one thread block per ``(b, k)``.
+
+:func:`decode_gqa` takes the plain version (``ref.decode_gqa_ref``) for
+tensors on the CPU and launches the kernel for tensors on a CUDA device;
+it never falls back from one to the other.  The decode step of every
+served ``global`` layer calls it once (``models.layers.attention_decode``).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import decode_gqa_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+MAX_GROUP_WIDTH = 4096     # G * h: 16 outputs per thread of 256
+
+
+def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               pos: torch.Tensor, length: torch.Tensor, *,
+               scale: float | None = None) -> torch.Tensor:
+    """``(B, K, G, h)`` attention of ``q`` over the slots ``s`` of
+    ``k_cache``/``v_cache`` ``(B, S, K, h)`` with ``s < length[b]`` and
+    ``pos[b, s] >= 0``, scaled by ``scale`` (default ``h ** -0.5``), in
+    q's dtype.
+
+    The kernel takes float32 or bfloat16 (q and caches of one dtype), ``h``
+    a multiple of 8 up to 256 and ``G * h <= 4096``; it reads the caches
+    through their strides (unit stride over ``h``, 16-byte aligned rows).
+    It computes in float32 with an online softmax, and a masked slot, even
+    one holding NaN, contributes nothing.  A row with no valid slot (no
+    caller on the decode path makes one: the current token is written
+    first) gives zeros, where the plain version gives NaN.
+    """
+    B, S, K, h = k_cache.shape
+    G = q.shape[2]
+    scale = float(scale) if scale is not None else h ** -0.5
+    if q.device.type == "cpu":
+        return decode_gqa_ref(q, k_cache, v_cache, pos, length, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_gqa runs on CPU or CUDA tensors, got "
+                         f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if h % 8 or h > MAX_HEAD_DIM or G * h > MAX_GROUP_WIDTH:
+        raise ValueError(f"the kernel takes h a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM} and G*h <= {MAX_GROUP_WIDTH}, got "
+                         f"h={h} G={G}")
+    if tuple(q.shape) != (B, K, G, h):
+        raise ValueError(f"q: want ({B}, {K}, G, {h}), got {tuple(q.shape)}")
+    vec = 16 // q.element_size()          # elements in 16 bytes
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device or t.dtype != q.dtype \
+                or tuple(t.shape) != (B, S, K, h) or t.stride(3) != 1 \
+                or any(st % vec for st in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: want {q.dtype} ({B}, {S}, {K}, {h}) on {q.device} "
+                f"with unit stride over h and 16-byte aligned rows, got "
+                f"{t.dtype} {tuple(t.shape)} strides {t.stride()} on "
+                f"{t.device}")
+    for name, t, shape in (("pos", pos, (B, S)), ("length", length, (B,))):
+        if t.device != q.device or t.dtype != torch.int32 \
+                or tuple(t.shape) != shape or t.stride(-1) != 1:
+            raise ValueError(f"{name}: want int32 {shape} on {q.device} with "
+                             f"unit last stride, got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()} on "
+                             f"{t.device}")
+    q = q.contiguous()
+    out = torch.empty((B, K, G, h), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("decode_gqa")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.decode_gqa_launch(
+        q.device.index or 0, _DTYPES[q.dtype], B, S, K, G, h, scale,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        pos.data_ptr(), pos.stride(0), length.data_ptr(),
+        out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_gqa kernel launch failed: cudaError_t "
+                           f"{err}")
+    decode_gqa.launches += 1
+    return out
+
+
+# launches of the CUDA kernel since the count was last set to 0
+decode_gqa.launches = 0

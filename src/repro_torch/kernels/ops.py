@@ -3,12 +3,14 @@
 Counterpart of ``repro.kernels.ops`` for tests and direct callers (the
 translator stages the modules itself).  The kernel wrappers dispatch by
 device on their own — ``edge_block.edge_block_reduce``,
-``push_ell.push_ell_message_block`` and ``segment_sum.segment_reduce``
-take their plain version for CPU tensors and launch their CUDA kernel for
-CUDA tensors — so what is left here is argument plumbing: the touched
-summary of the bitmap pull plane, the segment reduce (kernel 4's one
-entry point, as in the JAX package) and the two push reduces with the
-reduce identity folded from the menu names.
+``push_ell.push_ell_message_block``, ``segment_sum.segment_reduce`` and
+``decode_gqa.decode_gqa`` take their plain version for CPU tensors and
+launch their CUDA kernel for CUDA tensors — so what is left here is
+argument plumbing: the touched summary of the bitmap pull plane, the
+segment reduce (kernel 4's one entry point, as in the JAX package), the
+two push reduces with the reduce identity folded from the menu names, and
+the decode attention (kernel 5's entry point, which the served model's
+decode step calls).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from functools import partial
 
 import torch
 
+from . import decode_gqa as _decode_gqa
 from . import pull_bitmap as _pull_bitmap
 from . import push_ell as _push_ell
 from . import push_scatter as _push_scatter
@@ -74,3 +77,13 @@ def push_ell_reduce(row_src, ell_dst, ell_wgt, values, degrees, active, *,
         num_vertices=values.shape[0], dtype=values.dtype,
         gather_module=gather, use_kernels=values.device.type == "cuda",
         emit_touched=emit_touched)
+
+
+def decode_gqa(q, k_cache, v_cache, pos, length, *, scale=None):
+    """One-query flash-decode GQA attention (see ``decode_gqa.py``): q
+    ``(B, K, G, h)``, caches ``(B, S, K, h)``, ``pos`` ``(B, S)`` int32
+    (−1 empty), ``length`` ``(B,)``; the CUDA kernel for CUDA tensors, its
+    plain version for CPU ones.  The TPU tile ``block_s`` has no
+    counterpart."""
+    return _decode_gqa.decode_gqa(q, k_cache, v_cache, pos, length,
+                                  scale=scale)

@@ -141,3 +141,29 @@ def segment_reduce_ref(
                        device=val.device)
     return table.scatter_reduce_(0, idx, val, _SCATTER_REDUCE[reduce],
                                  include_self=True)[:num_segments]
+
+
+def decode_gqa_ref(
+    q: torch.Tensor,          # (B, K, G, h) one query step, grouped heads
+    k_cache: torch.Tensor,    # (B, S, K, h)
+    v_cache: torch.Tensor,    # (B, S, K, h)
+    pos: torch.Tensor,        # (B, S) int32 cached positions (−1 = empty)
+    length: torch.Tensor,     # (B,) valid cache lengths
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:            # (B, K, G, h) in q's dtype
+    """One-query GQA attention over a cache, in float32: scores masked with
+    ``-inf`` outside ``slot < length & pos >= 0``, softmax, PV product,
+    cast to ``q.dtype``.  A masked slot's value row is zeroed before the
+    product, so a NaN there cannot reach the output (the JAX oracle lets
+    ``0 * NaN`` through); elsewhere this is ``repro.kernels.ref.
+    decode_gqa_ref``.  A row with no valid slot gives NaN."""
+    B, S, K, H = k_cache.shape
+    scale = scale if scale is not None else H ** -0.5
+    s = torch.einsum("bkgh,bskh->bkgs", q.float(), k_cache.float()) * scale
+    mask = (torch.arange(S, device=q.device)[None, :] < length[:, None]) \
+        & (pos >= 0)
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    v = v_cache.float().masked_fill(~mask[:, :, None, None], 0.0)
+    return torch.einsum("bkgs,bskh->bkgh", p, v).to(q.dtype)

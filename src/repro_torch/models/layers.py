@@ -1,0 +1,296 @@
+"""Transformer building blocks of the serving path.
+
+Counterpart of ``repro.models.layers`` for causal ``global``
+self-attention, dense MLPs, norms, RoPE and the embedding.  Functions
+take their parameters as a mapping of tensors with the JAX package's keys
+(an ``nn.ParameterDict`` or a plain dict), so the shapes and layouts are
+the JAX package's: q ``(B, S, H, h)``, k/v ``(B, S, K, h)``, caches
+``(B, capacity, K, h)``.  The projections, the MLP and ``_attn_core``'s
+products are plain matrix products, as the JAX package leaves them to
+XLA; only the decode step's attention is a kernel
+(``kernels.ops.decode_gqa``, kernel 5).
+
+Not ported here (ROADMAP item 14): windowed ``local`` attention and
+``_attn_local_chunked`` (gemma3), the attention soft-cap (grok),
+cross-attention, bidirectional and query-chunked attention and learned
+positions (whisper); the ``ps.constrain*`` sharding hints have no
+single-device meaning and are dropped.  Caches are updated in place (the
+ring writes), where the JAX package returns new arrays: a decode step at
+full width would otherwise copy the whole cache every layer.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels import ops
+from .param import param
+
+NEG_INF = -2.0e38  # large-negative fill that survives bf16
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm_specs(cfg: ArchConfig, d: int | None = None):
+    d = d or cfg.d_model
+    p = {"scale": param((d,), ("embed",), init="ones", dtype=torch.float32)}
+    if cfg.norm == "layernorm":
+        p["bias"] = param((d,), ("embed",), init="zeros", dtype=torch.float32)
+    return p
+
+
+def _rms(xf: torch.Tensor) -> torch.Tensor:
+    return xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+
+
+def apply_norm(cfg: ArchConfig, p, x):
+    """RMS or layer norm, in float32 inside, cast back to ``x``'s dtype."""
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+    else:
+        y = _rms(xf) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (full / partial — chatglm's 2d RoPE ≡ rotary over half the head dim)
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
+         pct: float = 1.0) -> torch.Tensor:
+    """x: (..., S, n, h); positions: broadcastable to (..., S)."""
+    h = x.shape[-1]
+    rot = int(h * pct) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None, None].float() * freq      # (...,S,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., :half].float(), xr[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return torch.cat([out.to(x.dtype), xp], -1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention_specs(cfg: ArchConfig):
+    D, H, K, h = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": param((D, H, h), ("embed", "heads", "head_dim")),
+        "wk": param((D, K, h), ("embed", "kv_heads", "head_dim")),
+        "wv": param((D, K, h), ("embed", "kv_heads", "head_dim")),
+        "wo": param((H, h, D), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = param((h,), ("head_dim",), init="ones",
+                            dtype=torch.float32)
+        p["k_norm"] = param((h,), ("head_dim",), init="ones",
+                            dtype=torch.float32)
+    return p
+
+
+def _qk_normalize(p, q, k):
+    def rms(x, scale):
+        return (_rms(x.float()) * scale).to(x.dtype)
+    return rms(q, p["q_norm"]), rms(k, p["k_norm"])
+
+
+def _kv_expand(cfg: ArchConfig, k: torch.Tensor) -> torch.Tensor:
+    """(B,S,K,h) → (B,S,H,h): head n reads kv head n // G."""
+    if cfg.n_kv_heads == cfg.n_heads:
+        return k
+    kv_map = torch.arange(cfg.n_heads, device=k.device) // cfg.q_per_kv
+    return k.index_select(2, kv_map)
+
+
+def _attn_core(cfg: ArchConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
+    """Causal attention. q (B,Sq,H,h); k,v (B,Sk,H,h); *_pos int32
+    (B,Sq)/(B,Sk); k_pos<0 ⇒ empty.  Scores in the input dtype, the masked
+    softmax in float32, ``p`` cast back to the input dtype before the PV
+    product."""
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("bqnh,bknh->bnqk", q, k) * scale
+    rel = q_pos[:, None, :, None] - k_pos[:, None, None, :]
+    mask = (k_pos >= 0)[:, None, None, :] & (rel >= 0)
+    s = torch.where(mask, s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknh->bqnh", p, v)
+
+
+def _project(cfg: ArchConfig, p, x, positions):
+    """q, k, v of ``x`` (B,S,D) with qk-norm and RoPE at ``positions``."""
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
+    v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+    if cfg.qk_norm:
+        q, k = _qk_normalize(p, q, k)
+    if cfg.pos_emb == "rope":
+        q = rope(q, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
+        k = rope(k, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
+    return q, k, v
+
+
+def attention_seq(cfg: ArchConfig, p, x, positions) -> torch.Tensor:
+    """Full-sequence causal self-attention (``logits_seq``).  It never
+    reaches kernel 5."""
+    q, k, v = _project(cfg, p, x, positions)
+    o = _attn_core(cfg, q, _kv_expand(cfg, k), _kv_expand(cfg, v),
+                   positions, positions)
+    return torch.einsum("bqnh,nhd->bqd", o, p["wo"])
+
+
+# -- cached (serving) path ---------------------------------------------------
+
+
+def attn_cache_specs(cfg: ArchConfig, batch: int, capacity: int,
+                     dtype=torch.bfloat16):
+    K, h = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": param((batch, capacity, K, h),
+                   ("batch", "cache_seq", "cache_kv", "head_dim"),
+                   dtype=dtype, init="zeros"),
+        "v": param((batch, capacity, K, h),
+                   ("batch", "cache_seq", "cache_kv", "head_dim"),
+                   dtype=dtype, init="zeros"),
+        "pos": param((batch, capacity), ("batch", "cache_seq"),
+                     dtype=torch.int32, init="zeros", scale=-1.0),
+    }
+
+
+def init_attn_cache(cfg, batch, capacity, dtype=torch.bfloat16, *,
+                    device=None):
+    K, h = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, capacity, K, h), dtype=dtype, device=device),
+        "v": torch.zeros((batch, capacity, K, h), dtype=dtype, device=device),
+        "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def attention_append(cfg: ArchConfig, p, x, positions, cache, *,
+                     start: int = 0):
+    """Prefill a chunk: attend to [pre-chunk cache ‖ in-chunk k/v], then
+    ring-write the chunk into ``cache`` in place and return the output.
+    Concat-before-write keeps the early queries of a chunk that wraps the
+    ring buffer from losing history a ring write of in-chunk duplicates
+    would clobber; slots never written have ``pos == -1``, which the mask
+    excludes.  ``start`` is the chunk's first position, a host int."""
+    S = x.shape[1]
+    cap = cache["k"].shape[1]
+    q, k, v = _project(cfg, p, x, positions)
+    k_all = torch.cat([cache["k"].to(q.dtype), k], dim=1)
+    v_all = torch.cat([cache["v"].to(q.dtype), v], dim=1)
+    pos_all = torch.cat([cache["pos"], positions.to(torch.int32)], 1)
+    o = _attn_core(cfg, q, _kv_expand(cfg, k_all), _kv_expand(cfg, v_all),
+                   positions, pos_all)
+    y = torch.einsum("bqnh,nhd->bqd", o, p["wo"])
+    # ring-write the chunk; keep only the last `cap` entries when the
+    # chunk wraps, so that every slot is written once
+    keep = min(S, cap)
+    slots = (start + torch.arange(S - keep, S, device=x.device)) % cap
+    cache["k"][:, slots] = k[:, -keep:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, -keep:].to(cache["v"].dtype)
+    cache["pos"][:, slots] = positions[:, -keep:].to(torch.int32)
+    return y
+
+
+def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache):
+    """One-token decode. x_t (B,1,D); pos_t (B,1) int32 current position.
+
+    The token's k/v are ring-written into ``cache`` in place first (slot
+    ``pos_t % cap``), then the attention runs through kernel 5
+    (``ops.decode_gqa``) on the unexpanded caches: ``q`` as
+    ``(B, K, G, h)`` (head ``n`` is kv head ``n // G``, what
+    ``_kv_expand`` gathers), ``pos`` the ring-written positions and
+    ``length = min(pos_t + 1, cap)``.  That is the function the JAX
+    package computes with ``_attn_core``'s causal mask ``k_pos >= 0 &
+    pos_t - k_pos >= 0``: after the write every cached slot holds a
+    position ``<= pos_t`` (positions grow by one a step and the ring keeps
+    the latest ``cap``), so the causal term is true wherever
+    ``k_pos >= 0``; and the slots ``>= min(pos_t + 1, cap)`` are exactly
+    those never written, whose ``pos`` is ``-1``.  The kernel's mask
+    ``slot < length & pos >= 0`` therefore selects the same slots.  (A
+    windowed layer would need the window term as well.)  Returns the
+    output; the cache is written in place."""
+    B = x_t.shape[0]
+    cap = cache["k"].shape[1]
+    q, k, v = _project(cfg, p, x_t, pos_t)
+    slot = (pos_t[:, 0] % cap).long()                  # (B,) ring slot
+    bidx = torch.arange(B, device=x_t.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = pos_t[:, 0].to(torch.int32)
+    K, G, h = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    length = torch.clamp(pos_t[:, 0] + 1, max=cap).to(torch.int32)
+    o = ops.decode_gqa(q.reshape(B, K, G, h), cache["k"].to(q.dtype),
+                       cache["v"].to(q.dtype), cache["pos"], length)
+    return torch.einsum("bqnh,nhd->bqd", o.reshape(B, 1, K * G, h),
+                        p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated SwiGLU/GeGLU or plain 2-matrix)
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(cfg: ArchConfig):
+    D, Fd = cfg.d_model, cfg.d_ff
+    p = {
+        "w_up": param((D, Fd), ("embed", "ffn")),
+        "w_down": param((Fd, D), ("ffn", "embed")),
+    }
+    if cfg.mlp_gated:
+        p["w_gate"] = param((D, Fd), ("embed", "ffn"))
+    return p
+
+
+def _act(cfg: ArchConfig, x):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(cfg: ArchConfig, p, x):
+    u = x @ p["w_up"]
+    if cfg.mlp_gated:
+        u = _act(cfg, x @ p["w_gate"]) * u
+    else:
+        u = _act(cfg, u)
+    return u @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_specs(cfg: ArchConfig):
+    p = {"tok": param((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                      init="embed")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = param((cfg.d_model, cfg.vocab_size),
+                             ("embed", "vocab"))
+    return p
+
+
+def embed(cfg: ArchConfig, p, tokens):
+    return p["tok"][tokens]
+
+
+def unembed(cfg: ArchConfig, p, x):
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    return x @ w

@@ -1,0 +1,91 @@
+"""Annotated parameter specs: shape + dtype + logical axes + init.
+
+Counterpart of ``repro.models.param``.  One tree (nested dicts) of
+``Annotated`` leaves describes every parameter; :func:`materialize` turns
+it into tensors with the JAX package's init rules.  The abstract init and
+the sharding specs (``abstract``/``specs``) belong to the dry run and to
+sharding (ROADMAP item 14) and are not ported; the logical axes are kept
+so that the specs stay the JAX package's, leaf for leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Iterator
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Annotated:
+    shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"         # 'normal' | 'zeros' | 'ones' | 'embed'
+    scale: float | None = None   # stddev; None → 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical_axes):
+            raise ValueError(f"shape {self.shape} and axes "
+                             f"{self.logical_axes} differ in rank")
+
+
+def param(shape, axes, *, dtype=torch.bfloat16, init="normal", scale=None):
+    return Annotated(tuple(int(s) for s in shape), tuple(axes),
+                     dtype=dtype, init=init, scale=scale)
+
+
+def leaves(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
+    """``(path, leaf)`` pairs of a nested-dict tree in sorted key order
+    (the order ``jax.tree`` flattens a dict in)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def map_tree(fn, tree: Any) -> Any:
+    """``fn`` applied to every leaf of a nested-dict tree."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def materialize(tree: Any, generator: torch.Generator, *, device,
+                dtype: torch.dtype | None = None) -> Any:
+    """Real parameter init: ``zeros``, ``ones``, or a normal draw with
+    ``std = scale or fan_in ** -0.5`` (fan_in is ``shape[0]`` for
+    ``embed``, else the product of all but the last dim), drawn in
+    float32 on ``device`` from ``generator`` and cast to ``dtype`` or the
+    leaf's own.  Leaves are drawn in sorted path order, so one seed gives
+    one tree; the numbers differ from ``jax.random``'s."""
+    def one(ann: Annotated) -> torch.Tensor:
+        dt = dtype or ann.dtype
+        if ann.init == "zeros":
+            return torch.zeros(ann.shape, dtype=dt, device=device)
+        if ann.init == "ones":
+            return torch.ones(ann.shape, dtype=dt, device=device)
+        fan_in = ann.shape[0] if ann.init == "embed" else (
+            math.prod(ann.shape[:-1]) or 1)
+        std = ann.scale if ann.scale is not None else fan_in ** -0.5
+        x = torch.randn(ann.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(dt)
+
+    out: dict = {}
+    for path, ann in leaves(tree):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = one(ann)
+    return out
+
+
+def nbytes(tree: Any) -> int:
+    return sum(math.prod(a.shape) * a.dtype.itemsize
+               for _, a in leaves(tree))
+
+
+def count(tree: Any) -> int:
+    return sum(math.prod(a.shape) for _, a in leaves(tree))
