@@ -23,10 +23,14 @@ and the script exits non-zero):
    in {16, 64, 128, 256} × G in {1, 4, 8} × K in {1, 8} × S in {1, 33,
    100, 4097}, with row lengths 1, S and random, ``pos = -1`` holes in
    the middle and at the front, NaN in every masked slot, and caches read
-   through strides; float32 within ``rtol=1e-4, atol=1e-5``
-   (``tests/test_kernels.py``'s), bf16 within ``rtol=1e-2`` (one bf16
-   rounding is at most 2**-8 of a value) plus ``1e-3 * max|out|``, a bound
-   that follows the size of the outputs compared.
+   through strides; then over ``DECODE_SPLIT_CASES``, which stress its
+   split over the sequence (uneven shares, shares past ``length`` or
+   wholly masked, ``length`` under one tile a split, B·K of 1 and 64, S of
+   32,768, two groups of query heads, h not a multiple of 16); float32
+   within ``rtol=1e-4, atol=1e-5`` (``tests/test_kernels.py``'s), bf16
+   within ``rtol=1e-2`` (one bf16 rounding is at most 2**-8 of a value)
+   plus ``1e-3 * max|out|``, a bound that follows the size of the outputs
+   compared.
 4. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
    from root 0 through ``algorithms.bfs`` under pull, push and auto on
    three paths, each held against a numpy level-synchronous BFS, with the
@@ -40,7 +44,8 @@ and the script exits non-zero):
    at the main path's shapes and timed there (CUDA events, median of 20
    or 30 launches after warm-up) beside its bound: kernel 2 on three BFS
    frontiers (the root, the narrow one the plane routes to it, the
-   widest), kernel 4 through ``ops.segment_reduce`` over the reverse
+   widest), kernels 1 and 2 also by the profiler's device time (pre-pass
+   and main kernel), kernel 4 through ``ops.segment_reduce`` over the reverse
    COO's sorted receiving ids with bfs's messages (its result must be the
    BFS levels), beside ``scatter_reduce_``.
 5. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
@@ -59,8 +64,10 @@ and the script exits non-zero):
    (each decode step's logits against ``logits_seq``, which never
    reaches kernel 5; max |Δ| / max |logit| <= 1e-3), and kernel 5 held
    against its plain version on one layer's inputs of a mid-run step (in
-   bf16 as served and cast to float32) and timed there and on one 32,768-slot sequence, beside its bound, its
-   plain version and ``scaled_dot_product_attention``.
+   bf16 as served and cast to float32) and timed there and on one
+   32,768-slot sequence (CUDA events, and the profiler's device time of
+   its split and combine kernels), beside its bound, its plain version
+   and ``scaled_dot_product_attention``.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Longer logs go to ``chiprun_out/``
@@ -286,6 +293,77 @@ def _check_decode_kernel(torch):
     return checked, worst
 
 
+# Kernel 5's split-stress cases: (B, S, K, G, h, row lengths); each row
+# also gets pos = -1 holes (its first half wholly masked where it is long)
+# and NaN in every masked slot
+DECODE_SPLIT_CASES = (
+    (1, 32768, 1, 8, 128, (32768,)),         # B·K = 1, 264 splits
+    (1, 32768, 1, 4, 128, (777,)),           # most splits past length
+    (1, 32768, 8, 4, 128, (32768,)),         # the long row, 33 splits
+    (8, 4096, 8, 4, 128, (4096, 1, 65, 1000, 2049, 3000, 17, 4095)),
+    (2, 4096, 4, 4, 128, (5, 70)),           # length < one tile a split
+    (2, 1000, 2, 12, 64, (999, 1000)),       # two groups of query heads
+    (3, 300, 2, 4, 24, (300, 150, 33)),      # h not a multiple of 16
+    (2, 500, 3, 3, 8, (500, 250)),
+    (2, 2048, 1, 8, 256, (2048, 1500)),      # h = 256
+)
+
+
+def _split_case(torch, gen, B, S, K, G, h, dtype, lengths):
+    """Kernel 5's inputs for a split-stress case: the given row lengths,
+    random pos = -1 holes (5%), row 0's first half masked where it holds
+    more than 128 slots, NaN in k and v at every masked slot."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(B * S + K * G + h)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    slots = torch.arange(S, device=dev)
+    pos = torch.where(slots[None] < length[:, None], slots[None], -1)
+    holes = torch.as_tensor(rng.random((B, S)) < 0.05, device=dev)
+    pos[holes & (slots[None] > 0)] = -1
+    if lengths[0] > 128:
+        pos[0, :lengths[0] // 2] = -1
+    pos = pos.to(torch.int32).contiguous()
+    q = torch.randn((B, K, G, h), generator=gen, device=dev).to(dtype)
+    kc, vc = (torch.randn((B, S, K, h), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    valid = (slots[None] < length[:, None]) & (pos >= 0)
+    kc[~valid] = float("nan")
+    vc[~valid] = float("nan")
+    return (q, kc, vc, pos, length), valid
+
+
+def _check_decode_splits(torch):
+    """Kernel 5 against its plain version on ``DECODE_SPLIT_CASES`` in
+    float32 and bf16, each case's splits printed."""
+    from repro_torch.kernels import decode_gqa as dg
+    from repro_torch.kernels.ref import decode_gqa_ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    checked, worst, plans = 0, 0.0, []
+    for B, S, K, G, h, lengths in DECODE_SPLIT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, valid = _split_case(torch, gen, B, S, K, G, h, dtype,
+                                      lengths)
+            got = dg.decode_gqa(*args)
+            want = decode_gqa_ref(*args)
+            torch.cuda.synchronize()
+            rows = valid.any(1)
+            ok, err, scale = _decode_agrees(got[rows].float(),
+                                            want[rows].float(),
+                                            dtype == torch.bfloat16)
+            if not ok:
+                raise AssertionError(
+                    f"decode_gqa split case {dtype} B={B} S={S} K={K} G={G} "
+                    f"h={h} lengths={lengths}: max err {err}, max |out| "
+                    f"{scale}")
+            worst = max(worst, err)
+            checked += 1
+        plans.append(((B, S, K, G, h), dg.split_plan(B, S, K, G, h, 2, sms)))
+    log(f"[kernels] decode_gqa split cases: {checked} agree, max abs err "
+        f"{worst}; (B, S, K, G, h) -> bf16 (warps, splits): {plans}")
+    return checked, worst
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
@@ -378,7 +456,9 @@ def phase_kernels(torch):
     n_seg, worst["segment_reduce"] = _check_segment_kernel(torch, live_rng)
     checked += n_seg
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
-    checked += n_dec
+    n_split, split_err = _check_decode_splits(torch)
+    worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
+    checked += n_dec + n_split
     log(f"[kernels] {checked} kernel/plain comparisons agree (min/max/int "
         "exact, float add rtol 1e-5; kernel 2 also exactly equal to kernel "
         f"1's rows with dead blocks set to the identity; kernel 5 float32 "
@@ -407,10 +487,12 @@ def _time_ms(torch, fn, reps=30, warmup=3, batch=1):
 
 
 def _device_ms(torch, fn, name, calls=10):
-    """Mean device milliseconds a launch of the kernels whose name holds
-    ``name``, over the launches torch.profiler recorded in ``calls`` calls
-    (it may drop some: the mean is over those it kept; ``None`` when it
-    kept none)."""
+    """Device milliseconds of one call of ``fn``: over the kernels whose
+    name holds ``name`` (a call may launch several, as kernel 5's split
+    and combine kernels or kernel 1's pre-pass and main kernel), the sum
+    of each kernel's mean over the launches torch.profiler recorded in
+    ``calls`` calls (it may drop some; ``None`` when it kept none), times
+    its launches a call where a name launches more than once a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -421,10 +503,11 @@ def _device_ms(torch, fn, name, calls=10):
             fn()
         torch.cuda.synchronize()
     kept = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
-    n = sum(e.count for e in kept)
-    return (sum(e.self_device_time_total for e in kept) / 1e3 / n
-            if n else None)
+            if e.device_type == DeviceType.CUDA and name in e.key
+            and e.count]
+    return (sum(e.self_device_time_total / e.count
+                * max(1, round(e.count / calls)) for e in kept) / 1e3
+            if kept else None)
 
 
 def _profile_run(torch, prog, run_wall_s, label):
@@ -682,6 +765,22 @@ def phase_main(torch, dev_info):
     eb_bytes = R8 * W * 4 + V * 4 + V * 1 + R8 * 4 + R8 * 1
     eb_ops = 2 * R8 * W
     eb_bound = 1e3 * max(eb_bytes / _BANDWIDTH, eb_ops / _SCALAR_OPS)
+    eb_dev = _device_ms(torch, lambda: eb.edge_block_reduce(*args, **kw),
+                        "edge_block")
+    log(f"[main] edge_block (plus_one/min, R8={R8}, W={W}, V={V}, 50% random "
+        f"frontier): {eb_ms:.4f} ms (device time, pre-pass and main kernel "
+        f"{'not measured' if eb_dev is None else f'{eb_dev:.4f} ms'}), bound "
+        f"{eb_bound:.4f} ms ({eb_bound / eb_ms:.3f} of it), plain "
+        f"{eb_plain:.3f} ms, library call none, on {smi}")
+    # kernel 1 on each frontier of the BFS, as the dense pull runs it
+    eb_levels = {}
+    for lvl, _, _ in levels_n:
+        largs = args[:4] + (torch.as_tensor(oracle == lvl).to(device),)
+        eb_levels[lvl] = _time_ms(torch, lambda: eb.edge_block_reduce(
+            *largs, **kw), reps=20)
+    log(f"[main] edge_block on the BFS frontiers, ms by level: "
+        f"{json.dumps({k: round(v, 4) for k, v in eb_levels.items()})}; "
+        f"sum {sum(eb_levels.values()):.4f} ms on {smi}")
 
     # kernel 2 on three frontiers of the BFS: the root (first superstep),
     # the last frontier the plane routes to kernel 2, the widest one
@@ -705,6 +804,8 @@ def phase_main(torch, dev_info):
         n_live, nb = int(live.sum()), live.shape[0]
         ms = _time_ms(torch, lambda: eb.edge_block_reduce(*sargs, **skw),
                       reps=20)
+        dev_ms = _device_ms(torch, lambda: eb.edge_block_reduce(
+            *sargs, **skw), "edge_block")
         plain_ms = _time_ms(torch, lambda: eb.edge_block_reduce_plain(
             *sargs, **skw), reps=20)
         # ids of live blocks only, the value and frontier tables, the
@@ -715,11 +816,15 @@ def phase_main(torch, dev_info):
         skip[label] = {"level": lvl, "live_blocks": n_live, "blocks": nb,
                        "live_share": n_live / nb, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound,
+                       "device_ms": dev_ms,
                        "max_abs_err": _max_err(got[0], want[0])}
         log(f"[main] edge_block_skip on the level-{lvl} ({label}) frontier: "
             f"{n_live}/{nb} grid blocks live (share {n_live / nb:.4f}); "
-            f"{ms:.4f} ms (kernel 1 on the same rows {eb_ms:.4f} ms), plain "
-            f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
+            f"{ms:.4f} ms (device time "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; "
+            f"kernel 1 on the same rows {eb_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms, library call none, on "
+            f"{smi}")
 
     tiers = push_capacity_tiers(fe.num_rows)
     C = tiers[-1]
@@ -839,6 +944,8 @@ def phase_main(torch, dev_info):
                         for k, v in perf.items()},
                "auto_decision_walls_ms": walls_ms, "bitmap_pays": pays,
                "host_sync_ms": sync_ms, "edge_block_skip": skip,
+               "edge_block_device_ms": eb_dev,
+               "edge_block_levels_ms": eb_levels,
                "sparse": sparse,
                "launches": {f"{p} {d}": r[d]["launches"]
                             for p, r in (("dense", dense),
@@ -1027,10 +1134,10 @@ def _decode_timings(torch, args, label, smi):
                              f"{err} in bf16, {err32} in float32 (max |out| "
                              f"{scale}, {scale32})")
     ms = _time_ms(torch, lambda: dg.decode_gqa(*args), batch=20)
-    dev_ms = _device_ms(torch, lambda: dg.decode_gqa(*args),
-                        "decode_gqa_kernel")
+    dev_ms = _device_ms(torch, lambda: dg.decode_gqa(*args), "decode_gqa")
     plain_ms = _time_ms(torch, lambda: decode_gqa_ref(*args), batch=20)
     lib_ms = _time_ms(torch, lib, batch=20)
+    lib_dev = _device_ms(torch, lib, "")      # every kernel sdpa launches
     # each valid slot's k and v rows, its position, q and the output once
     n_valid = int(valid.sum())
     ends = torch.clamp(length.long(), 0, S)
@@ -1043,12 +1150,15 @@ def _decode_timings(torch, args, label, smi):
         f"a call in batches of 20 (device time "
         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
         f"bound {bound:.4f} ms ({bound / ms:.3f} of it), plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms; "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+        f"(device time "
+        f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'}); "
         f"bf16 max abs err {err} (sdpa {lib_err}), max |out| {scale}; "
         f"float32 max abs err {err32}, max |out| {scale32} on {smi}")
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound,
-            "library_ms": lib_ms, "max_abs_err": err, "sdpa_err": lib_err,
+            "library_ms": lib_ms, "library_device_ms": lib_dev,
+            "max_abs_err": err, "sdpa_err": lib_err,
             "max_abs_out": scale, "f32_max_abs_err": err32,
             "f32_max_abs_out": scale32,
             "bytes": nbytes, "bound_by": "bytes" if nbytes / _BANDWIDTH
@@ -1247,9 +1357,11 @@ def phase_lm(torch, dev_info):
                     "library_ms": server["library_ms"],
                     "launches_per_decode_step": L, "shape": server["shape"],
                     "device_ms": server["device_ms"],
+                    "library_device_ms": server["library_device_ms"],
                     "long": {k: long[k] for k in ("ms", "device_ms",
                                                   "plain_ms",
                                                   "bound_ms", "library_ms",
+                                                  "library_device_ms",
                                                   "shape")}}))
     return {"name": "decode_gqa", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_gqa.cu",

@@ -33,11 +33,11 @@ _F = ctypes.c_float
 # C signature of each library's entry point: (symbol, argtypes)
 _ENTRY = {
     "decode_gqa": ("decode_gqa_launch",
-                   [_I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _L, _L, _L,
-                    _L, _L, _L, _P, _L, _P, _P, _P]),
+                   [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _L,
+                    _L, _L, _L, _L, _L, _P, _L, _P, _P, _P, _P]),
     "edge_block": ("edge_block_reduce_launch",
                    [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                    _L, _I, _P]),
+                    _L, _P, _P, _L, _I, _P]),
     "push_ell": ("push_ell_message_launch",
                  [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P]),
     "segment_sum": ("segment_reduce_launch",

@@ -4,8 +4,11 @@ version.
 Counterpart of ``repro.kernels.edge_block``.  The TPU kernel there keeps
 the vertex tables as ``(V/128, 128)`` VMEM tiles and streams
 ``(block_rows, W)`` edge tiles; on Hopper the tables live in device memory
-(the random reads hit L2) and ``csrc/edge_block.cu`` runs one thread per
-row, so the TPU tiling has no counterpart here.  With ``block_live=``
+(the random reads hit L2), so ``csrc/edge_block.cu`` first builds, in
+scratch this wrapper allocates, the frontier as a bitmap (under
+``mask_inactive``) and the gather's message a vertex (for ``plus_one`` and
+``div_deg``), and then runs one thread per row, a bit and a message read
+a live slot; the TPU tiling has no counterpart here.  With ``block_live=``
 the wrapper launches the per-block early-out variant (the TPU's
 ``_kernel_skip``), which the block-skipping pull plane runs: rows come in
 blocks of ``block_rows``, and a dead block writes the identity without
@@ -24,6 +27,8 @@ from .ref import GATHER_OPS, REDUCE_OPS, _identity, edge_block_reduce_ref
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
 _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
+# gathers whose per-vertex message the kernel's pre-pass tabulates
+_MESSAGE_TABLE = ("plus_one", "div_deg")
 
 
 def edge_block_reduce_plain(nbr, wgt, values, degrees, active, *, gather: str,
@@ -116,6 +121,10 @@ def edge_block_reduce(
     any_live = torch.empty((R,), dtype=torch.uint8, device=values.device)
     if R == 0:
         return out, any_live.view(torch.bool)
+    # the pre-pass's frontier bits and messages
+    bits = torch.empty((-(-V // 32),), dtype=torch.int32,
+                       device=values.device) if mask_inactive else None
+    msg = torch.empty_like(values) if gather in _MESSAGE_TABLE else None
     lib = _build.library("edge_block")
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.edge_block_reduce_launch(
@@ -125,7 +134,9 @@ def edge_block_reduce(
         block_live.data_ptr() if block_live is not None else None,
         block_rows or 0, nbr.data_ptr(), wgt.data_ptr(),
         values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
-        out.data_ptr(), any_live.data_ptr(), R, W, stream)
+        None if bits is None else bits.data_ptr(),
+        None if msg is None else msg.data_ptr(), V, out.data_ptr(),
+        any_live.data_ptr(), R, W, stream)
     if err != 0:
         raise RuntimeError(f"edge_block kernel launch failed: "
                            f"cudaError_t {err}")

@@ -122,6 +122,78 @@ def test_edge_block_refuses_non_menu_and_int_division():
         teb.edge_block_reduce(*args, gather="square", reduce="add")
 
 
+def _two_stage(nbr, wgt, values, degrees, active, *, gather, reduce,
+               mask_inactive, block_live=None, block_rows=None):
+    """Kernel 1's decomposition in plain PyTorch: a pre-pass tabulates the
+    frontier as packed 32-bit words (under ``mask_inactive``) and the
+    weight-free gather's message a vertex; then each row is reduced slot
+    by slot, in slot order, from one bit and one message a live slot, a
+    dead slot as the identity; with ``block_live``, a dead block's rows
+    hold the identity and any=False."""
+    ident = tref._identity(reduce, values.dtype)
+    # stage 1: frontier words (bit u % 32 of word u // 32) and messages
+    V = values.shape[0]
+    pad = torch.zeros(-(-V // 32) * 32, dtype=torch.int64)
+    pad[:V] = active.long()
+    words = (pad.view(-1, 32) << torch.arange(32)).sum(1)
+    msg = values if gather in ("copy", "add_w", "mul_w") else \
+        tref.gather_msg(gather, values, None, degrees)
+    # stage 2: one bit and one message a live slot
+    R, W = nbr.shape
+    acc = torch.full((R,), ident, dtype=values.dtype)
+    any_live = torch.zeros((R,), dtype=torch.bool)
+    combine = {"add": torch.add, "min": torch.minimum,
+               "max": torch.maximum}[reduce]
+    for j in range(W):
+        u = nbr[:, j]
+        is_pad = u == PAD
+        safe = torch.where(is_pad, 0, u).long()
+        live = ~is_pad
+        if mask_inactive:
+            live &= ((words[safe // 32] >> (safe % 32)) & 1) == 1
+        m = msg[safe]
+        if gather in ("add_w", "mul_w"):
+            m = tref.gather_msg(gather, m, wgt[:, j].to(m.dtype), None)
+        acc = combine(acc, torch.where(live, m, ident))
+        any_live |= live
+    if block_live is not None:
+        dead = (block_live == 0).repeat_interleave(block_rows)[:R]
+        acc = torch.where(dead, ident, acc)
+        any_live &= ~dead
+    return acc, any_live
+
+
+@pytest.mark.parametrize("gather,reduce,dtype,mask", _CASES)
+def test_edge_block_two_stage_matches_plain(gather, reduce, dtype, mask):
+    """The bitmap-and-message decomposition the CUDA kernel runs equals the
+    plain version: exactly, but for a float add (the plain version's row
+    sum adds in PyTorch's order: rtol 1e-5); over NaN values, int32
+    values that wrap, PAD-only rows, widths 8 and 3, with and without
+    block skipping."""
+    rng = np.random.default_rng(len(gather) * 7 + len(reduce))
+    for W in (8, 3):
+        nbr, wgt, vals, deg, act = _inputs(53, W, 70, dtype, seed=W,
+                                           nan=dtype == np.float32)
+        nbr[:3] = PAD                                  # PAD-only rows
+        if dtype == np.int32:                          # values that wrap
+            big = rng.random(70) < 0.3
+            vals[big] = 2**31 - 1 - rng.integers(0, 3, int(big.sum()))
+            nbr[3, 0], vals[0] = 0, 2**31 - 1
+        live = torch.as_tensor(rng.random(-(-53 // 16)) < 0.5)
+        for blk in (None, live):
+            kw = dict(gather=gather, reduce=reduce, mask_inactive=mask,
+                      block_live=blk, block_rows=16 if blk is not None
+                      else None)
+            got = _two_stage(*_t(nbr, wgt, vals, deg, act), **kw)
+            want = teb.edge_block_reduce_plain(
+                *_t(nbr, wgt, vals, deg, act), **kw)
+            _check(want[0].numpy(), got[0], dtype, reduce)
+            assert torch.equal(got[1], want[1])
+            if blk is None and (dtype, gather, reduce, mask) == (
+                    np.int32, "plus_one", "min", False):
+                assert int(got[0][3]) < 0              # a wrap was seen
+
+
 _PUSH_CASES = [(g, d, 20, 8, 77) for g in GATHERS
                for d in (np.int32, np.float32)
                if not (g == "div_deg" and d == np.int32)] \

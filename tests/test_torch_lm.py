@@ -119,6 +119,112 @@ def test_decode_gqa_wrapper_refuses_other_devices():
     assert tdg.decode_gqa.launches == before
 
 
+def _split_combine(q, kc, vc, pos, length, *, scale, tile, splits,
+                   bf16_p):
+    """Kernel 5's decomposition in plain PyTorch (float32): row b's
+    ``[0, n)`` cut into ``splits`` equal tile-aligned shares; each share's
+    ``(m, l, acc)`` over its valid slots (for bf16, ``p`` enters the
+    product as the kernel's two bf16 terms, ``hi = bf16(p)`` and
+    ``bf16(p - hi)``); the shares merged by ``e^{m_i - M}``, a share with
+    ``m_i = -inf`` adding 0."""
+    B, S, K, h = kc.shape
+    G = q.shape[2]
+    out = torch.zeros((B, K, G, h))
+    inf = float("inf")
+    for b in range(B):
+        n = min(max(int(length[b]), 0), S)
+        ntiles = -(-n // tile)
+        per = -(-ntiles // splits)
+        parts = []
+        for sp in range(splits):
+            ta = min(sp * per, ntiles)
+            lo, hi = ta * tile, min((ta + per) * tile, n)
+            valid = pos[b, lo:hi] >= 0
+            v = vc[b, lo:hi].float().masked_fill(~valid[:, None, None], 0.0)
+            sc = torch.einsum("kgh,skh->kgs", q[b].float(),
+                              kc[b, lo:hi].float()) * scale
+            sc = sc.masked_fill(~valid[None, None], -inf)
+            m = sc.amax(-1) if hi > lo else torch.full((K, G), -inf)
+            p = torch.where(m[..., None] > -inf,
+                            torch.exp(sc - m[..., None]), 0.0)
+            pv = p
+            if bf16_p:
+                hi = p.bfloat16().float()
+                pv = hi + (p - hi).bfloat16().float()
+            parts.append((m, p.sum(-1), torch.einsum("kgs,skh->kgh", pv, v)))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L, A = torch.zeros((K, G)), torch.zeros((K, G, h))
+        for m, l, acc in parts:
+            w = torch.where(m > -inf, torch.exp(m - M), 0.0)
+            L, A = L + w * l, A + w[..., None] * acc
+        out[b] = A / L.clamp_min(1e-38)[..., None]
+    return out
+
+
+# (B, S, K, G, h, row lengths, masked front of row 0): shares past length,
+# wholly masked shares, n < splits x tile, B·K = 1, two query-head groups
+_SPLIT_CASES = [(2, 256, 2, 4, 16, (20, 256), 128),
+                (1, 300, 1, 8, 32, (300,), 0),
+                (2, 700, 1, 12, 8, (700, 90), 500),
+                (3, 129, 2, 1, 24, (1, 129, 64), 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,K,G,h,lengths,front", _SPLIT_CASES)
+def test_decode_gqa_split_combine_matches(B, S, K, G, h, lengths, front,
+                                          dtype):
+    """The kernel's split-and-combine, with the wrapper's split plan for a
+    132-SM card, matches the plain version (NaN in every masked slot) and
+    the JAX oracle (masked slots zero: it lets 0 * NaN through): float32
+    within rtol 1e-4 atol 1e-5, bf16 within rtol 1e-2 + 1e-3 max|out|."""
+    rng = np.random.default_rng(B * S + h)
+    q, kc, vc = (rng.normal(size=sh).astype(np.float32)
+                 for sh in ((B, K, G, h), (B, S, K, h), (B, S, K, h)))
+    length = np.asarray(lengths, np.int32)
+    slots = np.arange(S)[None]
+    pos = np.where(slots < length[:, None], slots, -1)
+    pos[rng.random((B, S)) < 0.05] = -1
+    pos[:, 0] = 0                       # every row keeps a valid slot
+    pos[0, 1:front] = -1
+    pos = pos.astype(np.int32)
+    valid = (slots < length[:, None]) & (pos >= 0)
+    kc[~valid] = 0.0
+    vc[~valid] = 0.0
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in (q, kc, vc)] + \
+        [jnp.asarray(pos), jnp.asarray(length)]
+    oracle = np.asarray(rref.decode_gqa_ref(*jx), np.float32)
+    kc[~valid] = np.nan
+    vc[~valid] = np.nan
+    tt = [convert.to_tensor(np.asarray(jnp.asarray(a, getattr(jnp, dtype))))
+          for a in (q, kc, vc)] + [torch.as_tensor(pos),
+                                   torch.as_tensor(length)]
+    warps, splits = tdg.split_plan(B, S, K, G, h, tt[0].element_size(), 132)
+    tile = tdg.WARP_SLOTS * warps
+    assert splits > 1
+    got = _split_combine(*tt, scale=h ** -0.5, tile=tile, splits=splits,
+                         bf16_p=dtype == "bfloat16")
+    assert bool(torch.isfinite(got).all())
+    want = tops.decode_gqa(*tt).float()
+    for ref in (want.numpy(), oracle):
+        tol = dict(rtol=1e-4, atol=1e-5) if dtype == "float32" else dict(
+            rtol=1e-2, atol=1e-3 * float(np.abs(ref).max()))
+        _close(got, ref, **tol)
+
+
+def test_split_plan_covers_the_card():
+    """Splits from the shapes and the SM count alone, filling the blocks
+    the SMs hold at once (two at bf16 h = 128) in one wave: the served
+    shape takes 4, one long row 33 (4 warps: 64-slot tiles); a float32
+    row of h = 256 halves the warps to fit its rings; the splits never
+    exceed the capacity's tiles; more rows than blocks take one."""
+    assert tdg.split_plan(8, 4096, 8, 4, 128, 2, 132) == (4, 4)
+    assert tdg.split_plan(1, 32768, 8, 4, 128, 2, 132) == (4, 33)
+    assert tdg.split_plan(1, 32768, 1, 8, 128, 2, 132) == (4, 264)
+    assert tdg.split_plan(2, 2048, 1, 8, 256, 4, 132) == (2, 64)
+    assert tdg.split_plan(4, 100, 8, 4, 64, 2, 132) == (4, 2)
+    assert tdg.split_plan(64, 4096, 8, 4, 128, 2, 132) == (4, 1)
+
+
 # -- configs and parameters --------------------------------------------------
 
 
