@@ -15,11 +15,21 @@ and the script exits non-zero):
    edge block) over the same sweep at R not a multiple of its
    block_rows, with random, all-dead and all-live block flags, exactly
    equal to kernel 1's rows with dead blocks set to the identity; kernel
-   4 (segment reduce) for add/min/max × int32/float32 over empty
-   segments, one segment, ragged E, an INT_MAX tail, NaN values and a
-   100k-element hub segment.  Min, max and int32 exact, float add within
-   ``rtol=1e-5`` (the kernels add in element order, the plain versions in
-   PyTorch's order).  Kernel 5 (decode attention) over float32/bf16 × h
+   4 (the tiled segment reduce) for add/min/max × int32/float32 over
+   empty segments, one segment, ragged E, E = 0, E under one tile of
+   2,048, runs that end on tile boundaries, an INT_MAX tail that starts
+   inside a tile and inside a thread's 8 elements, a 100k-element hub at
+   six offsets from a tile boundary (once through pointers off the
+   16-byte grid), NaN values, and a hub whose one NaN reaches the output
+   only through a carry; the fused push kernel (kernel 3's messages
+   fused with the combine) over every gather × push reduce (min, max,
+   int32 add) × dtype, touched on and off, NaN, +0 and -0 values, widths
+   8 (also off the 16-byte grid), 16, 3 and 1, capacities past the live
+   count (C·W ragged), all-PAD rows, an empty frontier and a destination
+   receiving over 100k messages in one call, exactly.  Min, max and int32
+   exact, float add within ``rtol=1e-5`` (the kernels add in their own
+   fixed order, the plain versions in PyTorch's).  Kernel 5 (decode
+   attention) over float32/bf16 × h
    in {16, 64, 128, 256} × G in {1, 4, 8} × K in {1, 8} × S in {1, 33,
    100, 4097}, with row lengths 1, S and random, ``pos = -1`` holes in
    the middle and at the front, NaN in every masked slot, and caches read
@@ -35,19 +45,26 @@ and the script exits non-zero):
    from root 0 through ``algorithms.bfs`` under pull, push and auto on
    three paths, each held against a numpy level-synchronous BFS, with the
    launch counts set to 0 just before each run and read just after: the
-   dense plane (kernels 1 and 3), the bitmap plane (``pull_sweep=
+   dense plane (kernel 1 on the pull and fallback supersteps, the fused
+   push kernel exactly 4 times on dense auto's compacted push supersteps,
+   the message kernel never), the bitmap plane (``pull_sweep=
    'bitmap'``, kernel 2 on its narrow tiers) and the sparse backend
    (``backend='sparse'``, after ``in_degrees`` on CUDA against
    ``np.bincount``); steady run walls of every plane and direction (median
    of 3, in turns), the walls that decide ``pull_sweep='auto'``, device
-   reads per run, profiles; each kernel held against its plain version
+   reads per run, profiles (dense auto's must hold no
+   ``aten::scatter_reduce_``); each kernel held against its plain version
    at the main path's shapes and timed there (CUDA events, median of 20
    or 30 launches after warm-up) beside its bound: kernel 2 on three BFS
    frontiers (the root, the narrow one the plane routes to it, the
    widest), kernels 1 and 2 also by the profiler's device time (pre-pass
-   and main kernel), kernel 4 through ``ops.segment_reduce`` over the reverse
-   COO's sorted receiving ids with bfs's messages (its result must be the
-   BFS levels), beside ``scatter_reduce_``.
+   and main kernel), the fused push at the large capacity tier on a
+   random frontier and on each compacted superstep's frontier of the BFS
+   beside the two-stage path it replaces (message kernel, then
+   ``scatter_reduce_``), kernel 4 through ``ops.segment_reduce`` over the
+   reverse COO's sorted receiving ids with bfs's messages (its result must
+   be the BFS levels; the device time of each of its three launches),
+   beside ``scatter_reduce_``.
 5. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
    ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
    component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
@@ -179,40 +196,178 @@ def _max_err(a, b):
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
-def _check_segment_kernel(torch, rng):
-    """Kernel 4 against its plain version: add/min/max × int32/float32 over
-    empty segments, one segment, ragged E, an INT_MAX tail, NaN values and
-    a hub segment of 100k elements."""
-    from repro_torch.kernels import segment_sum as ss
-    dev = torch.device("cuda")
-    checked, worst = 0, 0.0
-    cases = [(1000, 97, 0, 0), (5000, 1, 0, 0), (12345, 30011, 7, 0),
-             (1, 5, 3, 0), (20000, 1000, 0, 100_000)]
-    for E, S, tail, hub in cases:
+def _segment_cases(rng, tile):
+    """Kernel 4's sweep cases ``(label, seg, S, nan_index)`` at its real
+    tile of ``tile`` elements: empty segments, one segment, ragged E, E = 0,
+    E under a tile, runs that end on tile boundaries, an INT_MAX tail that
+    starts inside a tile and inside a thread's 8 elements, a 100k-element
+    hub at several offsets from a tile boundary, and a hub whose only NaN
+    sits in its first tile (it reaches the output only through a carry;
+    ``nan_index`` is its index, else None and random NaN)."""
+    int_max = 2**31 - 1
+    cases = []
+    for E, S, tail, hub in ((1000, 97, 0, 0), (5000, 1, 0, 0),
+                            (12345, 30011, 7, 0), (1, 5, 3, 0),
+                            (20000, 1000, 0, 100_000)):
         seg = rng.integers(0, S, E)
         if hub:
             seg = np.concatenate([seg, np.full(hub, S // 3)])
-        seg = np.sort(seg).astype(np.int32)
+        seg = np.concatenate([np.sort(seg), np.full(tail, int_max)])
+        cases.append((f"E={E} S={S} tail={tail} hub={hub}", seg, S, None))
+    cases.append(("E=0", np.zeros(0, np.int64), 10, None))
+    cases.append(("E under a tile", np.sort(rng.integers(0, 50, tile // 3)),
+                  50, None))
+    lengths = [tile, tile - 1, 1, 2 * tile, 5, tile - 5, 3 * tile, 17]
+    cases.append(("runs ending on tile boundaries",
+                  np.repeat(np.arange(0, 3 * len(lengths), 3), lengths),
+                  3 * len(lengths), None))
+    n_valid = 3 * tile + 1237
+    cases.append(("INT_MAX tail from inside a tile",
+                  np.concatenate([np.sort(rng.integers(0, 4000, n_valid)),
+                                  np.full(3000, int_max)]), 4000, None))
+    # a hub after `off` elements of about 4 a segment, then short ones
+    # (short segments keep the float sums away from cancellation, where
+    # two summation orders part by more than rtol 1e-5)
+    for off in (0, 1, 7, tile - 1, tile + 3, 5 * tile // 2):
+        p = max(off // 4, 1)
+        seg = np.concatenate([np.sort(rng.integers(0, p, off)),
+                              np.full(100_000, p),
+                              np.sort(rng.integers(p + 1, p + 2000, 7777))])
+        cases.append((f"100k hub at offset {off}", seg, p + 2000, None))
+    off = 3 * tile + 100
+    p = off // 4
+    seg = np.concatenate([np.sort(rng.integers(0, p, off)),
+                          np.full(20 * tile, p),
+                          np.sort(rng.integers(p + 1, p + 100, 333))])
+    cases.append(("NaN only through a carry", seg, p + 100, off + 5))
+    return cases
+
+
+def _check_segment_kernel(torch, rng):
+    """Kernel 4 against its plain version: add/min/max × int32/float32
+    over ``_segment_cases``, and the first case with a hub again through
+    pointers not 16-byte aligned (its scalar-load path)."""
+    from repro_torch.kernels import segment_sum as ss
+    dev = torch.device("cuda")
+    checked, worst = 0, 0.0
+    for label, seg, S, nan_at in _segment_cases(rng, ss.TILE):
+        seg = seg.astype(np.int32)
         n = len(seg)
-        seg = np.concatenate([seg, np.full(tail, 2**31 - 1, np.int32)])
         for dtype in (np.int32, np.float32):
-            val = (rng.integers(-1000, 1000, n + tail) if dtype == np.int32
-                   else rng.uniform(-5, 5, n + tail)).astype(dtype)
-            if dtype == np.float32:
-                val[rng.integers(0, n + tail, max(n // 50, 1))] = np.nan
+            val = (rng.integers(-1000, 1000, n) if dtype == np.int32
+                   else rng.uniform(-5, 5, n)).astype(dtype)
+            if dtype == np.float32 and n:
+                if nan_at is None:
+                    val[rng.integers(0, n, max(n // 50, 1))] = np.nan
+                else:
+                    val[nan_at] = np.nan
             ts, tv = (torch.as_tensor(a).to(dev) for a in (seg, val))
-            for reduce in ("add", "min", "max"):
-                got = ss.segment_reduce(ts, tv, S, reduce=reduce)
-                want = ss.segment_reduce_ref(ts, tv, S, reduce=reduce)
-                torch.cuda.synchronize()
-                exact = not (dtype == np.float32 and reduce == "add")
-                if not (_same if exact else _close)(got, want):
-                    raise AssertionError(
-                        f"segment_reduce {reduce}/{dtype.__name__} E={E} "
-                        f"S={S} tail={tail} hub={hub}: max err "
-                        f"{_max_err(got, want)}")
-                worst = max(worst, _max_err(got, want))
-                checked += 1
+            views = [(ts, tv)]
+            if "hub" in label and "offset 1" in label:
+                # one element in: contiguous, but off the 16-byte grid
+                bs = torch.cat([ts[:1], ts])
+                bv = torch.cat([tv[:1], tv])
+                views.append((bs[1:], bv[1:]))
+            for vs, vv in views:
+                for reduce in ("add", "min", "max"):
+                    got = ss.segment_reduce(vs, vv, S, reduce=reduce)
+                    want = ss.segment_reduce_ref(vs, vv, S, reduce=reduce)
+                    torch.cuda.synchronize()
+                    exact = not (dtype == np.float32 and reduce == "add")
+                    if not (_same if exact else _close)(got, want):
+                        raise AssertionError(
+                            f"segment_reduce {reduce}/{dtype.__name__} "
+                            f"{label} (aligned "
+                            f"{vv.data_ptr() % 16 == 0}): max err "
+                            f"{_max_err(got, want)}")
+                    if nan_at is not None and dtype == np.float32 \
+                            and not bool(got[int(seg[nan_at])].isnan()):
+                        raise AssertionError(f"segment_reduce {reduce} "
+                                             f"{label}: the NaN was lost")
+                    worst = max(worst, _max_err(got, want))
+                    checked += 1
+    log(f"[kernels] segment_reduce: {checked} cases agree (tile "
+        f"{ss.TILE} elements), max abs err {worst}")
+    return checked, worst
+
+
+def _check_fused_push(torch, rng):
+    """The fused push kernel against its plain version, exactly: every
+    gather × push reduce (min, max; add on int32) × dtype, float values
+    with NaN, +0 and -0, touched on and off, over widths 8 (and rows off
+    the 16-byte grid), 16, 3 and 1, capacities past the live count (C·W
+    ragged), all-PAD rows, an empty frontier, and a destination receiving
+    over 100k messages in one call."""
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels.ref import GATHER_OPS, PAD, REDUCE_OPS, _identity
+    dev = torch.device("cuda")
+    checked, hub_msgs, worst = 0, 0, 0.0
+    # (R, W, V, capacity, share of slots sent to vertex 1, frontier)
+    cases = ((1037, 8, 4099, 1100, 0.0, "random"),
+             (1037, 8, 4099, 1100, 0.0, "unaligned"),
+             (300, 16, 97, 301, 0.1, "random"),
+             (77, 3, 50, 100, 0.0, "all"),
+             (5, 1, 7, 8, 0.0, "random"),
+             (64, 8, 33, 64, 0.0, "empty"),
+             (25000, 8, 5000, 25000, 0.7, "all"))
+    for R, W, V, cap, hub, front in cases:
+        row_src = np.sort(rng.integers(0, V, R)).astype(np.int32)
+        dst = rng.integers(0, V, (R, W)).astype(np.int32)
+        dst[rng.random((R, W)) < hub] = 1
+        dst[rng.random((R, W)) < 0.2] = PAD
+        dst[:2] = PAD                                  # all-PAD rows
+        wgt = rng.uniform(0, 4, (R, W)).astype(np.float32)
+        deg = rng.integers(0, 9, V).astype(np.int32)
+        act = (np.ones(V, bool) if front == "all" else
+               np.zeros(V, bool) if front == "empty" else
+               rng.random(V) < 0.5)
+        t_src, t_dst, t_wgt, t_deg = (torch.as_tensor(a).to(dev)
+                                      for a in (row_src, dst, wgt, deg))
+        if front == "unaligned":       # rows one word off the 16-byte grid
+            t_dst = torch.cat([t_dst.reshape(-1)[:1],
+                               t_dst.reshape(-1)])[1:].view(R, W)
+            t_wgt = torch.cat([t_wgt.reshape(-1)[:1],
+                               t_wgt.reshape(-1)])[1:].view(R, W)
+        live = torch.as_tensor(act[row_src]).to(dev)
+        sel, ok = pe.compact_rows(live, R, cap)
+        if hub:
+            hub_msgs = max(hub_msgs, int((t_dst[sel[ok].long()] == 1).sum()))
+        for dtype in (np.int32, np.float32):
+            vals = (rng.integers(-50, 50, V) if dtype == np.int32
+                    else rng.uniform(-5, 5, V)).astype(dtype)
+            if dtype == np.float32:
+                vals[rng.integers(0, V, max(V // 10, 1))] = np.nan
+                vals[rng.integers(0, V, max(V // 10, 1))] = 0.0
+                vals[rng.integers(0, V, max(V // 10, 1))] = -0.0
+            t_val = torch.as_tensor(vals).to(dev)
+            for gather in GATHER_OPS:
+                if gather == "div_deg" and dtype == np.int32:
+                    continue
+                for reduce in REDUCE_OPS:
+                    if reduce == "add" and dtype == np.float32:
+                        continue
+                    for touched in (False, True):
+                        kw = dict(gather=gather, reduce=reduce,
+                                  identity=_identity(reduce, t_val.dtype),
+                                  num_vertices=V, dtype=t_val.dtype,
+                                  emit_touched=touched)
+                        args = (sel, ok, t_src, t_dst, t_wgt, t_val, t_deg)
+                        got = pe.push_ell_fused_reduce(*args, **kw)
+                        want = pe.push_ell_fused_reduce_plain(*args, **kw)
+                        torch.cuda.synchronize()
+                        if not (_same(got[0], want[0]) and (
+                                not touched or _same(got[1], want[1]))):
+                            raise AssertionError(
+                                f"push_ell_fused {gather}/{reduce}/"
+                                f"{dtype.__name__} touched={touched} R={R} "
+                                f"W={W} V={V} C={cap} {front}: max err "
+                                f"{_max_err(got[0], want[0])}")
+                        worst = max(worst, _max_err(got[0], want[0]))
+                        checked += 1
+    if hub_msgs < 100_000:
+        raise AssertionError(f"the hub case sent only {hub_msgs} messages")
+    log(f"[kernels] push_ell_fused: {checked} cases equal the plain version "
+        f"(a hub received {hub_msgs} messages in one call)")
     return checked, worst
 
 
@@ -454,7 +609,8 @@ def phase_kernels(torch):
                             f"C={R} W={W}: max err {_max_err(got, want)}")
                     checked += 1
     n_seg, worst["segment_reduce"] = _check_segment_kernel(torch, live_rng)
-    checked += n_seg
+    n_push, worst["push_ell_fused"] = _check_fused_push(torch, live_rng)
+    checked += n_seg + n_push
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
     n_split, split_err = _check_decode_splits(torch)
     worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
@@ -530,13 +686,19 @@ def _profile_run(torch, prog, run_wall_s, label):
     top = [(e.key, round(e.self_device_time_total / 1e3, 4), e.count)
            for e in ops[:10]]
     idle = 1.0 - busy_ms / (1e3 * run_wall_s)
+    # in-place scatters: the plain push combine (the dense fallback's
+    # hub fold is the out-of-place aten::scatter_reduce)
+    scatters = sum(e.count for e in events
+                   if e.key == "aten::scatter_reduce_")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_bfs_{label}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
     log(f"[profile] bfs {label}: kernel time {busy_ms:.3f} ms of the "
         f"{run_wall_s * 1e3:.2f} ms run wall (device idle share "
-        f"{idle:.3f}); top ops by device ms (ms, calls): {top}")
-    return {"kernel_ms": busy_ms, "idle_share": idle, "top_ops": top}
+        f"{idle:.3f}); aten::scatter_reduce_ calls {scatters}; top ops by "
+        f"device ms (ms, calls): {top}")
+    return {"kernel_ms": busy_ms, "idle_share": idle, "top_ops": top,
+            "scatter_reduce_calls": scatters}
 
 
 def numpy_bfs(offsets, dst, root, V):
@@ -568,6 +730,7 @@ def _counters():
     return {"edge_block": (eb.edge_block_reduce, "launches"),
             "edge_block_skip": (eb.edge_block_reduce, "skip_launches"),
             "push_ell": (pe.push_ell_message_block, "launches"),
+            "push_ell_fused": (pe.push_ell_fused_reduce, "launches"),
             "segment_reduce": (ss.segment_reduce, "launches"),
             "decode_gqa": (dg.decode_gqa, "launches")}
 
@@ -663,6 +826,69 @@ def _frontier_live_blocks(torch, lay, g, level_mask, grid_br=128):
     return active, pb.grid_block_live(touched, pplan.owner8, grid_br)
 
 
+def _fused_push_timing(torch, fe, values, out_deg, sel, ok, label, smi):
+    """The fused push kernel (bfs's plus_one/min) on compacted rows
+    ``sel``/``ok`` of the forward ELL: held against its plain version and
+    the two-stage path it replaces (the message kernel, then the
+    ``where``/``full``/``scatter_reduce_`` combine, from the gathered
+    blocks), exactly, and timed beside them (CUDA events; and the
+    profiler's device time of the kernel alone, without the table's
+    fill) and beside its bound."""
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels.ref import PAD, _identity
+    V, W = values.shape[0], fe.dst.shape[1]
+    ident = _identity("min", torch.int32)
+    kw = dict(gather="plus_one", reduce="min", identity=ident,
+              num_vertices=V, dtype=torch.int32)
+    args = (sel, ok, fe.row_src, fe.dst, fe.weights, values, out_deg)
+    rows = sel.long()
+    dst_blk = torch.where(ok[:, None], fe.dst[rows], PAD)
+    wgt_blk, src_blk = fe.weights[rows].contiguous(), fe.row_src[rows]
+
+    def two_stage():
+        msg = pe.push_ell_message_block(dst_blk, wgt_blk, src_blk, values,
+                                        out_deg, gather="plus_one")
+        valid = dst_blk != PAD
+        segs = torch.where(valid, dst_blk, V).reshape(-1).long()
+        flat = torch.where(valid, msg, ident).reshape(-1)
+        table = torch.full((V + 1,), ident, dtype=torch.int32,
+                           device=values.device)
+        return table.scatter_reduce_(0, segs, flat, "amin",
+                                     include_self=True)[:V]
+
+    got = pe.push_ell_fused_reduce(*args, **kw)[0]
+    want = pe.push_ell_fused_reduce_plain(*args, **kw)[0]
+    old = two_stage()
+    torch.cuda.synchronize()
+    if not (_same(got, want) and _same(got, old)):
+        raise AssertionError(f"push_ell_fused disagrees at the {label}")
+    ms = _time_ms(torch, lambda: pe.push_ell_fused_reduce(*args, **kw))
+    dev_ms = _device_ms(torch, lambda: pe.push_ell_fused_reduce(*args, **kw),
+                        "push_ell_fused")
+    plain_ms = _time_ms(torch, lambda: pe.push_ell_fused_reduce_plain(
+        *args, **kw), reps=20)
+    two_ms = _time_ms(torch, two_stage, reps=20)
+    # bytes the function must move: the compacted row ids and flags, the
+    # live rows' W ids, a source id and value a live row (plus_one reads
+    # no weight or degree), the table's fill and one word a valid slot
+    n_live = int(ok.sum())
+    n_valid = int((dst_blk != PAD).sum())
+    C = sel.shape[0]
+    nbytes = C * 5 + n_live * W * 4 + n_live * 8 + V * 4 + n_valid * 4
+    bound = 1e3 * max(nbytes / _BANDWIDTH, n_valid / _SCALAR_OPS)
+    log(f"[main] push_ell_fused (plus_one/min) at the {label}: C={C} W={W} "
+        f"V={V}, {n_live} live rows, {n_valid} valid slots: {ms:.4f} ms "
+        f"with the table's fill (device time of the kernel "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+        f"bound {bound:.4f} ms ({bound / ms:.3f} of it), plain "
+        f"{plain_ms:.4f} ms, two-stage (message kernel + scatter_reduce_ "
+        f"combine) {two_ms:.4f} ms on {smi}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": two_ms, "bound_ms": bound, "bytes": nbytes,
+            "max_abs_err": _max_err(got, want), "shape": [C, W, V],
+            "live_rows": n_live, "valid_slots": n_valid}
+
+
 def phase_main(torch, dev_info):
     from repro_torch.core import algorithms as alg
     from repro_torch.core import graph as G
@@ -694,9 +920,16 @@ def phase_main(torch, dev_info):
     # ---- path 1: the dense plane (kernels 1 and 3) ----------------------
     dense = _bfs_runs(torch, g, oracle, "dense", pull_sweep="dense")
     auto_launches = dense["auto"]["launches"]
-    if auto_launches["edge_block"] <= 0 or auto_launches["push_ell"] <= 0:
-        raise AssertionError(f"a kernel never launched on the dense auto "
-                             f"run: {auto_launches}")
+    # each compacted push superstep (4 at scale 22) runs the fused kernel
+    # once, the message kernel no more; the fallback ones run kernel 1
+    compacted = dense["auto"]["rep"].run_stats["push_compacted_supersteps"]
+    if auto_launches["edge_block"] <= 0 \
+            or auto_launches["push_ell_fused"] != compacted \
+            or (scale == 22 and compacted != 4) \
+            or auto_launches["push_ell"] != 0:
+        raise AssertionError(f"dense auto run: want kernel 1 launched, the "
+                             f"fused push 4 times and the message kernel "
+                             f"never: {auto_launches}")
     traversed = alg.traversed_edges(g, dense["auto"]["levels"])
 
     # ---- path 2: the bitmap plane (kernel 2) ----------------------------
@@ -739,6 +972,9 @@ def phase_main(torch, dev_info):
         perf[k]["profile"] = _profile_run(
             torch, perf[k]["prog"], perf[k]["run_wall_s"],
             k.replace(" ", "_"))
+    if perf["dense auto"]["profile"]["scatter_reduce_calls"]:
+        raise AssertionError("the dense auto run's compacted push "
+                             "supersteps still ran scatter_reduce_")
 
     # ---- each kernel at the main path's shapes --------------------------
     lay = preprocess.layouts_for(g)
@@ -835,9 +1071,9 @@ def phase_main(torch, dev_info):
     frontier[order[cum <= C]] = True
     live = frontier[fe.row_src.long()]
     sel, ok = pe.compact_rows(live, fe.num_rows, C)
-    sel = sel.long()
-    dst_blk = torch.where(ok[:, None], fe.dst[sel], 2**31 - 1)
-    wgt_blk, src_blk = fe.weights[sel].contiguous(), fe.row_src[sel]
+    dst_blk = torch.where(ok[:, None], fe.dst[sel.long()], 2**31 - 1)
+    wgt_blk = fe.weights[sel.long()].contiguous()
+    src_blk = fe.row_src[sel.long()]
     pargs = (dst_blk, wgt_blk, src_blk, values, out_deg)
     got = pe.push_ell_message_block(*pargs, gather="plus_one")
     want = pe.push_ell_message_block_plain(*pargs, gather="plus_one")
@@ -852,6 +1088,35 @@ def phase_main(torch, dev_info):
     # source ids, one source value per row, the messages out
     pe_bytes = C * 4 + C * 4 + C * W * 4
     pe_bound = 1e3 * max(pe_bytes / _BANDWIDTH, C * W / _SCALAR_OPS)
+    fused = _fused_push_timing(torch, fe, values, out_deg, sel, ok,
+                               "random frontier", smi)
+    fused["launches"] = auto_launches["push_ell_fused"]
+    # the same on each compacted push superstep of the BFS from root 0:
+    # the frontier of that level, the state the BFS holds then, its tier
+    lv_all = torch.as_tensor(oracle.astype(np.int64)).to(device)
+    fused_levels = {}
+    for lvl, _, _ in levels_n:
+        front = lv_all == lvl
+        r_f = int(torch.where(front, rows, 0).sum())
+        tier = next((c for c in tiers if r_f <= c), None)
+        if tier is None:
+            continue                        # the dense fallback's superstep
+        state = torch.where(lv_all <= lvl, lv_all, INT_MAX).to(torch.int32)
+        lsel, lok = pe.compact_rows(front[fe.row_src.long()], fe.num_rows,
+                                    tier)
+        fused_levels[lvl] = _fused_push_timing(
+            torch, fe, state, out_deg, lsel, lok,
+            f"BFS level-{lvl} frontier (r_f {r_f}, tier {tier})", smi)
+    if len(fused_levels) != auto_launches["push_ell_fused"]:
+        raise AssertionError(f"compacted levels {sorted(fused_levels)} != "
+                             f"the fused launches of the dense auto run")
+    by_level = {k: (round(v["ms"], 4), round(v["library_ms"], 4))
+                for k, v in fused_levels.items()}
+    log(f"[main] push_ell_fused on the BFS's compacted supersteps, ms by "
+        f"level (fused, two-stage): {json.dumps(by_level)}; "
+        f"sum {sum(v['ms'] for v in fused_levels.values()):.4f} ms against "
+        f"{sum(v['library_ms'] for v in fused_levels.values()):.4f} ms on "
+        f"{smi}")
 
     # ---- path 3: the sparse backend, and kernel 4's entry point ----------
     sparse = phase_sparse(torch, g, oracle, traversed, smi)
@@ -877,6 +1142,9 @@ def phase_main(torch, dev_info):
     seg_err = _max_err(red, want)
     seg_ms = _time_ms(torch, lambda: ss.segment_reduce(seg, msgs, V,
                                                        reduce="min"), reps=20)
+    seg_dev = {k: _device_ms(torch, lambda: ss.segment_reduce(
+        seg, msgs, V, reduce="min"), k)
+        for k in ("segment_fill", "segment_tile", "segment_fold")}
     seg_plain = _time_ms(torch, lambda: ss.segment_reduce_ref(
         seg, msgs, V, reduce="min"), reps=20)
     # the library call: an identity-filled table's amin scatter (amin is
@@ -891,10 +1159,14 @@ def phase_main(torch, dev_info):
     Es = int(seg.shape[0])
     seg_bytes = Es * 8 + V * 4
     seg_bound = 1e3 * max(seg_bytes / _BANDWIDTH, Es / _SCALAR_OPS)
+    dev_txt = ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f}'}"
+                        for k, v in seg_dev.items())
     log(f"[main] segment_reduce (min, E={Es}, V={V}, largest segment "
-        f"{int(in_deg.max())} elements): {seg_ms:.4f} ms, plain "
+        f"{int(in_deg.max())} elements, {-(-Es // ss.TILE)} tiles): "
+        f"{seg_ms:.4f} ms (device ms of its launches: {dev_txt}), plain "
         f"{seg_plain:.4f} ms, scatter_reduce_ amin {seg_lib:.4f} ms, bound "
-        f"{seg_bound:.4f} ms; ops.segment_reduce launches {seg_launches}")
+        f"{seg_bound:.4f} ms ({seg_bound / seg_ms:.3f} of it); "
+        f"ops.segment_reduce launches {seg_launches} on {smi}")
 
     sk = skip["narrow"]
     kernels = [
@@ -920,6 +1192,13 @@ def phase_main(torch, dev_info):
          "launches": auto_launches["push_ell"], "max_abs_err": pe_err,
          "ms": pe_ms, "plain_ms": pe_plain, "bound_ms": pe_bound,
          "bound_by": "bytes", "library_ms": None, "shape": [C, W, V]},
+        {"name": "push_ell_fused_reduce", "route": "cuda",
+         "source": "src/repro_torch/csrc/push_ell.cu",
+         "replaces": "src/repro/kernels/push_ell.py:89",
+         "launches": fused["launches"], "max_abs_err": fused["max_abs_err"],
+         "ms": fused["ms"], "plain_ms": fused["plain_ms"],
+         "bound_ms": fused["bound_ms"], "bound_by": "bytes",
+         "library_ms": fused["library_ms"], "shape": fused["shape"]},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_sum.cu",
          "replaces": "src/repro/kernels/segment_sum.py:24",
@@ -930,6 +1209,7 @@ def phase_main(torch, dev_info):
     per_bfs = {"edge_block_reduce": auto_launches["edge_block"],
                "edge_block_reduce_skip": skip_launches,
                "push_ell_message_block": auto_launches["push_ell"],
+               "push_ell_fused_reduce": auto_launches["push_ell_fused"],
                "segment_reduce": dense["auto"]["launches"]["segment_reduce"]}
     for k in kernels:
         log(json.dumps({"kernel": k["name"], "ms": k["ms"],
@@ -945,6 +1225,9 @@ def phase_main(torch, dev_info):
                "auto_decision_walls_ms": walls_ms, "bitmap_pays": pays,
                "host_sync_ms": sync_ms, "edge_block_skip": skip,
                "edge_block_device_ms": eb_dev,
+               "push_ell_fused": fused,
+               "push_ell_fused_levels": fused_levels,
+               "segment_reduce_device_ms": seg_dev,
                "edge_block_levels_ms": eb_levels,
                "sparse": sparse,
                "launches": {f"{p} {d}": r[d]["launches"]

@@ -19,8 +19,9 @@ device, under the pull, push and auto directions:
 The hand-written CUDA kernels are on exactly when the run's device is
 CUDA (the JAX package turns Pallas on exactly on a TPU): the dense sweep
 goes through ``kernels/edge_block.py``'s kernel, the bitmap plane through
-its block-skipping variant, and the compacted push message stage through
-``kernels/push_ell.py``'s.  On the CPU all take their plain PyTorch forms,
+its block-skipping variant, and the compacted push's messages and combine
+through ``kernels/push_ell.py``'s fused kernel.  On the CPU all take their
+plain PyTorch forms,
 so the tests hold the port against the JAX package there.  The sparse
 backend runs PyTorch scatters on either device, as the JAX package's runs
 XLA scatters.

@@ -50,7 +50,7 @@ __device__ __forceinline__ T gather_op(T v, float w, int d) {
 }
 
 template <typename T, int R>
-__device__ __forceinline__ T reduce_identity() {
+__host__ __device__ __forceinline__ T reduce_identity() {
   if constexpr (R == kAdd) {
     return static_cast<T>(0);
   } else if constexpr (std::is_floating_point<T>::value) {

@@ -1,11 +1,13 @@
-// Message stage of the frontier-compacted forward-ELL push superstep.
+// The frontier-compacted forward-ELL push superstep: its message stage,
+// and the message stage fused with the combine.
 //
-// Replaces the Pallas TPU kernel repro/kernels/push_ell.py::_message_kernel
-// (dispatched by push_ell_message_block).  For each compacted row c and
-// slot j: msg[c, j] = gather(values[src[c]], wgt[c, j], degrees[src[c]]).
-// PAD masking and the scatter-combine stay outside, as on the TPU
-// (repro_torch/kernels/push_ell.py::compacted_push_reduce).  The plain
-// version is push_ell_message_block_plain in the same module.
+// 1. push_ell_message_kernel replaces the Pallas TPU kernel
+// repro/kernels/push_ell.py::_message_kernel (dispatched by
+// push_ell_message_block).  For each compacted row c and slot j:
+// msg[c, j] = gather(values[src[c]], wgt[c, j], degrees[src[c]]).  PAD
+// masking and the scatter-combine stay outside, as on the TPU.  The
+// plain version is push_ell_message_block_plain in
+// repro_torch/kernels/push_ell.py.
 //
 // What bounds it on an H100: bytes.  It streams the (C, W) float32
 // weights in and the (C, W) messages out, plus one source id and one
@@ -15,6 +17,44 @@
 // Design: one thread per (row, slot), so both streams are coalesced; the
 // W threads of a row read the same source id and value, which the
 // hardware serves as one broadcast load per warp segment.
+//
+// 2. push_ell_fused_kernel is the whole superstep reduce after the
+// compaction, which the translator's push path launches in place of (1)
+// and the combine: the TPU kernel left its combine to XLA's segment
+// reduce, because a data-dependent scatter does not map onto a dense TPU
+// grid (repro/kernels/push_ell.py, compacted_push_reduce); on Hopper it
+// maps onto atomics.  For each compacted row c with ok[c], the row
+// r = sel[c] of the forward ELL is read in place (no (C, W) copy of its
+// ids, weights or sources, and no messages in memory): its source's value
+// (and degree) once, then for each slot whose id is a vertex (not PAD)
+// the menu gather, combined into the identity-filled (V,) table with an
+// atomic, and with a touched table, a plain store of 1.  The plain
+// version is push_ell_fused_reduce_plain (messages, then
+// scatter_reduce_).  Push is legal only for min, max and integer add, so
+// the atomics give the plain version's result in any order:
+// - int32 min/max: a plain read of the word (through L2, the
+//   test-before-atomic) and atomicMin/atomicMax only when the message
+//   would change it.  The table only moves one way, so a stale read can
+//   cost an atomic but never skip a needed one.  In a BFS superstep every
+//   message carries the same level, so most messages to a hub find it
+//   already written and issue nothing.
+// - float32 min/max: the same test, then a compare-and-swap loop that
+//   stores the message while it still improves the word: smaller (min) or
+//   larger (max), or NaN over a number, so NaN propagates as
+//   gather_ops.cuh's combine does and +0 and -0 count as equal.
+// - int32 add: atomicAdd, which wraps modulo 2^32 like the plain sum.
+// Float add is refused.
+//
+// What bounds it: bytes.  The function must read the compacted rows' ids
+// (sel and ok, then W ids a live row), one source id and value (and
+// degree, for div_deg) a row, the weights only for add_w and mul_w, and
+// write the table's fill and one word a valid slot.  The table (16.8 MB
+// at scale 22) stays in L2, where the reads and atomics land.
+//
+// Design: one thread per compacted row, so the source is read once a
+// row; at W = 8 (the width every caller passes) a row's ids, and weights
+// where used, come as two 16-byte loads, then the row's 8 table reads are
+// issued together before its atomics.
 #include "gather_ops.cuh"
 
 namespace repro_torch {
@@ -80,6 +120,178 @@ cudaError_t by_gather(int gather, const void* wgt, const void* src,
   }
 }
 
+// Would combining m into cur change it (min/max)?  NaN beats any number;
+// nothing beats NaN; +0 and -0 tie.
+template <typename T, int R>
+__device__ __forceinline__ bool improves(T cur, T m) {
+  if constexpr (std::is_floating_point<T>::value) {
+    if (cur != cur) return false;
+    if (m != m) return true;
+  }
+  return R == kMin ? m < cur : m > cur;
+}
+
+// Combine message m into *addr; cur is a plain read of *addr made after
+// the table's fill (possibly stale, never older than the fill).
+template <typename T, int R>
+__device__ __forceinline__ void atomic_combine(T* addr, T m, T cur) {
+  if constexpr (R == kAdd) {
+    static_assert(!std::is_floating_point<T>::value,
+                  "float add is not a push reduce");
+    atomicAdd(addr, m);
+  } else if constexpr (std::is_floating_point<T>::value) {
+    // compare-and-swap on the bit patterns
+    int* word = reinterpret_cast<int*>(addr);
+    while (improves<T, R>(cur, m)) {
+      const int seen =
+          atomicCAS(word, __float_as_int(cur), __float_as_int(m));
+      if (seen == __float_as_int(cur)) break;
+      cur = __int_as_float(seen);
+    }
+  } else {
+    if (improves<T, R>(cur, m)) {
+      if constexpr (R == kMin) {
+        atomicMin(addr, m);
+      } else {
+        atomicMax(addr, m);
+      }
+    }
+  }
+}
+
+constexpr int kSlotBatch = 8;
+
+template <typename T, int G, int R>
+__global__ void push_ell_fused_kernel(
+    const int* __restrict__ sel, const uint8_t* __restrict__ ok,
+    const int* __restrict__ row_src, const int* __restrict__ ell_dst,
+    const float* __restrict__ ell_wgt, const T* __restrict__ values,
+    const int* __restrict__ degrees, T* table, uint8_t* touched,
+    long long rows, int width, long long V, bool vec8) {
+  const long long c = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (c >= rows || !ok[c]) return;
+  const long long r = __ldg(sel + c);
+  const int s = __ldg(row_src + r);
+  const T v = __ldg(values + s);
+  const int d = G == kDivDeg ? __ldg(degrees + s) : 0;
+  constexpr bool kWeighted = G == kAddW || G == kMulW;
+  const int* ids = ell_dst + r * width;
+  const float* wts = ell_wgt + r * width;
+  for (int j0 = 0; j0 < width; j0 += kSlotBatch) {
+    int u[kSlotBatch];
+    float w[kSlotBatch];
+    if (vec8) {                      // width 8, 16-byte aligned rows
+      const int4 a = __ldg(reinterpret_cast<const int4*>(ids));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(ids) + 1);
+      u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
+      u[4] = b.x; u[5] = b.y; u[6] = b.z; u[7] = b.w;
+      if constexpr (kWeighted) {
+        const float4 p = __ldg(reinterpret_cast<const float4*>(wts));
+        const float4 q = __ldg(reinterpret_cast<const float4*>(wts) + 1);
+        w[0] = p.x; w[1] = p.y; w[2] = p.z; w[3] = p.w;
+        w[4] = q.x; w[5] = q.y; w[6] = q.z; w[7] = q.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSlotBatch; ++k) w[k] = 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kSlotBatch; ++k) {
+        const bool in = j0 + k < width;
+        u[k] = in ? __ldg(ids + j0 + k) : kPad;
+        w[k] = (kWeighted && in) ? __ldg(wts + j0 + k) : 0.0f;
+      }
+    }
+    // the test-before-atomic reads of min and max, all in flight
+    // together; a slot whose id is not a vertex (PAD) is skipped
+    T cur[kSlotBatch];
+#pragma unroll
+    for (int k = 0; k < kSlotBatch; ++k) {
+      cur[k] = (R != kAdd && static_cast<unsigned>(u[k]) < V)
+                   ? __ldcg(table + u[k])
+                   : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kSlotBatch; ++k) {
+      if (static_cast<unsigned>(u[k]) >= V) continue;
+      atomic_combine<T, R>(table + u[k], gather_op<T, G>(v, w[k], d),
+                           cur[k]);
+      if (touched != nullptr) touched[u[k]] = 1;
+    }
+  }
+}
+
+template <typename T, int G, int R>
+cudaError_t launch_fused(const void* sel, const void* ok, const void* row_src,
+                         const void* ell_dst, const void* ell_wgt,
+                         const void* values, const void* degrees, void* table,
+                         void* touched, long long rows, int width,
+                         long long V, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  if (rows == 0) return cudaSuccess;
+  const long long blocks = (rows + kThreads - 1) / kThreads;
+  const bool vec8 = width == kSlotBatch &&
+                    reinterpret_cast<uintptr_t>(ell_dst) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(ell_wgt) % 16 == 0;
+  push_ell_fused_kernel<T, G, R><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const int*>(sel), static_cast<const uint8_t*>(ok),
+      static_cast<const int*>(row_src), static_cast<const int*>(ell_dst),
+      static_cast<const float*>(ell_wgt), static_cast<const T*>(values),
+      static_cast<const int*>(degrees), static_cast<T*>(table),
+      static_cast<uint8_t*>(touched), rows, width, V, vec8);
+  return cudaGetLastError();
+}
+
+#define FUSED_ARGS sel, ok, row_src, ell_dst, ell_wgt, values, degrees, \
+                   table, touched, rows, width, V, stream
+
+template <typename T, int G>
+cudaError_t fused_by_reduce(int reduce, const void* sel, const void* ok,
+                            const void* row_src, const void* ell_dst,
+                            const void* ell_wgt, const void* values,
+                            const void* degrees, void* table, void* touched,
+                            long long rows, int width, long long V,
+                            cudaStream_t stream) {
+  switch (reduce) {
+    case kMin: return launch_fused<T, G, kMin>(FUSED_ARGS);
+    case kMax: return launch_fused<T, G, kMax>(FUSED_ARGS);
+    case kAdd:
+      // a push reduce only on integers: a float sum depends on the order
+      if constexpr (std::is_floating_point<T>::value) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch_fused<T, G, kAdd>(FUSED_ARGS);
+      }
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t fused_by_gather(int gather, int reduce, const void* sel,
+                            const void* ok, const void* row_src,
+                            const void* ell_dst, const void* ell_wgt,
+                            const void* values, const void* degrees,
+                            void* table, void* touched, long long rows,
+                            int width, long long V, cudaStream_t stream) {
+  switch (gather) {
+    case kCopy: return fused_by_reduce<T, kCopy>(reduce, FUSED_ARGS);
+    case kPlusOne: return fused_by_reduce<T, kPlusOne>(reduce, FUSED_ARGS);
+    case kAddW: return fused_by_reduce<T, kAddW>(reduce, FUSED_ARGS);
+    case kMulW: return fused_by_reduce<T, kMulW>(reduce, FUSED_ARGS);
+    case kDivDeg:
+      // a true division: defined for float values only
+      if constexpr (std::is_floating_point<T>::value) {
+        return fused_by_reduce<T, kDivDeg>(reduce, FUSED_ARGS);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+#undef FUSED_ARGS
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -100,4 +312,30 @@ extern "C" int push_ell_message_launch(int device, int gather,
                                 width, s)
              : by_gather<int>(gather, wgt, src, values, degrees, out, rows,
                               width, s);
+}
+
+// C entry point of the fused kernel.  sel (rows,) int32 and ok (rows,)
+// bool are the compaction's output; ell_dst (R, width) int32, ell_wgt
+// (R, width) float32 and row_src (R,) int32 the forward ELL; table (V,)
+// holds the reduce identity on entry; touched (V,) bool is zero on entry,
+// or null.  Returns the cudaError_t of the launch (0 = success).
+extern "C" int push_ell_fused_launch(int device, int gather, int reduce,
+                                     int value_is_float, const void* sel,
+                                     const void* ok, const void* row_src,
+                                     const void* ell_dst,
+                                     const void* ell_wgt, const void* values,
+                                     const void* degrees, void* table,
+                                     void* touched, long long rows,
+                                     int width, long long V, void* stream) {
+  using namespace repro_torch;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return value_is_float
+             ? fused_by_gather<float>(gather, reduce, sel, ok, row_src,
+                                      ell_dst, ell_wgt, values, degrees,
+                                      table, touched, rows, width, V, s)
+             : fused_by_gather<int>(gather, reduce, sel, ok, row_src,
+                                    ell_dst, ell_wgt, values, degrees, table,
+                                    touched, rows, width, V, s);
 }

@@ -30,18 +30,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
-# C signature of each library's entry point: (symbol, argtypes)
+# C signatures of each library's entry points: {symbol: argtypes}
 _ENTRY = {
-    "decode_gqa": ("decode_gqa_launch",
+    "decode_gqa": {"decode_gqa_launch":
                    [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _L,
-                    _L, _L, _L, _L, _L, _P, _L, _P, _P, _P, _P]),
-    "edge_block": ("edge_block_reduce_launch",
+                    _L, _L, _L, _L, _L, _P, _L, _P, _P, _P, _P]},
+    "edge_block": {"edge_block_reduce_launch":
                    [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                    _L, _P, _P, _L, _I, _P]),
-    "push_ell": ("push_ell_message_launch",
-                 [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P]),
-    "segment_sum": ("segment_reduce_launch",
-                    [_I, _I, _I, _P, _P, _P, _L, _L, _P]),
+                    _L, _P, _P, _L, _I, _P]},
+    "push_ell": {"push_ell_message_launch":
+                 [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
+                 "push_ell_fused_launch":
+                 [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                  _I, _L, _P]},
+    "segment_sum": {"segment_reduce_launch":
+                    [_I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P]},
 }
 
 # Loaded libraries, one per source: a shared library is process-wide
@@ -115,9 +118,9 @@ def library(name: str):
         if not path.exists():
             build()
         lib = ctypes.CDLL(str(path))
-        symbol, argtypes = _ENTRY[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in _ENTRY[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return _LOADED[name]

@@ -3,14 +3,14 @@
 Counterpart of ``repro.kernels.ops`` for tests and direct callers (the
 translator stages the modules itself).  The kernel wrappers dispatch by
 device on their own — ``edge_block.edge_block_reduce``,
-``push_ell.push_ell_message_block``, ``segment_sum.segment_reduce`` and
-``decode_gqa.decode_gqa`` take their plain version for CPU tensors and
-launch their CUDA kernel for CUDA tensors — so what is left here is
-argument plumbing: the touched summary of the bitmap pull plane, the
-segment reduce (kernel 4's one entry point, as in the JAX package), the
-two push reduces with the reduce identity folded from the menu names, and
-the decode attention (kernel 5's entry point, which the served model's
-decode step calls).
+``push_ell.push_ell_message_block``, ``push_ell.push_ell_fused_reduce``,
+``segment_sum.segment_reduce`` and ``decode_gqa.decode_gqa`` take their
+plain version for CPU tensors and launch their CUDA kernel for CUDA
+tensors — so what is left here is argument plumbing: the touched summary
+of the bitmap pull plane, the segment reduce (kernel 4's one entry point,
+as in the JAX package), the two push reduces with the reduce identity
+folded from the menu names, and the decode attention (kernel 5's entry
+point, which the served model's decode step calls).
 """
 from __future__ import annotations
 
@@ -63,9 +63,9 @@ def push_ell_reduce(row_src, ell_dst, ell_wgt, values, degrees, active, *,
     """Frontier-compacted forward-ELL push reduce (menu-gather dispatch).
 
     The reduce identity is folded here and ``emit_touched`` defaults on,
-    so the result matches ``ref.push_scatter_reduce_ref``; the message
-    stage is the CUDA kernel exactly when the tensors are on a CUDA
-    device.
+    so the result matches ``ref.push_scatter_reduce_ref``; the messages
+    and combine are the fused CUDA kernel exactly when the tensors are on
+    a CUDA device.
     """
     if not mask_inactive:
         active = torch.ones_like(active)

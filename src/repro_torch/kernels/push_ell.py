@@ -1,19 +1,27 @@
 """Frontier-compacted forward-ELL push module.
 
-Counterpart of ``repro.kernels.push_ell``, in three stages:
+Counterpart of ``repro.kernels.push_ell``, in two stages:
 
 1. **Compaction** — the live forward-ELL rows (a vertex with out-degree
    ``d`` owns ``ceil(d/width)`` rows) compact into a fixed-capacity buffer
    of row ids, in storage order (:func:`compact_rows`).
-2. **Messages** — the compacted rows' ``(capacity, width)`` blocks are
-   gathered and each slot's message computed: on a CUDA device by the
-   hand-written kernel ``csrc/push_ell.cu`` (:func:`push_ell_message_block`),
-   on the CPU by its plain version.
-3. **Combine** — messages land in a ``(V+1,)`` identity-filled table with
-   ``scatter_reduce_`` (PAD slots go to the dummy slot ``V``, sliced off),
-   which matches ``jax.ops.segment_min/max/sum``'s empty-segment fill.
-   Push is legal only for min, max and integer add, so the combine is
-   exact in any order.
+2. **Messages and combine** — each compacted row's source state is
+   gathered once, each non-PAD slot's message computed, and the messages
+   combined into a ``(V,)`` identity-filled table, which matches
+   ``jax.ops.segment_min/max/sum``'s empty-segment fill.  On a CUDA
+   device this is one hand-written kernel, ``csrc/push_ell.cu``'s fused
+   kernel (:func:`push_ell_fused_reduce`): it reads the rows in place
+   through the compaction and combines with atomics, so no ``(C, W)``
+   block or message is written.  On the CPU, and for a gather outside
+   the menu, it is the plain version (:func:`push_ell_fused_reduce_plain`):
+   the ``(C, W)`` blocks gathered, the messages computed, and
+   ``scatter_reduce_`` into a ``(V+1,)`` table whose dummy slot ``V`` takes
+   the PAD slots.  Push is legal only for min, max and integer add, so
+   the combine is exact in any order.
+
+:func:`push_ell_message_block` (``csrc/push_ell.cu``'s message kernel) is
+the counterpart of the JAX function of that name, the message stage
+alone; the translator's push path no longer calls it.
 
 Work is O(R + capacity·width) per superstep; the translator picks the
 capacity tier from the live row count ``r_f`` (or the dense fallback).
@@ -145,34 +153,26 @@ def push_ell_reduce(row_src, ell_dst, ell_wgt, values, degrees, active, *,
         emit_touched=emit_touched)
 
 
-def compacted_push_reduce(row_src, ell_dst, ell_wgt, live, values, degrees,
-                          *, num_rows: int, capacity: int,
-                          gather_fn: Callable, reduce: str, identity,
-                          num_vertices: int, dtype: torch.dtype,
-                          gather_module: str | None = None,
-                          use_kernels: bool = False,
-                          emit_touched: bool = False):
-    """Compaction → messages → combine over a live-row mask.
+def push_ell_fused_reduce_plain(sel, ok, row_src, ell_dst, ell_wgt, values,
+                                degrees, *, reduce: str, identity,
+                                num_vertices: int, dtype: torch.dtype,
+                                gather: str | None = None,
+                                gather_fn: Callable | None = None,
+                                emit_touched: bool = False):
+    """Plain messages-and-combine over compacted rows: ``(red, touched)``.
 
-    With ``use_kernels`` the message stage is the CUDA kernel, which
-    evaluates menu gathers only; otherwise the plain version runs the
-    program's own ``gather_fn``, as the JAX package's XLA path does.
+    The ``(C, W)`` blocks of the rows ``sel`` (PAD where not ``ok``) are
+    gathered, their messages computed (menu name or callable), and the
+    valid slots' messages scattered into a ``(V+1,)`` identity-filled
+    table, PAD slots into the dummy slot ``V``, which is sliced off; with
+    ``emit_touched``, a ``(V,)`` bool mask of the destinations of valid
+    slots.
     """
-    if reduce not in REDUCE_OPS:
-        raise ValueError(reduce)
-    if use_kernels and gather_module is None:
-        raise ValueError("the push message kernel needs a menu gather")
-    sel, ok = compact_rows(live, num_rows, capacity)
     sel = sel.long()
     dst_blk = torch.where(ok[:, None], ell_dst[sel], PAD)   # (cap, W)
-    wgt_blk = ell_wgt[sel]
-    src_blk = row_src[sel]
-    if use_kernels:
-        msg = push_ell_message_block(dst_blk, wgt_blk, src_blk, values,
-                                     degrees, gather=gather_module)
-    else:
-        msg = push_ell_message_block_plain(dst_blk, wgt_blk, src_blk, values,
-                                           degrees, gather_fn=gather_fn)
+    msg = push_ell_message_block_plain(dst_blk, ell_wgt[sel], row_src[sel],
+                                       values, degrees, gather=gather,
+                                       gather_fn=gather_fn)
     if isinstance(identity, torch.Tensor):
         identity = identity.item()
     valid = dst_blk != PAD
@@ -189,3 +189,115 @@ def compacted_push_reduce(row_src, ell_dst, ell_wgt, live, values, degrees,
             0, segs, valid.reshape(-1).to(torch.uint8), "amax",
             include_self=True)[:num_vertices] != 0
     return red, touched
+
+
+def push_ell_fused_reduce(sel, ok, row_src, ell_dst, ell_wgt, values,
+                          degrees, *, gather: str, reduce: str, identity,
+                          num_vertices: int, dtype: torch.dtype,
+                          emit_touched: bool = False):
+    """Messages of the compacted rows combined into a ``(V,)`` table:
+    ``(red, touched)``, ``touched`` a ``(V,)`` bool mask or ``None``.
+
+    ``sel``/``ok`` are :func:`compact_rows`' output; the forward ELL
+    (``row_src``, ``ell_dst``, ``ell_wgt``) is read in place.  CPU tensors
+    take :func:`push_ell_fused_reduce_plain`; CUDA tensors launch
+    ``csrc/push_ell.cu``'s fused kernel, which combines with atomics and so
+    takes min, max and integer add only (the reduces a push may run).
+    """
+    if gather not in GATHER_OPS:
+        raise ValueError(f"not a menu gather: {gather!r}")
+    if reduce not in REDUCE_OPS:
+        raise ValueError(f"not a menu reduce: {reduce!r}")
+    if gather == "div_deg" and not values.dtype.is_floating_point:
+        raise ValueError("div_deg is a true division: it needs float values")
+    if values.device.type == "cpu":
+        return push_ell_fused_reduce_plain(
+            sel, ok, row_src, ell_dst, ell_wgt, values, degrees,
+            reduce=reduce, identity=identity, num_vertices=num_vertices,
+            dtype=dtype, gather=gather, emit_touched=emit_touched)
+    if values.device.type != "cuda":
+        raise ValueError(f"push_ell_fused_reduce runs on CPU or CUDA "
+                         f"tensors, got {values.device}")
+    if values.dtype not in _VALUE_DTYPES or dtype != values.dtype:
+        raise TypeError(f"the kernel takes int32 or float32 values of the "
+                        f"table's dtype, got {values.dtype} for {dtype}")
+    if reduce == "add" and dtype.is_floating_point:
+        raise ValueError("a float add is not a push reduce: its sum "
+                         "depends on the order of the atomics")
+    C = sel.shape[0]
+    R, W = ell_dst.shape
+    V = values.shape[0]
+    if num_vertices != V:
+        raise ValueError(f"num_vertices {num_vertices} != values' {V}")
+    want = {"sel": (sel, torch.int32, (C,)),
+            "ok": (ok, torch.bool, (C,)),
+            "row_src": (row_src, torch.int32, (R,)),
+            "ell_dst": (ell_dst, torch.int32, (R, W)),
+            "ell_wgt": (ell_wgt, torch.float32, (R, W)),
+            "values": (values, values.dtype, (V,)),
+            "degrees": (degrees, torch.int32, (V,))}
+    for name, (t, t_dtype, shape) in want.items():
+        if t.device != values.device or t.dtype != t_dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {t_dtype} tensor of shape "
+                f"{shape} on {values.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+    if isinstance(identity, torch.Tensor):
+        identity = identity.item()
+    table = torch.full((V,), identity, dtype=dtype, device=values.device)
+    touched = (torch.zeros((V,), dtype=torch.bool, device=values.device)
+               if emit_touched else None)
+    if C == 0 or V == 0:
+        return table, touched
+    lib = _build.library("push_ell")
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = lib.push_ell_fused_launch(
+        values.device.index or 0, GATHER_OPS.index(gather),
+        REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
+        sel.data_ptr(), ok.data_ptr(), row_src.data_ptr(),
+        ell_dst.data_ptr(), ell_wgt.data_ptr(), values.data_ptr(),
+        degrees.data_ptr(), table.data_ptr(),
+        touched.data_ptr() if touched is not None else None, C, W, V,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"push_ell fused kernel launch failed: "
+                           f"cudaError_t {err}")
+    push_ell_fused_reduce.launches += 1
+    return table, touched
+
+
+# launches of the CUDA kernel since the count was last set to 0
+push_ell_fused_reduce.launches = 0
+
+
+def compacted_push_reduce(row_src, ell_dst, ell_wgt, live, values, degrees,
+                          *, num_rows: int, capacity: int,
+                          gather_fn: Callable, reduce: str, identity,
+                          num_vertices: int, dtype: torch.dtype,
+                          gather_module: str | None = None,
+                          use_kernels: bool = False,
+                          emit_touched: bool = False):
+    """Compaction, then messages and combine, over a live-row mask.
+
+    With ``use_kernels`` the messages and combine are the fused CUDA
+    kernel (:func:`push_ell_fused_reduce`), which evaluates menu gathers
+    only; otherwise the plain version runs the program's own
+    ``gather_fn``, as the JAX package's XLA path does.
+    """
+    if reduce not in REDUCE_OPS:
+        raise ValueError(reduce)
+    if use_kernels and gather_module is None:
+        raise ValueError("the push kernel needs a menu gather")
+    sel, ok = compact_rows(live, num_rows, capacity)
+    if use_kernels:
+        return push_ell_fused_reduce(
+            sel, ok, row_src, ell_dst, ell_wgt, values, degrees,
+            gather=gather_module, reduce=reduce, identity=identity,
+            num_vertices=num_vertices, dtype=dtype,
+            emit_touched=emit_touched)
+    return push_ell_fused_reduce_plain(
+        sel, ok, row_src, ell_dst, ell_wgt, values, degrees, reduce=reduce,
+        identity=identity, num_vertices=num_vertices, dtype=dtype,
+        gather_fn=gather_fn, emit_touched=emit_touched)

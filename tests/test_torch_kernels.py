@@ -459,3 +459,314 @@ def test_push_scatter_reduce_matches(gather, reduce, dtype, num_chunks):
     o = tref.push_scatter_reduce_ref(*_t(src, dst, w, vals, deg, act),
                                      gather=gather, reduce=reduce)
     assert all(torch.equal(a, b) for a, b in zip(o, t))
+
+
+# ---------------------------------------------------------------------------
+# kernel 4's decomposition: tiles, a segmented scan, ordered carries
+# ---------------------------------------------------------------------------
+
+
+def _combine_fn(reduce, is_float):
+    """gather_ops.cuh's combine on scalars: float32 arithmetic, int32 add
+    wrapping, min and max propagating NaN."""
+    if reduce == "add":
+        if is_float:
+            return lambda a, b: np.float32(np.float32(a) + np.float32(b))
+        return lambda a, b: (a + b + 2**31) % 2**32 - 2**31
+    if reduce == "min":
+        return lambda acc, m: acc if (acc < m or acc != acc) else m
+    return lambda acc, m: acc if (acc > m or acc != acc) else m
+
+
+def _tiled_segment_reduce(seg, val, S, reduce, threads, items):
+    """Kernel 4's decomposition (``csrc/segment_sum.cu``) at a tile of
+    ``threads × items`` elements: a fill; per tile, each thread's runs,
+    an exclusive segmented scan over the threads carrying the open run
+    in, each finished run written out or, where it crosses the tile's
+    edge, to the tile's carries, with the tile's flags written by the
+    thread that ends its last run; then each run that crosses tiles
+    folded from its carries in tile order by the tile where it starts."""
+    n, tile = len(seg), threads * items
+    is_float = val.dtype == np.float32
+    cast = np.float32 if is_float else int
+    comb = _combine_fn(reduce, is_float)
+    ident = cast(tref._identity(reduce, torch.float32 if is_float
+                                else torch.int32))
+    out = [ident] * S
+    tiles = -(-n // tile)
+    cf, cl, flags = [None] * tiles, [None] * tiles, [None] * tiles
+    beyond = -2 if n and int(seg[n - 1]) == -1 else -1
+    for b in range(tiles):
+        base = b * tile
+        tile_end = min(base + tile, n)
+        last_i = tile_end - 1
+        cont_prev = base > 0 and seg[base - 1] == seg[base]
+        cont_next = tile_end < n and seg[tile_end] == seg[tile_end - 1]
+
+        def finish(key, agg, starts, ends):
+            to_first, to_last = starts and cont_prev, ends and cont_next
+            if to_first:
+                cf[b] = agg
+            if to_last:
+                cl[b] = agg
+            if not (to_first or to_last) and 0 <= key < S:
+                out[key] = agg
+            if ends:
+                assert flags[b] is None, "a tile's flags written twice"
+                flags[b] = (starts, cont_prev, cont_next)
+
+        K = [[int(seg[i]) if i < n else beyond
+              for i in range(base + t * items, base + (t + 1) * items)]
+             for t in range(threads)]
+        Vs = [[cast(val[i]) if i < n else ident
+               for i in range(base + t * items, base + (t + 1) * items)]
+              for t in range(threads)]
+        ef, ea = False, ident        # exclusive scan: (head seen, partial)
+        for t in range(threads):
+            k, v, i0 = K[t], Vs[t], base + t * items
+            head_in, first_end, acc, first_agg = False, items - 1, v[0], None
+            for j in range(1, items):
+                if k[j] != k[j - 1]:
+                    if not head_in:
+                        first_agg, first_end, head_in = acc, j - 1, True
+                    else:
+                        finish(k[j - 1], acc, False, i0 + j - 1 == last_i)
+                    acc = v[j]
+                else:
+                    acc = comb(acc, v[j])
+            if not head_in:
+                first_agg = acc
+            head0 = t > 0 and k[0] != K[t - 1][-1]
+            if i0 < n:
+                carried = t > 0 and not head0
+                starts = t == 0 or (carried and not ef)
+                full = comb(ea, first_agg) if carried else first_agg
+                ends7 = t == threads - 1 or K[t + 1][0] != k[-1]
+                if head_in:
+                    finish(k[0], full, starts, i0 + first_end == last_i)
+                    if ends7:
+                        finish(k[-1], acc, False, i0 + items - 1 == last_i)
+                elif ends7:
+                    finish(k[0], full, starts, i0 + items - 1 == last_i)
+            f = head_in or head0
+            if t == 0:
+                ef, ea = f, acc
+            else:
+                ea = acc if f else comb(ea, acc)
+                ef = ef or f
+    assert all(fl is not None for fl in flags), "a tile without flags"
+    for b in range(tiles):
+        single, cont_prev, cont_next = flags[b]
+        if not cont_next or (single and cont_prev):
+            continue
+        key = int(seg[(b + 1) * tile])
+        if not 0 <= key < S:
+            continue
+        acc = cl[b]
+        for j in range(b + 1, tiles):
+            acc = comb(acc, cf[j])
+            if not (flags[j][0] and flags[j][2]):
+                break
+        out[key] = acc
+    return np.array(out, dtype=val.dtype)
+
+
+_TILE_SHAPES = ((2, 3), (4, 2), (3, 4))       # threads × items a tile
+
+
+def _tiling_case(case, dtype, rng):
+    """(seg, val, S) of a kernel 4 tiling case; tiles of 6, 8 or 12
+    elements (``_TILE_SHAPES``)."""
+    S = 40
+    if case == "hub":           # a hub over many tiles, at an odd offset
+        seg = np.sort(np.concatenate([rng.integers(0, S, 61),
+                                      np.full(90, 17)]))
+    elif case == "boundary":    # runs that end on tile boundaries
+        lengths = [24, 11, 1, 48, 3, 9, 12, 6, 1, 23]
+        seg = np.repeat(np.arange(0, 2 * len(lengths), 2), lengths)
+    elif case == "int_max_tail":     # a valid run, then INT_MAX mid-tile
+        seg = np.concatenate([np.sort(rng.integers(0, S, 29)),
+                              np.full(31, PAD)])
+    elif case == "small":       # fewer elements than one tile
+        seg = np.sort(rng.integers(0, S, 5))
+    elif case == "empty":
+        seg = np.zeros(0, np.int64)
+    elif case == "sparse":      # most segments empty
+        S = 1000
+        seg = np.sort(rng.integers(0, S, 70))
+    else:                       # nan_carry: NaN in a hub's first tile
+        seg = np.sort(np.concatenate([rng.integers(0, S, 20),
+                                      np.full(60, 11)]))
+    seg = seg.astype(np.int32)
+    E = len(seg)
+    if dtype == np.int32:
+        val = rng.integers(-1000, 1000, E).astype(np.int32)
+        if case == "hub":       # an int add that wraps
+            hub = seg == 17
+            val[hub] = 2**31 - 1 - rng.integers(0, 5, int(hub.sum()))
+    else:
+        val = rng.uniform(-5, 5, E).astype(np.float32)
+        if case == "nan_carry":
+            val[np.flatnonzero(seg == 11)[0]] = np.nan
+        elif E:
+            val[rng.integers(0, E, max(E // 20, 1))] = np.nan
+    return seg, val, S
+
+
+@pytest.mark.parametrize("reduce", REDUCES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", ["hub", "boundary", "int_max_tail",
+                                  "small", "empty", "sparse", "nan_carry"])
+def test_segment_reduce_tiled_matches_plain(reduce, dtype, case):
+    """Kernel 4's tiled decomposition with ordered carries equals the
+    plain version and the JAX kernel (interpret mode; its oracle at E =
+    0, which the kernel's padding does not take): min, max and int32
+    exactly, float add within rtol 1e-5 (the tiles sum in another
+    order), over tiles of 6, 8 and 12 elements."""
+    from repro.kernels import segment_sum as rss
+    rng = np.random.default_rng(len(case) * 11 + len(reduce))
+    seg, val, S = _tiling_case(case, dtype, rng)
+    want = tref.segment_reduce_ref(*_t(seg, val), S, reduce=reduce).numpy()
+    if len(seg):
+        jax_out = rss.segment_reduce(jnp.asarray(seg), jnp.asarray(val), S,
+                                     reduce=reduce, block_e=16,
+                                     interpret=True)
+    else:
+        jax_out = rref.segment_reduce_ref(jnp.asarray(seg), jnp.asarray(val),
+                                          S, reduce=reduce)
+    float_add = dtype == np.float32 and reduce == "add"
+    if float_add:
+        np.testing.assert_allclose(want, np.asarray(jax_out), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        np.testing.assert_array_equal(want, np.asarray(jax_out))
+    for threads, items in _TILE_SHAPES:
+        got = _tiled_segment_reduce(seg, val, S, reduce, threads, items)
+        assert got.dtype == want.dtype
+        if float_add:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got, want)
+    if case == "nan_carry" and dtype == np.float32 and reduce != "add":
+        assert np.isnan(want[11])       # the NaN crossed tiles as a carry
+
+
+# ---------------------------------------------------------------------------
+# kernel 3 fused with the combine: the contract of the fused push kernel
+# ---------------------------------------------------------------------------
+
+
+def _fused_push_emulation(sel, ok, row_src, ell_dst, ell_wgt, values,
+                          degrees, *, gather, reduce, order_seed):
+    """The fused push kernel's contract, slot by slot in a shuffled order:
+    only compacted rows with ``ok`` and slots whose id is a vertex are
+    visited (no PAD, no dummy slot), each message combined into a ``(V,)``
+    identity table as the kernel's atomics do (min/max replace only on an
+    improvement, NaN over a number; int add wraps), and each visited
+    destination marked touched."""
+    V = values.shape[0]
+    is_float = values.dtype.is_floating_point
+    comb = _combine_fn(reduce, is_float)
+    cast = np.float32 if is_float else int
+    table = [cast(tref._identity(reduce, values.dtype))] * V
+    touched = [False] * V
+    rows = sel[ok].long()
+    dst = ell_dst[rows]
+    src = row_src[rows].long()
+    msg = tref.gather_msg(gather, values[src][:, None].expand(dst.shape),
+                          ell_wgt[rows].to(values.dtype),
+                          degrees[src][:, None].expand(dst.shape))
+    slots = [(c, j) for c in range(dst.shape[0]) for j in range(dst.shape[1])
+             if 0 <= int(dst[c, j]) < V]
+    for i in np.random.default_rng(order_seed).permutation(len(slots)):
+        c, j = slots[i]
+        u, m = int(dst[c, j]), cast(msg[c, j].item())
+        table[u] = comb(table[u], m)
+        touched[u] = True
+    return (torch.as_tensor(np.array(table, dtype=np.float32 if is_float
+                                     else np.int32)),
+            torch.as_tensor(touched))
+
+
+_FUSED_CASES = [(g, r, d) for g in GATHERS for r in REDUCES
+                for d in (np.int32, np.float32)
+                if not (g == "div_deg" and d == np.int32)
+                and not (r == "add" and d == np.float32)]
+
+
+@pytest.mark.parametrize("gather,reduce,dtype", _FUSED_CASES)
+@pytest.mark.parametrize("touched", [True, False])
+def test_fused_push_matches_plain_and_jax(gather, reduce, dtype, touched):
+    """The fused push kernel's contract (only valid slots of live rows,
+    combined in any order, into a ``(V,)`` table) equals its plain
+    version (messages, then ``scatter_reduce_`` with PAD to the dummy
+    slot) and the JAX ``push_ell_reduce`` with its Pallas message stage in
+    interpret mode, exactly, for every legal (gather, reduce, dtype): over
+    all-PAD rows, slots past the live count, a destination receiving
+    hundreds of messages, NaN and ±0 values, and random, empty and full
+    frontiers."""
+    rng = np.random.default_rng(len(gather) * 5 + len(reduce))
+    V, R, W = 60, 120, 8
+    row_src = np.sort(rng.integers(0, V, R)).astype(np.int32)
+    dst = rng.integers(0, V, (R, W)).astype(np.int32)
+    dst[rng.random((R, W)) < 0.35] = 7         # a hub destination
+    dst[rng.random((R, W)) < 0.25] = PAD
+    dst[:3] = PAD                              # all-PAD rows
+    wgt = rng.uniform(0.5, 4.0, (R, W)).astype(np.float32)
+    if dtype == np.int32:
+        vals = rng.integers(-50, 50, V).astype(np.int32)
+        vals[:4] = 2**31 - 1 - np.arange(4)    # an int add that wraps
+    else:
+        vals = rng.uniform(-5, 5, V).astype(np.float32)
+        vals[rng.integers(0, V, 3)] = np.nan
+        vals[10:14] = [0.0, -0.0, 0.0, -0.0]
+    deg = rng.integers(0, 9, V).astype(np.int32)
+    assert int((dst == 7).sum()) >= 200
+    for act in (rng.random(V) < 0.5, np.zeros(V, bool), np.ones(V, bool)):
+        live = torch.as_tensor(act[row_src])
+        cap = R + 5                            # slots past the live count
+        sel, ok = tpe.compact_rows(live, R, cap)
+        args = _t(row_src, dst, wgt, vals, deg)
+        kw = dict(reduce=reduce, identity=tref._identity(
+            reduce, args[3].dtype), num_vertices=V, dtype=args[3].dtype,
+            emit_touched=touched)
+        got = tpe.push_ell_fused_reduce(sel, ok, *args, gather=gather, **kw)
+        plain = tpe.push_ell_fused_reduce_plain(sel, ok, *args,
+                                                gather=gather, **kw)
+        emu = _fused_push_emulation(sel, ok, *args, gather=gather,
+                                    reduce=reduce, order_seed=int(act.sum()))
+        via = tpe.compacted_push_reduce(
+            args[0], args[1], args[2], live, args[3], args[4], num_rows=R,
+            capacity=cap, gather_fn=None, gather_module=gather,
+            use_kernels=True, **kw)
+        r_red, r_t = rops.push_ell_reduce(
+            *_j(row_src, dst, wgt, vals, deg, act), num_rows=R,
+            capacity=cap, gather=gather, reduce=reduce, use_pallas=True,
+            emit_touched=touched)
+        for red, t in (got, plain, via):
+            np.testing.assert_array_equal(red.numpy(), np.asarray(r_red))
+            np.testing.assert_array_equal(red.numpy(), emu[0].numpy())
+            if touched:
+                np.testing.assert_array_equal(t.numpy(), np.asarray(r_t))
+                assert torch.equal(t, emu[1])
+            else:
+                assert t is None and r_t is None
+
+
+def test_fused_push_refuses_non_menu_and_int_division():
+    live = torch.ones(4, dtype=torch.bool)
+    sel, ok = tpe.compact_rows(live, 4, 4)
+    args = _t(np.arange(4, dtype=np.int32), np.zeros((4, 8), np.int32),
+              np.ones((4, 8), np.float32), np.arange(4, dtype=np.int32),
+              np.ones(4, np.int32))
+    kw = dict(reduce="min", identity=2**31 - 1, num_vertices=4,
+              dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tpe.push_ell_fused_reduce(sel, ok, *args, gather="div_deg", **kw)
+    with pytest.raises(ValueError):
+        tpe.push_ell_fused_reduce(sel, ok, *args, gather="square", **kw)
+    with pytest.raises(ValueError):
+        tpe.compacted_push_reduce(*args[:3], live, *args[3:], num_rows=4,
+                                  capacity=4, gather_fn=None,
+                                  gather_module=None, use_kernels=True,
+                                  **kw)
