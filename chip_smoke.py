@@ -40,7 +40,11 @@ and the script exits non-zero):
    within ``rtol=1e-4, atol=1e-5`` (``tests/test_kernels.py``'s), bf16
    within ``rtol=1e-2`` (one bf16 rounding is at most 2**-8 of a value)
    plus ``1e-3 * max|out|``, a bound that follows the size of the outputs
-   compared.
+   compared.  The lane-axis variant of kernel 1 over every gather ×
+   reduce × dtype × mask_inactive, NaN values, k of 1 to 37 lanes (one
+   launch per 32) and ids off the 16-byte grid: each lane exactly kernel
+   1 alone, and the plain version (float add within 1e-5 of the sum of
+   its terms' magnitudes).
 4. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
    from root 0 through ``algorithms.bfs`` under pull, push and auto on
    three paths, each held against a numpy level-synchronous BFS, with the
@@ -65,11 +69,37 @@ and the script exits non-zero):
    reverse COO's sorted receiving ids with bfs's messages (its result must
    be the BFS levels; the device time of each of its three launches),
    beside ``scatter_reduce_``.
-5. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
+5. serve   — the graph-query server on the main phase's scale-22 graph:
+   ``GraphServer(slots=8, slice_supersteps=4, landmarks=4)`` on CUDA
+   (the landmark table: SSSP from 4 landmarks on the graph and its
+   transpose through ``run_batch``), a first stream submitted at once
+   (64 bfs with 8 duplicates, 16 sssp, 16 dist of which 4 rooted at a
+   landmark, 2 ppr; numpy seed 0, roots of out-degree > 0), then 32 bfs
+   in 4 bursts between ``step()`` calls, with a snapshot after the second
+   burst's step; launch counts set to 0 before the streams and read
+   after.  Every bfs/sssp/ppr answer must equal a sequential
+   ``translate(...).run(roots=r)`` on the card bitwise, with its
+   iterations and ``run_stats`` counters; every dist answer its root's
+   SSSP entry, one at least served by the landmark table and one by the
+   exact fallback; 4 bfs roots = ``numpy_bfs``, 2 sssp roots ≈ scipy
+   Dijkstra; the lane-axis kernel launched exactly once per batched
+   superstep with a masked sweep and kernel 1 alone never; host reads =
+   one per batched superstep + one per harvest + one per snapshot copy;
+   the snapshot restored into a new server serves the remaining queries
+   bitwise as the first did.  Then queries/s, p50/p99 latency, aggregate
+   MTEPS (traversed edges of the bfs answers over the serve wall), ms per
+   batched superstep; ``run_batch`` over 8 roots against 8 sequential
+   runs; a checkpointed bfs (every 2 supersteps) = the plain run, and one
+   killed by an armed ``lane.crash`` and resumed = it too; the lane-axis
+   kernel at k = 1, 8 and 32 on a 50% random frontier and on root 0's
+   BFS frontiers, held exactly against kernel 1 per lane and its plain
+   version, timed (CUDA events and the profiler's device time) beside k
+   launches of kernel 1, its plain version and its bound.
+6. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
    ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
    component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
    iteration), ``k_core(k=4)`` (= a numpy peel).
-6. lm      — the LM serving path at full width: ``launch.serve.main``
+7. lm      — the LM serving path at full width: ``launch.serve.main``
    through qwen3-8b (all 36 layers and widths, bf16, weights from
    ``torch.Generator`` seed 0), 8 slots at capacity 4096, 16 requests
    with prompts of 256–2048 tokens (numpy seed 0), 64 new tokens each;
@@ -519,6 +549,111 @@ def _check_decode_splits(torch):
     return checked, worst
 
 
+def _abs_sum(torch, nbr, wgt, vals, deg, act, *, gather, reduce,
+             mask_inactive):
+    """Per lane and row, the sum of the live slots' |message| ((k, R)):
+    the scale of a float sum's reassociation error."""
+    from repro_torch.kernels.ref import PAD, gather_msg
+    valid = nbr != PAD
+    safe = torch.where(valid, nbr, 0).long()
+    out = []
+    for v, a in zip(vals, act):
+        msg = gather_msg(gather, v[safe], wgt.to(v.dtype), deg[safe]).abs()
+        live = valid & a[safe] if mask_inactive else valid
+        out.append(torch.where(live, msg, 0).sum(1))
+    return torch.stack(out)
+
+
+def _close_sum(a, b, scale, rtol=1e-5, atol=1e-6):
+    """Float sums in two orders: ``|a - b| <= atol + rtol * scale``, with
+    ``scale`` the sum of the terms' magnitudes; equal infs and NaNs
+    agree."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    near = (a - b).abs() <= atol + rtol * scale
+    return bool((near | (a == b) | (a.isnan() & b.isnan())).all())
+
+
+# the lane-axis kernel's sweep: (R, W, V, lane counts), R never a multiple
+# of the 256-thread block; the last case's ids sit off the 16-byte grid
+LANE_CASES = ((1037, 8, 4099, (1, 3, 8, 32, 37)), (300, 16, 97, (2, 8)),
+              (5, 1, 7, (4, 16)), (515, 8, 1000, (8,)))
+
+
+def _check_lane_kernel(torch, rng):
+    """The lane-axis kernel (``edge_block_reduce_lanes``) over every
+    gather × reduce × dtype × mask_inactive the menu admits, NaN inputs,
+    k of 1 to 37 (one launch per 32 lanes) and ids off the 16-byte grid:
+    each lane exactly equal to kernel 1 on that lane alone (values and
+    any-live flags; the same slot order, so float add too), and to the
+    plain version (min/max/int exact; float add, summed in another order,
+    within 1e-5 of the sum of its terms' magnitudes plus 1e-6: near-zero
+    sums of mixed signs part by more than 1e-5 of themselves)."""
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels.ref import GATHER_OPS, PAD, REDUCE_OPS
+    dev = torch.device("cuda")
+    checked, worst = 0, 0.0
+    for R, W, V, ks in LANE_CASES:
+        nbr = rng.integers(0, V, (R, W)).astype(np.int32)
+        nbr[rng.random((R, W)) < 0.3] = PAD
+        wgt = rng.uniform(0, 4, (R, W)).astype(np.float32)
+        deg = torch.as_tensor(rng.integers(0, 9, V).astype(np.int32)).to(dev)
+        if (R, V) == (515, 1000):     # a view one id past the 16-byte grid
+            flat = torch.as_tensor(np.concatenate(
+                [[0], nbr.reshape(-1)]).astype(np.int32)).to(dev)
+            nbr_t = flat[1:].view(R, W)
+            wflat = torch.as_tensor(np.concatenate(
+                [[0], wgt.reshape(-1)]).astype(np.float32)).to(dev)
+            wgt_t = wflat[1:].view(R, W)
+        else:
+            nbr_t = torch.as_tensor(nbr).to(dev)
+            wgt_t = torch.as_tensor(wgt).to(dev)
+        for k in ks:
+            act = torch.as_tensor(rng.random((k, V)) < 0.5).to(dev)
+            for dtype in (np.int32, np.float32):
+                vals = (rng.integers(-50, 50, (k, V)) if dtype == np.int32
+                        else rng.uniform(-5, 5, (k, V))).astype(dtype)
+                if dtype == np.float32:
+                    vals[rng.random((k, V)) < 0.05] = np.nan
+                vals = torch.as_tensor(vals).to(dev)
+                for gather in GATHER_OPS:
+                    if gather == "div_deg" and dtype == np.int32:
+                        continue
+                    for reduce in REDUCE_OPS:
+                        for mask in (True, False):
+                            kw = dict(gather=gather, reduce=reduce,
+                                      mask_inactive=mask)
+                            tag = (f"{gather}/{reduce}/{dtype.__name__}/"
+                                   f"mask={mask} R={R} W={W} V={V} k={k}")
+                            got = eb.edge_block_reduce_lanes(
+                                nbr_t, wgt_t, vals, deg, act, **kw)
+                            want = eb.edge_block_reduce_lanes_plain(
+                                nbr_t, wgt_t, vals, deg, act, **kw)
+                            one = [eb.edge_block_reduce(
+                                nbr_t, wgt_t, vals[i], deg, act[i], **kw)
+                                for i in range(k)]
+                            torch.cuda.synchronize()
+                            exact = not (dtype == np.float32
+                                         and reduce == "add")
+                            k1 = (torch.stack([o[0] for o in one]),
+                                  torch.stack([o[1] for o in one]))
+                            near = _same(got[0], want[0]) if exact else \
+                                _close_sum(got[0], want[0], _abs_sum(
+                                    torch, nbr_t, wgt_t, vals, deg, act,
+                                    **kw))
+                            if not (_same(got[0], k1[0])
+                                    and _same(got[1], k1[1])
+                                    and _same(got[1], want[1]) and near):
+                                raise AssertionError(
+                                    f"edge_block_lanes {tag}: max err "
+                                    f"{_max_err(got[0], want[0])} against "
+                                    f"plain, {_max_err(got[0], k1[0])} "
+                                    "against kernel 1")
+                            worst = max(worst, _max_err(got[0], want[0]))
+                            checked += 1
+    return checked, worst
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
@@ -610,14 +745,17 @@ def phase_kernels(torch):
                     checked += 1
     n_seg, worst["segment_reduce"] = _check_segment_kernel(torch, live_rng)
     n_push, worst["push_ell_fused"] = _check_fused_push(torch, live_rng)
-    checked += n_seg + n_push
+    n_lane, worst["edge_block_lanes"] = _check_lane_kernel(torch, live_rng)
+    checked += n_seg + n_push + n_lane
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
     n_split, split_err = _check_decode_splits(torch)
     worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
     checked += n_dec + n_split
     log(f"[kernels] {checked} kernel/plain comparisons agree (min/max/int "
         "exact, float add rtol 1e-5; kernel 2 also exactly equal to kernel "
-        f"1's rows with dead blocks set to the identity; kernel 5 float32 "
+        "1's rows with dead blocks set to the identity, the lane-axis "
+        "kernel to kernel 1 on each lane alone and its float add within "
+        "1e-5 of the sum of |terms|; kernel 5 float32 "
         f"rtol 1e-4 atol 1e-5, bf16 rtol 1e-2 atol 1e-3 max|out|); max abs "
         f"err {worst}")
     return worst
@@ -729,6 +867,8 @@ def _counters():
     from repro_torch.kernels import segment_sum as ss
     return {"edge_block": (eb.edge_block_reduce, "launches"),
             "edge_block_skip": (eb.edge_block_reduce, "skip_launches"),
+            "edge_block_lanes": (eb.edge_block_reduce_lanes,
+                                 "lane_launches"),
             "push_ell": (pe.push_ell_message_block, "launches"),
             "push_ell_fused": (pe.push_ell_fused_reduce, "launches"),
             "segment_reduce": (ss.segment_reduce, "launches"),
@@ -1244,7 +1384,408 @@ def phase_main(torch, dev_info):
     with open(os.path.join(OUT_DIR, "chip_smoke_main.json"), "w") as f:
         json.dump({"summary": summary, "kernels": kernels}, f, indent=1,
                   default=str)
-    return kernels
+    return kernels, {"g": g, "oracle": oracle}
+
+
+SERVE_LANES = (1, 8, 32)    # lane counts the lane-axis kernel is timed at
+
+
+def _lane_timing(torch, g, oracle, smi):
+    """The lane-axis kernel (bfs's plus_one/min over the flat pull view)
+    at k = 1, 8 and 32 lanes, on a 50% random frontier a lane and on root
+    0's BFS frontiers (lane i takes level i mod 6): each lane held exactly
+    against kernel 1 alone and against the plain version, then timed
+    (CUDA events, and the profiler's device time of the pre-pass and the
+    main kernel) beside the k launches of kernel 1 it replaces, the plain
+    version and its bound."""
+    from repro_torch.core import preprocess
+    from repro_torch.kernels import edge_block as eb
+    lay = preprocess.layouts_for(g)
+    pplan = lay.on(lay.pull_plan(64), "cuda")
+    out_deg = g.out_degrees.to(device="cuda", dtype=torch.int32)
+    V = g.num_vertices
+    R8, W = pplan.flat_dst.shape
+    levels = torch.as_tensor(np.minimum(oracle, INT_MAX).astype(np.int32))
+    frontiers = [torch.as_tensor(oracle == lv)
+                 for lv in range(int(oracle[oracle < INT_MAX].max()) + 1)]
+    rng = np.random.default_rng(3)
+    kw = dict(gather="plus_one", reduce="min", mask_inactive=True)
+    rows = {}
+    for k in SERVE_LANES:
+        values = levels.to("cuda").expand(k, V).contiguous()
+        for label in ("random", "bfs"):
+            if label == "random":
+                active = torch.as_tensor(rng.random((k, V)) < 0.5)
+            else:
+                active = torch.stack([frontiers[i % len(frontiers)]
+                                      for i in range(k)])
+            active = active.to("cuda")
+            args = (pplan.flat_dst, pplan.flat_wgt, values, out_deg, active)
+            got = eb.edge_block_reduce_lanes(*args, **kw)
+            want = eb.edge_block_reduce_lanes_plain(*args, **kw)
+
+            def kernel1(values=values, active=active):
+                return [eb.edge_block_reduce(pplan.flat_dst, pplan.flat_wgt,
+                                             values[i], out_deg, active[i],
+                                             **kw) for i in range(k)]
+            one = kernel1()
+            torch.cuda.synchronize()
+            if not (_same(got[0], want[0]) and _same(got[1], want[1])
+                    and _same(got[0], torch.stack([o[0] for o in one]))
+                    and _same(got[1], torch.stack([o[1] for o in one]))):
+                raise AssertionError(f"edge_block_lanes disagrees at the main "
+                                     f"shape, k={k}, {label} frontier")
+            del want, one
+            ms = _time_ms(torch, lambda: eb.edge_block_reduce_lanes(*args,
+                                                                    **kw),
+                          reps=20)
+            dev_ms = _device_ms(torch, lambda: eb.edge_block_reduce_lanes(
+                *args, **kw), "edge_block_lanes")
+            k1_ms = _time_ms(torch, kernel1, reps=10)
+            plain_ms = _time_ms(torch, lambda: eb.edge_block_reduce_lanes_plain(
+                *args, **kw), reps=3, warmup=1)
+            # bytes the function must move: the ids once, each lane's value
+            # table and frontier, each lane's two (R8,) outputs
+            nbytes = R8 * W * 4 + k * V * (4 + 1) + k * R8 * (4 + 1)
+            ops = k * R8 * W
+            bound = 1e3 * max(nbytes / _BANDWIDTH, ops / _SCALAR_OPS)
+            live = int(active.sum())
+            rows[(k, label)] = {
+                "ms": ms, "device_ms": dev_ms, "kernel1_ms": k1_ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes,
+                "max_abs_err": _max_err(got[0], eb.edge_block_reduce_lanes_plain(
+                    *args, **kw)[0]) if k == 1 else 0.0,
+                "shape": [k, R8, W, V], "live_vertices": live}
+            log(f"[serve] edge_block_lanes (plus_one/min) k={k} {label} "
+                f"frontier ({live} live lane-vertices): {ms:.4f} ms (device "
+                f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
+                f"ms), {k} x kernel 1 {k1_ms:.4f} ms ({k1_ms / ms:.2f}x), "
+                f"bound {bound:.4f} ms ({bound / ms:.3f} of it, "
+                f"{nbytes / 1e9:.3f} GB), plain {plain_ms:.4f} ms; = kernel "
+                f"1 per lane and = plain, exactly, on {smi}")
+            del got, args, active
+        del values
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _profile_serve(torch, srv, roots, step_ms, smi):
+    """Device time by op over one more burst of bfs queries served under
+    torch.profiler, per batched superstep, against the unprofiled streams'
+    ``step_ms`` a batched superstep (the device idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    steps0 = srv.counters()["batched_supersteps"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in roots:
+            srv.submit("bfs", int(r))
+        srv.run()
+        torch.cuda.synchronize()
+    steps = srv.counters()["batched_supersteps"] - steps0
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    top = [(e.key, round(e.self_device_time_total / 1e3, 4), e.count)
+           for e in ops[:10]]
+    per_step = busy_ms / max(steps, 1)
+    idle = 1.0 - per_step / step_ms
+    with open(os.path.join(OUT_DIR, "profile_serve.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    log(f"[profile] serve, {len(roots)} bfs in {steps} batched supersteps: "
+        f"kernel time {busy_ms:.3f} ms, {per_step:.3f} ms a batched "
+        f"superstep of the streams' {step_ms:.3f} ms (device idle share "
+        f"{idle:.3f}); top ops by device ms (ms, calls): {top} on {smi}")
+    return {"kernel_ms": busy_ms, "batched_supersteps": steps,
+            "kernel_ms_per_step": per_step, "idle_share": idle,
+            "top_ops": top}
+
+
+def phase_serve(torch, dev_info, main):
+    """The graph-query server at the main scale: see the module docstring
+    (step 5)."""
+    import tempfile
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import dsl, faults
+    from repro_torch.core.scheduler import AdmissionPolicy, ScheduleConfig
+    from repro_torch.core.translator import translate
+    from repro_torch.errors import InjectedFault
+    from repro_torch.serve.graph_serve import GraphServer
+
+    g, oracle, smi = main["g"], main["oracle"], dev_info["smi"]
+    V = g.num_vertices
+    deg = g.out_degrees.numpy()
+    rng = np.random.default_rng(0)
+    cand = np.flatnonzero(deg > 0)
+    admission = AdmissionPolicy(slots=8, slice_supersteps=4)
+    t0 = time.perf_counter()
+    srv = GraphServer(g, admission=admission, landmarks=4, device="cuda")
+    table_s = time.perf_counter() - t0
+    lms = srv.table.landmarks
+    log(f"[serve] GraphServer(slots=8, slice_supersteps=4, landmarks=4) at "
+        f"scale {SCALE}: landmark table (SSSP from {lms.tolist()} on the "
+        f"graph and its transpose, run_batch) built in {table_s:.1f} s")
+
+    # the first stream: submitted at once, in a shuffled order
+    bfs_roots = rng.choice(cand, 56, replace=False)
+    stream = [("bfs", int(r), None) for r in bfs_roots]
+    stream += [("bfs", int(r), None)
+               for r in rng.choice(bfs_roots, 8, replace=False)]
+    stream += [("sssp", int(r), None)
+               for r in rng.choice(cand, 16, replace=False)]
+    # dist: four rooted at a landmark (the table pins those), twelve random
+    stream += [("dist", int(lms[i % len(lms)]), int(rng.choice(cand)))
+               for i in range(4)]
+    stream += [("dist", int(rng.choice(cand)), int(rng.choice(cand)))
+               for _ in range(12)]
+    stream += [("ppr", int(r), None)
+               for r in rng.choice(cand, 2, replace=False)]
+    stream = [stream[i] for i in rng.permutation(len(stream))]
+    burst_roots = rng.choice(cand, 32, replace=False)
+
+    _zero_counts()
+    c0 = srv.counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    first = [srv.submit(kind, root, target=target)
+             for kind, root, target in stream]
+    srv.run()
+    wall1 = time.perf_counter() - t1
+    # the second stream: 4 bursts of 8 bfs between steps; a snapshot of
+    # the server after the second burst's step (its time left out)
+    snap_dir = tempfile.mkdtemp(prefix="serve_snap_")
+    second = []
+    snap_s = 0.0
+    t2 = time.perf_counter()
+    for b in range(4):
+        second += [srv.submit("bfs", int(r))
+                   for r in burst_roots[8 * b:8 * b + 8]]
+        srv.step()
+        if b == 1:
+            ts = time.perf_counter()
+            reads = srv.counters()["host_reads"]
+            srv.snapshot(snap_dir)
+            snap_reads = srv.counters()["host_reads"] - reads
+            snap_s = time.perf_counter() - ts
+            pending_at_snap = {q.qid for q in second if not q.done}
+    srv.run()
+    wall2 = time.perf_counter() - t2 - snap_s
+    launches = _read_counts()
+    cnt = {k: v - c0[k] for k, v in srv.counters().items()}
+    harvests = cnt["harvests"]
+    handles = first + second
+    bad = [q for q in handles if not q.done or q.answer_quality != "exact"]
+    if bad:
+        raise AssertionError(f"{len(bad)} queries unanswered or inexact")
+    # the path's kernels: the lane-axis kernel ran exactly once a batched
+    # superstep with a masked sweep, kernel 1 alone never
+    if launches["edge_block_lanes"] <= 0 \
+            or launches["edge_block_lanes"] != cnt["masked_sweeps"] \
+            or launches["edge_block"] != 0 \
+            or launches["push_ell_fused"] <= 0:
+        raise AssertionError(f"serve launches {launches} against the "
+                             f"server's counters {cnt}")
+    if cnt["host_reads"] != cnt["batched_supersteps"] + harvests \
+            + snap_reads:
+        raise AssertionError(f"host reads {cnt['host_reads']} != batched "
+                             f"supersteps {cnt['batched_supersteps']} + "
+                             f"harvests {harvests} + snapshot {snap_reads}")
+    log(f"[serve] launches {launches}; server counters {cnt}; host reads "
+        f"{cnt['host_reads']} = {cnt['batched_supersteps']} batched "
+        f"supersteps (one read each) + {harvests} harvests (one read a "
+        "slice end that finished a query, only the finished lanes copied) "
+        f"+ {snap_reads} snapshot copies (one a batch group)")
+
+    # every answer against a sequential run on the card, bit for bit
+    cfg = ScheduleConfig()
+    progs = {"bfs": translate(dsl.bfs_program(), g, cfg, device="cuda"),
+             "sssp": translate(dsl.sssp_program(), g, cfg, device="cuda")}
+    seq = {}
+
+    def sequential(kind, root):
+        key = (kind, root)
+        if key not in seq:
+            prog = progs.get(kind) or translate(
+                dsl.ppr_program(root), g, cfg, device="cuda")
+            v, it = prog.run(roots=root)
+            seq[key] = (v.cpu().numpy(), it, dict(prog.last_run_stats))
+        return seq[key]
+
+    stat_keys = ("push_supersteps", "pull_supersteps", "direction_switches",
+                 "edges_traversed", "push_compacted_supersteps")
+    served = {"landmark": 0, "exact": 0, "coalesced": 0, "batch": 0}
+    for q in handles:
+        served[q.served_by] = served.get(q.served_by, 0) + 1
+        if q.kind == "dist":
+            v, _, _ = sequential("sssp", q.root)
+            if q.result != float(v[q.target]):
+                raise AssertionError(f"dist {q.root}->{q.target}: "
+                                     f"{q.result} != {v[q.target]}")
+            continue
+        v, it, st = sequential(q.kind, q.root)
+        if not np.array_equal(q.result, v) or q.iters != it or any(
+                q.stats[k] != st[k] for k in stat_keys):
+            raise AssertionError(f"{q.kind} root {q.root} ({q.served_by}) "
+                                 "!= its sequential run")
+    if served["landmark"] < 1 or served["exact"] < 1:
+        raise AssertionError(f"dist answers served by {served}: want a "
+                             "landmark one and an exact one")
+    for r in bfs_roots[:4]:
+        want = numpy_bfs(g.edge_offsets.numpy().astype(np.int64),
+                         g.edges_dst.numpy(), int(r), V)
+        got, _, _ = sequential("bfs", int(r))
+        if not np.array_equal(got.astype(np.int64), want):
+            raise AssertionError(f"bfs root {r} != numpy_bfs")
+    sssp_roots = [q.root for q in first if q.kind == "sssp"][:2]
+    A = sp.csr_matrix((g.edge_weights.numpy().astype(np.float64),
+                       g.edges_dst.numpy(), g.edge_offsets.numpy()),
+                      shape=(V, V))
+    want = dijkstra(A, indices=sssp_roots)
+    for i, r in enumerate(sssp_roots):
+        got = sequential("sssp", r)[0].astype(np.float64)
+        if not (np.array_equal(np.isinf(got), np.isinf(want[i]))
+                and np.allclose(got[np.isfinite(got)],
+                                want[i][np.isfinite(got)], rtol=1e-5)):
+            raise AssertionError(f"sssp root {r} disagrees with scipy")
+    del A, want
+    log(f"[serve] {len(handles)} answers = their sequential runs on the "
+        f"card, bitwise (values, iters and {', '.join(stat_keys)}); served "
+        f"by {served}; bfs roots {[int(r) for r in bfs_roots[:4]]} = "
+        f"numpy_bfs; sssp roots {sssp_roots} ≈ scipy dijkstra (rtol 1e-5)")
+
+    # restore the mid-stream snapshot into a fresh server
+    fresh = GraphServer(g, admission=admission, device="cuda")
+    restored = fresh.restore(snap_dir)
+    fresh.run()
+    by_qid = {q.qid: q for q in handles}
+    redo = [q for q in fresh.done if q.qid in pending_at_snap]
+    if {q.qid for q in redo} != pending_at_snap or any(
+            not np.array_equal(q.result, by_qid[q.qid].result)
+            or q.iters != by_qid[q.qid].iters for q in redo):
+        raise AssertionError("restored server's answers != the original's")
+    log(f"[serve] snapshot after the second burst ({snap_s:.2f} s to write, "
+        f"{restored} pending queries) restored into a new GraphServer: its "
+        f"{len(redo)} answers = the original server's, bitwise")
+    del fresh
+
+    # times
+    def lat(qs):
+        ms = np.asarray([1e3 * (q.finished_s - q.submitted_s) for q in qs])
+        return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+    bfs_edges = sum(alg.traversed_edges(g, q.result) for q in handles
+                    if q.kind == "bfs")
+    wall = wall1 + wall2
+    p50, p99 = lat(first)
+    p50b, p99b = lat(second)
+    prof = _profile_serve(torch, srv, rng.choice(cand, 16, replace=False),
+                          1e3 * wall / cnt["batched_supersteps"], smi)
+    log(f"[serve] first stream {len(first)} queries in {wall1:.3f} s "
+        f"({len(first) / wall1:.1f} queries/s; latency p50 {p50:.1f} ms, "
+        f"p99 {p99:.1f} ms); second stream {len(second)} bfs in "
+        f"{wall2:.3f} s (p50 {p50b:.1f} ms, p99 {p99b:.1f} ms); aggregate "
+        f"MTEPS {bfs_edges / wall / 1e6:.1f} ({bfs_edges} traversed edges "
+        f"of {sum(q.kind == 'bfs' for q in handles)} bfs answers over "
+        f"{wall:.3f} s); {1e3 * wall / cnt['batched_supersteps']:.3f} ms a "
+        f"batched superstep, on {smi}")
+    del srv
+
+    # run_batch over 8 roots against 8 sequential runs
+    prog = progs["bfs"]
+    roots8 = [int(r) for r in bfs_roots[:8]]
+    vals, its = prog.run_batch(roots8)
+    for i, r in enumerate(roots8):
+        v, it, _ = sequential("bfs", r)
+        if not np.array_equal(vals[i].cpu().numpy(), v) or int(its[i]) != it:
+            raise AssertionError(f"run_batch lane {i} != run(roots={r})")
+    del vals
+    t_batch, t_seq = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        prog.run_batch(roots8)
+        torch.cuda.synchronize()
+        t_batch.append(time.perf_counter() - ta)
+        ta = time.perf_counter()
+        for r in roots8:
+            prog.run(roots=r)
+        torch.cuda.synchronize()
+        t_seq.append(time.perf_counter() - ta)
+    tb, tq = float(np.median(t_batch)), float(np.median(t_seq))
+    log(f"[serve] run_batch over 8 bfs roots {tb * 1e3:.3f} ms against 8 "
+        f"sequential runs {tq * 1e3:.3f} ms ({tq / tb:.2f}x; median of 3, "
+        f"in turns; = run per lane, exactly) on {smi}")
+
+    # a checkpointed run, then one crashed by an armed lane.crash and
+    # resumed from its last snapshot
+    ref_v, ref_it, ref_st = sequential("bfs", 0)
+    keys = stat_keys + ("terminated",)
+    ck = tempfile.mkdtemp(prefix="ck_")
+    p1 = translate(dsl.bfs_program(), g, cfg, device="cuda")
+    v, it = p1.run(roots=0, checkpoint_dir=ck, checkpoint_every=2)
+    st1 = p1.last_run_stats
+    if not np.array_equal(v.cpu().numpy(), ref_v) or it != ref_it or any(
+            st1[k] != ref_st[k] for k in keys):
+        raise AssertionError("checkpointed run != plain run")
+    ck2 = tempfile.mkdtemp(prefix="ck_")
+    crashed = translate(dsl.bfs_program(), g, cfg, device="cuda")
+    with faults.injected("lane.crash", times=1, after=2) as plan:
+        try:
+            crashed.run(roots=0, checkpoint_dir=ck2, checkpoint_every=2)
+        except InjectedFault:
+            pass
+        else:
+            raise AssertionError("the armed lane.crash never fired")
+    if plan.fired != 1:
+        raise AssertionError("lane.crash fired {plan.fired} times")
+    resumed = translate(dsl.bfs_program(), g, cfg, device="cuda")
+    v, it = resumed.run(roots=0, checkpoint_dir=ck2, checkpoint_every=2,
+                        resume=True)
+    st2 = resumed.last_run_stats
+    if not np.array_equal(v.cpu().numpy(), ref_v) or it != ref_it or any(
+            st2[k] != ref_st[k] for k in keys) or st2["checkpoint_loads"] != 1:
+        raise AssertionError("crashed and resumed run != plain run")
+    log(f"[serve] checkpointed bfs (root 0, every 2 supersteps) = plain run: "
+        f"saves {st1['checkpoint_saves']}, loads {st1['checkpoint_loads']}, "
+        f"write {st1['checkpoint_write_s']:.3f} s; crashed at the third "
+        f"slice boundary and resumed: saves {st2['checkpoint_saves']}, "
+        f"loads {st2['checkpoint_loads']}, write "
+        f"{st2['checkpoint_write_s']:.3f} s, = plain run")
+
+    timing = _lane_timing(torch, g, oracle, smi)
+    row = timing[(8, "random")]
+    torch.cuda.empty_cache()
+    summary = {"table_s": table_s, "wall_first_s": wall1,
+               "wall_second_s": wall2, "snapshot_s": snap_s,
+               "queries": len(handles), "counters": cnt,
+               "harvests": harvests, "launches": launches,
+               "latency_ms": {"first": [p50, p99], "second": [p50b, p99b]},
+               "bfs_traversed_edges": bfs_edges,
+               "mteps": bfs_edges / wall / 1e6, "served_by": served,
+               "run_batch_ms": tb * 1e3, "sequential_ms": tq * 1e3,
+               "checkpoint": {k: st2[k] for k in ("checkpoint_saves",
+                                                  "checkpoint_loads",
+                                                  "checkpoint_write_s")},
+               "lane_kernel": {f"k={k} {lbl}": v
+                               for (k, lbl), v in timing.items()},
+               "profile": prof,
+               "card": smi}
+    with open(os.path.join(OUT_DIR, "chip_smoke_serve.json"), "w") as f:
+        json.dump(summary, f, indent=1, default=str)
+    return {"name": "edge_block_reduce_lanes", "route": "cuda",
+            "source": "src/repro_torch/csrc/edge_block.cu",
+            "replaces": "src/repro/kernels/edge_block.py:147",
+            "launches": launches["edge_block_lanes"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shape": row["shape"]}
 
 
 def phase_sparse(torch, g, oracle, traversed, smi):
@@ -1666,7 +2207,9 @@ def main():
     import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
     phase_kernels(torch)
-    kernels = phase_main(torch, dev_info)
+    kernels, main_graph = phase_main(torch, dev_info)
+    kernels.append(phase_serve(torch, dev_info, main_graph))
+    del main_graph
     phase_others(torch)
     kernels.append(phase_lm(torch, dev_info))
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -6,7 +6,7 @@ gather or apply on fixed seeded batches (provenance ``'probed'``).  A
 probe is evidence, not proof — a callable that misbehaves only outside
 the batch slips through — which is why the JAX package decides these
 statically where it can.  The static tier over torch.fx traces is queued
-in ``ROADMAP.md`` (§1 item 11).
+in ``ROADMAP.md`` (§1 item 6).
 
 :func:`verify_ir` is structural and carries over unchanged: the pass
 pipeline runs it between every pass pair under ``verify=True``.
@@ -33,6 +33,7 @@ __all__ = [
     "apply_preserves_identity",
     "gather_absorbs_identity",
     "apply_is_elementwise",
+    "apply_batches_over_lanes",
     "gather_uses_weight",
     "is_monotone",
 ]
@@ -213,6 +214,34 @@ def apply_is_elementwise(apply: Callable, dtype: torch.dtype) -> bool:
     except Exception:
         return False
     return True
+
+
+def apply_batches_over_lanes(apply: Callable, dtype: torch.dtype,
+                             num_vertices: int) -> bool:
+    """Probe whether ``apply`` on a ``(2, V)`` batch of lanes gives each
+    lane what it gives that lane alone, at the graph's own ``V``.
+
+    The lane API runs an apply that passes this once on a whole batch of
+    lanes, and any other lane by lane.  The 1-D elementwise probe alone is
+    not enough: an apply that reads the length of its input (ppr's
+    restart vector, ``arange(s.shape[0]) == root``) looks elementwise on
+    8 probe slots for a root past them, and reads the lane count on a
+    batch.
+    """
+    rng = np.random.default_rng(2)
+    shape = (2, max(int(num_vertices), 1))
+    if dtype.is_floating_point:
+        xs = rng.uniform(-8, 8, (2, *shape))
+    else:
+        xs = rng.integers(-8, 8, (2, *shape))
+    x = _batch(xs[0], dtype)
+    r = _batch(xs[1], dtype)
+    try:
+        both = apply(x, r)
+        per = torch.stack([apply(x[i], r[i]) for i in range(2)])
+    except Exception:
+        return False
+    return _equal(both, per)
 
 
 def is_monotone(program: VertexProgram) -> bool:

@@ -4,7 +4,7 @@ Counterpart of ``repro.core.comm`` for one device: placement of graph
 data on the run's device (the paper's ``Transport``), read-back, and the
 transfer accounting the reports show.  The cross-PE exchange
 (``quantized_psum``, ``bitmap_or``) waits for the multi-PE port
-(``ROADMAP.md`` §1 item 10); with one device the collective estimates are
+(``ROADMAP.md`` §1 item 5); with one device the collective estimates are
 zero.
 
 Entry points take ``device=None`` to mean the CUDA device, and raise when

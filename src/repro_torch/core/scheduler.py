@@ -3,7 +3,8 @@
 Counterpart of ``repro.core.scheduler`` for one device.  ``plan`` resolves
 the backend and the chunk geometry; a plan over several processing
 elements or several streamed partitions raises ``NotImplementedError``
-until those planes are ported (``ROADMAP.md`` §1 items 10 and 8).
+until those planes are ported (``ROADMAP.md`` §1 items 5 and 4).
+:class:`AdmissionPolicy` holds the serving plane's batching knobs.
 """
 from __future__ import annotations
 
@@ -36,6 +37,48 @@ class DirectionPolicy:
     def describe(self) -> str:
         """One-line summary for reports and IR dumps."""
         return f"{self.mode}(alpha={self.alpha:g}, beta={self.beta:g})"
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionPolicy:
+    """Serving-plane admission knobs (paper §V-C2's runtime scheduler,
+    lifted from per-superstep direction choice to per-query batching).
+
+    The serving plane (:mod:`repro_torch.serve.graph_serve`) keeps one
+    fixed ``slots``-lane batch per compiled program and continuously
+    admits queued queries into converged lanes between slices of
+    ``slice_supersteps`` supersteps.
+
+    * ``slots`` — lanes per batched program (the ``(k, V)`` batch's k).
+      Frozen and idle lanes launch nothing, but a batched superstep's
+      masked sweep reads every stepping lane's tables.
+    * ``slice_supersteps`` — supersteps per slice between admission
+      points.  Smaller slices free converged lanes sooner (lower queue
+      latency) at the cost of more host round-trips.
+    * ``max_queue`` — queue bound; ``submit`` raises when full (0 =
+      unbounded).  Back-pressure, not silent drops.
+    * ``coalesce`` — identical in-flight queries (same program identity,
+      same root) share one lane and one answer.
+    """
+
+    slots: int = 8               # lanes per batched program
+    slice_supersteps: int = 4    # supersteps between admission points
+    max_queue: int = 0           # submit() bound; 0 = unbounded
+    coalesce: bool = True        # duplicate queries share a lane
+
+    def __post_init__(self):
+        if self.slots < 1:
+            raise ValueError("slots must be >= 1")
+        if self.slice_supersteps < 1:
+            raise ValueError("slice_supersteps must be >= 1")
+        if self.max_queue < 0:
+            raise ValueError("max_queue must be >= 0 (0 = unbounded)")
+
+    def describe(self) -> str:
+        """One-line summary for reports and benchmark payloads."""
+        q = self.max_queue or "unbounded"
+        return (f"slots={self.slots} slice={self.slice_supersteps} "
+                f"queue={q} coalesce={self.coalesce}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,11 +208,11 @@ def plan(cfg: ScheduleConfig, *, num_vertices: int,
     if cfg.pes > 1:
         raise NotImplementedError(
             f"pes={cfg.pes}: the multi-PE exchange is not ported yet "
-            "(ROADMAP.md §1 item 10)")
+            "(ROADMAP.md §1 item 5)")
     if cfg.partitions > 1:
         raise NotImplementedError(
             f"partitions={cfg.partitions}: out-of-core streaming is not "
-            "ported yet (ROADMAP.md §1 item 8)")
+            "ported yet (ROADMAP.md §1 item 4)")
     avg_degree = num_edges / max(num_vertices, 1)
     backend = choose_backend(cfg, num_vertices=num_vertices,
                              num_edges=num_edges, avg_degree=avg_degree)

@@ -36,27 +36,48 @@ sync per superstep.  The direction choice is computed in float32 exactly
 as the staged loop computes it, and the counters are Python integers, so
 ``run_stats`` equal the JAX package's.
 
-Not ported yet, and refused with ``NotImplementedError``: batched lanes
-(``ROADMAP.md`` §1 item 6), checkpoints (item 7), several PEs (item 10)
-and streamed partitions (item 8).
+Batched runs (:meth:`CompiledGraphProgram.run_batch` and the lane API the
+serving plane builds on: :class:`BatchLaneState`, ``batch_init``,
+``lane_admit``, ``run_batch_slice``, ``lane_done``, ``lane_stats``,
+``lane_snapshot``, ``lane_restore``) keep that host loop and add a lane
+axis: ``(k, V)`` tables and frontiers on the device, each lane's
+counters, direction and pull-cost registers on the host, and one
+device→host read per batched superstep for all lanes.  Each lane decides
+its own direction and tier as a sequential run would, so its values and
+counters equal ``run(roots=r)``'s; frozen and idle lanes launch nothing.
+Lanes are grouped by route, since every route computes the same
+superstep: the lanes whose superstep is the dense masked sweep (pull
+lanes, and push lanes past the largest tier) go through one launch of
+``edge_block.edge_block_reduce_lanes``, each push lane within a tier
+through the single-lane compacted push, and the bitmap and sparse planes
+step each lane through their single-lane superstep.  Checkpointed runs
+(``run(checkpoint_dir=...)``) are one-lane slice loops that commit a
+:mod:`~repro_torch.core.checkpoint` snapshot after every slice.
+
+Not ported yet, and refused with ``NotImplementedError``: several PEs
+(``ROADMAP.md`` §1 item 5) and streamed partitions (item 4).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import typing
 
 import numpy as np
 import torch
 
-from ..errors import DiagnosticError
+from ..errors import (CheckpointCorruptError, CheckpointMismatchError,
+                      DiagnosticError)
 from ..kernels import edge_block as edge_block_kernel
 from ..kernels import pull_bitmap as pull_bitmap_kernel
 from ..kernels import push_ell as push_ell_kernel
 from ..kernels import push_scatter as push_scatter_kernel
 from ..kernels.ref import row_reduce
+from . import checkpoint as ckpt
+from . import faults
 from . import graph as G
 from . import preprocess
-from .analysis import analyze_program
+from .analysis import analyze_program, apply_batches_over_lanes
 from .comm import CommManager, resolve_device
 from .diagnostics import max_severity, render_table
 from .dsl import VertexProgram
@@ -67,7 +88,63 @@ from .scheduler import (DirectionPolicy, ScheduleConfig, SchedulePlan, plan,
                         pull_block_capacities, push_capacity_tiers)
 
 __all__ = ["classify_gather", "TranslationReport", "CompiledGraphProgram",
-           "translate"]
+           "BatchLaneState", "translate"]
+
+
+class BatchLaneState(typing.NamedTuple):
+    """Resumable per-lane state of a batched run, the JAX package's
+    fields in its order and dtypes.
+
+    ``values`` and ``active`` are ``(k, V)`` tensors on the run's device;
+    the other thirteen fields are host numpy ``int32`` arrays with a
+    leading lane axis (``pe_rows`` is ``(k, 1)``), since the host loop
+    reads and decides per lane: iterations, the direction register, the
+    push/compacted/switch counters, the push and pull edge counters split
+    into 16-bit words (as the staged loop splits them, so snapshots cross
+    packages), live forward-ELL rows, the swept/skipped block counters
+    and the measured pull-cost register.  A lane resumed from any of
+    these makes the same choices a sequential run would have made.
+
+    Produced by :meth:`CompiledGraphProgram.batch_init`, advanced by
+    :meth:`CompiledGraphProgram.run_batch_slice`, recycled lane by lane
+    by :meth:`CompiledGraphProgram.lane_admit`.  Each call returns a new
+    state and leaves the one it was given as it was.
+    """
+
+    values: torch.Tensor     # (k, V) per-lane vertex tables
+    active: torch.Tensor     # (k, V) bool frontiers
+    iters: np.ndarray        # (k,) supersteps executed per lane
+    direction: np.ndarray    # (k,) direction register (0=pull, 1=push)
+    pushes: np.ndarray       # (k,) push supersteps
+    compact: np.ndarray      # (k,) compacted push supersteps
+    switches: np.ndarray     # (k,) direction switches
+    pe_hi: np.ndarray        # (k,) push edge counter, high 16-bit words
+    pe_lo: np.ndarray        # (k,) push edge counter, low words
+    pe_rows: np.ndarray      # (k, 1) live fwd-ELL rows
+    pl_hi: np.ndarray        # (k,) pull swept-edge counter, high words
+    pl_lo: np.ndarray        # (k,) pull swept-edge counter, low words
+    bl_swept: np.ndarray     # (k,) pull blocks swept (bitmap plane)
+    bl_skip: np.ndarray      # (k,) pull blocks skipped
+    pull_cost: np.ndarray    # (k,) measured pull-cost register
+
+
+_COUNTERS = BatchLaneState._fields[2:]
+
+
+@dataclasses.dataclass
+class _LaneOccupancy:
+    """Each lane's occupancy as of its last read (host arrays): the
+    frontier's out-edges ``m_f``, vertices ``n_f``, live forward-ELL rows
+    ``r_f``, and whether its table holds a NaN (with the probe on)."""
+
+    m_f: np.ndarray
+    n_f: np.ndarray
+    r_f: np.ndarray
+    nan: np.ndarray
+
+    def copy(self) -> "_LaneOccupancy":
+        return _LaneOccupancy(self.m_f.copy(), self.n_f.copy(),
+                              self.r_f.copy(), self.nan.copy())
 
 
 @dataclasses.dataclass
@@ -116,7 +193,10 @@ class CompiledGraphProgram:
                  report: TranslationReport, max_iters: int, *,
                  direction: DirectionPolicy, out_degrees, rows_per_vertex,
                  push_tiers, num_vertices: int, num_edges: int,
-                 probe_divergence: bool = False):
+                 probe_divergence: bool = False, lane_sweep=None,
+                 base_values=None, checkpoint_dir: str | None = None,
+                 checkpoint_every: int | None = None,
+                 fingerprints_fn=None):
         # (values, active, m_f) → (new, nxt, (swept_edges, blocks_swept,
         # blocks_skipped)); each counter a Python int or a 0-d tensor
         self._pull_step = pull_step
@@ -130,10 +210,38 @@ class CompiledGraphProgram:
         self._num_vertices = num_vertices
         self._num_edges = num_edges
         self._probe = bool(probe_divergence)
+        # the batched masked sweep ((k', V) values, active, pull-row flags
+        # → (new, nxt)), on the dense plane; None elsewhere
+        self._lane_sweep = lane_sweep
+        self._base_values = base_values      # (V,) initial table, on device
+        self._host_occ_inputs = None         # lazily: host out-degrees, ...
+        self._lane_memo = None               # (values, active, occupancy)
+        # translate-time defaults for run(checkpoint_dir=...); the
+        # fingerprint closure is lazy so un-checkpointed runs never pay
+        # the graph-bytes CRC
+        self._checkpoint_dir = checkpoint_dir
+        self._checkpoint_every = checkpoint_every
+        self._fingerprints_fn = fingerprints_fn
+        self._fingerprints_cache: dict | None = None
         self.report = report
         self.max_iters = max_iters
         self.last_run_stats: dict | None = None
         self.last_run_syncs: int | None = None
+        # the lane API's device→host reads (occupancy reads and the
+        # snapshots' copies), batched supersteps, and those that ran the
+        # batched masked sweep, since construction
+        self.lane_reads = 0
+        self.lane_supersteps = 0
+        self.lane_sweeps = 0
+
+    def _fingerprints(self) -> dict:
+        if self._fingerprints_cache is None:
+            if self._fingerprints_fn is None:
+                raise ValueError(
+                    "this program was constructed without fingerprint "
+                    "inputs; checkpointing needs translate()")
+            self._fingerprints_cache = self._fingerprints_fn()
+        return self._fingerprints_cache
 
     def init_state(self, roots=None, values=None):
         """``(values, active)`` on the run's device; ``values`` may be a
@@ -153,6 +261,11 @@ class CompiledGraphProgram:
         new, nxt, _ = self._push_step(values, active)
         return new, nxt
 
+    @property
+    def _with_rf(self) -> bool:
+        """Whether occupancy reads count live forward-ELL rows."""
+        return self._mode != "pull" and self._rows_per_vertex is not None
+
     def _occupancy(self, active, pull_stats=()):
         """``(m_f, n_f, r_f, pull_stats)`` in one device→host transfer.
 
@@ -164,7 +277,7 @@ class CompiledGraphProgram:
         parts = [torch.where(active, self._out_degrees, 0).sum(
                      dtype=torch.int64),
                  active.sum(dtype=torch.int64)]
-        if self._mode != "pull" and self._rows_per_vertex is not None:
+        if self._with_rf:
             parts.append(torch.where(active, self._rows_per_vertex, 0)
                          .sum(dtype=torch.int64))
         n = len(parts)
@@ -196,7 +309,36 @@ class CompiledGraphProgram:
         return int(np.float32(n_f) * np.float32(pol.beta)
                    < np.float32(self._num_vertices))
 
-    def run(self, roots=None, values=None, *, checkpoint_dir=None):
+    def _scalar_stats(self, iters, pushes, compact, switches, push_edges,
+                      live_rows, pull_edges, swept, skipped, pull_cost,
+                      live, nanfree) -> dict:
+        """run()'s stats dict from host counters, shared by :meth:`run`
+        and the checkpointed slice driver so both report identically."""
+        if not nanfree:
+            terminated = "diverged"
+        elif live and iters >= self.max_iters:
+            terminated = "budget"
+        else:
+            terminated = "converged"
+        return {
+            "push_supersteps": pushes,
+            "push_compacted_supersteps": compact,
+            "push_fallback_supersteps": pushes - compact,
+            "pull_supersteps": iters - pushes,
+            "direction_switches": switches,
+            "edges_traversed": pull_edges + push_edges,
+            "pes": 1,
+            "push_live_rows_per_pe": [live_rows],
+            "pull_blocks_swept": swept,
+            "pull_blocks_skipped": skipped,
+            "pull_cost_model": pull_cost,
+            "exchange_supersteps": 0,
+            "exchange_bytes": 0,
+            "terminated": terminated,
+        }
+
+    def run(self, roots=None, values=None, *, checkpoint_dir=None,
+            checkpoint_every=None, resume=False):
         """Paper Algorithm 1's while-loop, on the host.
 
         Per-run direction stats land on ``self.last_run_stats`` and
@@ -207,10 +349,21 @@ class CompiledGraphProgram:
         sweep), the bitmap plane's swept/skipped blocks, the final
         measured pull-cost register and how the run ended.  The number of
         device→host reads the run made is ``self.last_run_syncs``.
+
+        With ``checkpoint_dir=`` (here or at translate time) the run is a
+        one-lane slice loop that commits a durable snapshot every
+        ``checkpoint_every`` supersteps
+        (:data:`~repro_torch.core.checkpoint.DEFAULT_LANE_SUPERSTEPS` by
+        default); ``resume=True`` restores the newest snapshot, checked
+        against this program, graph and schedule, and continues exactly.
+        ``run_stats`` then gains ``checkpoint_saves``,
+        ``checkpoint_loads`` and ``checkpoint_write_s``.
         """
+        if checkpoint_dir is None:
+            checkpoint_dir = self._checkpoint_dir
         if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpointed runs are not ported yet (ROADMAP.md §1 item 7)")
+            return self._run_checkpointed(roots, values, checkpoint_dir,
+                                          checkpoint_every, resume)
         values, active = self.init_state(roots=roots, values=values)
         tiers = self._push_tiers
         it = direction = pushes = compact = switches = syncs = 0
@@ -253,37 +406,444 @@ class CompiledGraphProgram:
         if probe:
             nanfree = not bool(torch.isnan(values).any())
             syncs += 1
-        if not nanfree:
-            terminated = "diverged"
-        elif live and it >= self.max_iters:
-            terminated = "budget"
-        else:
-            terminated = "converged"
-        stats = {
-            "push_supersteps": pushes,
-            "push_compacted_supersteps": compact,
-            "push_fallback_supersteps": pushes - compact,
-            "pull_supersteps": it - pushes,
-            "direction_switches": switches,
-            "edges_traversed": pull_edges + push_edges,
-            "pes": 1,
-            "push_live_rows_per_pe": [live_rows],
-            "pull_blocks_swept": swept,
-            "pull_blocks_skipped": skipped,
-            "pull_cost_model": pull_cost,
-            "exchange_supersteps": 0,
-            "exchange_bytes": 0,
-            "terminated": terminated,
-        }
+        stats = self._scalar_stats(it, pushes, compact, switches, push_edges,
+                                   live_rows, pull_edges, swept, skipped,
+                                   pull_cost, live, nanfree)
         self.last_run_stats = stats
         self.last_run_syncs = syncs
         self.report.run_stats = stats
         return values, it
 
+    def _initial_lane_state(self, roots, values) -> BatchLaneState:
+        """A one-lane :class:`BatchLaneState` for run()'s request shapes."""
+        if values is None and roots is not None:
+            return self.batch_init([int(np.asarray(roots))])
+        v0, a0 = self.init_state(roots=roots, values=values)
+        return self.batch_idle(1)._replace(values=v0[None, :],
+                                           active=a0[None, :])
+
+    def _run_checkpointed(self, roots, values, directory, every, resume):
+        """run() driven through budgeted slices with durable snapshots.
+
+        The slices step the lane through the supersteps run() would take,
+        and the snapshot carries the complete 15-field lane state, so
+        crash → restore → finish walks the identical superstep sequence;
+        the counters ride the state, so the final ``run_stats`` merge
+        across segments.  The ``lane.crash`` fault point trips at every
+        slice boundary.
+        """
+        every = int(every or self._checkpoint_every
+                    or ckpt.DEFAULT_LANE_SUPERSTEPS)
+        fps = self._fingerprints()
+        root_meta = None if roots is None else int(np.asarray(roots))
+        saves = loads = seq = 0
+        write_s = 0.0
+        state = None
+        if resume:
+            stem = ckpt.latest_snapshot(directory, "lane")
+            if stem is not None:
+                manifest, arrays = ckpt.read_snapshot(stem, kind="lane",
+                                                      expect=fps)
+                meta = manifest["meta"]
+                if meta.get("root") != root_meta:
+                    raise CheckpointMismatchError(
+                        f"snapshot {stem} was rooted at "
+                        f"{meta.get('root')!r}, this run requests "
+                        f"{root_meta!r}", field="root",
+                        expected=str(root_meta), got=str(meta.get("root")))
+                state = self.lane_restore(arrays)
+                seq = int(manifest["seq"]) + 1
+                saves = int(meta.get("checkpoint_saves", 0))
+                loads = 1
+        if state is None:
+            state = self._initial_lane_state(roots, values)
+        while not bool(self.lane_done(state)[0]):
+            faults.trip("lane.crash", payload={"iters": int(state.iters[0])})
+            state = self.run_batch_slice(state, every)
+            t0 = time.perf_counter()
+            saves += 1
+            ckpt.write_snapshot(directory, "lane", seq,
+                                self.lane_snapshot(state),
+                                {"root": root_meta,
+                                 "checkpoint_saves": saves}, fps)
+            write_s += time.perf_counter() - t0
+            seq += 1
+        occ = self._lane_occupancy(state)
+        c = {f: getattr(state, f)[0] for f in _COUNTERS}
+        stats = self._scalar_stats(
+            int(c["iters"]), int(c["pushes"]), int(c["compact"]),
+            int(c["switches"]), (int(c["pe_hi"]) << 16) + int(c["pe_lo"]),
+            int(c["pe_rows"][0]), (int(c["pl_hi"]) << 16) + int(c["pl_lo"]),
+            int(c["bl_swept"]), int(c["bl_skip"]), int(c["pull_cost"]),
+            bool(occ.n_f[0] > 0), not bool(occ.nan[0]))
+        stats["checkpoint_saves"] = saves
+        stats["checkpoint_loads"] = loads
+        stats["checkpoint_write_s"] = write_s
+        self.last_run_stats = stats
+        self.report.run_stats = stats
+        return state.values[0], int(c["iters"])
+
+    # -- batched runs and the lane API ----------------------------------
+
     def run_batch(self, roots):
-        raise NotImplementedError(
-            "batched runs and the lane API are not ported yet "
-            "(ROADMAP.md §1 item 6)")
+        """Batched Algorithm 1 over k root vertices.
+
+        Returns ``(values (k, V) on the run's device, iters (k,) int32 on
+        the host)``, each row identical to a sequential
+        ``run(roots=root)``.  Converged lanes freeze (values, frontier and
+        counters) while slower lanes finish; per-lane direction stats land
+        on ``last_run_stats`` (lists, one entry per lane).  One
+        device→host read per batched superstep serves every lane.
+        """
+        state = self._advance(self.batch_init(roots), None)
+        stats = self.lane_stats(state)
+        self.last_run_stats = stats
+        self.report.run_stats = stats
+        return state.values, torch.from_numpy(state.iters.copy())
+
+    def _batch_stats(self, state: BatchLaneState,
+                     occ: _LaneOccupancy) -> dict:
+        """Per-lane stats lists with the JAX package's keys; ``terminated``
+        is 'converged', 'budget', 'diverged' or 'running' (a sliced lane
+        that has not finished yet)."""
+        iters = state.iters.astype(np.int64)
+        pushes = state.pushes.astype(np.int64)
+        compact = state.compact.astype(np.int64)
+        pulls = iters - pushes
+        push_edges = (state.pe_hi.astype(np.int64) << 16) + state.pe_lo
+        pull_edges = (state.pl_hi.astype(np.int64) << 16) + state.pl_lo
+        terminated = []
+        for i in range(iters.shape[0]):
+            if self._probe and occ.nan[i]:
+                terminated.append("diverged")
+            elif occ.n_f[i] == 0:
+                terminated.append("converged")
+            elif iters[i] >= self.max_iters:
+                terminated.append("budget")
+            else:
+                terminated.append("running")
+        zeros = np.zeros_like(pulls)
+        return {
+            "batch_size": int(iters.shape[0]),
+            "push_supersteps": pushes.tolist(),
+            "push_compacted_supersteps": compact.tolist(),
+            "push_fallback_supersteps": (pushes - compact).tolist(),
+            "pull_supersteps": pulls.tolist(),
+            "direction_switches": state.switches.astype(np.int64).tolist(),
+            "edges_traversed": (pull_edges + push_edges).tolist(),
+            "pes": 1,
+            "push_live_rows_per_pe": state.pe_rows.astype(np.int64).tolist(),
+            "pull_blocks_swept": state.bl_swept.astype(np.int64).tolist(),
+            "pull_blocks_skipped": state.bl_skip.astype(np.int64).tolist(),
+            "exchange_supersteps": zeros.tolist(),
+            "exchange_bytes": zeros.tolist(),
+            "terminated": terminated,
+        }
+
+    def _host_inputs(self):
+        """Host copies of what a fresh lane's occupancy is computed from:
+        out-degrees, forward-ELL rows per vertex, and whether the initial
+        table holds a NaN (with the probe on)."""
+        if self._host_occ_inputs is None:
+            deg = self._out_degrees.cpu().numpy().astype(np.int64)
+            rpv = (self._rows_per_vertex.cpu().numpy().astype(np.int64)
+                   if self._with_rf else np.zeros_like(deg))
+            base = self._base_values
+            nan = bool(self._probe and base.dtype.is_floating_point
+                       and torch.isnan(base).any())
+            self._host_occ_inputs = (deg, rpv, nan)
+        return self._host_occ_inputs
+
+    def _fresh_occupancy(self, roots) -> _LaneOccupancy:
+        deg, rpv, nan = self._host_inputs()
+        roots = np.asarray(roots, np.int64)
+        k = roots.shape[0]
+        return _LaneOccupancy(m_f=deg[roots].copy(),
+                              n_f=np.ones(k, np.int64),
+                              r_f=rpv[roots].copy(),
+                              nan=np.full(k, nan))
+
+    def _remember(self, state: BatchLaneState, occ: _LaneOccupancy):
+        self._lane_memo = (state.values, state.active, occ)
+
+    def _lane_read(self, values, active, lanes, pending):
+        """One device→host read: the occupancy of ``lanes`` (a list of
+        lane indices, or None for all) and the pending pull counters
+        ``{lane: (swept_edges, blocks_swept, blocks_skipped)}`` (tensors
+        or ints).  Returns ``(m_f, n_f, r_f, nan)`` host arrays over
+        ``lanes`` and ``{lane: (ints)}``.  The sums run over every lane
+        (no index tensor is copied to the device) and the host keeps the
+        rows it asked for."""
+        kk = active.shape[0]
+        parts = [torch.where(active, self._out_degrees, 0).sum(
+                     1, dtype=torch.int64),
+                 active.sum(1, dtype=torch.int64)]
+        if self._with_rf:
+            parts.append(torch.where(active, self._rows_per_vertex, 0)
+                         .sum(1, dtype=torch.int64))
+        probe = self._probe and values.dtype.is_floating_point
+        if probe:
+            parts.append(torch.isnan(values).any(1).to(torch.int64))
+        tensors = [t.reshape(1).to(torch.int64)
+                   for st in pending.values() for t in st
+                   if isinstance(t, torch.Tensor)]
+        flat = torch.cat([torch.stack(parts, 1).reshape(-1),
+                          *tensors]).tolist()
+        self.lane_reads += 1
+        block = np.asarray(flat[:kk * len(parts)], np.int64).reshape(
+            kk, len(parts))
+        if lanes is not None:
+            block = block[np.asarray(lanes, np.int64)]
+        rest = iter(flat[kk * len(parts):])
+        stats = {lane: tuple(next(rest) if isinstance(t, torch.Tensor)
+                             else int(t) for t in st)
+                 for lane, st in pending.items()}
+        r_f = block[:, 2] if self._with_rf else np.zeros(len(block),
+                                                         np.int64)
+        nan = block[:, -1] != 0 if probe else np.zeros(len(block), bool)
+        return block[:, 0], block[:, 1], r_f, nan, stats
+
+    def _lane_occupancy(self, state: BatchLaneState) -> _LaneOccupancy:
+        """The lanes' occupancy: what the last read of this very state
+        brought back, else one read now."""
+        memo = self._lane_memo
+        if memo is not None and memo[0] is state.values \
+                and memo[1] is state.active:
+            return memo[2]
+        m_f, n_f, r_f, nan, _ = self._lane_read(state.values, state.active,
+                                                None, {})
+        occ = _LaneOccupancy(m_f, n_f, r_f, nan)
+        self._remember(state, occ)
+        return occ
+
+    def batch_init(self, roots) -> BatchLaneState:
+        """Root a k-lane :class:`BatchLaneState` without running any steps.
+
+        Each lane carries the complete loop state, so slicing the batch
+        with :meth:`run_batch_slice` replays the exact superstep sequence
+        ``run`` would execute.
+        """
+        roots = np.asarray(roots, np.int64).reshape(-1)
+        k, V = roots.shape[0], self._num_vertices
+        base = self._base_values
+        values = base.expand(k, V).clone()
+        active = torch.zeros((k, V), dtype=torch.bool, device=base.device)
+        for i, root in enumerate(roots.tolist()):
+            # scalar fills: no index tensor copied to the device
+            values[i, root] = 0
+            active[i, root] = True
+        z = np.zeros(k, np.int32)
+        state = BatchLaneState(
+            values=values, active=active, iters=z.copy(),
+            direction=z.copy(), pushes=z.copy(), compact=z.copy(),
+            switches=z.copy(), pe_hi=z.copy(), pe_lo=z.copy(),
+            pe_rows=np.zeros((k, 1), np.int32), pl_hi=z.copy(),
+            pl_lo=z.copy(), bl_swept=z.copy(), bl_skip=z.copy(),
+            pull_cost=np.full(k, self._num_edges, np.int32))
+        self._remember(state, self._fresh_occupancy(roots))
+        return state
+
+    def batch_idle(self, slots: int) -> BatchLaneState:
+        """An all-idle k-lane state: every lane converged, awaiting
+        :meth:`lane_admit`.  Idle lanes have an empty frontier, so they
+        launch nothing."""
+        state = self.batch_init(np.zeros(slots, np.int64))
+        state = state._replace(active=torch.zeros_like(state.active))
+        z = np.zeros(slots, np.int64)
+        self._remember(state, _LaneOccupancy(z, z.copy(), z.copy(),
+                                             np.zeros(slots, bool)))
+        return state
+
+    def lane_admit(self, state: BatchLaneState, lane,
+                   root) -> BatchLaneState:
+        """A new state with lane ``lane`` rooted afresh at ``root``, every
+        other lane as it was."""
+        lane, root = int(lane), int(root)
+        memo = self._lane_memo
+        known = memo is not None and memo[0] is state.values \
+            and memo[1] is state.active
+        fresh = self.batch_init([root])
+        values = state.values.clone()
+        active = state.active.clone()
+        values[lane] = fresh.values[0]
+        active[lane] = fresh.active[0]
+        counters = {}
+        for f in _COUNTERS:
+            arr = getattr(state, f).copy()
+            arr[lane] = getattr(fresh, f)[0]
+            counters[f] = arr
+        out = BatchLaneState(values=values, active=active, **counters)
+        if known:
+            occ = memo[2].copy()
+            new = self._fresh_occupancy([root])
+            for name in ("m_f", "n_f", "r_f", "nan"):
+                getattr(occ, name)[lane] = getattr(new, name)[0]
+            self._remember(out, occ)
+        return out
+
+    def run_batch_slice(self, state: BatchLaneState,
+                        budget) -> BatchLaneState:
+        """Advance every live lane by at most ``budget`` supersteps.
+
+        The slice loop is the run loop plus a step budget per lane: the
+        same direction decisions, counters and freeze guards, so N slices
+        concatenated step through the exact supersteps a single
+        ``run_batch`` executes, including per-lane ``'auto'`` choices (the
+        carried direction and pull-cost registers).  Converged lanes
+        freeze; the serving plane harvests them (:meth:`lane_done`),
+        frees their slots and admits queued queries without restarting
+        slow lanes.  The ``lane.superstep`` fault point trips first.
+        """
+        faults.trip("lane.superstep")
+        return self._advance(state, int(budget))
+
+    def _advance(self, state: BatchLaneState, budget) -> BatchLaneState:
+        """Step every live lane until it converges, hits ``max_iters`` or
+        has taken ``budget`` supersteps (``None``: no budget).
+
+        One read per batched superstep brings back each stepped lane's
+        occupancy and pending pull counters; the last one is remembered
+        for this state, so ``lane_done``/``lane_stats`` and the next
+        slice read nothing.
+        """
+        occ = self._lane_occupancy(state).copy()
+        k = state.iters.shape[0]
+        c = {f: getattr(state, f).copy() for f in _COUNTERS}
+        iters, direction = c["iters"], c["direction"]
+        values, active = state.values, state.active
+        owned = False
+        tiers = self._push_tiers
+        probe = self._probe and values.dtype.is_floating_point
+        device = values.device
+        steps = np.zeros(k, np.int64)
+        while True:
+            stepping = [i for i in range(k)
+                        if occ.n_f[i] > 0 and iters[i] < self.max_iters
+                        and (budget is None or steps[i] < budget)]
+            if not stepping:
+                break
+            dirs = {i: self._choose(int(direction[i]), int(occ.m_f[i]),
+                                    int(occ.n_f[i]), int(c["pull_cost"][i]))
+                    for i in stepping}
+            sweep = [] if self._lane_sweep is None else [
+                i for i in stepping
+                if dirs[i] == 0 or (tiers is not None
+                                    and occ.r_f[i] > tiers[-1])]
+            singles = [i for i in stepping if i not in sweep]
+            pending = {}
+            if sweep and len(sweep) == k:
+                # every lane in one batched masked sweep: fresh tensors
+                values, active = self._lane_sweep(
+                    values, active, [dirs[i] == 0 for i in sweep])
+                owned = True
+            elif sweep:
+                if not owned:
+                    values, active = values.clone(), active.clone()
+                    owned = True
+                # rows gathered and written back lane by lane: an index
+                # tensor would be a blocking copy to the device
+                new, nxt = self._lane_sweep(
+                    torch.stack([values[i] for i in sweep]),
+                    torch.stack([active[i] for i in sweep]),
+                    [dirs[i] == 0 for i in sweep])
+                for j, i in enumerate(sweep):
+                    values[i] = new[j]
+                    active[i] = nxt[j]
+            if sweep:
+                self.lane_sweeps += 1
+                pending.update({i: (self._num_edges, 0, 0) for i in sweep
+                                if dirs[i] == 0})
+            if singles and not owned:
+                values, active = values.clone(), active.clone()
+                owned = True
+            for i in singles:
+                if dirs[i]:
+                    new, nxt, _ = self._push_step(values[i], active[i],
+                                                  int(occ.r_f[i]))
+                else:
+                    new, nxt, pending[i] = self._pull_step(
+                        values[i], active[i], int(occ.m_f[i]))
+                values[i] = new
+                active[i] = nxt
+            if probe:
+                for i in stepping:
+                    active[i] &= ~torch.isnan(values[i]).any()
+            for i in stepping:
+                d = dirs[i]
+                if d:
+                    r_f, m_f = int(occ.r_f[i]), int(occ.m_f[i])
+                    c["pushes"][i] += 1
+                    c["compact"][i] += int(tiers is None or r_f <= tiers[-1])
+                    c["pe_rows"][i, 0] += r_f
+                    c["pe_hi"][i] += m_f >> 16
+                    c["pe_lo"][i] += m_f & 0xFFFF
+                c["switches"][i] += int(d != direction[i])
+                direction[i] = d
+                iters[i] += 1
+                steps[i] += 1
+            m_f, n_f, r_f, nan, done = self._lane_read(values, active,
+                                                       stepping, pending)
+            self.lane_supersteps += 1
+            for j, i in enumerate(stepping):
+                occ.m_f[i], occ.n_f[i], occ.r_f[i], occ.nan[i] = \
+                    m_f[j], n_f[j], r_f[j], nan[j]
+            for i, (swept_e, swept_b, skip_b) in done.items():
+                c["pl_hi"][i] += swept_e >> 16
+                c["pl_lo"][i] += swept_e & 0xFFFF
+                c["bl_swept"][i] += swept_b
+                c["bl_skip"][i] += skip_b
+                c["pull_cost"][i] = swept_e
+        out = BatchLaneState(values=values, active=active, **c)
+        self._remember(out, occ)
+        return out
+
+    def lane_done(self, state: BatchLaneState) -> np.ndarray:
+        """Host bool (k,): lane converged (empty frontier or max_iters)."""
+        occ = self._lane_occupancy(state)
+        return (occ.n_f == 0) | (state.iters >= self.max_iters)
+
+    def lane_stats(self, state: BatchLaneState) -> dict:
+        """Per-lane run stats for a sliced batch (run_batch's keys)."""
+        return self._batch_stats(state, self._lane_occupancy(state))
+
+    def lane_values(self, state: BatchLaneState, lanes) -> np.ndarray:
+        """Host copies of the listed lanes' tables, ``(len(lanes), V)``,
+        in one read; the other lanes stay on the device."""
+        self.lane_reads += 1
+        return torch.stack([state.values[i] for i in lanes]).cpu().numpy()
+
+    def lane_snapshot(self, state: BatchLaneState) -> dict:
+        """The full 15-field lane state as host numpy arrays, keyed by
+        :attr:`BatchLaneState._fields`, for
+        :func:`~repro_torch.core.checkpoint.write_snapshot`; it restores
+        through :meth:`lane_restore` bit-exactly."""
+        self.lane_reads += 1
+        out = {"values": state.values.cpu().numpy(),
+               "active": state.active.cpu().numpy()}
+        out.update({f: np.asarray(getattr(state, f)) for f in _COUNTERS})
+        return out
+
+    def lane_restore(self, arrays: dict) -> BatchLaneState:
+        """Rebuild a :class:`BatchLaneState` from :meth:`lane_snapshot`'s
+        arrays (either package's).
+
+        Dtypes are this program's (values) and the JAX package's (the rest,
+        int32), not trusted from the snapshot.  Missing fields raise
+        :class:`~repro_torch.errors.CheckpointCorruptError`.
+        """
+        missing = [f for f in BatchLaneState._fields if f not in arrays]
+        if missing:
+            raise CheckpointCorruptError(
+                f"lane snapshot is missing carry fields: "
+                f"{', '.join(missing)}", member=missing[0])
+        base = self._base_values
+        values = torch.as_tensor(np.asarray(arrays["values"])).to(
+            device=base.device, dtype=base.dtype)
+        active = torch.as_tensor(np.asarray(arrays["active"]).astype(bool)
+                                 ).to(base.device)
+        return BatchLaneState(
+            values=values, active=active,
+            **{f: np.array(arrays[f], dtype=np.int32) for f in _COUNTERS})
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +949,81 @@ def _emit_dense_pull_reduce(ir: SuperstepIR, fused: FusedGatherReduceOp,
         return red, got
 
     return partial_reduce, sub_sweep
+
+
+def _emit_lane_sweep(ir: SuperstepIR, fused: FusedGatherReduceOp,
+                     pplan: G.PullBitmapPlan, out_deg, sub_sweep, apply_fn,
+                     frontier_op: FrontierUpdateOp, touched_free: bool,
+                     use_kernels: bool):
+    """The batched masked sweep of the lane API: ``lane_sweep(values,
+    active, pull_rows)`` maps ``(k', V)`` tables and frontiers to the next
+    ``(new, next_active)``, with a pull superstep for the lanes whose
+    ``pull_rows`` entry is true and a push fallback superstep (the masked
+    sweep, then the apply everywhere) for the others; both compute the
+    same values.
+
+    With the kernels on, one launch of
+    ``edge_block.edge_block_reduce_lanes`` reduces every lane's sub-rows,
+    reading each row's ids once; on the CPU each lane takes the
+    single-lane plain sweep.  The combine cascade runs once on the batch,
+    and so does the apply when the analyzer found it elementwise and
+    :func:`~repro_torch.core.analysis.apply_batches_over_lanes` finds a
+    ``(2, V)`` batch of lanes gives each lane its own result; any other
+    apply runs lane by lane.
+    """
+    program = ir.program
+    dtype = ir.value_dtype
+    ident = fused.reduce.identity.item()
+    op = fused.reduce.op
+    facts = ir.facts if ir.facts is not None else analyze_program(program)
+    elementwise = bool(facts.elementwise.value) and apply_batches_over_lanes(
+        apply_fn, dtype, pplan.num_vertices)
+    changed = frontier_op.mode == "changed"
+    masked_got = changed and not touched_free
+
+    def apply_lanes(values, red):
+        if elementwise:
+            return apply_fn(values, red)
+        return torch.stack([apply_fn(v, r) for v, r in zip(values, red)])
+
+    def lane_sweep(values, active, pull_rows):
+        need_got = masked_got and any(pull_rows)
+        if use_kernels:
+            sub_red, sub_any = edge_block_kernel.edge_block_reduce_lanes(
+                pplan.flat_dst, pplan.flat_wgt, values, out_deg, active,
+                gather=fused.gather.module, reduce=op,
+                mask_inactive=program.mask_inactive, need_any=need_got)
+        else:
+            parts = [sub_sweep(v, a, pplan.flat_dst_safe, pplan.flat_wgt,
+                               need_got) for v, a in zip(values, active)]
+            sub_red = torch.stack([p[0] for p in parts])
+            sub_any = torch.stack([p[1] for p in parts]) if need_got \
+                else None
+        red = pull_bitmap_kernel.subrow_combine(sub_red, pplan, ident, op,
+                                                dtype)
+        new = apply_lanes(values, red)
+        rows = True if all(pull_rows) else False if not any(pull_rows) \
+            else None
+        if rows is None:      # mixed: a (k', 1) mask filled row by row
+            rows = torch.zeros((len(pull_rows), 1), dtype=torch.bool,
+                               device=values.device)
+            for j, pull in enumerate(pull_rows):
+                if pull:
+                    rows[j] = True
+        if need_got:     # pull lanes keep untouched vertices as they were
+            got = pull_bitmap_kernel.subrow_combine(
+                sub_any.to(torch.int8), pplan, 0, "max", torch.int8) != 0
+            new = torch.where(got if rows is True else ~rows | got, new,
+                              values)
+        if not changed and rows is True:
+            # frontier='all': every vertex stays active
+            return new, torch.ones_like(active)
+        nxt = new != values
+        if not changed and rows is not False:
+            nxt = nxt | rows
+        return new, nxt
+
+    return lane_sweep
 
 
 def _emit_pull_bitmap(ir: SuperstepIR, fstep: FusedSuperstepOp,
@@ -640,6 +1275,7 @@ def translate(
     validate: bool = False,
     strict: bool = False,
     checkpoint_dir: str | None = None,
+    checkpoint_every: int | None = None,
 ) -> CompiledGraphProgram:
     """Stage a DSL program into an executable for graph ``g`` on ``device``.
 
@@ -648,20 +1284,18 @@ def translate(
     built on the host once per graph (:func:`repro_torch.core.preprocess.
     layouts_for`) and copied to the device once per device.
     ``strict=True`` refuses a program carrying a warning- or error-severity
-    diagnostic.
+    diagnostic.  ``checkpoint_dir``/``checkpoint_every`` are the defaults
+    of :meth:`CompiledGraphProgram.run`'s checkpointed runs.
     """
     t0 = time.perf_counter()
     device = resolve_device(device)
     use_kernels = device.type == "cuda"
     schedule = schedule or ScheduleConfig()
     comm = comm or CommManager()
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointed runs are not ported yet (ROADMAP.md §1 item 7)")
     if not isinstance(g, G.Graph):
         raise NotImplementedError(
             "streamed partition containers are not ported yet "
-            "(ROADMAP.md §1 item 8)")
+            "(ROADMAP.md §1 item 4)")
     if validate:
         G.validate_graph(g, reduce=program.reduce)
     splan = plan(schedule, num_vertices=g.num_vertices,
@@ -787,6 +1421,12 @@ def translate(
         def push_step(values, active, r_f=None):
             return (*scatter_step(values, active), 0)
 
+    lane_sweep = None
+    if dense and pull_sweep != "bitmap":
+        lane_sweep = _emit_lane_sweep(ir, fused, on["pplan"], out_deg,
+                                      sub_sweep, apply_fn, frontier_op,
+                                      touched_free, use_kernels)
+
     base_values = program.materialize_init(V, device)
 
     def init_state(roots=None, values=None):
@@ -845,4 +1485,7 @@ def translate(
         direction=policy, out_degrees=out_deg,
         rows_per_vertex=rows_per_vertex, push_tiers=push_tiers,
         num_vertices=V, num_edges=E,
-        probe_divergence=schedule.probe_divergence)
+        probe_divergence=schedule.probe_divergence, lane_sweep=lane_sweep,
+        base_values=base_values, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every,
+        fingerprints_fn=lambda: ckpt.run_fingerprints(program, g, schedule))

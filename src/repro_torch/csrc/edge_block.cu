@@ -299,6 +299,320 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The lane-axis variant: kernel 1 over k lanes at once (k frontiers and
+// value tables over one graph, as the vmapped Pallas kernel runs under the
+// JAX package's batched runs).  K is k rounded up to 1, 4, 8 or 32 (the
+// wrapper splits wider batches into launches of 32 lanes); mask_inactive
+// is a launch argument, not a template one, to keep the build short.
+//
+// Pre-pass, one thread a vertex u: the K lanes' messages of u in one
+// vertex-major row msg[u * K .. u * K + K) (for K = 8 and 4-byte values,
+// one 32-byte sector), and under mask_inactive u's K frontier bits,
+// packed 32 / K vertices a word (K = 1 is kernel 1's bitmap).  Pad lanes
+// (k <= l < K) get message 0 and frontier bit 0.
+//
+// Main kernel, one thread a row: the row's ids are read once, as kernel
+// 1 reads them; per slot one read of the vertex's K frontier bits and,
+// when any lane is live there, one read of its K messages; each lane
+// reduces the row's slots in slot order with the dead slots as the
+// identity, exactly as kernel 1 reduces one lane, so a lane's float add
+// sums in kernel 1's order.  Outputs are lane-major (k, rows).
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ unsigned to_bits(T x) {
+  if constexpr (std::is_floating_point<T>::value) {
+    return __float_as_uint(x);
+  } else {
+    return static_cast<unsigned>(x);
+  }
+}
+
+// K consecutive 4-byte words from p (aligned to min(16, 4 K) bytes), kept
+// in L2 ahead of the id stream.
+template <int K>
+__device__ __forceinline__ void load_lanes(const void* p, uint64_t pol,
+                                           unsigned (&m)[K]) {
+  if constexpr (K == 1) {
+    m[0] = load_table(p, pol);
+  } else if constexpr (K == 2) {
+    asm volatile("ld.global.nc.L2::cache_hint.v2.u32 {%0,%1}, [%2], %3;"
+                 : "=r"(m[0]), "=r"(m[1])
+                 : "l"(p), "l"(pol));
+  } else {
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      asm volatile(
+          "ld.global.nc.L2::cache_hint.v4.u32 {%0,%1,%2,%3}, [%4], %5;"
+          : "=r"(m[4 * q]), "=r"(m[4 * q + 1]), "=r"(m[4 * q + 2]),
+            "=r"(m[4 * q + 3])
+          : "l"(static_cast<const unsigned*>(p) + 4 * q), "l"(pol));
+    }
+  }
+}
+
+template <typename T, int G, int K>
+__global__ void edge_block_lanes_pack_kernel(
+    const T* __restrict__ values, const int* __restrict__ degrees,
+    const uint8_t* __restrict__ active, unsigned* __restrict__ bits,
+    T* __restrict__ msg, long long V, int k, bool mask) {
+  const long long u = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  unsigned live = 0;
+  unsigned row[K];
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    row[l] = 0u;
+    if (u < V && l < k) {
+      const T v = values[l * V + u];
+      row[l] = to_bits<T>(needs_msg(G)
+                              ? gather_op<T, G>(v, 0.0f,
+                                                G == kDivDeg ? degrees[u] : 0)
+                              : v);
+      if (mask && active[l * V + u] != 0) live |= 1u << l;
+    }
+  }
+  if (mask) {
+    // 32 / K consecutive threads (vertices) share a word
+    constexpr int kPer = 32 / K;
+    const int t = threadIdx.x & 31;
+    unsigned word = K == 32 ? live : live << ((t * K) & 31);
+#pragma unroll
+    for (int off = 1; off < kPer; off <<= 1) {
+      word |= __shfl_xor_sync(~0u, word, off);
+    }
+    if (t % kPer == 0 && u < V) bits[(u * K) >> 5] = word;
+  }
+  if (u < V) {
+    unsigned* dst = reinterpret_cast<unsigned*>(msg) + u * K;
+    if constexpr (K == 1) {
+      dst[0] = row[0];
+    } else if constexpr (K == 2) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(row[0], row[1]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q) {
+        reinterpret_cast<uint4*>(dst)[q] = make_uint4(
+            row[4 * q], row[4 * q + 1], row[4 * q + 2], row[4 * q + 3]);
+      }
+    }
+  }
+}
+
+// One slot into the K lanes' accumulators: lanes whose bit is set in
+// `live` take the message (weighted by w for add_w and mul_w), the others
+// the identity, in lane order.
+template <typename T, int GW, int R, int K>
+__device__ __forceinline__ void lanes_combine(T (&acc)[K], unsigned live,
+                                              const unsigned (&m)[K],
+                                              float w) {
+  const T ident = reduce_identity<T, R>();
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    T x = ident;
+    if ((live >> l) & 1u) {
+      x = from_bits<T>(m[l]);
+      if constexpr (weighted(GW)) x = gather_op<T, GW>(x, w, 0);
+    }
+    acc[l] = combine<T, R>(acc[l], x);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ unsigned lane_bits(const unsigned* bits, int id,
+                                              uint64_t pol) {
+  constexpr unsigned kAll = K == 32 ? ~0u : (1u << K) - 1u;
+  const long long at = static_cast<long long>(id) * K;
+  return (load_table(bits + (at >> 5), pol) >> (at & 31)) & kAll;
+}
+
+template <typename T, int GW, int R, int K>
+__global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,
+                                        const float* __restrict__ wgt,
+                                        const unsigned* __restrict__ bits,
+                                        const T* __restrict__ msg,
+                                        T* __restrict__ out,
+                                        uint8_t* __restrict__ any_out,
+                                        long long rows, int width, int k,
+                                        bool mask, bool w8) {
+  constexpr bool kW = weighted(GW);
+  constexpr unsigned kAll = K == 32 ? ~0u : (1u << K) - 1u;
+  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (r >= rows) return;
+  const uint64_t first = l2_policy_evict_first();
+  const uint64_t last = l2_policy_evict_last();
+  T acc[K];
+#pragma unroll
+  for (int l = 0; l < K; ++l) acc[l] = reduce_identity<T, R>();
+  unsigned any = 0;
+  if (w8) {
+    const int4 lo = load_stream(nbr + r * 8, first);
+    const int4 hi = load_stream(nbr + r * 8 + 4, first);
+    const int ids[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    unsigned live[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {        // the row's frontier bits in flight
+      live[j] = ids[j] == kPad ? 0u
+                : mask          ? lane_bits<K>(bits, ids[j], last)
+                                : kAll;
+    }
+    float w[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if constexpr (kW) {
+      const int4 wl = load_stream(wgt + r * 8, first);
+      const int4 wh = load_stream(wgt + r * 8 + 4, first);
+      const int wb[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[j] = __int_as_float(wb[j]);
+    }
+    if constexpr (K <= 8) {              // then all live rows of messages
+      unsigned m[8][K];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (live[j]) {
+          load_lanes<K>(msg + static_cast<long long>(ids[j]) * K, last,
+                        m[j]);
+        } else {
+#pragma unroll
+          for (int l = 0; l < K; ++l) m[j][l] = 0u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        lanes_combine<T, GW, R, K>(acc, live[j], m[j], w[j]);
+        any |= live[j];
+      }
+    } else {                             // wide rows: a slot at a time
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        unsigned m[K];
+        if (live[j]) {
+          load_lanes<K>(msg + static_cast<long long>(ids[j]) * K, last, m);
+        } else {
+#pragma unroll
+          for (int l = 0; l < K; ++l) m[l] = 0u;
+        }
+        lanes_combine<T, GW, R, K>(acc, live[j], m, w[j]);
+        any |= live[j];
+      }
+    }
+  } else {
+    const int* row = nbr + r * width;
+    const float* wrow = wgt + r * width;
+    for (int j = 0; j < width; ++j) {
+      const int u = __ldg(row + j);
+      const unsigned live = u == kPad ? 0u
+                            : mask    ? lane_bits<K>(bits, u, last)
+                                      : kAll;
+      unsigned m[K];
+      if (live) {
+        load_lanes<K>(msg + static_cast<long long>(u) * K, last, m);
+      } else {
+#pragma unroll
+        for (int l = 0; l < K; ++l) m[l] = 0u;
+      }
+      lanes_combine<T, GW, R, K>(acc, live, m,
+                                 kW ? __ldg(wrow + j) : 0.0f);
+      any |= live;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    if (l < k) {
+      out[l * rows + r] = acc[l];
+      if (any_out != nullptr) any_out[l * rows + r] = (any >> l) & 1u;
+    }
+  }
+}
+
+struct LaneArgs {
+  bool mask;                // mask_inactive
+  const void* nbr;
+  const void* wgt;
+  const void* values;       // (k, V), lane-major
+  const void* degrees;
+  const void* active;       // (k, V) bool
+  void* bits;               // ceil(V K / 32) words (mask_inactive)
+  void* msg;                // (V, K) vertex-major messages
+  long long V;
+  int k;
+  void* out;                // (k, rows)
+  void* any;                // (k, rows) bytes, or null
+  long long rows;
+  int width;
+  cudaStream_t stream;
+};
+
+template <typename T, int G, int R, int K>
+cudaError_t launch_lanes(const LaneArgs& a) {
+  constexpr int kThreads = 256;
+  constexpr int GW = weighted(G) ? G : kCopy;   // the main kernel's gather
+  if (a.V > 0) {
+    const long long blocks = (a.V + kThreads - 1) / kThreads;
+    edge_block_lanes_pack_kernel<T, G, K>
+        <<<blocks, kThreads, 0, a.stream>>>(
+            static_cast<const T*>(a.values),
+            static_cast<const int*>(a.degrees),
+            static_cast<const uint8_t*>(a.active),
+            static_cast<unsigned*>(a.bits), static_cast<T*>(a.msg), a.V,
+            a.k, a.mask);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const bool w8 = a.width == 8 &&
+                  reinterpret_cast<uintptr_t>(a.nbr) % 16 == 0 &&
+                  (!weighted(G) ||
+                   reinterpret_cast<uintptr_t>(a.wgt) % 16 == 0);
+  const long long blocks = (a.rows + kThreads - 1) / kThreads;
+  edge_block_lanes_kernel<T, GW, R, K>
+      <<<blocks, kThreads, 0, a.stream>>>(
+          static_cast<const int*>(a.nbr), static_cast<const float*>(a.wgt),
+          static_cast<const unsigned*>(a.bits),
+          static_cast<const T*>(a.msg), static_cast<T*>(a.out),
+          static_cast<uint8_t*>(a.any), a.rows, a.width, a.k, a.mask, w8);
+  return cudaGetLastError();
+}
+
+template <typename T, int G, int R>
+cudaError_t lanes_by_k(const LaneArgs& a, int K) {
+  switch (K) {
+    case 1: return launch_lanes<T, G, R, 1>(a);
+    case 4: return launch_lanes<T, G, R, 4>(a);
+    case 8: return launch_lanes<T, G, R, 8>(a);
+    case 32: return launch_lanes<T, G, R, 32>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int G>
+cudaError_t lanes_by_reduce(const LaneArgs& a, int reduce, int K) {
+  switch (reduce) {
+    case kAdd: return lanes_by_k<T, G, kAdd>(a, K);
+    case kMin: return lanes_by_k<T, G, kMin>(a, K);
+    case kMax: return lanes_by_k<T, G, kMax>(a, K);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t lanes_by_gather(const LaneArgs& a, int gather, int reduce,
+                            int K) {
+  switch (gather) {
+    case kCopy: return lanes_by_reduce<T, kCopy>(a, reduce, K);
+    case kPlusOne: return lanes_by_reduce<T, kPlusOne>(a, reduce, K);
+    case kAddW: return lanes_by_reduce<T, kAddW>(a, reduce, K);
+    case kMulW: return lanes_by_reduce<T, kMulW>(a, reduce, K);
+    case kDivDeg:
+      if constexpr (std::is_floating_point<T>::value) {
+        return lanes_by_reduce<T, kDivDeg>(a, reduce, K);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -329,4 +643,32 @@ extern "C" int edge_block_reduce_launch(
                static_cast<cudaStream_t>(stream)};
   return value_is_float ? by_gather<float>(a, gather, reduce, mask_inactive)
                         : by_gather<int>(a, gather, reduce, mask_inactive);
+}
+
+// C entry point of the lane-axis variant.  values and active are (k, V)
+// lane-major, 1 <= k <= K; K is 1, 4, 8 or 32.  `bits` (ceil(V K /
+// 32) words, with mask_inactive) and `msg` ((V, K) of the value type) are
+// scratch for the pre-pass; `out` is (k, rows) of the value type and
+// `any` (k, rows) bytes, or null when the caller needs no flags.  Returns
+// the cudaError_t of the launches (0 = success).
+extern "C" int edge_block_lanes_launch(
+    int device, int gather, int reduce, int value_is_float, int mask_inactive,
+    int K, const void* nbr, const void* wgt, const void* values,
+    const void* degrees, const void* active, void* bits, void* msg,
+    long long V, int k, void* out, void* any, long long rows, int width,
+    void* stream) {
+  using namespace repro_torch;
+  if (k < 1 || k > K) return cudaErrorInvalidValue;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  if (current != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+  }
+  const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
+                   bits, msg, V, k, out, any, rows, width,
+                   static_cast<cudaStream_t>(stream)};
+  return value_is_float ? lanes_by_gather<float>(a, gather, reduce, K)
+                        : lanes_by_gather<int>(a, gather, reduce, K);
 }

@@ -37,7 +37,10 @@ _ENTRY = {
                     _L, _L, _L, _L, _L, _P, _L, _P, _P, _P, _P]},
     "edge_block": {"edge_block_reduce_launch":
                    [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                    _L, _P, _P, _L, _I, _P]},
+                    _L, _P, _P, _L, _I, _P],
+                   "edge_block_lanes_launch":
+                   [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L,
+                    _I, _P, _P, _L, _I, _P]},
     "push_ell": {"push_ell_message_launch":
                  [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
                  "push_ell_fused_launch":

@@ -14,9 +14,18 @@ the wrapper launches the per-block early-out variant (the TPU's
 blocks of ``block_rows``, and a dead block writes the identity without
 gathering.  The two variants count their launches apart.
 
-:func:`edge_block_reduce` takes the plain version for tensors on the CPU
-and launches the kernel for tensors on a CUDA device; it never falls back
-from one to the other.
+:func:`edge_block_reduce_lanes` is the lane-axis variant, the counterpart
+of the Pallas kernel under ``jax.vmap`` in the JAX package's batched runs:
+k value tables and frontiers over one graph, ``(k, V)``, through one
+launch that reads each row's ids once for all k lanes.  Its pre-pass lays
+the lanes out vertex-major, the k messages of a vertex in one row (one
+32-byte sector for k = 8) and its k frontier bits together, so a live
+slot costs one sector however many lanes are live there.  It counts its
+launches apart too (``lane_launches``).
+
+:func:`edge_block_reduce` and :func:`edge_block_reduce_lanes` take the
+plain version for tensors on the CPU and launch the kernel for tensors on
+a CUDA device; they never fall back from one to the other.
 """
 from __future__ import annotations
 
@@ -151,3 +160,116 @@ def edge_block_reduce(
 # and of its block-skipping variant
 edge_block_reduce.launches = 0
 edge_block_reduce.skip_launches = 0
+
+
+# lanes a launch of the lane-axis kernel takes: k bits of a vertex fit one
+# 32-bit frontier word; a launch pads k up to one of the kernel's built
+# widths (pad lanes read nothing under mask_inactive and write nothing)
+MAX_LANES = 32
+LANE_WIDTHS = (1, 4, 8, 32)
+
+
+def edge_block_reduce_lanes_plain(nbr, wgt, values, degrees, active, *,
+                                  gather: str, reduce: str,
+                                  mask_inactive: bool = True):
+    """Plain version of the lane-axis kernel: the single-lane plain
+    version applied to each lane, stacked to ``(k, R)``."""
+    outs = [edge_block_reduce_plain(nbr, wgt, v, degrees, a, gather=gather,
+                                    reduce=reduce,
+                                    mask_inactive=mask_inactive)
+            for v, a in zip(values, active)]
+    R = nbr.shape[0]
+    if not outs:
+        return (values.new_empty((0, R)),
+                torch.empty((0, R), dtype=torch.bool, device=values.device))
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def edge_block_reduce_lanes(
+    nbr: torch.Tensor,        # (R, W) int32 neighbor ids, PAD-padded
+    wgt: torch.Tensor,        # (R, W) float32 edge weights
+    values: torch.Tensor,     # (k, V) int32 | float32, one table a lane
+    degrees: torch.Tensor,    # (V,) int32 out-degrees
+    active: torch.Tensor,     # (k, V) bool, one frontier a lane
+    *,
+    gather: str,
+    reduce: str,
+    mask_inactive: bool = True,
+    need_any: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Kernel 1 over k lanes: per lane and row, the reduce of the menu
+    gather over the row's live slots.
+
+    Returns ``(reduced (k, R) values.dtype, any_live (k, R) bool)``; row
+    ``i`` of each is what :func:`edge_block_reduce` gives for lane ``i``
+    alone, bit for bit (each lane reduces its slots in kernel 1's order).
+    ``need_any=False`` skips the flags (returned as ``None``).  A batch
+    wider than :data:`MAX_LANES` runs as several launches of at most that
+    many lanes.
+    """
+    if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
+        raise ValueError(f"not a menu module: gather={gather!r}, "
+                         f"reduce={reduce!r}")
+    if gather == "div_deg" and not values.dtype.is_floating_point:
+        raise ValueError("div_deg is a true division: it needs float values")
+    if values.dim() != 2 or tuple(active.shape) != tuple(values.shape):
+        raise ValueError(f"values and active: want (k, V) each, got "
+                         f"{tuple(values.shape)} and {tuple(active.shape)}")
+    if values.device.type == "cpu":
+        red, any_live = edge_block_reduce_lanes_plain(
+            nbr, wgt, values, degrees, active, gather=gather, reduce=reduce,
+            mask_inactive=mask_inactive)
+        return red, any_live if need_any else None
+    if values.device.type != "cuda":
+        raise ValueError(f"edge_block_reduce_lanes runs on CPU or CUDA "
+                         f"tensors, got {values.device}")
+    if values.dtype not in _VALUE_DTYPES:
+        raise TypeError(f"the kernel takes int32 or float32 values, "
+                        f"got {values.dtype}")
+    R, W = nbr.shape
+    k, V = values.shape
+    want = {"nbr": (nbr, torch.int32, (R, W)),
+            "wgt": (wgt, torch.float32, (R, W)),
+            "values": (values, values.dtype, (k, V)),
+            "degrees": (degrees, torch.int32, (V,)),
+            "active": (active, torch.bool, (k, V))}
+    for name, (t, dtype, shape) in want.items():
+        if t.device != values.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape {shape} "
+                f"on {values.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    out = torch.empty((k, R), dtype=values.dtype, device=values.device)
+    any_live = torch.empty((k, R), dtype=torch.uint8, device=values.device) \
+        if need_any else None
+    if R == 0 or k == 0:
+        return out, None if any_live is None else any_live.view(torch.bool)
+    lib = _build.library("edge_block")
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    for lo in range(0, k, MAX_LANES):
+        kc = min(MAX_LANES, k - lo)
+        K = next(w for w in LANE_WIDTHS if w >= kc)
+        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
+                           device=values.device) if mask_inactive else None
+        msg = torch.empty((V * K,), dtype=values.dtype,
+                          device=values.device)
+        err = lib.edge_block_lanes_launch(
+            values.device.index or 0, GATHER_OPS.index(gather),
+            REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
+            int(mask_inactive), K, nbr.data_ptr(), wgt.data_ptr(),
+            values[lo].data_ptr(), degrees.data_ptr(), active[lo].data_ptr(),
+            None if bits is None else bits.data_ptr(), msg.data_ptr(), V, kc,
+            out[lo].data_ptr(),
+            None if any_live is None else any_live[lo].data_ptr(), R, W,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"edge_block lane kernel launch failed: "
+                               f"cudaError_t {err}")
+        edge_block_reduce_lanes.lane_launches += 1
+    return out, None if any_live is None else any_live.view(torch.bool)
+
+
+# launches of the lane-axis kernel since the count was last set to 0
+edge_block_reduce_lanes.lane_launches = 0

@@ -11,7 +11,8 @@ these is a TPU kernel):
 * :func:`grid_block_live` — the kernel path's ``block_live`` flags, one
   per grid block of sub-rows;
 * :func:`subrow_combine` — per-sub-row reductions back to per-vertex
-  values, scatter-free but for split hubs;
+  values, scatter-free but for split hubs, one lane or a ``(k, R8)``
+  batch of lanes;
 * :func:`message_table` — the masked per-source messages of a
   weight-free gather.
 
@@ -90,23 +91,35 @@ def word_prefix(words: torch.Tensor) -> torch.Tensor:
 
 def combine_rows(row_red_cat: torch.Tensor, plan, identity, reduce: str,
                  dtype: torch.dtype) -> torch.Tensor:
-    """Concatenated per-row reductions → (V,) table.
+    """Concatenated per-row reductions → (V,) table, or with a leading lane
+    axis ``(k, rows + 1)`` → ``(k, V)``.
 
     ``row_red_cat`` holds the identity at index ``num_rows_total`` (the
     no-in-edge dummy ``row_map`` points at).  Split hubs (a vertex owning
     several max-width rows) fold their extra rows in with a small scatter
     over ``plan.dup_rows``.
     """
-    red_v = row_red_cat[plan.row_map].to(dtype)
+    if row_red_cat.dim() == 2 and reduce == "add" \
+            and row_red_cat.dtype.is_floating_point:
+        return torch.stack([combine_rows(row, plan, identity, reduce, dtype)
+                            for row in row_red_cat])
+    red_v = row_red_cat[..., plan.row_map].to(dtype)
     if plan.num_dup:
-        extra = row_red_cat[plan.dup_rows].to(dtype)
+        extra = row_red_cat[..., plan.dup_rows].to(dtype)
         idx = plan.dup_vertices.long()
-        if reduce == "add":
-            red_v = red_v.index_add(0, idx, extra)
+        if red_v.dim() == 1 and reduce == "add":
+            # sequential on the CPU and sort-based on CUDA: a float sum
+            # folds a hub's rows in one fixed order on every run
+            red_v = red_v.index_put((idx,), extra, accumulate=True)
+        elif reduce == "add":           # integer lanes: order-free
+            red_v = red_v.scatter_add(1, idx.expand(red_v.shape[0], -1),
+                                      extra)
         else:
+            if red_v.dim() == 2:
+                idx = idx.expand(red_v.shape[0], -1)
             red_v = red_v.scatter_reduce(
-                0, idx, extra, "amin" if reduce == "min" else "amax",
-                include_self=True)
+                red_v.dim() - 1, idx, extra,
+                "amin" if reduce == "min" else "amax", include_self=True)
     return red_v
 
 
@@ -118,19 +131,32 @@ def subrow_combine(sub_red: torch.Tensor, plan, identity, reduce: str,
     back to bucket rows (a vertex's sub-rows are consecutive, in lane
     order), then :func:`combine_rows` maps rows to vertices.  Pad
     sub-rows must hold the identity.
+
+    ``sub_red`` may carry a leading lane axis, ``(k, R8)`` → ``(k, V)``:
+    min, max and integer add fold all lanes at once (order-free); a float
+    add folds each lane through the single-lane path, so each lane sums
+    in the order one lane alone would.
     """
+    if sub_red.dim() == 2:
+        if reduce == "add" and sub_red.dtype.is_floating_point:
+            return torch.stack([subrow_combine(row, plan, identity, reduce,
+                                               dtype) for row in sub_red])
+        lead = (sub_red.shape[0],)
+    else:
+        lead = ()
     parts = []
     for (rows_b, f_b), off in zip(plan.bucket_shapes,
                                   plan.bucket_sub_offsets):
-        seg = sub_red[off:off + rows_b * f_b]
+        seg = sub_red[..., off:off + rows_b * f_b]
         if f_b > 1:
-            parts.append(row_reduce(reduce, seg.reshape(rows_b, f_b), 1))
+            parts.append(row_reduce(reduce, seg.reshape(*lead, rows_b, f_b),
+                                    -1))
         else:
             parts.append(seg)
-    parts.append(torch.full((1,), identity, dtype=sub_red.dtype,
+    parts.append(torch.full((*lead, 1), identity, dtype=sub_red.dtype,
                             device=sub_red.device))
-    return combine_rows(torch.cat(parts).to(dtype), plan, identity, reduce,
-                        dtype)
+    return combine_rows(torch.cat(parts, dim=-1).to(dtype), plan, identity,
+                        reduce, dtype)
 
 
 def message_table(values: torch.Tensor, degrees: torch.Tensor,

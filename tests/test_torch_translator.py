@@ -192,12 +192,30 @@ def test_default_device_is_cuda_and_never_falls_back(graphs, monkeypatch):
         TC.CommManager().transport(tg)
 
 
-def test_unported_paths_raise_with_roadmap_item(graphs):
-    _, tg = graphs
-    bad = [dict(checkpoint_dir="/nonexistent")]
-    for kw in bad:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.translate(TD.bfs_program(), tg, device="cpu", **kw)
-    prog = TT.translate(TD.bfs_program(), tg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prog.run_batch([0, 1])
+def test_unported_paths_raise_with_roadmap_item(graphs, tmp_path):
+    """Several PEs and streamed partitions are still refused, naming their
+    ROADMAP items; batched runs and checkpointed runs, refused until the
+    lane API was ported, now give the JAX package's answers."""
+    rg, tg = graphs
+    for kw, item in ((dict(pes=2), "item 5"), (dict(partitions=3),
+                                               "item 4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+            TT.translate(TD.bfs_program(), tg, TS.ScheduleConfig(**kw),
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+        TT.translate(TD.bfs_program(), object(), device="cpu")
+    rprog = RT.translate(RD.bfs_program(), rg)
+    prog = TT.translate(TD.bfs_program(), tg, device="cpu",
+                        checkpoint_dir=str(tmp_path))
+    rv, ri = rprog.run_batch(np.asarray([0, 1]))
+    tv, ti = prog.run_batch([0, 1])
+    _same(rv, tv)
+    np.testing.assert_array_equal(np.asarray(ri), ti.numpy())
+    assert rprog.last_run_stats == prog.last_run_stats
+    rv, ri = rprog.run(roots=3, checkpoint_dir=str(tmp_path / "jax"))
+    tv, ti = prog.run(roots=3)
+    _same(rv, tv)
+    assert int(ri) == ti
+    assert _stats(rprog.last_run_stats) == _stats(prog.last_run_stats)
+    assert prog.last_run_stats["checkpoint_saves"] == \
+        rprog.last_run_stats["checkpoint_saves"]
