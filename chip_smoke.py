@@ -44,7 +44,14 @@ and the script exits non-zero):
    reduce × dtype × mask_inactive, NaN values, k of 1 to 37 lanes (one
    launch per 32) and ids off the 16-byte grid: each lane exactly kernel
    1 alone, and the plain version (float add within 1e-5 of the sum of
-   its terms' magnitudes).
+   its terms' magnitudes).  The fused lane sweep (1L with the sub-row fold
+   fused in) and the lane push (3L) over every gather x order-free reduce
+   (min, max; add on int32) x dtype (x mask_inactive for the sweep) on
+   three graphs with hubs whose runs of sub-rows cross block edges, k of
+   1, 3, 4, 8, 17, 32 and 33 lanes listed out of order in a state with
+   lanes left out, NaN, +0 and -0, int adds that wrap, the push's table
+   then shared with a sweep of the other lanes: exactly their plain
+   versions.
 4. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
    from root 0 through ``algorithms.bfs`` under pull, push and auto on
    three paths, each held against a numpy level-synchronous BFS, with the
@@ -82,19 +89,25 @@ and the script exits non-zero):
    iterations and ``run_stats`` counters; every dist answer its root's
    SSSP entry, one at least served by the landmark table and one by the
    exact fallback; 4 bfs roots = ``numpy_bfs``, 2 sssp roots ≈ scipy
-   Dijkstra; the lane-axis kernel launched exactly once per batched
-   superstep with a masked sweep and kernel 1 alone never; host reads =
-   one per batched superstep + one per harvest + one per snapshot copy;
+   Dijkstra; one lane sweep per batched superstep with a masked sweep
+   (the fused lane sweep for bfs/sssp/dist, 1L for ppr's float add), one
+   lane push per batched superstep with a push lane, kernel 1 alone, the
+   single-lane fused push and an order-free reduce's ``subrow_combine``
+   never; host reads = one per batched superstep + one per harvest + one
+   per snapshot copy;
    the snapshot restored into a new server serves the remaining queries
    bitwise as the first did.  Then queries/s, p50/p99 latency, aggregate
    MTEPS (traversed edges of the bfs answers over the serve wall), ms per
    batched superstep; ``run_batch`` over 8 roots against 8 sequential
    runs; a checkpointed bfs (every 2 supersteps) = the plain run, and one
-   killed by an armed ``lane.crash`` and resumed = it too; the lane-axis
-   kernel at k = 1, 8 and 32 on a 50% random frontier and on root 0's
-   BFS frontiers, held exactly against kernel 1 per lane and its plain
-   version, timed (CUDA events and the profiler's device time) beside k
-   launches of kernel 1, its plain version and its bound.
+   killed by an armed ``lane.crash`` and resumed = it too; the lane sweep
+   end to end at k = 1, 8 and 32 on a 50% random frontier and on root 0's
+   BFS frontiers: the fused sweep against 1L + ``subrow_combine`` (and
+   its plain version), exactly, timed (CUDA events and the profiler's
+   device time) beside 1L alone, k launches of kernel 1 and its bound;
+   the lane push at k = 1, 8 and 32 on root 0's BFS frontiers and a
+   random 1% frontier against k compactions + fused pushes (and its plain
+   version), exactly, timed beside them and its bound.
 6. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
    ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
    component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
@@ -109,7 +122,11 @@ and the script exits non-zero):
    kernel 5's launches (must be 36 per decode step) and a profile of one
    steady step.  Then decode ≡ full forward in float32 at full width
    (each decode step's logits against ``logits_seq``, which never
-   reaches kernel 5; max |Δ| / max |logit| <= 1e-3), and kernel 5 held
+   reaches kernel 5; max |Δ| / max |logit| <= 1e-3), the server's
+   prefill and decode step on a 4,608-token prompt (prefilled in two
+   chunks) against ``logits_seq`` and on a ring that wraps mid-decode
+   against the full forward under the ring's window (same bound), and
+   kernel 5 held
    against its plain version on one layer's inputs of a mid-run step (in
    bf16 as served and cast to float32) and timed there and on one
    32,768-slot sequence (CUDA events, and the profiler's device time of
@@ -133,6 +150,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 INT_MAX = 2**30
+INT32_MAX = 2**31 - 1       # the min reduce's identity on int32
 SCALE = 22          # the main path's R-MAT (Graph500 scale, edge factor 16)
 OTHERS_SCALE = 20   # SSSP, WCC and PageRank against scipy
 # The LM serving path: the server's flags, the (decode step, layer) whose
@@ -142,6 +160,11 @@ LM_SERVE = dict(arch="qwen3-8b", slots=8, capacity=4096, requests=16,
                 device="cuda")
 LM_KEEP = (32, 17)
 LM_EQUIV = (2, 32, 16)      # prompts, prefilled tokens, decode steps
+# (prompt, cache capacity, decode steps) of the served long paths: a
+# prompt past prefill_chunk = 4096 (two chunks of 2,304), no wrap; and a
+# ring that wraps at the 33rd decode step
+LM_CHUNKED = (4608, 4608 + 16, 16)
+LM_RING = (480, 512, 64)
 LONG_SHAPE = (1, 32768, 8, 4, 128)      # B, S, K, G, h of one long row
 
 # The H100 SXM's peak rates (NVIDIA data sheet), which the bounds assume:
@@ -207,6 +230,35 @@ def _same(a, b):
     if a.dtype.is_floating_point:
         return bool(((a == b) | (a.isnan() & b.isnan())).all())
     return bool((a == b).all())
+
+
+def _bits(a):
+    """A float tensor's bit patterns as int32, every NaN as one pattern;
+    other tensors as they are."""
+    if not a.dtype.is_floating_point:
+        return a
+    import torch
+    return torch.where(a.isnan(), torch.full_like(a, float("nan")),
+                       a).view(torch.int32)
+
+
+def _same_bits(a, b):
+    """Exact agreement of the bit patterns (+0 is not -0), NaN equal to
+    NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return bool((_bits(a) == _bits(b)).all())
+
+
+def _same_bits_np(a, b):
+    """:func:`_same_bits` for host arrays and scalars."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.kind == "f":
+        a, b = (np.where(np.isnan(x), np.nan, x).astype(x.dtype).view(
+            f"i{x.dtype.itemsize}") for x in (a, b))
+    return bool(np.array_equal(a, b))
 
 
 def _close(a, b, rtol=1e-5, atol=1e-6):
@@ -654,6 +706,150 @@ def _check_lane_kernel(torch, rng):
     return checked, worst
 
 
+# the fused lane sweep's and the lane push's ragged graphs: (V, random
+# edges, edges into hub vertex 3, bucket max_width, lane counts); the hubs'
+# runs of sub-rows cross warp and 256-thread block edges
+LANE_GRAPHS = ((4099, 30000, 5000, 16, (1, 3, 4, 8, 17, 32, 33)),
+               (1000, 9000, 3000, 1024, (4, 8, 32)),
+               (97, 700, 0, 16, (3, 17)))
+
+
+def _lane_graph(torch, V, E, hub, max_width, rng):
+    """A graph with a hub, its flat pull view (bucketed at max_width) and
+    forward ELL on the card."""
+    from repro_torch.core import graph as G
+    src = np.concatenate([rng.integers(0, V, E), rng.integers(0, V, hub)])
+    dst = np.concatenate([rng.integers(0, V, E), np.full(hub, 3)])
+    w = rng.uniform(0.5, 4.0, len(src)).astype(np.float32)
+    g = G.from_edge_list(src, dst, weights=w, num_vertices=V)
+    plan = G.pull_bitmap_plan(G.bucketize(G.reverse(g), max_width=max_width))
+    fe = G.forward_ell(g, width=8)
+    return (G.to_device(plan, "cuda"), G.to_device(fe, "cuda"),
+            g.out_degrees.to(device="cuda", dtype=torch.int32))
+
+
+def _lane_state(torch, rng, kk, V, dtype, live):
+    """A (kk, V) state: int32 values with adds that wrap, or float32 with
+    NaN and a third of +0 and -0, lanes of values >= 0 and lanes <= 0
+    (so min and max both meet ties of +0 and -0, also across a hub's
+    pieces); frontiers with a share ``live`` of active vertices."""
+    if dtype == np.int32:
+        vals = rng.integers(-50, 50, (kk, V)).astype(np.int32)
+        vals[:, :3] = 2**31 - 1 - np.arange(3)
+    else:
+        vals = rng.uniform(0, 5, (kk, V)).astype(np.float32)
+        zero = rng.random((kk, V)) < 0.33
+        vals[zero] = np.where(rng.random(int(zero.sum())) < 0.5, 0.0, -0.0)
+        vals[1::2] *= -1
+        vals[rng.random((kk, V)) < 0.05] = np.nan
+    act = rng.random((kk, V)) < live
+    return (torch.as_tensor(vals).to("cuda"),
+            torch.as_tensor(act).to("cuda"))
+
+
+def _check_lane_routes(torch, rng):
+    """The fused lane sweep (``edge_block_fold_lanes``) and the lane push
+    (``push_ell_lanes_reduce``) against their plain versions, bit for bit
+    (+0 is not -0; NaN equal to NaN), over every gather x order-free
+    reduce (min, max; add on int32) x dtype (x mask_inactive for the
+    sweep), on ``LANE_GRAPHS`` (hubs split into rows, runs crossing block
+    edges, ids 1..33 lanes wide), each lane map listing k of k + 2 lanes
+    out of order (two left out, which must keep the table's identity),
+    NaN, ties of +0 and -0, int adds that wrap; the sweep also into a
+    table the lane push filled first (rows of one batched superstep).
+    Returns the counts of cases and the largest ``|kernel - plain|`` of
+    each."""
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels.ref import GATHER_OPS, REDUCE_OPS, _identity
+    checked = {"fold": 0, "push": 0}
+    worst = {"fold": 0.0, "push": 0.0}
+    zeros = {"fold": [0, 0], "push": [0, 0]}     # [-0, +0] entries seen
+
+    def count_zeros(route, t):
+        if t.dtype.is_floating_point:
+            z = t == 0
+            neg = int((z & t.signbit()).sum())
+            zeros[route][0] += neg
+            zeros[route][1] += int(z.sum()) - neg
+
+    for V, E, hub, max_width, ks in LANE_GRAPHS:
+        plan, fe, deg = _lane_graph(torch, V, E, hub, max_width, rng)
+        for k in ks:
+            kk = k + 2
+            lanes = [int(i) for i in rng.permutation(kk)[:k]]
+            for dtype in (np.int32, np.float32):
+                vals, act = _lane_state(torch, rng, kk, V, dtype, 0.3)
+                for gather in GATHER_OPS:
+                    if gather == "div_deg" and dtype == np.int32:
+                        continue
+                    for reduce in REDUCE_OPS:
+                        if reduce == "add" and dtype == np.float32:
+                            continue
+                        tag = (f"{gather}/{reduce}/{dtype.__name__} V={V} "
+                               f"max_width={max_width} k={k} lanes={lanes}")
+                        ident = _identity(reduce, vals.dtype)
+                        for mask in (True, False):
+                            kw = dict(gather=gather, reduce=reduce,
+                                      mask_inactive=mask)
+                            got = eb.edge_block_fold_lanes(
+                                plan, vals, deg, act, lanes, **kw)
+                            want = eb.edge_block_fold_lanes_plain(
+                                plan, vals, deg, act, lanes, **kw)
+                            torch.cuda.synchronize()
+                            if not (_same_bits(got[0], want[0])
+                                    and _same(got[1], want[1])):
+                                raise AssertionError(
+                                    f"edge_block_fold {tag} mask={mask}: "
+                                    f"max err {_max_err(got[0], want[0])}, "
+                                    "or the bits of a zero or the flags "
+                                    "differ")
+                            worst["fold"] = max(worst["fold"], _max_err(
+                                got[0], want[0]))
+                            count_zeros("fold", got[0])
+                            checked["fold"] += 1
+                        pkw = dict(num_rows=fe.num_rows, gather=gather,
+                                   reduce=reduce, identity=ident)
+                        args = (fe.row_src, fe.dst, fe.weights, vals, deg,
+                                act)
+                        # the push's lanes: k listed; the sweep then
+                        # takes the two left out, into the same table
+                        got = pe.push_ell_lanes_reduce(*args, lanes, **pkw)
+                        want = pe.push_ell_lanes_reduce_plain(*args, lanes,
+                                                              **pkw)
+                        rest = [i for i in range(kk) if i not in lanes]
+                        both, _ = eb.edge_block_fold_lanes(
+                            plan, vals, deg, act, rest, gather=gather,
+                            reduce=reduce, red=got.clone(), need_got=False)
+                        alone, _ = eb.edge_block_fold_lanes_plain(
+                            plan, vals, deg, act, rest, gather=gather,
+                            reduce=reduce, need_got=False)
+                        torch.cuda.synchronize()
+                        if not (_same_bits(got, want)
+                                and _same_bits(both[lanes], want[lanes])
+                                and _same_bits(both[rest], alone[rest])):
+                            raise AssertionError(
+                                f"push_ell_lanes {tag}: max err "
+                                f"{_max_err(got, want)}, or the bits of a "
+                                "zero differ")
+                        worst["push"] = max(
+                            worst["push"], _max_err(got, want),
+                            _max_err(both[lanes], want[lanes]))
+                        worst["fold"] = max(worst["fold"], _max_err(
+                            both[rest], alone[rest]))
+                        count_zeros("push", got)
+                        checked["push"] += 1
+    log(f"[kernels] lane routes: the fused lane sweep in {checked['fold']} "
+        f"cases and the lane push in {checked['push']} (each also sharing "
+        "its table with a sweep of the other lanes) equal their plain "
+        "versions bit for bit (max |err| fold "
+        f"{worst['fold']}, push {worst['push']}); float min/max tables "
+        f"held {zeros['fold'][0]} -0 and {zeros['fold'][1]} +0 entries "
+        f"(fold), {zeros['push'][0]} and {zeros['push'][1]} (push), each "
+        "a tie settled as the plain version settles it")
+    return checked["fold"], checked["push"], worst["fold"], worst["push"]
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
@@ -746,7 +942,9 @@ def phase_kernels(torch):
     n_seg, worst["segment_reduce"] = _check_segment_kernel(torch, live_rng)
     n_push, worst["push_ell_fused"] = _check_fused_push(torch, live_rng)
     n_lane, worst["edge_block_lanes"] = _check_lane_kernel(torch, live_rng)
-    checked += n_seg + n_push + n_lane
+    n_fold, n_lpush, worst["edge_block_fold"], worst["push_ell_lanes"] = \
+        _check_lane_routes(torch, live_rng)
+    checked += n_seg + n_push + n_lane + n_fold + n_lpush
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
     n_split, split_err = _check_decode_splits(torch)
     worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
@@ -869,8 +1067,10 @@ def _counters():
             "edge_block_skip": (eb.edge_block_reduce, "skip_launches"),
             "edge_block_lanes": (eb.edge_block_reduce_lanes,
                                  "lane_launches"),
+            "edge_block_fold": (eb.edge_block_fold_lanes, "launches"),
             "push_ell": (pe.push_ell_message_block, "launches"),
             "push_ell_fused": (pe.push_ell_fused_reduce, "launches"),
+            "push_ell_lanes": (pe.push_ell_lanes_reduce, "launches"),
             "segment_reduce": (ss.segment_reduce, "launches"),
             "decode_gqa": (dg.decode_gqa, "launches")}
 
@@ -1387,19 +1587,23 @@ def phase_main(torch, dev_info):
     return kernels, {"g": g, "oracle": oracle}
 
 
-SERVE_LANES = (1, 8, 32)    # lane counts the lane-axis kernel is timed at
+SERVE_LANES = (1, 8, 32)    # lane counts the lane routes are timed at
 
 
 def _lane_timing(torch, g, oracle, smi):
-    """The lane-axis kernel (bfs's plus_one/min over the flat pull view)
-    at k = 1, 8 and 32 lanes, on a 50% random frontier a lane and on root
-    0's BFS frontiers (lane i takes level i mod 6): each lane held exactly
-    against kernel 1 alone and against the plain version, then timed
-    (CUDA events, and the profiler's device time of the pre-pass and the
-    main kernel) beside the k launches of kernel 1 it replaces, the plain
-    version and its bound."""
+    """The batched masked sweep end to end (bfs's plus_one/min over the
+    flat pull view, with got flags) at k = 1, 8 and 32 lanes, on a 50%
+    random frontier a lane and on root 0's BFS frontiers (lane i takes
+    level i mod 6): the fused lane sweep (the identity and zero fills and
+    one launch of pre-pass and fold) against the route it replaces (the
+    lane-axis kernel 1L, then ``subrow_combine`` of its values and of its
+    flags), held exactly against it and against the plain version, and
+    timed (CUDA events; the profiler's device time of the pre-pass and
+    fold kernels, and of 1L's) beside 1L alone, k launches of kernel 1,
+    the plain version and its bound."""
     from repro_torch.core import preprocess
     from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import pull_bitmap as pb
     lay = preprocess.layouts_for(g)
     pplan = lay.on(lay.pull_plan(64), "cuda")
     out_deg = g.out_degrees.to(device="cuda", dtype=torch.int32)
@@ -1410,9 +1614,11 @@ def _lane_timing(torch, g, oracle, smi):
                  for lv in range(int(oracle[oracle < INT_MAX].max()) + 1)]
     rng = np.random.default_rng(3)
     kw = dict(gather="plus_one", reduce="min", mask_inactive=True)
+    ident = INT32_MAX
     rows = {}
     for k in SERVE_LANES:
         values = levels.to("cuda").expand(k, V).contiguous()
+        lanes = list(range(k))
         for label in ("random", "bfs"):
             if label == "random":
                 active = torch.as_tensor(rng.random((k, V)) < 0.5)
@@ -1421,49 +1627,224 @@ def _lane_timing(torch, g, oracle, smi):
                                       for i in range(k)])
             active = active.to("cuda")
             args = (pplan.flat_dst, pplan.flat_wgt, values, out_deg, active)
-            got = eb.edge_block_reduce_lanes(*args, **kw)
-            want = eb.edge_block_reduce_lanes_plain(*args, **kw)
+
+            def fold(values=values, active=active):
+                return eb.edge_block_fold_lanes(pplan, values, out_deg,
+                                                active, lanes, **kw)
+
+            def old(args=args):
+                sub, sub_any = eb.edge_block_reduce_lanes(*args, **kw)
+                red = pb.subrow_combine(sub, pplan, ident, "min",
+                                        torch.int32)
+                got = pb.subrow_combine(sub_any.to(torch.int8), pplan, 0,
+                                        "max", torch.int8) != 0
+                return red, got
+
+            new, prev = fold(), old()
+            red_shared = torch.full((k, V), ident, dtype=torch.int32,
+                                    device="cuda")
+            want = eb.edge_block_fold_lanes_plain(pplan, values, out_deg,
+                                                  active, lanes, **kw)
+            torch.cuda.synchronize()
+            if not (_same_bits(new[0], prev[0]) and _same(new[1], prev[1])
+                    and _same_bits(new[0], want[0])
+                    and _same(new[1], want[1])):
+                raise AssertionError(f"edge_block_fold disagrees at the main "
+                                     f"shape, k={k}, {label} frontier")
+            err = _max_err(new[0], want[0])
+            del new, prev, want
+            ms = _time_ms(torch, fold, reps=20)
+            old_ms = _time_ms(torch, old, reps=10)
+            dev_ms = _device_ms(torch, fold, "edge_block_fold") or 0.0
+            pack_ms = _device_ms(torch, fold, "lanes_pack")
+            old_dev = _device_ms(torch, lambda: eb.edge_block_reduce_lanes(
+                *args, **kw), "edge_block_lanes")
+            l1_ms = _time_ms(torch, lambda: eb.edge_block_reduce_lanes(
+                *args, **kw), reps=10)
+            l1 = eb.edge_block_reduce_lanes(*args, **kw)
+            l1_want = eb.edge_block_reduce_lanes_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not (_same(l1[0], l1_want[0]) and _same(l1[1], l1_want[1])):
+                raise AssertionError(f"edge_block_lanes disagrees at the "
+                                     f"main shape, k={k}, {label} frontier")
+            l1_err = _max_err(l1[0], l1_want[0])
+            del l1, l1_want
+            l1_plain_ms = _time_ms(
+                torch, lambda: eb.edge_block_reduce_lanes_plain(*args, **kw),
+                reps=3, warmup=1)
+            # 1L's own bound: the ids once, each lane's values and
+            # frontier, each lane's two (R8,) outputs
+            l1_bound = 1e3 * (R8 * W * 4 + k * V * 5 + k * R8 * 5) \
+                / _BANDWIDTH
+            # the message table's L2 overflow: the same lanes swept in
+            # launches of fewer lanes (K = 4 or 1: a 67 or 17 MB table),
+            # pre-pass and fold kernels only (into one filled table, no
+            # flags), against one launch of all k
+            groups = {}
+            for width in (k, 4, 1):
+                if width <= k:
+                    parts = [lanes[i:i + width]
+                             for i in range(0, k, width)]
+                    groups[width] = _time_ms(torch, lambda parts=parts: [
+                        eb.edge_block_fold_lanes(
+                            pplan, values, out_deg, active, part,
+                            red=red_shared, need_got=False, **kw)
+                        for part in parts], reps=5)
 
             def kernel1(values=values, active=active):
                 return [eb.edge_block_reduce(pplan.flat_dst, pplan.flat_wgt,
                                              values[i], out_deg, active[i],
                                              **kw) for i in range(k)]
-            one = kernel1()
-            torch.cuda.synchronize()
-            if not (_same(got[0], want[0]) and _same(got[1], want[1])
-                    and _same(got[0], torch.stack([o[0] for o in one]))
-                    and _same(got[1], torch.stack([o[1] for o in one]))):
-                raise AssertionError(f"edge_block_lanes disagrees at the main "
-                                     f"shape, k={k}, {label} frontier")
-            del want, one
-            ms = _time_ms(torch, lambda: eb.edge_block_reduce_lanes(*args,
-                                                                    **kw),
-                          reps=20)
-            dev_ms = _device_ms(torch, lambda: eb.edge_block_reduce_lanes(
-                *args, **kw), "edge_block_lanes")
-            k1_ms = _time_ms(torch, kernel1, reps=10)
-            plain_ms = _time_ms(torch, lambda: eb.edge_block_reduce_lanes_plain(
-                *args, **kw), reps=3, warmup=1)
-            # bytes the function must move: the ids once, each lane's value
-            # table and frontier, each lane's two (R8,) outputs
-            nbytes = R8 * W * 4 + k * V * (4 + 1) + k * R8 * (4 + 1)
+            k1_ms = _time_ms(torch, kernel1, reps=5)
+            plain_ms = _time_ms(torch, lambda: eb.edge_block_fold_lanes_plain(
+                pplan, values, out_deg, active, lanes, **kw), reps=3,
+                warmup=1)
+            # bytes the function must move: the ids once, owner8, each
+            # lane's value table and frontier, each lane's (V,) reduced
+            # table and got flags
+            nbytes = R8 * W * 4 + R8 * 4 + k * V * (4 + 1) + k * V * (4 + 1)
             ops = k * R8 * W
             bound = 1e3 * max(nbytes / _BANDWIDTH, ops / _SCALAR_OPS)
             live = int(active.sum())
             rows[(k, label)] = {
-                "ms": ms, "device_ms": dev_ms, "kernel1_ms": k1_ms,
+                "ms": ms, "device_ms": dev_ms, "pack_device_ms": pack_ms,
+                "old_ms": old_ms, "old_kernel_ms": l1_ms,
+                "old_kernel_device_ms": old_dev, "kernel1_ms": k1_ms,
+                "old_kernel_plain_ms": l1_plain_ms,
+                "old_kernel_bound_ms": l1_bound,
+                "old_kernel_max_abs_err": l1_err,
+                "lane_groups_ms": groups,
                 "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes,
-                "max_abs_err": _max_err(got[0], eb.edge_block_reduce_lanes_plain(
-                    *args, **kw)[0]) if k == 1 else 0.0,
-                "shape": [k, R8, W, V], "live_vertices": live}
-            log(f"[serve] edge_block_lanes (plus_one/min) k={k} {label} "
-                f"frontier ({live} live lane-vertices): {ms:.4f} ms (device "
-                f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
-                f"ms), {k} x kernel 1 {k1_ms:.4f} ms ({k1_ms / ms:.2f}x), "
-                f"bound {bound:.4f} ms ({bound / ms:.3f} of it, "
-                f"{nbytes / 1e9:.3f} GB), plain {plain_ms:.4f} ms; = kernel "
-                f"1 per lane and = plain, exactly, on {smi}")
-            del got, args, active
+                "max_abs_err": err, "shape": [k, R8, W, V],
+                "live_vertices": live}
+            log(f"[serve] lane sweep (plus_one/min, got flags) k={k} {label} "
+                f"frontier ({live} live lane-vertices): fused "
+                f"{ms:.4f} ms (device: fold "
+                f"{dev_ms:.4f}, pre-pass "
+                f"{'not measured' if pack_ms is None else f'{pack_ms:.4f}'} "
+                f"ms) against 1L + subrow_combine {old_ms:.4f} ms "
+                f"({old_ms / ms:.2f}x; 1L alone {l1_ms:.4f} ms, device "
+                f"{'not measured' if old_dev is None else f'{old_dev:.4f}'})"
+                f", {k} x kernel 1 {k1_ms:.4f} ms; bound {bound:.4f} ms "
+                f"({bound / ms:.3f} of it, {nbytes / 1e9:.3f} GB), plain "
+                f"{plain_ms:.4f} ms; = the old route and = plain, exactly, "
+                f"on {smi}")
+            log(f"[serve] lane sweep k={k} {label}: 1L alone {l1_ms:.4f} ms "
+                f"against its bound {l1_bound:.4f} ms (it also writes the "
+                f"(k, R8) partials), its plain version {l1_plain_ms:.4f} ms, "
+                f"= plain exactly; the fused sweep's kernels (no fills, no "
+                f"flags) in launches of "
+                + ", ".join(f"{w} lanes {t:.4f} ms" for w, t in
+                            groups.items()) + f", on {smi}")
+            del args, active, red_shared
+        del values
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _push_lane_timing(torch, g, oracle, smi):
+    """The lane push (bfs's plus_one/min over the forward ELL) at k = 1, 8
+    and 32 lanes, on root 0's BFS frontiers (lane i at level i mod 6) and
+    on a random 1% frontier a lane: held exactly against k compacted
+    pushes (``compact_rows`` at the tier covering the lane's live rows,
+    then the fused push kernel 3f) and the plain version, and timed
+    (CUDA events with the table's fill; the profiler's device time of the
+    pre-pass and the kernel) beside those k compactions and fused pushes,
+    the plain version and its bound."""
+    from repro_torch.core import preprocess
+    from repro_torch.core.scheduler import push_capacity_tiers
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels.ref import PAD
+    lay = preprocess.layouts_for(g)
+    fe = lay.on(lay.forward_ell(8), "cuda")
+    out_deg = g.out_degrees.to(device="cuda", dtype=torch.int32)
+    V = g.num_vertices
+    R, W = fe.dst.shape
+    tiers = push_capacity_tiers(fe.num_rows)
+    levels = torch.as_tensor(np.minimum(oracle, INT_MAX).astype(np.int32))
+    frontiers = [torch.as_tensor(oracle == lv)
+                 for lv in range(int(oracle[oracle < INT_MAX].max()) + 1)]
+    rng = np.random.default_rng(4)
+    kw = dict(gather="plus_one", reduce="min", identity=INT32_MAX)
+    rows = {}
+    for k in SERVE_LANES:
+        values = levels.to("cuda").expand(k, V).contiguous()
+        lanes = list(range(k))
+        for label in ("bfs", "random"):
+            if label == "random":
+                active = torch.as_tensor(rng.random((k, V)) < 0.01)
+            else:
+                active = torch.stack([frontiers[i % len(frontiers)]
+                                      for i in range(k)])
+            active = active.to("cuda")
+            r_f = torch.where(active, fe.rows_per_vertex, 0).sum(1).tolist()
+            caps = [next((c for c in tiers if c >= r), max(r, 1))
+                    for r in r_f]
+            args = (fe.row_src, fe.dst, fe.weights, values, out_deg, active)
+
+            def lane_push(args=args):
+                return pe.push_ell_lanes_reduce(*args, lanes,
+                                                num_rows=fe.num_rows, **kw)
+
+            def singles(values=values, active=active, caps=caps):
+                return [pe.push_ell_reduce(
+                    fe.row_src, fe.dst, fe.weights, values[i], out_deg,
+                    active[i], num_rows=fe.num_rows, capacity=caps[i],
+                    gather_fn=None, reduce="min", identity=INT32_MAX,
+                    num_vertices=V, dtype=torch.int32,
+                    gather_module="plus_one", use_kernels=True)[0]
+                    for i in range(k)]
+
+            got = lane_push()
+            one = torch.stack(singles())
+            want = pe.push_ell_lanes_reduce_plain(*args, lanes,
+                                                  num_rows=fe.num_rows, **kw)
+            torch.cuda.synchronize()
+            if not (_same_bits(got, one) and _same_bits(got, want)):
+                raise AssertionError(f"push_ell_lanes disagrees at the main "
+                                     f"shape, k={k}, {label} frontier")
+            err = max(_max_err(got, want), _max_err(got, one))
+            del got, one, want
+            ms = _time_ms(torch, lane_push, reps=20)
+            dev_ms = _device_ms(torch, lane_push, "push_ell_lanes") or 0.0
+            pack_ms = _device_ms(torch, lane_push, "lanes_pack")
+            k_ms = _time_ms(torch, singles, reps=10)
+            plain_ms = _time_ms(torch, lambda: pe.push_ell_lanes_reduce_plain(
+                *args, lanes, num_rows=fe.num_rows, **kw), reps=3, warmup=1)
+            # bytes the function must move: row_src once, each lane's
+            # frontier (the pre-pass) and the bits it packs, written and
+            # read, the table's fill; per live row its W ids, per live
+            # (row, lane) the source's value, per valid slot of it a word
+            live_rows = torch.stack([active[i][fe.row_src[:fe.num_rows]
+                                               .long()] for i in lanes])
+            n_rows = int(live_rows.any(0).sum())
+            n_pairs = int(live_rows.sum())
+            valid = (fe.dst[:fe.num_rows] != PAD).sum(1)
+            n_slots = int((live_rows.to(torch.int64)
+                           * valid[None, :]).sum())
+            K = next(w for w in (1, 4, 8, 32) if w >= k)
+            nbytes = (fe.num_rows * 4 + k * V + 2 * V * K // 8 + k * V * 4
+                      + n_rows * W * 4 + n_pairs * 4 + n_slots * 4)
+            bound = 1e3 * max(nbytes / _BANDWIDTH, n_slots / _SCALAR_OPS)
+            del live_rows
+            rows[(k, label)] = {
+                "ms": ms, "device_ms": dev_ms, "pack_device_ms": pack_ms,
+                "singles_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bytes": nbytes, "max_abs_err": err,
+                "shape": [k, R, W, V], "live_rows": n_rows,
+                "live_lane_rows": n_pairs, "messages": n_slots,
+                "capacities": caps}
+            log(f"[serve] lane push (plus_one/min) k={k} {label} frontier "
+                f"({n_pairs} live lane-rows, {n_slots} messages): "
+                f"{ms:.4f} ms with the table's fill (device: kernel "
+                f"{dev_ms:.4f}, pre-pass "
+                f"{'not measured' if pack_ms is None else f'{pack_ms:.4f}'} "
+                f"ms) against {k} x (compaction + fused push) {k_ms:.4f} ms "
+                f"({k_ms / ms:.2f}x; capacities {sorted(set(caps))}); bound "
+                f"{bound:.4f} ms ({bound / ms:.3f} of it, "
+                f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; = the "
+                f"compacted pushes and = plain, exactly, on {smi}")
+            del args, active
         del values
     torch.cuda.empty_cache()
     return rows
@@ -1492,6 +1873,12 @@ def _profile_serve(torch, srv, roots, step_ms, smi):
                  key=lambda e: e.self_device_time_total, reverse=True)
     top = [(e.key, round(e.self_device_time_total / 1e3, 4), e.count)
            for e in ops[:10]]
+    # the port's own kernels (launched through ctypes, under no aten op)
+    lane_kernels = {name: round(sum(
+        e.self_device_time_total for e in events
+        if e.device_type == DeviceType.CUDA and name in e.key) / 1e3, 4)
+        for name in ("lanes_pack", "edge_block_fold", "edge_block_lanes",
+                     "push_ell_lanes")}
     per_step = busy_ms / max(steps, 1)
     idle = 1.0 - per_step / step_ms
     with open(os.path.join(OUT_DIR, "profile_serve.txt"), "w") as f:
@@ -1499,10 +1886,11 @@ def _profile_serve(torch, srv, roots, step_ms, smi):
     log(f"[profile] serve, {len(roots)} bfs in {steps} batched supersteps: "
         f"kernel time {busy_ms:.3f} ms, {per_step:.3f} ms a batched "
         f"superstep of the streams' {step_ms:.3f} ms (device idle share "
-        f"{idle:.3f}); top ops by device ms (ms, calls): {top} on {smi}")
+        f"{idle:.3f}); top ops by device ms (ms, calls): {top}; the lane "
+        f"kernels' device ms: {lane_kernels} on {smi}")
     return {"kernel_ms": busy_ms, "batched_supersteps": steps,
             "kernel_ms_per_step": per_step, "idle_share": idle,
-            "top_ops": top}
+            "top_ops": top, "lane_kernels_ms": lane_kernels}
 
 
 def phase_serve(torch, dev_info, main):
@@ -1516,6 +1904,7 @@ def phase_serve(torch, dev_info, main):
     from repro_torch.core.scheduler import AdmissionPolicy, ScheduleConfig
     from repro_torch.core.translator import translate
     from repro_torch.errors import InjectedFault
+    from repro_torch.kernels import pull_bitmap as pb
     from repro_torch.serve.graph_serve import GraphServer
 
     g, oracle, smi = main["g"], main["oracle"], dev_info["smi"]
@@ -1549,6 +1938,18 @@ def phase_serve(torch, dev_info, main):
     stream = [stream[i] for i in rng.permutation(len(stream))]
     burst_roots = rng.choice(cand, 32, replace=False)
 
+    # subrow_combine calls of order-free reduces in the streams (the fused
+    # lane sweep runs none; ppr's float add folds through it)
+    real_combine = pb.subrow_combine
+    folds = []
+
+    def combine_spy(sub_red, plan, identity, reduce, dtype):
+        if not (reduce == "add" and sub_red.dtype.is_floating_point) \
+                and sub_red.dtype != torch.int8:
+            folds.append((reduce, str(sub_red.dtype)))
+        return real_combine(sub_red, plan, identity, reduce, dtype)
+
+    pb.subrow_combine = combine_spy
     _zero_counts()
     c0 = srv.counters()
     torch.cuda.synchronize()
@@ -1577,20 +1978,33 @@ def phase_serve(torch, dev_info, main):
     srv.run()
     wall2 = time.perf_counter() - t2 - snap_s
     launches = _read_counts()
+    pb.subrow_combine = real_combine
     cnt = {k: v - c0[k] for k, v in srv.counters().items()}
+    ppr_sweeps = sum(grp.masked_sweeps for prog, grp in srv._groups.items()
+                     if getattr(prog, "name", "") == "ppr")
     harvests = cnt["harvests"]
     handles = first + second
     bad = [q for q in handles if not q.done or q.answer_quality != "exact"]
     if bad:
         raise AssertionError(f"{len(bad)} queries unanswered or inexact")
-    # the path's kernels: the lane-axis kernel ran exactly once a batched
-    # superstep with a masked sweep, kernel 1 alone never
-    if launches["edge_block_lanes"] <= 0 \
-            or launches["edge_block_lanes"] != cnt["masked_sweeps"] \
+    # the path's kernels: one launch a batched superstep with a masked
+    # sweep, the fused lane sweep for bfs/sssp/dist and 1L for ppr's
+    # float add; one lane push a batched superstep with a push lane;
+    # kernel 1 alone, the single-lane fused push and an order-free
+    # reduce's subrow_combine never
+    if launches["edge_block_fold"] <= 0 \
+            or launches["edge_block_lanes"] <= 0 \
+            or launches["edge_block_lanes"] != ppr_sweeps \
+            or launches["edge_block_fold"] + launches["edge_block_lanes"] \
+            != cnt["masked_sweeps"] \
+            or launches["push_ell_lanes"] <= 0 \
+            or launches["push_ell_lanes"] != cnt["lane_pushes"] \
             or launches["edge_block"] != 0 \
-            or launches["push_ell_fused"] <= 0:
+            or launches["push_ell_fused"] != 0 or folds:
         raise AssertionError(f"serve launches {launches} against the "
-                             f"server's counters {cnt}")
+                             f"server's counters {cnt} (ppr sweeps "
+                             f"{ppr_sweeps}; order-free subrow_combine "
+                             f"calls {len(folds)})")
     if cnt["host_reads"] != cnt["batched_supersteps"] + harvests \
             + snap_reads:
         raise AssertionError(f"host reads {cnt['host_reads']} != batched "
@@ -1601,6 +2015,15 @@ def phase_serve(torch, dev_info, main):
         f"supersteps (one read each) + {harvests} harvests (one read a "
         "slice end that finished a query, only the finished lanes copied) "
         f"+ {snap_reads} snapshot copies (one a batch group)")
+    log(f"[serve] launches in the streams: lane sweeps "
+        f"{launches['edge_block_fold']} fused (bfs/sssp/dist) + "
+        f"{launches['edge_block_lanes']} 1L (ppr, = its "
+        f"{ppr_sweeps} masked sweeps), lane pushes "
+        f"{launches['push_ell_lanes']} (= {cnt['lane_pushes']} batched "
+        f"supersteps with a push lane), single-lane fused pushes "
+        f"{launches['push_ell_fused']}, kernel 1 alone "
+        f"{launches['edge_block']}; subrow_combine of an order-free reduce: "
+        f"{len(folds)} calls")
 
     # every answer against a sequential run on the card, bit for bit
     cfg = ScheduleConfig()
@@ -1624,12 +2047,13 @@ def phase_serve(torch, dev_info, main):
         served[q.served_by] = served.get(q.served_by, 0) + 1
         if q.kind == "dist":
             v, _, _ = sequential("sssp", q.root)
-            if q.result != float(v[q.target]):
+            if not _same_bits_np(np.float64(q.result),
+                                 np.float64(v[q.target])):
                 raise AssertionError(f"dist {q.root}->{q.target}: "
                                      f"{q.result} != {v[q.target]}")
             continue
         v, it, st = sequential(q.kind, q.root)
-        if not np.array_equal(q.result, v) or q.iters != it or any(
+        if not _same_bits_np(q.result, v) or q.iters != it or any(
                 q.stats[k] != st[k] for k in stat_keys):
             raise AssertionError(f"{q.kind} root {q.root} ({q.served_by}) "
                                  "!= its sequential run")
@@ -1666,7 +2090,7 @@ def phase_serve(torch, dev_info, main):
     by_qid = {q.qid: q for q in handles}
     redo = [q for q in fresh.done if q.qid in pending_at_snap]
     if {q.qid for q in redo} != pending_at_snap or any(
-            not np.array_equal(q.result, by_qid[q.qid].result)
+            not _same_bits_np(q.result, by_qid[q.qid].result)
             or q.iters != by_qid[q.qid].iters for q in redo):
         raise AssertionError("restored server's answers != the original's")
     log(f"[serve] snapshot after the second burst ({snap_s:.2f} s to write, "
@@ -1702,7 +2126,7 @@ def phase_serve(torch, dev_info, main):
     vals, its = prog.run_batch(roots8)
     for i, r in enumerate(roots8):
         v, it, _ = sequential("bfs", r)
-        if not np.array_equal(vals[i].cpu().numpy(), v) or int(its[i]) != it:
+        if not _same_bits_np(vals[i].cpu().numpy(), v) or int(its[i]) != it:
             raise AssertionError(f"run_batch lane {i} != run(roots={r})")
     del vals
     t_batch, t_seq = [], []
@@ -1759,7 +2183,9 @@ def phase_serve(torch, dev_info, main):
         f"{st2['checkpoint_write_s']:.3f} s, = plain run")
 
     timing = _lane_timing(torch, g, oracle, smi)
+    push_timing = _push_lane_timing(torch, g, oracle, smi)
     row = timing[(8, "random")]
+    prow = push_timing[(8, "bfs")]
     torch.cuda.empty_cache()
     summary = {"table_s": table_s, "wall_first_s": wall1,
                "wall_second_s": wall2, "snapshot_s": snap_s,
@@ -1772,20 +2198,39 @@ def phase_serve(torch, dev_info, main):
                "checkpoint": {k: st2[k] for k in ("checkpoint_saves",
                                                   "checkpoint_loads",
                                                   "checkpoint_write_s")},
-               "lane_kernel": {f"k={k} {lbl}": v
-                               for (k, lbl), v in timing.items()},
+               "lane_sweep": {f"k={k} {lbl}": v
+                              for (k, lbl), v in timing.items()},
+               "lane_push": {f"k={k} {lbl}": v
+                             for (k, lbl), v in push_timing.items()},
                "profile": prof,
                "card": smi}
     with open(os.path.join(OUT_DIR, "chip_smoke_serve.json"), "w") as f:
         json.dump(summary, f, indent=1, default=str)
-    return {"name": "edge_block_reduce_lanes", "route": "cuda",
-            "source": "src/repro_torch/csrc/edge_block.cu",
-            "replaces": "src/repro/kernels/edge_block.py:147",
-            "launches": launches["edge_block_lanes"],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
-            "shape": row["shape"]}
+    return [
+        {"name": "edge_block_fold_lanes", "route": "cuda",
+         "source": "src/repro_torch/csrc/edge_block.cu",
+         "replaces": "src/repro/kernels/edge_block.py:147",
+         "launches": launches["edge_block_fold"],
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "shape": row["shape"]},
+        # 1L, kept for float add (the route the fused sweep replaced for
+        # min, max and int add, timed there end to end against it)
+        {"name": "edge_block_reduce_lanes", "route": "cuda",
+         "source": "src/repro_torch/csrc/edge_block.cu",
+         "replaces": "src/repro/kernels/edge_block.py:147",
+         "launches": launches["edge_block_lanes"],
+         "max_abs_err": row["old_kernel_max_abs_err"],
+         "ms": row["old_kernel_ms"], "plain_ms": row["old_kernel_plain_ms"],
+         "bound_ms": row["old_kernel_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": row["shape"]},
+        {"name": "push_ell_lanes_reduce", "route": "cuda",
+         "source": "src/repro_torch/csrc/push_ell.cu",
+         "replaces": "src/repro/kernels/push_ell.py:134",
+         "launches": launches["push_ell_lanes"],
+         "max_abs_err": prow["max_abs_err"], "ms": prow["ms"],
+         "plain_ms": prow["plain_ms"], "bound_ms": prow["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "shape": prow["shape"]}]
 
 
 def phase_sparse(torch, g, oracle, traversed, smi):
@@ -2050,8 +2495,93 @@ def _decode_equiv(torch, cfg):
     if not rel <= 1e-3 or seq_launches != 0 \
             or launches != cfg.n_layers * steps:
         raise AssertionError("decode ≡ full forward failed")
+    del full, cache
+    long_paths = _served_long_paths(torch, model)
     return {"max_abs": max(errs), "max_logit": scale, "ratio": rel,
-            "errs": errs, "launches": launches}
+            "errs": errs, "launches": launches, **long_paths}
+
+
+def _windowed_attention(torch, window):
+    """The full forward's attention with the ring's window: a query at
+    position p sees positions p - window < p' <= p, the causal mask of
+    ``layers._attn_core`` with the window term a windowed layer adds (a
+    decode step after the ring wraps attends to the last ``capacity``
+    positions, each of whose k/v was computed under the same window)."""
+    from repro_torch.models import layers as L
+
+    def core(cfg, q, k, v, q_pos, k_pos):
+        scale = cfg.head_dim ** -0.5
+        s = torch.einsum("bqnh,bknh->bnqk", q, k) * scale
+        rel = q_pos[:, None, :, None] - k_pos[:, None, None, :]
+        mask = (k_pos >= 0)[:, None, None, :] & (rel >= 0) & (rel < window)
+        s = torch.where(mask, s.float(), L.NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bnqk,bknh->bqnh", p, v)
+    return core
+
+
+def _served_long_paths(torch, model):
+    """The serving functions' two long paths, in float32 at full width,
+    through ``serve.decode.make_serve_fns`` (the server's prefill and
+    decode step): chunked prefill (one prompt of ``LM_CHUNKED[0]`` tokens,
+    past ``prefill_chunk``, prefilled in two chunks into a cache that
+    holds it and its decode steps) against ``logits_seq``; and ring wrap
+    (a prompt of ``LM_RING[0]`` tokens and ``LM_RING[2]`` decode steps in
+    a cache of ``LM_RING[1]``, so the ring wraps mid-decode) against the
+    full forward under the ring's window.  Each within 1e-3 of max
+    |logit|, the decode ≡ full forward bound."""
+    from repro_torch.models import layers as L
+    from repro_torch.serve.decode import make_serve_fns
+    cfg = model.cfg
+    prefill_step, serve_step = make_serve_fns(model)
+    rng = np.random.default_rng(2)
+    out = {}
+    for label, (prompt, capacity, steps) in (
+            ("chunked_prefill", LM_CHUNKED), ("ring_wrap", LM_RING)):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (1, prompt + steps)),
+                               device="cuda")
+        chunk = min(cfg.prefill_chunk, prompt)
+        while prompt % chunk:
+            chunk -= 1
+        wraps = prompt + steps > capacity
+        if label == "chunked_prefill" and (prompt // chunk < 2 or wraps):
+            raise AssertionError(f"{label}: {prompt} tokens in chunks of "
+                                 f"{chunk}, capacity {capacity}")
+        if label == "ring_wrap" and not wraps:
+            raise AssertionError(f"{label}: the ring never wraps")
+        real = L._attn_core
+        if wraps:
+            L._attn_core = _windowed_attention(torch, capacity)
+        try:
+            full = model.logits_seq(toks)
+        finally:
+            L._attn_core = real
+        cache = model.init_cache(1, capacity, dtype=torch.float32)
+        lg, cache = prefill_step(toks[:, :prompt], cache)
+        errs = [float((lg - full[:, prompt - 1]).abs().max())]
+        for t in range(prompt, prompt + steps):
+            _, lg, cache = serve_step(toks[:, t:t + 1].to(torch.int32),
+                                      cache)
+            errs.append(float((lg - full[:, t]).abs().max()))
+        scale = float(full.abs().max())
+        rel = max(errs) / scale
+        del full, cache
+        torch.cuda.empty_cache()
+        log(f"[lm] {label}: a prompt of {prompt} tokens (prefill chunks of "
+            f"{chunk}: {prompt // chunk}) and {steps} decode steps in a "
+            f"cache of {capacity} (ring wraps: {wraps}), float32, all "
+            f"{cfg.n_layers} layers, through the server's prefill and decode "
+            f"step, against the full forward"
+            f"{' under the ring window' if wraps else ''}: max |Δ| "
+            f"{max(errs):.3e} (prefill {errs[0]:.3e}), max |logit| "
+            f"{scale:.4f}, ratio {rel:.3e} (bound 1e-3)")
+        if not rel <= 1e-3:
+            raise AssertionError(f"{label}: served logits != full forward")
+        out[label] = {"prompt": prompt, "capacity": capacity,
+                      "steps": steps, "chunk": chunk, "max_abs": max(errs),
+                      "max_logit": scale, "ratio": rel}
+    return out
 
 
 def phase_lm(torch, dev_info):
@@ -2208,7 +2738,7 @@ def main():
     phase_build()
     phase_kernels(torch)
     kernels, main_graph = phase_main(torch, dev_info)
-    kernels.append(phase_serve(torch, dev_info, main_graph))
+    kernels.extend(phase_serve(torch, dev_info, main_graph))
     del main_graph
     phase_others(torch)
     kernels.append(phase_lm(torch, dev_info))

@@ -46,11 +46,15 @@ device→host read per batched superstep for all lanes.  Each lane decides
 its own direction and tier as a sequential run would, so its values and
 counters equal ``run(roots=r)``'s; frozen and idle lanes launch nothing.
 Lanes are grouped by route, since every route computes the same
-superstep: the lanes whose superstep is the dense masked sweep (pull
-lanes, and push lanes past the largest tier) go through one launch of
-``edge_block.edge_block_reduce_lanes``, each push lane within a tier
-through the single-lane compacted push, and the bitmap and sparse planes
-step each lane through their single-lane superstep.  Checkpointed runs
+superstep: on the dense plane, the lanes whose superstep is the masked
+sweep (pull lanes, and push lanes past the largest tier) go through one
+launch of the fused lane sweep (``edge_block.edge_block_fold_lanes``; a
+float add, whose fold has an order, takes
+``edge_block.edge_block_reduce_lanes`` and ``subrow_combine``), and the
+push lanes within a tier through one launch of the lane push
+(``push_ell.push_ell_lanes_reduce``, no compaction), both reading and
+writing the lanes' rows in place; the bitmap and sparse planes step each
+lane through their single-lane superstep.  Checkpointed runs
 (``run(checkpoint_dir=...)``) are one-lane slice loops that commit a
 :mod:`~repro_torch.core.checkpoint` snapshot after every slice.
 
@@ -193,8 +197,9 @@ class CompiledGraphProgram:
                  report: TranslationReport, max_iters: int, *,
                  direction: DirectionPolicy, out_degrees, rows_per_vertex,
                  push_tiers, num_vertices: int, num_edges: int,
-                 probe_divergence: bool = False, lane_sweep=None,
-                 base_values=None, checkpoint_dir: str | None = None,
+                 probe_divergence: bool = False, lane_step=None,
+                 lane_push: bool = False, base_values=None,
+                 checkpoint_dir: str | None = None,
                  checkpoint_every: int | None = None,
                  fingerprints_fn=None):
         # (values, active, m_f) → (new, nxt, (swept_edges, blocks_swept,
@@ -210,9 +215,11 @@ class CompiledGraphProgram:
         self._num_vertices = num_vertices
         self._num_edges = num_edges
         self._probe = bool(probe_divergence)
-        # the batched masked sweep ((k', V) values, active, pull-row flags
-        # → (new, nxt)), on the dense plane; None elsewhere
-        self._lane_sweep = lane_sweep
+        # the batched superstep of the dense plane ((k', V) values, active,
+        # sweep rows, their pull flags, push rows → (new, nxt)), and whether
+        # it takes push rows; None and False elsewhere
+        self._lane_step = lane_step
+        self._lane_push = lane_push
         self._base_values = base_values      # (V,) initial table, on device
         self._host_occ_inputs = None         # lazily: host out-degrees, ...
         self._lane_memo = None               # (values, active, occupancy)
@@ -228,11 +235,13 @@ class CompiledGraphProgram:
         self.last_run_stats: dict | None = None
         self.last_run_syncs: int | None = None
         # the lane API's device→host reads (occupancy reads and the
-        # snapshots' copies), batched supersteps, and those that ran the
-        # batched masked sweep, since construction
+        # snapshots' copies), batched supersteps, those that ran the
+        # batched masked sweep and those that ran the batched push, since
+        # construction
         self.lane_reads = 0
         self.lane_supersteps = 0
         self.lane_sweeps = 0
+        self.lane_pushes = 0
 
     def _fingerprints(self) -> dict:
         if self._fingerprints_cache is None:
@@ -725,34 +734,31 @@ class CompiledGraphProgram:
             dirs = {i: self._choose(int(direction[i]), int(occ.m_f[i]),
                                     int(occ.n_f[i]), int(c["pull_cost"][i]))
                     for i in stepping}
-            sweep = [] if self._lane_sweep is None else [
+            sweep = [] if self._lane_step is None else [
                 i for i in stepping
                 if dirs[i] == 0 or (tiers is not None
                                     and occ.r_f[i] > tiers[-1])]
-            singles = [i for i in stepping if i not in sweep]
+            # push lanes within a tier: one batched push when the plane
+            # has it, else each its own compacted push
+            pushes = [i for i in stepping
+                      if i not in sweep and dirs[i]] if self._lane_push \
+                else []
+            singles = [i for i in stepping
+                       if i not in sweep and i not in pushes]
             pending = {}
-            if sweep and len(sweep) == k:
-                # every lane in one batched masked sweep: fresh tensors
-                values, active = self._lane_sweep(
-                    values, active, [dirs[i] == 0 for i in sweep])
+            if sweep or pushes:
+                # one batched superstep over those lanes, read and written
+                # in place: fresh tensors, other rows as they were
+                values, active = self._lane_step(
+                    values, active, sweep, [dirs[i] == 0 for i in sweep],
+                    pushes)
                 owned = True
-            elif sweep:
-                if not owned:
-                    values, active = values.clone(), active.clone()
-                    owned = True
-                # rows gathered and written back lane by lane: an index
-                # tensor would be a blocking copy to the device
-                new, nxt = self._lane_sweep(
-                    torch.stack([values[i] for i in sweep]),
-                    torch.stack([active[i] for i in sweep]),
-                    [dirs[i] == 0 for i in sweep])
-                for j, i in enumerate(sweep):
-                    values[i] = new[j]
-                    active[i] = nxt[j]
             if sweep:
                 self.lane_sweeps += 1
                 pending.update({i: (self._num_edges, 0, 0) for i in sweep
                                 if dirs[i] == 0})
+            if pushes:
+                self.lane_pushes += 1
             if singles and not owned:
                 values, active = values.clone(), active.clone()
                 owned = True
@@ -951,79 +957,149 @@ def _emit_dense_pull_reduce(ir: SuperstepIR, fused: FusedGatherReduceOp,
     return partial_reduce, sub_sweep
 
 
-def _emit_lane_sweep(ir: SuperstepIR, fused: FusedGatherReduceOp,
-                     pplan: G.PullBitmapPlan, out_deg, sub_sweep, apply_fn,
-                     frontier_op: FrontierUpdateOp, touched_free: bool,
-                     use_kernels: bool):
-    """The batched masked sweep of the lane API: ``lane_sweep(values,
-    active, pull_rows)`` maps ``(k', V)`` tables and frontiers to the next
-    ``(new, next_active)``, with a pull superstep for the lanes whose
-    ``pull_rows`` entry is true and a push fallback superstep (the masked
-    sweep, then the apply everywhere) for the others; both compute the
-    same values.
+def _row_mask(kk: int, rows: list, device):
+    """``True``, ``False`` or a ``(kk, 1)`` bool mask of ``rows``, filled
+    row by row with scalars: an index tensor would be a blocking copy to
+    the device."""
+    if len(rows) == kk:
+        return True
+    if not rows:
+        return False
+    mask = torch.zeros((kk, 1), dtype=torch.bool, device=device)
+    for i in rows:
+        mask[i] = True
+    return mask
 
-    With the kernels on, one launch of
-    ``edge_block.edge_block_reduce_lanes`` reduces every lane's sub-rows,
-    reading each row's ids once; on the CPU each lane takes the
-    single-lane plain sweep.  The combine cascade runs once on the batch,
-    and so does the apply when the analyzer found it elementwise and
-    :func:`~repro_torch.core.analysis.apply_batches_over_lanes` finds a
-    ``(2, V)`` batch of lanes gives each lane its own result; any other
+
+def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
+                    pplan: G.PullBitmapPlan, out_deg, sub_sweep, apply_fn,
+                    frontier_op: FrontierUpdateOp, touched_free: bool,
+                    use_kernels: bool, fe: G.ForwardELL | None,
+                    push_op: PushScatterOp | None):
+    """The batched superstep of the lane API's dense plane.
+
+    Returns ``(lane_step, lane_push)``.  ``lane_step(values, active,
+    sweep, pull_rows, pushes)`` maps the ``(k', V)`` state to the next
+    ``(values, active)``: the rows listed in ``sweep`` take the masked
+    sweep, a pull superstep where their ``pull_rows`` entry is true and a
+    push fallback superstep (the masked sweep, then the apply everywhere)
+    otherwise; the rows in ``pushes`` take the compacted push's
+    superstep; every other row is returned as it was.  All compute the
+    superstep a sequential run would.  ``lane_push`` says whether
+    ``pushes`` may be given (a forward-ELL push twin with a menu gather).
+
+    Min, max and integer add (the order-free reduces) with a menu gather
+    go through ``edge_block.edge_block_fold_lanes`` for the sweep rows and
+    ``push_ell.push_ell_lanes_reduce`` for the push rows, one launch each
+    for all their lanes, both combining into one ``(k', V)`` reduced
+    table; the apply then runs once on the state.  A float add (and, on
+    the CPU, a gather outside the menu) sweeps the listed rows with, with
+    the kernels on, one launch of ``edge_block.edge_block_reduce_lanes``,
+    else each lane's single-lane plain sweep, then a ``subrow_combine`` a
+    lane that folds it in the order a sequential run folds it.  All read
+    the lanes in place, through lane maps.  The apply
+    runs once on a batch when the analyzer found it elementwise and
+    :func:`~repro_torch.core.analysis.apply_batches_over_lanes` finds that
+    a ``(2, V)`` batch of lanes gives each lane its own result; any other
     apply runs lane by lane.
     """
     program = ir.program
     dtype = ir.value_dtype
+    V = pplan.num_vertices
     ident = fused.reduce.identity.item()
     op = fused.reduce.op
     facts = ir.facts if ir.facts is not None else analyze_program(program)
     elementwise = bool(facts.elementwise.value) and apply_batches_over_lanes(
-        apply_fn, dtype, pplan.num_vertices)
+        apply_fn, dtype, V)
     changed = frontier_op.mode == "changed"
     masked_got = changed and not touched_free
+    fold = fused.gather.module is not None \
+        and dtype in (torch.int32, torch.float32) \
+        and not (op == "add" and dtype.is_floating_point)
+    lane_push = fold and fe is not None and push_op is not None \
+        and push_op.gather.module is not None
 
-    def apply_lanes(values, red):
+    def apply_lanes(values, red, rows):
         if elementwise:
             return apply_fn(values, red)
-        return torch.stack([apply_fn(v, r) for v, r in zip(values, red)])
+        new = values.clone()
+        for i in rows:
+            new[i] = apply_fn(values[i], red[i])
+        return new
 
-    def lane_sweep(values, active, pull_rows):
-        need_got = masked_got and any(pull_rows)
+    def sweep_lanes(values, active, sweep, pulls):
+        """The listed rows' masked sweep (float add, unmatched gathers):
+        ``(red, got)``, each lane folded alone, rows not listed the
+        identity."""
+        need_got = masked_got and bool(pulls)
         if use_kernels:
             sub_red, sub_any = edge_block_kernel.edge_block_reduce_lanes(
                 pplan.flat_dst, pplan.flat_wgt, values, out_deg, active,
-                gather=fused.gather.module, reduce=op,
+                sweep, gather=fused.gather.module, reduce=op,
                 mask_inactive=program.mask_inactive, need_any=need_got)
         else:
-            parts = [sub_sweep(v, a, pplan.flat_dst_safe, pplan.flat_wgt,
-                               need_got) for v, a in zip(values, active)]
-            sub_red = torch.stack([p[0] for p in parts])
-            sub_any = torch.stack([p[1] for p in parts]) if need_got \
-                else None
-        red = pull_bitmap_kernel.subrow_combine(sub_red, pplan, ident, op,
-                                                dtype)
-        new = apply_lanes(values, red)
-        rows = True if all(pull_rows) else False if not any(pull_rows) \
-            else None
-        if rows is None:      # mixed: a (k', 1) mask filled row by row
-            rows = torch.zeros((len(pull_rows), 1), dtype=torch.bool,
-                               device=values.device)
-            for j, pull in enumerate(pull_rows):
-                if pull:
-                    rows[j] = True
-        if need_got:     # pull lanes keep untouched vertices as they were
-            got = pull_bitmap_kernel.subrow_combine(
-                sub_any.to(torch.int8), pplan, 0, "max", torch.int8) != 0
-            new = torch.where(got if rows is True else ~rows | got, new,
-                              values)
-        if not changed and rows is True:
-            # frontier='all': every vertex stays active
-            return new, torch.ones_like(active)
+            parts = [sub_sweep(values[i], active[i], pplan.flat_dst_safe,
+                               pplan.flat_wgt, need_got) for i in sweep]
+            sub_red = [p[0] for p in parts]
+            sub_any = [p[1] for p in parts]
+        red = torch.full(values.shape, ident, dtype=dtype,
+                         device=values.device)
+        got = torch.zeros(values.shape, dtype=torch.bool,
+                          device=values.device) if need_got else None
+        for j, i in enumerate(sweep):
+            red[i] = pull_bitmap_kernel.subrow_combine(sub_red[j], pplan,
+                                                       ident, op, dtype)
+            if need_got:
+                got[i] = pull_bitmap_kernel.subrow_combine(
+                    sub_any[j].to(torch.int8), pplan, 0, "max",
+                    torch.int8) != 0
+        return red, got
+
+    def finish(values, active, red, got, stepped, pulls):
+        """The apply, the touched mask of pull rows, the next frontier;
+        rows outside ``stepped`` as they were."""
+        kk = values.shape[0]
+        stepped_m = _row_mask(kk, stepped, values.device)
+        pull_m = _row_mask(kk, pulls, values.device)
+        new = apply_lanes(values, red, stepped)
+        if got is not None:    # pull lanes keep untouched vertices
+            new = torch.where(got if pull_m is True else ~pull_m | got,
+                              new, values)
+        if stepped_m is not True:
+            new = torch.where(stepped_m, new, values)
         nxt = new != values
-        if not changed and rows is not False:
-            nxt = nxt | rows
+        if not changed and pull_m is not False:
+            nxt = nxt | pull_m      # frontier='all': pull lanes stay active
+        if stepped_m is not True:
+            nxt = torch.where(stepped_m, nxt, active)
         return new, nxt
 
-    return lane_sweep
+    def lane_step(values, active, sweep, pull_rows, pushes):
+        if pushes and not lane_push:
+            raise ValueError("this program's lanes push one at a time")
+        pulls = [i for i, pull in zip(sweep, pull_rows) if pull]
+        if not fold:
+            red, got = sweep_lanes(values, active, sweep, pulls)
+            return finish(values, active, red, got, sweep, pulls)
+        need_got = masked_got and bool(pulls)
+        red = torch.full(values.shape, ident, dtype=dtype,
+                         device=values.device)
+        got = None
+        if sweep:
+            red, got = edge_block_kernel.edge_block_fold_lanes(
+                pplan, values, out_deg, active, sweep,
+                gather=fused.gather.module, reduce=op,
+                mask_inactive=program.mask_inactive, need_got=need_got,
+                red=red)
+        if pushes:
+            red = push_ell_kernel.push_ell_lanes_reduce(
+                fe.row_src, fe.dst, fe.weights, values, out_deg, active,
+                pushes, num_rows=fe.num_rows, gather=push_op.gather.module,
+                reduce=push_op.reduce.op, identity=ident, table=red)
+        return finish(values, active, red, got, sorted(sweep + pushes),
+                      pulls)
+
+    return lane_step, lane_push
 
 
 def _emit_pull_bitmap(ir: SuperstepIR, fstep: FusedSuperstepOp,
@@ -1421,11 +1497,13 @@ def translate(
         def push_step(values, active, r_f=None):
             return (*scatter_step(values, active), 0)
 
-    lane_sweep = None
+    lane_step, lane_push = None, False
     if dense and pull_sweep != "bitmap":
-        lane_sweep = _emit_lane_sweep(ir, fused, on["pplan"], out_deg,
-                                      sub_sweep, apply_fn, frontier_op,
-                                      touched_free, use_kernels)
+        fwd = push_layout == "fwd_ell"
+        lane_step, lane_push = _emit_lane_step(
+            ir, fused, on["pplan"], out_deg, sub_sweep, apply_fn,
+            frontier_op, touched_free, use_kernels,
+            on["fe"] if fwd else None, push_op if fwd else None)
 
     base_values = program.materialize_init(V, device)
 
@@ -1485,7 +1563,7 @@ def translate(
         direction=policy, out_degrees=out_deg,
         rows_per_vertex=rows_per_vertex, push_tiers=push_tiers,
         num_vertices=V, num_edges=E,
-        probe_divergence=schedule.probe_divergence, lane_sweep=lane_sweep,
-        base_values=base_values, checkpoint_dir=checkpoint_dir,
-        checkpoint_every=checkpoint_every,
+        probe_divergence=schedule.probe_divergence, lane_step=lane_step,
+        lane_push=lane_push, base_values=base_values,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         fingerprints_fn=lambda: ckpt.run_fingerprints(program, g, schedule))

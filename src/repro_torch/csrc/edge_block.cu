@@ -52,7 +52,7 @@
 // plane uses 128) a warp reads one flag, so a dead block costs one byte
 // and two stores per row and nothing diverges; live rows run kernel 1's
 // body.  The same pre-pass serves both variants.
-#include "gather_ops.cuh"
+#include "lanes.cuh"
 
 namespace repro_torch {
 namespace {
@@ -85,44 +85,6 @@ __global__ void edge_block_pack_kernel(const T* __restrict__ values,
       msg[u] = gather_op<T, G>(values[u], 0.0f,
                                G == kDivDeg ? degrees[u] : 0);
     }
-  }
-}
-
-__device__ __forceinline__ uint64_t l2_policy_evict_first() {
-  uint64_t p;
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ uint64_t l2_policy_evict_last() {
-  uint64_t p;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
-  return p;
-}
-// 16 bytes of the id (or weight) stream: not kept in L1, first out of L2
-__device__ __forceinline__ int4 load_stream(const void* p, uint64_t pol) {
-  int4 r;
-  asm volatile(
-      "ld.global.nc.L1::no_allocate.L2::cache_hint.v4.s32 {%0,%1,%2,%3}, "
-      "[%4], %5;"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-      : "l"(p), "l"(pol));
-  return r;
-}
-// 4 bytes of a vertex table (frontier bits or messages), kept in L2
-// ahead of the stream
-__device__ __forceinline__ unsigned load_table(const void* p, uint64_t pol) {
-  unsigned r;
-  asm volatile("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
-               : "=r"(r)
-               : "l"(p), "l"(pol));
-  return r;
-}
-template <typename T>
-__device__ __forceinline__ T from_bits(unsigned x) {
-  if constexpr (std::is_floating_point<T>::value) {
-    return __uint_as_float(x);
-  } else {
-    return static_cast<int>(x);
   }
 }
 
@@ -300,105 +262,62 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 }
 
 // ---------------------------------------------------------------------------
-// The lane-axis variant: kernel 1 over k lanes at once (k frontiers and
+// The lane-axis variants: kernel 1 over k lanes at once (k frontiers and
 // value tables over one graph, as the vmapped Pallas kernel runs under the
 // JAX package's batched runs).  K is k rounded up to 1, 4, 8 or 32 (the
-// wrapper splits wider batches into launches of 32 lanes); mask_inactive
-// is a launch argument, not a template one, to keep the build short.
+// wrappers split wider batches into launches of 32 lanes); mask_inactive
+// is a launch argument, not a template one, to keep the build short.  A
+// launch reads its k lanes from rows of a (k', V) state through a lane
+// map (lanes.cuh), in place.
 //
-// Pre-pass, one thread a vertex u: the K lanes' messages of u in one
-// vertex-major row msg[u * K .. u * K + K) (for K = 8 and 4-byte values,
-// one 32-byte sector), and under mask_inactive u's K frontier bits,
-// packed 32 / K vertices a word (K = 1 is kernel 1's bitmap).  Pad lanes
-// (k <= l < K) get message 0 and frontier bit 0.
+// Pre-pass (lanes.cuh, lanes_pack_kernel), one thread a vertex u: the K
+// lanes' messages of u in one vertex-major row msg[u * K .. u * K + K),
+// and under mask_inactive u's K frontier bits.
 //
-// Main kernel, one thread a row: the row's ids are read once, as kernel
-// 1 reads them; per slot one read of the vertex's K frontier bits and,
-// when any lane is live there, one read of its K messages; each lane
+// Per sub-row r, one thread (lanes_row): the row's ids are read once, as
+// kernel 1 reads them; per slot one read of the vertex's K frontier bits
+// and, when any lane is live there, one read of its K messages; each lane
 // reduces the row's slots in slot order with the dead slots as the
-// identity, exactly as kernel 1 reduces one lane, so a lane's float add
-// sums in kernel 1's order.  Outputs are lane-major (k, rows).
+// identity, exactly as kernel 1 reduces one lane.
+//
+// edge_block_lanes_kernel, the first lane-axis design: writes the (k, rows)
+// sub-row partials and any-live flags, lane-major (row l of each for the
+// launch's lane l); the caller folds them into vertices (subrow_combine).  The translator keeps it for float add,
+// where a lane's fold must sum sub-rows in the order a sequential run's
+// torch reductions do (bit-equal served answers), and an atomic fold would
+// not.
+//
+// edge_block_fold_kernel, the redesign: the lane sweep with the sub-row
+// fold fused in, for the order-free reduces (min, max, int32 add).  It goes
+// from the flat (rows, 8) view and owner8 straight to (k', V) reduced and
+// got tables, at the lanes' own rows; no (k, rows) array is written.  A
+// vertex's sub-rows are consecutive in the flat view (split hubs' included,
+// so owner8 names their vertex and no separate scatter is needed), so after
+// lanes_row the warp runs a segmented reduce over its runs of equal owners:
+// a suffix scan by shuffles, log2 of the warp's longest run steps, each
+// lane's partial and any-bits.  The first thread of each run then holds the
+// run's combine.  A run that is a whole segment (it starts and ends inside
+// the warp, or its neighbours in the view have other owners) stores each
+// lane's value with a plain store; a piece of a segment that crosses a warp
+// or block edge combines into the identity-filled table with an atomic
+// after a plain test read (gather_ops.cuh, atomic_combine: int32
+// atomicMin/Max/Add, float min/max a compare-and-swap loop that propagates
+// NaN).  Every combine, in a thread, in the warp's scan and in the atomics,
+// settles a +0/-0 tie the same way (a min keeps -0, a max +0), so the
+// table's bits do not depend on the order the pieces land in; the plain
+// version settles ties so too (ref.settle_zero_ties).  A lane whose combine is the
+// identity writes nothing; the got table (zero-filled bytes) takes a plain
+// store of 1 for each lane with a live slot, since a message can equal the
+// identity.  Pad sub-rows (owner V) and threads past the view write nothing.
+//
+// What bounds the fold kernel on an H100: bytes.  It must read the ids once
+// (R8 x 32 B, 0.40 GB at scale 22), owner8 (R8 x 4 B), each lane's values
+// and frontier (k x V x 5 B) and write each lane's (V,) table and flags (k
+// x V x 5 B): 0.79 GB, 0.24 ms, at k = 8.  Beyond that it pays the
+// pre-pass's vertex-major table (k x V x 4 B written, then read a 32-byte
+// row a live slot: 134 MB at k = 8, past the 50 MB L2) and the table's
+// fill.
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ unsigned to_bits(T x) {
-  if constexpr (std::is_floating_point<T>::value) {
-    return __float_as_uint(x);
-  } else {
-    return static_cast<unsigned>(x);
-  }
-}
-
-// K consecutive 4-byte words from p (aligned to min(16, 4 K) bytes), kept
-// in L2 ahead of the id stream.
-template <int K>
-__device__ __forceinline__ void load_lanes(const void* p, uint64_t pol,
-                                           unsigned (&m)[K]) {
-  if constexpr (K == 1) {
-    m[0] = load_table(p, pol);
-  } else if constexpr (K == 2) {
-    asm volatile("ld.global.nc.L2::cache_hint.v2.u32 {%0,%1}, [%2], %3;"
-                 : "=r"(m[0]), "=r"(m[1])
-                 : "l"(p), "l"(pol));
-  } else {
-#pragma unroll
-    for (int q = 0; q < K / 4; ++q) {
-      asm volatile(
-          "ld.global.nc.L2::cache_hint.v4.u32 {%0,%1,%2,%3}, [%4], %5;"
-          : "=r"(m[4 * q]), "=r"(m[4 * q + 1]), "=r"(m[4 * q + 2]),
-            "=r"(m[4 * q + 3])
-          : "l"(static_cast<const unsigned*>(p) + 4 * q), "l"(pol));
-    }
-  }
-}
-
-template <typename T, int G, int K>
-__global__ void edge_block_lanes_pack_kernel(
-    const T* __restrict__ values, const int* __restrict__ degrees,
-    const uint8_t* __restrict__ active, unsigned* __restrict__ bits,
-    T* __restrict__ msg, long long V, int k, bool mask) {
-  const long long u = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  unsigned live = 0;
-  unsigned row[K];
-#pragma unroll
-  for (int l = 0; l < K; ++l) {
-    row[l] = 0u;
-    if (u < V && l < k) {
-      const T v = values[l * V + u];
-      row[l] = to_bits<T>(needs_msg(G)
-                              ? gather_op<T, G>(v, 0.0f,
-                                                G == kDivDeg ? degrees[u] : 0)
-                              : v);
-      if (mask && active[l * V + u] != 0) live |= 1u << l;
-    }
-  }
-  if (mask) {
-    // 32 / K consecutive threads (vertices) share a word
-    constexpr int kPer = 32 / K;
-    const int t = threadIdx.x & 31;
-    unsigned word = K == 32 ? live : live << ((t * K) & 31);
-#pragma unroll
-    for (int off = 1; off < kPer; off <<= 1) {
-      word |= __shfl_xor_sync(~0u, word, off);
-    }
-    if (t % kPer == 0 && u < V) bits[(u * K) >> 5] = word;
-  }
-  if (u < V) {
-    unsigned* dst = reinterpret_cast<unsigned*>(msg) + u * K;
-    if constexpr (K == 1) {
-      dst[0] = row[0];
-    } else if constexpr (K == 2) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(row[0], row[1]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < K / 4; ++q) {
-        reinterpret_cast<uint4*>(dst)[q] = make_uint4(
-            row[4 * q], row[4 * q + 1], row[4 * q + 2], row[4 * q + 3]);
-      }
-    }
-  }
-}
 
 // One slot into the K lanes' accumulators: lanes whose bit is set in
 // `live` take the message (weighted by w for add_w and mul_w), the others
@@ -419,34 +338,20 @@ __device__ __forceinline__ void lanes_combine(T (&acc)[K], unsigned live,
   }
 }
 
-template <int K>
-__device__ __forceinline__ unsigned lane_bits(const unsigned* bits, int id,
-                                              uint64_t pol) {
-  constexpr unsigned kAll = K == 32 ? ~0u : (1u << K) - 1u;
-  const long long at = static_cast<long long>(id) * K;
-  return (load_table(bits + (at >> 5), pol) >> (at & 31)) & kAll;
-}
-
+// One sub-row's partials: acc[l] is lane l's reduce over the row's slots,
+// bit l of any whether lane l had a live slot.
 template <typename T, int GW, int R, int K>
-__global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,
-                                        const float* __restrict__ wgt,
-                                        const unsigned* __restrict__ bits,
-                                        const T* __restrict__ msg,
-                                        T* __restrict__ out,
-                                        uint8_t* __restrict__ any_out,
-                                        long long rows, int width, int k,
-                                        bool mask, bool w8) {
+__device__ __forceinline__ void lanes_row(const int* __restrict__ nbr,
+                                          const float* __restrict__ wgt,
+                                          const unsigned* __restrict__ bits,
+                                          const T* __restrict__ msg,
+                                          long long r, int width, bool mask,
+                                          bool w8, T (&acc)[K],
+                                          unsigned& any) {
   constexpr bool kW = weighted(GW);
   constexpr unsigned kAll = K == 32 ? ~0u : (1u << K) - 1u;
-  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (r >= rows) return;
   const uint64_t first = l2_policy_evict_first();
   const uint64_t last = l2_policy_evict_last();
-  T acc[K];
-#pragma unroll
-  for (int l = 0; l < K; ++l) acc[l] = reduce_identity<T, R>();
-  unsigned any = 0;
   if (w8) {
     const int4 lo = load_stream(nbr + r * 8, first);
     const int4 hi = load_stream(nbr + r * 8 + 4, first);
@@ -517,6 +422,25 @@ __global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,
       any |= live;
     }
   }
+}
+
+template <typename T, int GW, int R, int K>
+__global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,
+                                        const float* __restrict__ wgt,
+                                        const unsigned* __restrict__ bits,
+                                        const T* __restrict__ msg,
+                                        T* __restrict__ out,
+                                        uint8_t* __restrict__ any_out,
+                                        long long rows, int width, int k,
+                                        bool mask, bool w8) {
+  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (r >= rows) return;
+  T acc[K];
+#pragma unroll
+  for (int l = 0; l < K; ++l) acc[l] = reduce_identity<T, R>();
+  unsigned any = 0;
+  lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc, any);
 #pragma unroll
   for (int l = 0; l < K; ++l) {
     if (l < k) {
@@ -526,91 +450,187 @@ __global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,
   }
 }
 
+template <typename T, int GW, int R, int K>
+__global__ void __launch_bounds__(256) edge_block_fold_kernel(
+    const int* __restrict__ nbr, const float* __restrict__ wgt,
+    const int* __restrict__ owner8, const unsigned* __restrict__ bits,
+    const T* __restrict__ msg, LaneMap map, T* red, uint8_t* got,
+    long long rows, long long V, int width, int k, bool mask, bool w8) {
+  const T ident = reduce_identity<T, R>();
+  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  const int t = threadIdx.x & 31;
+  T acc[K];
+#pragma unroll
+  for (int l = 0; l < K; ++l) acc[l] = ident;
+  unsigned any = 0;
+  int o = -1;                            // past the view: no owner
+  if (r < rows) {
+    o = __ldg(owner8 + r);
+    lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc,
+                           any);
+  }
+  // bit t of `same`: threads t and t + 1 hold sub-rows of one owner
+  const int o_next = __shfl_down_sync(~0u, o, 1);
+  const unsigned same = __ballot_sync(~0u, t < 31 && o_next == o);
+  int span = 1;                          // the warp's longest run
+  for (unsigned x = same; x != 0u; x &= x >> 1) ++span;
+  for (int off = 1; off < span; off <<= 1) {
+    const int o2 = __shfl_down_sync(~0u, o, off);
+    const bool take = t + off < 32 && o2 == o;
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      const T x = __shfl_down_sync(~0u, acc[l], off);
+      if (take) acc[l] = combine<T, R>(acc[l], x);
+    }
+    const unsigned a2 = __shfl_down_sync(~0u, any, off);
+    if (take) any |= a2;
+  }
+  const int o_prev = __shfl_up_sync(~0u, o, 1);
+  if (o < 0 || o >= V || (t > 0 && o_prev == o)) return;
+  // this thread heads the warp's run t .. t + n of owner o
+  const int n = __ffs(~(same >> t)) - 1;
+  const bool starts = t > 0 || r == 0 || __ldg(owner8 + r - 1) != o;
+  const long long end = r + n;
+  const bool ends = t + n < 31 || end + 1 >= rows ||
+                    __ldg(owner8 + end + 1) != o;
+  const bool whole = starts && ends;
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    if (l < k) {
+      const long long at = map.row[l] * V + o;
+      if (got != nullptr && ((any >> l) & 1u)) got[at] = 1;
+      if (acc[l] != ident) {
+        if (whole) {
+          red[at] = acc[l];
+        } else {
+          atomic_combine<T, R>(red + at, acc[l],
+                               R == kAdd ? T(0) : __ldcg(red + at));
+        }
+      }
+    }
+  }
+}
+
+// What both lane kernels read: the graph, the (k', V) state through the
+// lane map, and the pre-pass's scratch.
 struct LaneArgs {
   bool mask;                // mask_inactive
   const void* nbr;
   const void* wgt;
-  const void* values;       // (k, V), lane-major
+  const void* values;       // (k', V) lane-major state
   const void* degrees;
-  const void* active;       // (k, V) bool
+  const void* active;       // (k', V) bool
+  LaneMap map;              // the launch's k lanes: rows of the state
   void* bits;               // ceil(V K / 32) words (mask_inactive)
   void* msg;                // (V, K) vertex-major messages
   long long V;
   int k;
-  void* out;                // (k, rows)
-  void* any;                // (k, rows) bytes, or null
   long long rows;
   int width;
   cudaStream_t stream;
 };
 
-template <typename T, int G, int R, int K>
-cudaError_t launch_lanes(const LaneArgs& a) {
+// The first design's outputs: (k, rows) sub-row partials and any-live
+// bytes (or null), row l for the launch's lane l.
+struct SubRowOut {
+  void* out;
+  void* any;
+};
+
+// The fold's: owner vertices of the view's rows, and the (k', V) reduced
+// table (the identity in the listed rows) and got bytes (0 there, or null).
+struct FoldOut {
+  const void* owner8;
+  void* red;
+  void* got;
+};
+
+template <typename T, int G, int R, int K, typename Out>
+cudaError_t launch_lanes(const LaneArgs& a, const Out& o) {
   constexpr int kThreads = 256;
   constexpr int GW = weighted(G) ? G : kCopy;   // the main kernel's gather
-  if (a.V > 0) {
-    const long long blocks = (a.V + kThreads - 1) / kThreads;
-    edge_block_lanes_pack_kernel<T, G, K>
-        <<<blocks, kThreads, 0, a.stream>>>(
-            static_cast<const T*>(a.values),
-            static_cast<const int*>(a.degrees),
-            static_cast<const uint8_t*>(a.active),
-            static_cast<unsigned*>(a.bits), static_cast<T*>(a.msg), a.V,
-            a.k, a.mask);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<Out, FoldOut>::value &&
+                std::is_floating_point<T>::value && R == kAdd) {
+    return cudaErrorInvalidValue;      // a float sum's fold has an order
+  } else {
+    cudaError_t err = launch_lanes_pack<T, G, K, true>(
+        static_cast<const T*>(a.values), static_cast<const int*>(a.degrees),
+        static_cast<const uint8_t*>(a.active), a.map,
+        static_cast<unsigned*>(a.bits), static_cast<T*>(a.msg), a.V, a.k,
+        a.mask, a.stream);
+    if (err != cudaSuccess || a.rows == 0) return err;
+    const bool w8 = a.width == 8 &&
+                    reinterpret_cast<uintptr_t>(a.nbr) % 16 == 0 &&
+                    (!weighted(G) ||
+                     reinterpret_cast<uintptr_t>(a.wgt) % 16 == 0);
+    const long long blocks = (a.rows + kThreads - 1) / kThreads;
+    const int* nbr = static_cast<const int*>(a.nbr);
+    const float* wgt = static_cast<const float*>(a.wgt);
+    const unsigned* bits = static_cast<const unsigned*>(a.bits);
+    const T* msg = static_cast<const T*>(a.msg);
+    if constexpr (std::is_same<Out, SubRowOut>::value) {
+      edge_block_lanes_kernel<T, GW, R, K>
+          <<<blocks, kThreads, 0, a.stream>>>(
+              nbr, wgt, bits, msg, static_cast<T*>(o.out),
+              static_cast<uint8_t*>(o.any), a.rows, a.width, a.k, a.mask,
+              w8);
+    } else {
+      edge_block_fold_kernel<T, GW, R, K>
+          <<<blocks, kThreads, 0, a.stream>>>(
+              nbr, wgt, static_cast<const int*>(o.owner8), bits, msg, a.map,
+              static_cast<T*>(o.red), static_cast<uint8_t*>(o.got), a.rows,
+              a.V, a.width, a.k, a.mask, w8);
+    }
+    return cudaGetLastError();
   }
-  const bool w8 = a.width == 8 &&
-                  reinterpret_cast<uintptr_t>(a.nbr) % 16 == 0 &&
-                  (!weighted(G) ||
-                   reinterpret_cast<uintptr_t>(a.wgt) % 16 == 0);
-  const long long blocks = (a.rows + kThreads - 1) / kThreads;
-  edge_block_lanes_kernel<T, GW, R, K>
-      <<<blocks, kThreads, 0, a.stream>>>(
-          static_cast<const int*>(a.nbr), static_cast<const float*>(a.wgt),
-          static_cast<const unsigned*>(a.bits),
-          static_cast<const T*>(a.msg), static_cast<T*>(a.out),
-          static_cast<uint8_t*>(a.any), a.rows, a.width, a.k, a.mask, w8);
-  return cudaGetLastError();
 }
 
-template <typename T, int G, int R>
-cudaError_t lanes_by_k(const LaneArgs& a, int K) {
+template <typename T, int G, int R, typename Out>
+cudaError_t lanes_by_k(const LaneArgs& a, const Out& o, int K) {
   switch (K) {
-    case 1: return launch_lanes<T, G, R, 1>(a);
-    case 4: return launch_lanes<T, G, R, 4>(a);
-    case 8: return launch_lanes<T, G, R, 8>(a);
-    case 32: return launch_lanes<T, G, R, 32>(a);
+    case 1: return launch_lanes<T, G, R, 1>(a, o);
+    case 4: return launch_lanes<T, G, R, 4>(a, o);
+    case 8: return launch_lanes<T, G, R, 8>(a, o);
+    case 32: return launch_lanes<T, G, R, 32>(a, o);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int G>
-cudaError_t lanes_by_reduce(const LaneArgs& a, int reduce, int K) {
-  switch (reduce) {
-    case kAdd: return lanes_by_k<T, G, kAdd>(a, K);
-    case kMin: return lanes_by_k<T, G, kMin>(a, K);
-    case kMax: return lanes_by_k<T, G, kMax>(a, K);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t lanes_by_gather(const LaneArgs& a, int gather, int reduce,
+template <typename T, int G, typename Out>
+cudaError_t lanes_by_reduce(const LaneArgs& a, const Out& o, int reduce,
                             int K) {
+  switch (reduce) {
+    case kAdd: return lanes_by_k<T, G, kAdd>(a, o, K);
+    case kMin: return lanes_by_k<T, G, kMin>(a, o, K);
+    case kMax: return lanes_by_k<T, G, kMax>(a, o, K);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename Out>
+cudaError_t lanes_by_gather(const LaneArgs& a, const Out& o, int gather,
+                            int reduce, int K) {
   switch (gather) {
-    case kCopy: return lanes_by_reduce<T, kCopy>(a, reduce, K);
-    case kPlusOne: return lanes_by_reduce<T, kPlusOne>(a, reduce, K);
-    case kAddW: return lanes_by_reduce<T, kAddW>(a, reduce, K);
-    case kMulW: return lanes_by_reduce<T, kMulW>(a, reduce, K);
+    case kCopy: return lanes_by_reduce<T, kCopy>(a, o, reduce, K);
+    case kPlusOne: return lanes_by_reduce<T, kPlusOne>(a, o, reduce, K);
+    case kAddW: return lanes_by_reduce<T, kAddW>(a, o, reduce, K);
+    case kMulW: return lanes_by_reduce<T, kMulW>(a, o, reduce, K);
     case kDivDeg:
       if constexpr (std::is_floating_point<T>::value) {
-        return lanes_by_reduce<T, kDivDeg>(a, reduce, K);
+        return lanes_by_reduce<T, kDivDeg>(a, o, reduce, K);
       } else {
         return cudaErrorInvalidValue;
       }
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
 }
 
 }  // namespace
@@ -645,30 +665,59 @@ extern "C" int edge_block_reduce_launch(
                         : by_gather<int>(a, gather, reduce, mask_inactive);
 }
 
-// C entry point of the lane-axis variant.  values and active are (k, V)
-// lane-major, 1 <= k <= K; K is 1, 4, 8 or 32.  `bits` (ceil(V K /
-// 32) words, with mask_inactive) and `msg` ((V, K) of the value type) are
-// scratch for the pre-pass; `out` is (k, rows) of the value type and
-// `any` (k, rows) bytes, or null when the caller needs no flags.  Returns
-// the cudaError_t of the launches (0 = success).
+// C entry point of the lanes kernel.  values and active are a (lane_rows,
+// V) lane-major state; the launch sweeps the k rows listed in `lanes` (host
+// memory, k ints in [0, lane_rows), 1 <= k <= K; copied into the launch's
+// parameters), K is 1, 4, 8 or 32.  `bits` (ceil(V K / 32) words, with
+// mask_inactive) and `msg` ((V, K) of the value type) are scratch for the
+// pre-pass; `out` is (k, rows) of the value type and `any` (k, rows)
+// bytes, or null when the caller needs no flags, row l for lanes[l].
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int edge_block_lanes_launch(
     int device, int gather, int reduce, int value_is_float, int mask_inactive,
     int K, const void* nbr, const void* wgt, const void* values,
-    const void* degrees, const void* active, void* bits, void* msg,
-    long long V, int k, void* out, void* any, long long rows, int width,
+    const void* degrees, const void* active, const int* lanes, int k,
+    long long lane_rows, void* bits, void* msg, long long V, void* out,
+    void* any, long long rows, int width, void* stream) {
+  using namespace repro_torch;
+  LaneMap map;
+  if (!make_lane_map(lanes, k, K, lane_rows, &map)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
+                   map, bits, msg, V, k, rows, width,
+                   static_cast<cudaStream_t>(stream)};
+  const SubRowOut o{out, any};
+  return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)
+                        : lanes_by_gather<int>(a, o, gather, reduce, K);
+}
+
+// C entry point of the fold kernel, for min, max and int32 add: the lanes
+// kernel's inputs, and owner8, the flat view's (rows,) owner vertices (V
+// for pad sub-rows).  `red` is (lane_rows, V) of the value type holding
+// the reduce identity in the listed rows on entry, `got` (lane_rows, V)
+// bytes holding 0 there, or null.  Returns the cudaError_t of the
+// launches (0 = success).
+extern "C" int edge_block_fold_launch(
+    int device, int gather, int reduce, int value_is_float, int mask_inactive,
+    int K, const void* nbr, const void* wgt, const void* owner8,
+    const void* values, const void* degrees, const void* active,
+    const int* lanes, int k, long long lane_rows, void* bits, void* msg,
+    long long V, void* red, void* got, long long rows, int width,
     void* stream) {
   using namespace repro_torch;
-  if (k < 1 || k > K) return cudaErrorInvalidValue;
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return err;
-  if (current != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
+  LaneMap map;
+  if (owner8 == nullptr || !make_lane_map(lanes, k, K, lane_rows, &map)) {
+    return cudaErrorInvalidValue;
   }
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
   const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
-                   bits, msg, V, k, out, any, rows, width,
+                   map, bits, msg, V, k, rows, width,
                    static_cast<cudaStream_t>(stream)};
-  return value_is_float ? lanes_by_gather<float>(a, gather, reduce, K)
-                        : lanes_by_gather<int>(a, gather, reduce, K);
+  const FoldOut o{owner8, red, got};
+  return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)
+                        : lanes_by_gather<int>(a, o, gather, reduce, K);
 }

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's graph kernels: the gather menu
-// (repro_torch/kernels/ref.py::gather_msg), the reduce identities and the
-// reduce combine, with the same arithmetic as the plain PyTorch versions.
+// (repro_torch/kernels/ref.py::gather_msg), the reduce identities, the
+// reduce combine, with the same arithmetic as the plain PyTorch versions,
+// and the atomic combine of the order-free reduces.
 //
 // Float arithmetic goes through the _rn intrinsics so that nvcc never
 // contracts a gather's multiply into the reduce's add (an FMA rounds
@@ -61,16 +62,64 @@ __host__ __device__ __forceinline__ T reduce_identity() {
   }
 }
 
+// Would combining m into cur change it (min/max)?  NaN beats any number;
+// nothing beats NaN; of +0 and -0 a min keeps -0 and a max +0 (the order
+// -0 < +0), so that no result depends on the order of the combines.
+template <typename T, int R>
+__device__ __forceinline__ bool improves(T cur, T m) {
+  if constexpr (std::is_floating_point<T>::value) {
+    if (cur != cur) return false;
+    if (m != m) return true;
+    if (m == cur) {          // equal numbers differ in bits only as +-0
+      const int mb = __float_as_int(m);
+      const int cb = __float_as_int(cur);
+      return R == kMin ? mb < cb : mb > cb;
+    }
+  }
+  return R == kMin ? m < cur : m > cur;
+}
+
 // min and max propagate NaN, as torch.amin/amax and jnp.min/max do
-// (fminf/fmaxf would drop it).
+// (fminf/fmaxf would drop it), and settle a tie of +0 and -0 as improves()
+// does.
 template <typename T, int R>
 __device__ __forceinline__ T combine(T acc, T m) {
   if constexpr (R == kAdd) {
     return add_(acc, m);
-  } else if constexpr (R == kMin) {
-    return (acc < m || acc != acc) ? acc : m;
   } else {
-    return (acc > m || acc != acc) ? acc : m;
+    return improves<T, R>(acc, m) ? m : acc;
+  }
+}
+
+// Combine message m into *addr with an atomic, for the reduces a push or
+// an order-free fold may run (min, max; add on int32 only); cur is a plain
+// read of *addr made after the table's fill (possibly stale, never older
+// than the fill).  Float min/max: a compare-and-swap loop that stores m
+// while it still improves the word, so NaN propagates and a +0/-0 tie
+// settles as combine() does, whatever order the atomics land in.
+template <typename T, int R>
+__device__ __forceinline__ void atomic_combine(T* addr, T m, T cur) {
+  if constexpr (R == kAdd) {
+    static_assert(!std::is_floating_point<T>::value,
+                  "a float add depends on the order: no atomic fold");
+    atomicAdd(addr, m);
+  } else if constexpr (std::is_floating_point<T>::value) {
+    // compare-and-swap on the bit patterns
+    int* word = reinterpret_cast<int*>(addr);
+    while (improves<T, R>(cur, m)) {
+      const int seen =
+          atomicCAS(word, __float_as_int(cur), __float_as_int(m));
+      if (seen == __float_as_int(cur)) break;
+      cur = __int_as_float(seen);
+    }
+  } else {
+    if (improves<T, R>(cur, m)) {
+      if constexpr (R == kMin) {
+        atomicMin(addr, m);
+      } else {
+        atomicMax(addr, m);
+      }
+    }
   }
 }
 

@@ -55,7 +55,34 @@
 // row; at W = 8 (the width every caller passes) a row's ids, and weights
 // where used, come as two 16-byte loads, then the row's 8 table reads are
 // issued together before its atomics.
-#include "gather_ops.cuh"
+//
+// 3. push_ell_lanes_kernel (3L) is the push superstep over k lanes at once,
+// the counterpart of the same Pallas call under jax.vmap in the JAX
+// package's batched runs (repro/core/translator.py, run_batch), with its
+// combine.  It needs no compaction: push is legal only for min, max and
+// integer add, so its combine is exact in any order and rows need not be
+// visited in storage order.  A pre-pass (lanes.cuh, lanes_pack_kernel
+// without messages) packs the pushing lanes' frontier bits vertex-major,
+// K bits a vertex.  Then one thread takes each forward-ELL row: it reads
+// row_src and that source's K lane bits, and stops when none is set;
+// otherwise it reads the row's ids once (two 16-byte loads at W = 8) and,
+// for each live lane in turn, the source's value in that lane (through the
+// lane map, in place in the (k', V) state), the menu gather, and for each
+// slot whose id is a vertex a plain test read and an atomic combine into
+// the lane's row of the (k', V) identity-filled table, as the fused kernel
+// does.  Each lane's messages are those the fused kernel computes for that
+// lane alone, with the same arithmetic, so each lane's table equals its
+// compacted push's bit for bit (both settle a float +0/-0 tie in
+// atomic_combine, a min keeping -0 and a max +0, in any order).
+//
+// What bounds 3L: bytes.  It must read row_src (R x 4 B, 50 MB at scale
+// 22), each pushing lane's frontier (k x V B, in the pre-pass) and the
+// bits it packs, then for each live row its W ids, and for each live
+// (row, lane) the source's value, and write one word a valid slot and live
+// lane, besides the table's fill.  On a narrow frontier the row_src scan
+// and the pre-pass are nearly all of it; that scan replaces k compactions
+// (an int64 cumsum and a searchsorted over R a lane).
+#include "lanes.cuh"
 
 namespace repro_torch {
 namespace {
@@ -117,45 +144,6 @@ cudaError_t by_gather(int gather, const void* wgt, const void* src,
       }
     default:
       return cudaErrorInvalidValue;
-  }
-}
-
-// Would combining m into cur change it (min/max)?  NaN beats any number;
-// nothing beats NaN; +0 and -0 tie.
-template <typename T, int R>
-__device__ __forceinline__ bool improves(T cur, T m) {
-  if constexpr (std::is_floating_point<T>::value) {
-    if (cur != cur) return false;
-    if (m != m) return true;
-  }
-  return R == kMin ? m < cur : m > cur;
-}
-
-// Combine message m into *addr; cur is a plain read of *addr made after
-// the table's fill (possibly stale, never older than the fill).
-template <typename T, int R>
-__device__ __forceinline__ void atomic_combine(T* addr, T m, T cur) {
-  if constexpr (R == kAdd) {
-    static_assert(!std::is_floating_point<T>::value,
-                  "float add is not a push reduce");
-    atomicAdd(addr, m);
-  } else if constexpr (std::is_floating_point<T>::value) {
-    // compare-and-swap on the bit patterns
-    int* word = reinterpret_cast<int*>(addr);
-    while (improves<T, R>(cur, m)) {
-      const int seen =
-          atomicCAS(word, __float_as_int(cur), __float_as_int(m));
-      if (seen == __float_as_int(cur)) break;
-      cur = __int_as_float(seen);
-    }
-  } else {
-    if (improves<T, R>(cur, m)) {
-      if constexpr (R == kMin) {
-        atomicMin(addr, m);
-      } else {
-        atomicMax(addr, m);
-      }
-    }
   }
 }
 
@@ -292,6 +280,155 @@ cudaError_t fused_by_gather(int gather, int reduce, const void* sel,
 
 #undef FUSED_ARGS
 
+template <typename T, int G, int R, int K>
+__global__ void push_ell_lanes_kernel(
+    const int* __restrict__ row_src, const int* __restrict__ ell_dst,
+    const float* __restrict__ ell_wgt, const T* __restrict__ values,
+    const int* __restrict__ degrees, const unsigned* __restrict__ bits,
+    LaneMap map, T* table, long long rows, int width, long long V,
+    bool vec8) {
+  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (r >= rows) return;
+  const int s = __ldg(row_src + r);
+  const unsigned live = lane_bits<K>(bits, s, l2_policy_evict_last());
+  if (live == 0u) return;
+  const int d = G == kDivDeg ? __ldg(degrees + s) : 0;
+  constexpr bool kWeighted = G == kAddW || G == kMulW;
+  const int* ids = ell_dst + r * width;
+  const float* wts = ell_wgt + r * width;
+  for (int j0 = 0; j0 < width; j0 += kSlotBatch) {
+    int u[kSlotBatch];
+    float w[kSlotBatch];
+    if (vec8) {                      // width 8, 16-byte aligned rows
+      const int4 a = __ldg(reinterpret_cast<const int4*>(ids));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(ids) + 1);
+      u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
+      u[4] = b.x; u[5] = b.y; u[6] = b.z; u[7] = b.w;
+      if constexpr (kWeighted) {
+        const float4 p = __ldg(reinterpret_cast<const float4*>(wts));
+        const float4 q = __ldg(reinterpret_cast<const float4*>(wts) + 1);
+        w[0] = p.x; w[1] = p.y; w[2] = p.z; w[3] = p.w;
+        w[4] = q.x; w[5] = q.y; w[6] = q.z; w[7] = q.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kSlotBatch; ++i) w[i] = 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSlotBatch; ++i) {
+        const bool in = j0 + i < width;
+        u[i] = in ? __ldg(ids + j0 + i) : kPad;
+        w[i] = (kWeighted && in) ? __ldg(wts + j0 + i) : 0.0f;
+      }
+    }
+    // each live lane in turn: its source value, then the slots' test
+    // reads in flight together before their atomics
+#pragma unroll 1
+    for (unsigned left = live; left != 0u; left &= left - 1u) {
+      const long long base =
+          static_cast<long long>(map.row[__ffs(left) - 1]) * V;
+      const T v = __ldg(values + base + s);
+      T* lane_table = table + base;
+      T cur[kSlotBatch];
+#pragma unroll
+      for (int i = 0; i < kSlotBatch; ++i) {
+        cur[i] = (R != kAdd && static_cast<unsigned>(u[i]) < V)
+                     ? __ldcg(lane_table + u[i])
+                     : T(0);
+      }
+#pragma unroll
+      for (int i = 0; i < kSlotBatch; ++i) {
+        if (static_cast<unsigned>(u[i]) >= V) continue;
+        atomic_combine<T, R>(lane_table + u[i], gather_op<T, G>(v, w[i], d),
+                             cur[i]);
+      }
+    }
+  }
+}
+
+struct PushLaneArgs {
+  const void* row_src;
+  const void* ell_dst;
+  const void* ell_wgt;
+  const void* values;       // (k', V) lane-major state
+  const void* degrees;
+  const void* active;       // (k', V) bool
+  LaneMap map;
+  int k;
+  void* bits;               // ceil(V K / 32) words of scratch
+  void* table;              // (k', V), the identity in the mapped rows
+  long long rows;
+  int width;
+  long long V;
+  cudaStream_t stream;
+};
+
+template <typename T, int G, int R, int K>
+cudaError_t launch_push_lanes(const PushLaneArgs& a) {
+  constexpr int kThreads = 256;
+  cudaError_t err = launch_lanes_pack<int, kCopy, K, false>(
+      nullptr, nullptr, static_cast<const uint8_t*>(a.active), a.map,
+      static_cast<unsigned*>(a.bits), nullptr, a.V, a.k, true, a.stream);
+  if (err != cudaSuccess || a.rows == 0) return err;
+  const bool vec8 = a.width == kSlotBatch &&
+                    reinterpret_cast<uintptr_t>(a.ell_dst) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.ell_wgt) % 16 == 0;
+  const long long blocks = (a.rows + kThreads - 1) / kThreads;
+  push_ell_lanes_kernel<T, G, R, K><<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<const int*>(a.row_src), static_cast<const int*>(a.ell_dst),
+      static_cast<const float*>(a.ell_wgt), static_cast<const T*>(a.values),
+      static_cast<const int*>(a.degrees),
+      static_cast<const unsigned*>(a.bits), a.map, static_cast<T*>(a.table),
+      a.rows, a.width, a.V, vec8);
+  return cudaGetLastError();
+}
+
+template <typename T, int G, int R>
+cudaError_t push_lanes_by_k(const PushLaneArgs& a, int K) {
+  switch (K) {
+    case 1: return launch_push_lanes<T, G, R, 1>(a);
+    case 4: return launch_push_lanes<T, G, R, 4>(a);
+    case 8: return launch_push_lanes<T, G, R, 8>(a);
+    case 32: return launch_push_lanes<T, G, R, 32>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int G>
+cudaError_t push_lanes_by_reduce(const PushLaneArgs& a, int reduce, int K) {
+  switch (reduce) {
+    case kMin: return push_lanes_by_k<T, G, kMin>(a, K);
+    case kMax: return push_lanes_by_k<T, G, kMax>(a, K);
+    case kAdd:
+      // a push reduce only on integers: a float sum depends on the order
+      if constexpr (std::is_floating_point<T>::value) {
+        return cudaErrorInvalidValue;
+      } else {
+        return push_lanes_by_k<T, G, kAdd>(a, K);
+      }
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t push_lanes_by_gather(const PushLaneArgs& a, int gather,
+                                 int reduce, int K) {
+  switch (gather) {
+    case kCopy: return push_lanes_by_reduce<T, kCopy>(a, reduce, K);
+    case kPlusOne: return push_lanes_by_reduce<T, kPlusOne>(a, reduce, K);
+    case kAddW: return push_lanes_by_reduce<T, kAddW>(a, reduce, K);
+    case kMulW: return push_lanes_by_reduce<T, kMulW>(a, reduce, K);
+    case kDivDeg:
+      if constexpr (std::is_floating_point<T>::value) {
+        return push_lanes_by_reduce<T, kDivDeg>(a, reduce, K);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -338,4 +475,35 @@ extern "C" int push_ell_fused_launch(int device, int gather, int reduce,
              : fused_by_gather<int>(gather, reduce, sel, ok, row_src,
                                     ell_dst, ell_wgt, values, degrees, table,
                                     touched, rows, width, V, s);
+}
+
+// C entry point of 3L.  values and active are a (lane_rows, V) lane-major
+// state; the launch pushes the k rows listed in `lanes` (host memory, k
+// ints in [0, lane_rows), 1 <= k <= K <= 32, K 1, 4, 8 or 32; copied into
+// the launch's parameters) over the forward ELL's `rows` rows (row_src
+// (rows,) int32, ell_dst (rows, width) int32, ell_wgt (rows, width)
+// float32).  `bits` (ceil(V K / 32) words) is the pre-pass's scratch;
+// `table` (lane_rows, V) holds the reduce identity in the listed rows on
+// entry.  Returns the cudaError_t of the launches (0 = success).
+extern "C" int push_ell_lanes_launch(int device, int gather, int reduce,
+                                     int value_is_float, int K,
+                                     const void* row_src, const void* ell_dst,
+                                     const void* ell_wgt, const void* values,
+                                     const void* degrees, const void* active,
+                                     const int* lanes, int k,
+                                     long long lane_rows, void* bits,
+                                     void* table, long long rows, int width,
+                                     long long V, void* stream) {
+  using namespace repro_torch;
+  LaneMap map;
+  if (!make_lane_map(lanes, k, K, lane_rows, &map)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const PushLaneArgs a{row_src, ell_dst, ell_wgt, values, degrees, active,
+                       map, k, bits, table, rows, width, V,
+                       static_cast<cudaStream_t>(stream)};
+  return value_is_float ? push_lanes_by_gather<float>(a, gather, reduce, K)
+                        : push_lanes_by_gather<int>(a, gather, reduce, K);
 }

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)       # a host int array (a lane map)
 # C signatures of each library's entry points: {symbol: argtypes}
 _ENTRY = {
     "decode_gqa": {"decode_gqa_launch":
@@ -39,13 +40,19 @@ _ENTRY = {
                    [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
                     _L, _P, _P, _L, _I, _P],
                    "edge_block_lanes_launch":
-                   [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L,
-                    _I, _P, _P, _L, _I, _P]},
+                   [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _IP, _I, _L,
+                    _P, _P, _L, _P, _P, _L, _I, _P],
+                   "edge_block_fold_launch":
+                   [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _I,
+                    _L, _P, _P, _L, _P, _P, _L, _I, _P]},
     "push_ell": {"push_ell_message_launch":
                  [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
                  "push_ell_fused_launch":
                  [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
-                  _I, _L, _P]},
+                  _I, _L, _P],
+                 "push_ell_lanes_launch":
+                 [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _I, _L,
+                  _P, _P, _L, _I, _L, _P]},
     "segment_sum": {"segment_reduce_launch":
                     [_I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P]},
 }

@@ -16,23 +16,38 @@ gathering.  The two variants count their launches apart.
 
 :func:`edge_block_reduce_lanes` is the lane-axis variant, the counterpart
 of the Pallas kernel under ``jax.vmap`` in the JAX package's batched runs:
-k value tables and frontiers over one graph, ``(k, V)``, through one
-launch that reads each row's ids once for all k lanes.  Its pre-pass lays
+k value tables and frontiers over one graph, rows of a ``(k', V)`` state
+named by a lane map (``lanes.py``), through one launch that reads each
+row's ids once for all k lanes.  Its pre-pass lays
 the lanes out vertex-major, the k messages of a vertex in one row (one
 32-byte sector for k = 8) and its k frontier bits together, so a live
-slot costs one sector however many lanes are live there.  It counts its
-launches apart too (``lane_launches``).
+slot costs one sector however many lanes are live there.  It writes
+``(k, R)`` sub-row partials, which the caller folds into vertices; the
+translator keeps it for float add, whose fold has an order.  It counts
+its launches apart too (``lane_launches``).
 
-:func:`edge_block_reduce` and :func:`edge_block_reduce_lanes` take the
-plain version for tensors on the CPU and launch the kernel for tensors on
-a CUDA device; they never fall back from one to the other.
+:func:`edge_block_fold_lanes` is the lane sweep with the sub-row fold
+fused in, for the order-free reduces (min, max, int32 add): from the flat
+pull view and its ``owner8`` straight to ``(k', V)`` reduced and got
+tables, with no ``(k, R8)`` array and no ``subrow_combine``, and writes
+the same rows of its tables.  Count: ``launches``.  Both lane kernels
+read the lanes they sweep in place, through a lane map that goes to the
+kernel by value (no index tensor is copied to the device).
+
+The wrappers take the plain version for tensors on the CPU and launch the
+kernel for tensors on a CUDA device; they never fall back from one to the
+other.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import GATHER_OPS, REDUCE_OPS, _identity, edge_block_reduce_ref
+from .lanes import lane_chunks, lane_list
+from .pull_bitmap import subrow_combine
+from .ref import (GATHER_OPS, REDUCE_OPS, _identity, edge_block_messages,
+                  edge_block_reduce_ref, row_reduce, settle_zero_ties,
+                  zero_wins)
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
 _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
@@ -162,22 +177,17 @@ edge_block_reduce.launches = 0
 edge_block_reduce.skip_launches = 0
 
 
-# lanes a launch of the lane-axis kernel takes: k bits of a vertex fit one
-# 32-bit frontier word; a launch pads k up to one of the kernel's built
-# widths (pad lanes read nothing under mask_inactive and write nothing)
-MAX_LANES = 32
-LANE_WIDTHS = (1, 4, 8, 32)
-
-
-def edge_block_reduce_lanes_plain(nbr, wgt, values, degrees, active, *,
-                                  gather: str, reduce: str,
+def edge_block_reduce_lanes_plain(nbr, wgt, values, degrees, active,
+                                  lanes=None, *, gather: str, reduce: str,
                                   mask_inactive: bool = True):
     """Plain version of the lane-axis kernel: the single-lane plain
-    version applied to each lane, stacked to ``(k, R)``."""
-    outs = [edge_block_reduce_plain(nbr, wgt, v, degrees, a, gather=gather,
-                                    reduce=reduce,
+    version applied to each listed lane, stacked to ``(k, R)``."""
+    rows = range(values.shape[0]) if lanes is None \
+        else lane_list(lanes, values.shape[0])
+    outs = [edge_block_reduce_plain(nbr, wgt, values[i], degrees, active[i],
+                                    gather=gather, reduce=reduce,
                                     mask_inactive=mask_inactive)
-            for v, a in zip(values, active)]
+            for i in rows]
     R = nbr.shape[0]
     if not outs:
         return (values.new_empty((0, R)),
@@ -189,9 +199,10 @@ def edge_block_reduce_lanes_plain(nbr, wgt, values, degrees, active, *,
 def edge_block_reduce_lanes(
     nbr: torch.Tensor,        # (R, W) int32 neighbor ids, PAD-padded
     wgt: torch.Tensor,        # (R, W) float32 edge weights
-    values: torch.Tensor,     # (k, V) int32 | float32, one table a lane
+    values: torch.Tensor,     # (k', V) int32 | float32 state, one row a lane
     degrees: torch.Tensor,    # (V,) int32 out-degrees
-    active: torch.Tensor,     # (k, V) bool, one frontier a lane
+    active: torch.Tensor,     # (k', V) bool frontiers
+    lanes=None,               # the rows to sweep, distinct; None: all
     *,
     gather: str,
     reduce: str,
@@ -202,11 +213,12 @@ def edge_block_reduce_lanes(
     gather over the row's live slots.
 
     Returns ``(reduced (k, R) values.dtype, any_live (k, R) bool)``; row
-    ``i`` of each is what :func:`edge_block_reduce` gives for lane ``i``
-    alone, bit for bit (each lane reduces its slots in kernel 1's order).
-    ``need_any=False`` skips the flags (returned as ``None``).  A batch
-    wider than :data:`MAX_LANES` runs as several launches of at most that
-    many lanes.
+    ``j`` of each is what :func:`edge_block_reduce` gives for lane
+    ``lanes[j]`` alone, bit for bit (each lane reduces its slots in kernel
+    1's order).  ``need_any=False`` skips the flags (returned as
+    ``None``).  A lane map longer than
+    :data:`~repro_torch.kernels.lanes.MAX_LANES` runs as several
+    launches.
     """
     if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
         raise ValueError(f"not a menu module: gather={gather!r}, "
@@ -218,8 +230,8 @@ def edge_block_reduce_lanes(
                          f"{tuple(values.shape)} and {tuple(active.shape)}")
     if values.device.type == "cpu":
         red, any_live = edge_block_reduce_lanes_plain(
-            nbr, wgt, values, degrees, active, gather=gather, reduce=reduce,
-            mask_inactive=mask_inactive)
+            nbr, wgt, values, degrees, active, lanes, gather=gather,
+            reduce=reduce, mask_inactive=mask_inactive)
         return red, any_live if need_any else None
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_reduce_lanes runs on CPU or CUDA "
@@ -228,12 +240,14 @@ def edge_block_reduce_lanes(
         raise TypeError(f"the kernel takes int32 or float32 values, "
                         f"got {values.dtype}")
     R, W = nbr.shape
-    k, V = values.shape
+    kk, V = values.shape
+    lanes = list(range(kk)) if lanes is None else lane_list(lanes, kk)
+    k = len(lanes)
     want = {"nbr": (nbr, torch.int32, (R, W)),
             "wgt": (wgt, torch.float32, (R, W)),
-            "values": (values, values.dtype, (k, V)),
+            "values": (values, values.dtype, (kk, V)),
             "degrees": (degrees, torch.int32, (V,)),
-            "active": (active, torch.bool, (k, V))}
+            "active": (active, torch.bool, (kk, V))}
     for name, (t, dtype, shape) in want.items():
         if t.device != values.device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -248,9 +262,7 @@ def edge_block_reduce_lanes(
         return out, None if any_live is None else any_live.view(torch.bool)
     lib = _build.library("edge_block")
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    for lo in range(0, k, MAX_LANES):
-        kc = min(MAX_LANES, k - lo)
-        K = next(w for w in LANE_WIDTHS if w >= kc)
+    for lo, lane_map, kc, K in lane_chunks(lanes):
         bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
                            device=values.device) if mask_inactive else None
         msg = torch.empty((V * K,), dtype=values.dtype,
@@ -259,9 +271,9 @@ def edge_block_reduce_lanes(
             values.device.index or 0, GATHER_OPS.index(gather),
             REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
             int(mask_inactive), K, nbr.data_ptr(), wgt.data_ptr(),
-            values[lo].data_ptr(), degrees.data_ptr(), active[lo].data_ptr(),
-            None if bits is None else bits.data_ptr(), msg.data_ptr(), V, kc,
-            out[lo].data_ptr(),
+            values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
+            lane_map, kc, kk, None if bits is None else bits.data_ptr(),
+            msg.data_ptr(), V, out[lo].data_ptr(),
             None if any_live is None else any_live[lo].data_ptr(), R, W,
             stream)
         if err != 0:
@@ -273,3 +285,150 @@ def edge_block_reduce_lanes(
 
 # launches of the lane-axis kernel since the count was last set to 0
 edge_block_reduce_lanes.lane_launches = 0
+
+
+def _fold_check(gather, reduce, values, active):
+    if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
+        raise ValueError(f"not a menu module: gather={gather!r}, "
+                         f"reduce={reduce!r}")
+    if gather == "div_deg" and not values.dtype.is_floating_point:
+        raise ValueError("div_deg is a true division: it needs float values")
+    if reduce == "add" and values.dtype.is_floating_point:
+        raise ValueError("a float add's fold has an order: it takes "
+                         "edge_block_reduce_lanes and subrow_combine")
+    if values.dim() != 2 or tuple(active.shape) != tuple(values.shape):
+        raise ValueError(f"values and active: want (k', V) each, got "
+                         f"{tuple(values.shape)} and {tuple(active.shape)}")
+
+
+def edge_block_fold_lanes_plain(plan, values, degrees, active, lanes, *,
+                                gather: str, reduce: str,
+                                mask_inactive: bool = True,
+                                need_got: bool = True, red=None):
+    """Plain version of the fused lane sweep: for each listed lane, the
+    single-lane plain sweep over the flat view, then
+    :func:`~repro_torch.kernels.pull_bitmap.subrow_combine` of its
+    reductions and of its any-live flags, into that lane's row; a float
+    min/max's tied zeros settled as the kernel's combines settle them
+    (``ref.settle_zero_ties``)."""
+    _fold_check(gather, reduce, values, active)
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    ident = _identity(reduce, values.dtype)
+    if red is None:
+        red = torch.full((kk, V), ident, dtype=values.dtype,
+                         device=values.device)
+    got = torch.zeros((kk, V), dtype=torch.bool, device=values.device) \
+        if need_got else None
+
+    def fold(sub_flags):
+        return subrow_combine(sub_flags.to(torch.int8), plan, 0, "max",
+                              torch.int8) != 0
+
+    for i in lanes:
+        msg, live = edge_block_messages(
+            plan.flat_dst, plan.flat_wgt, values[i], degrees, active[i],
+            gather=gather, reduce=reduce, mask_inactive=mask_inactive)
+        red_i = subrow_combine(row_reduce(reduce, msg, 1), plan, ident,
+                               reduce, values.dtype)
+        if values.dtype.is_floating_point:      # min or max
+            red_i = settle_zero_ties(
+                red_i, fold(zero_wins(msg, reduce).any(1)), reduce)
+        red[i] = red_i
+        if need_got:
+            got[i] = fold(live.any(1))
+    return red, got
+
+
+def edge_block_fold_lanes(
+    plan,                     # PullBitmapPlan: flat_dst, flat_wgt, owner8
+    values: torch.Tensor,     # (k', V) int32 | float32 state, one row a lane
+    degrees: torch.Tensor,    # (V,) int32 out-degrees
+    active: torch.Tensor,     # (k', V) bool frontiers
+    lanes,                    # the rows to sweep, distinct, in [0, k')
+    *,
+    gather: str,
+    reduce: str,
+    mask_inactive: bool = True,
+    need_got: bool = True,
+    red: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The lane sweep with the sub-row fold fused in (min, max, int add).
+
+    Returns ``(red (k', V), got (k', V) bool or None)``: row ``i`` of a
+    listed lane holds, per vertex, the reduce of the menu gather over its
+    live in-slots and whether it had one, bit for bit what
+    :func:`edge_block_reduce` and ``subrow_combine`` give that lane alone
+    (a float min/max tie of +0 and -0 settled in the order -0 < +0, as
+    ``ref.settle_zero_ties`` says); rows not
+    listed hold the identity and ``got`` 0.  ``red``, when given, is a
+    ``(k', V)`` table holding the identity in the listed rows, which the
+    call fills (other rows stay as they were): the lane push
+    (``push_ell.push_ell_lanes_reduce``) shares it for the other lanes of
+    a batched superstep.  A lane map longer than
+    :data:`~repro_torch.kernels.lanes.MAX_LANES` runs
+    as several launches.
+    """
+    _fold_check(gather, reduce, values, active)
+    if values.device.type == "cpu":
+        return edge_block_fold_lanes_plain(
+            plan, values, degrees, active, lanes, gather=gather,
+            reduce=reduce, mask_inactive=mask_inactive, need_got=need_got,
+            red=red)
+    if values.device.type != "cuda":
+        raise ValueError(f"edge_block_fold_lanes runs on CPU or CUDA "
+                         f"tensors, got {values.device}")
+    if values.dtype not in _VALUE_DTYPES:
+        raise TypeError(f"the kernel takes int32 or float32 values, "
+                        f"got {values.dtype}")
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    nbr, wgt, owner8 = plan.flat_dst, plan.flat_wgt, plan.owner8
+    R, W = nbr.shape
+    want = {"flat_dst": (nbr, torch.int32, (R, W)),
+            "flat_wgt": (wgt, torch.float32, (R, W)),
+            "owner8": (owner8, torch.int32, (R,)),
+            "values": (values, values.dtype, (kk, V)),
+            "degrees": (degrees, torch.int32, (V,)),
+            "active": (active, torch.bool, (kk, V))}
+    if red is not None:
+        want["red"] = (red, values.dtype, (kk, V))
+    for name, (t, dtype, shape) in want.items():
+        if t.device != values.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape {shape} "
+                f"on {values.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    if red is None:
+        red = torch.full((kk, V), _identity(reduce, values.dtype),
+                         dtype=values.dtype, device=values.device)
+    got = torch.zeros((kk, V), dtype=torch.uint8, device=values.device) \
+        if need_got else None
+    if not lanes or V == 0:
+        return red, None if got is None else got.view(torch.bool)
+    lib = _build.library("edge_block")
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    for _, lane_map, k, K in lane_chunks(lanes):
+        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
+                           device=values.device) if mask_inactive else None
+        msg = torch.empty((V * K,), dtype=values.dtype,
+                          device=values.device)
+        err = lib.edge_block_fold_launch(
+            values.device.index or 0, GATHER_OPS.index(gather),
+            REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
+            int(mask_inactive), K, nbr.data_ptr(), wgt.data_ptr(),
+            owner8.data_ptr(), values.data_ptr(), degrees.data_ptr(),
+            active.data_ptr(), lane_map, k, kk,
+            None if bits is None else bits.data_ptr(), msg.data_ptr(), V,
+            red.data_ptr(), None if got is None else got.data_ptr(), R, W,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"edge_block fold kernel launch failed: "
+                               f"cudaError_t {err}")
+        edge_block_fold_lanes.launches += 1
+    return red, None if got is None else got.view(torch.bool)
+
+
+# launches of the fused lane sweep since the count was last set to 0
+edge_block_fold_lanes.launches = 0

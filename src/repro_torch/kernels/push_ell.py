@@ -23,6 +23,15 @@ Counterpart of ``repro.kernels.push_ell``, in two stages:
 the counterpart of the JAX function of that name, the message stage
 alone; the translator's push path no longer calls it.
 
+:func:`push_ell_lanes_reduce` is the push over k lanes of a ``(k', V)``
+state at once (``csrc/push_ell.cu``'s lane kernel), the counterpart of
+the same call under ``jax.vmap`` in the JAX package's batched runs.  It
+needs no compaction: the combine is exact in any order, so one thread
+takes each forward-ELL row, reads its source's lane bits (packed by a
+pre-pass) and stops when no lane is live there.  The lanes are rows of
+the state named by a lane map passed by value; each lane's table row
+equals its compacted push's bit for bit.
+
 Work is O(R + capacity·width) per superstep; the translator picks the
 capacity tier from the live row count ``r_f`` (or the dense fallback).
 """
@@ -34,7 +43,9 @@ from typing import Callable
 import torch
 
 from . import _build
-from .ref import _SCATTER_REDUCE, GATHER_OPS, PAD, REDUCE_OPS, gather_msg
+from .lanes import lane_chunks, lane_list
+from .ref import (_SCATTER_REDUCE, GATHER_OPS, PAD, REDUCE_OPS, gather_msg,
+                  settle_zero_ties, zero_wins)
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
 
@@ -164,7 +175,9 @@ def push_ell_fused_reduce_plain(sel, ok, row_src, ell_dst, ell_wgt, values,
     The ``(C, W)`` blocks of the rows ``sel`` (PAD where not ``ok``) are
     gathered, their messages computed (menu name or callable), and the
     valid slots' messages scattered into a ``(V+1,)`` identity-filled
-    table, PAD slots into the dummy slot ``V``, which is sliced off; with
+    table, PAD slots into the dummy slot ``V``, which is sliced off (a
+    float min/max's tied zeros settled as the kernels' atomics settle
+    them, ``ref.settle_zero_ties``); with
     ``emit_touched``, a ``(V,)`` bool mask of the destinations of valid
     slots.
     """
@@ -182,6 +195,12 @@ def push_ell_fused_reduce_plain(sel, ok, row_src, ell_dst, ell_wgt, values,
                        device=values.device)
     red = table.scatter_reduce_(0, segs, flat, _SCATTER_REDUCE[reduce],
                                 include_self=True)[:num_vertices]
+    if reduce != "add" and dtype.is_floating_point:
+        wins = torch.zeros((num_vertices + 1,), dtype=torch.uint8,
+                           device=values.device).scatter_reduce_(
+            0, segs, zero_wins(flat, reduce).to(torch.uint8), "amax",
+            include_self=True)[:num_vertices] != 0
+        red = settle_zero_ties(red, wins, reduce)
     touched = None
     if emit_touched:
         touched = torch.zeros((num_vertices + 1,), dtype=torch.uint8,
@@ -301,3 +320,125 @@ def compacted_push_reduce(row_src, ell_dst, ell_wgt, live, values, degrees,
         sel, ok, row_src, ell_dst, ell_wgt, values, degrees, reduce=reduce,
         identity=identity, num_vertices=num_vertices, dtype=dtype,
         gather_fn=gather_fn, emit_touched=emit_touched)
+
+
+def push_ell_lanes_reduce_plain(row_src, ell_dst, ell_wgt, values, degrees,
+                                active, lanes, *, num_rows: int, gather: str,
+                                reduce: str, identity, table=None):
+    """Plain version of the lane push: for each listed lane, its compacted
+    push (:func:`compact_rows` over the lane's live rows, then
+    :func:`push_ell_fused_reduce_plain`) into that lane's row."""
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    if table is None:
+        table = torch.full((kk, V), identity, dtype=values.dtype,
+                           device=values.device)
+    src = row_src.long()
+    for i in lanes:
+        live = active[i][src]
+        if num_rows == 0:
+            live = torch.zeros_like(live)
+        sel, ok = compact_rows(live, num_rows, live.shape[0])
+        table[i] = push_ell_fused_reduce_plain(
+            sel, ok, row_src, ell_dst, ell_wgt, values[i], degrees,
+            reduce=reduce, identity=identity, num_vertices=V,
+            dtype=values.dtype, gather=gather)[0]
+    return table
+
+
+def push_ell_lanes_reduce(
+    row_src: torch.Tensor,    # (R,) int32 source vertex a forward-ELL row
+    ell_dst: torch.Tensor,    # (R, W) int32 destinations, PAD-padded
+    ell_wgt: torch.Tensor,    # (R, W) float32 edge weights
+    values: torch.Tensor,     # (k', V) int32 | float32 state, one row a lane
+    degrees: torch.Tensor,    # (V,) int32 out-degrees
+    active: torch.Tensor,     # (k', V) bool frontiers
+    lanes,                    # the rows that push, distinct, in [0, k')
+    *,
+    num_rows: int,
+    gather: str,
+    reduce: str,
+    identity,
+    table: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The push superstep's reduce over the listed lanes: ``(k', V)``.
+
+    Row ``i`` of a listed lane holds, per vertex, the combine of the
+    messages its live rows (the first ``num_rows`` rows of the forward
+    ELL whose source is active in the lane) send there, ``identity``
+    where none; bit for bit :func:`push_ell_reduce` on that lane alone.
+    ``table``, when given, is a ``(k', V)`` table holding ``identity`` in
+    the listed rows, which the call fills (other rows stay as they were);
+    else a fresh one holds ``identity`` in every row not listed.  Min, max
+    and integer add only (the reduces a push may run).
+    """
+    if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
+        raise ValueError(f"not a menu module: gather={gather!r}, "
+                         f"reduce={reduce!r}")
+    if gather == "div_deg" and not values.dtype.is_floating_point:
+        raise ValueError("div_deg is a true division: it needs float values")
+    if reduce == "add" and values.dtype.is_floating_point:
+        raise ValueError("a float add is not a push reduce: its sum "
+                         "depends on the order of the atomics")
+    if values.dim() != 2 or tuple(active.shape) != tuple(values.shape):
+        raise ValueError(f"values and active: want (k', V) each, got "
+                         f"{tuple(values.shape)} and {tuple(active.shape)}")
+    if isinstance(identity, torch.Tensor):
+        identity = identity.item()
+    if values.device.type == "cpu":
+        return push_ell_lanes_reduce_plain(
+            row_src, ell_dst, ell_wgt, values, degrees, active, lanes,
+            num_rows=num_rows, gather=gather, reduce=reduce,
+            identity=identity, table=table)
+    if values.device.type != "cuda":
+        raise ValueError(f"push_ell_lanes_reduce runs on CPU or CUDA "
+                         f"tensors, got {values.device}")
+    if values.dtype not in _VALUE_DTYPES:
+        raise TypeError(f"the kernel takes int32 or float32 values, "
+                        f"got {values.dtype}")
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    R, W = ell_dst.shape
+    if not 0 <= num_rows <= R:
+        raise ValueError(f"num_rows {num_rows} outside [0, {R}]")
+    want = {"row_src": (row_src, torch.int32, (R,)),
+            "ell_dst": (ell_dst, torch.int32, (R, W)),
+            "ell_wgt": (ell_wgt, torch.float32, (R, W)),
+            "values": (values, values.dtype, (kk, V)),
+            "degrees": (degrees, torch.int32, (V,)),
+            "active": (active, torch.bool, (kk, V))}
+    if table is not None:
+        want["table"] = (table, values.dtype, (kk, V))
+    for name, (t, dtype, shape) in want.items():
+        if t.device != values.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape {shape} "
+                f"on {values.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    if table is None:
+        table = torch.full((kk, V), identity, dtype=values.dtype,
+                           device=values.device)
+    if not lanes or V == 0:
+        return table
+    lib = _build.library("push_ell")
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    for _, lane_map, k, K in lane_chunks(lanes):
+        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
+                           device=values.device)
+        err = lib.push_ell_lanes_launch(
+            values.device.index or 0, GATHER_OPS.index(gather),
+            REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype], K,
+            row_src.data_ptr(), ell_dst.data_ptr(), ell_wgt.data_ptr(),
+            values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
+            lane_map, k, kk, bits.data_ptr(), table.data_ptr(), num_rows, W,
+            V, stream)
+        if err != 0:
+            raise RuntimeError(f"push_ell lane kernel launch failed: "
+                               f"cudaError_t {err}")
+        push_ell_lanes_reduce.launches += 1
+    return table
+
+
+# launches of the lane push kernel since the count was last set to 0
+push_ell_lanes_reduce.launches = 0

@@ -54,6 +54,30 @@ def row_reduce(reduce: str, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     return _ROW_REDUCE[reduce](x, dim=dim)
 
 
+def edge_block_messages(
+    nbr: torch.Tensor,        # (R, W) int32 neighbor ids, PAD-padded
+    wgt: torch.Tensor,        # (R, W) edge weights
+    values: torch.Tensor,     # (V,) vertex values
+    degrees: torch.Tensor,    # (V,) out-degrees (for div_deg)
+    active: torch.Tensor,     # (V,) bool frontier
+    *,
+    gather: str,
+    reduce: str,
+    mask_inactive: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (messages (R, W), live (R, W) bool); a slot that is not
+    live holds the reduce identity."""
+    valid = nbr != PAD
+    safe = torch.where(valid, nbr, 0)
+    v = values[safe]
+    d = degrees[safe]
+    msg = gather_msg(gather, v, wgt.to(v.dtype), d)
+    live = valid
+    if mask_inactive:
+        live = live & active[safe]
+    return torch.where(live, msg, _identity(reduce, msg.dtype)), live
+
+
 def edge_block_reduce_ref(
     nbr: torch.Tensor,        # (R, W) int32 neighbor ids, PAD-padded
     wgt: torch.Tensor,        # (R, W) edge weights
@@ -65,17 +89,35 @@ def edge_block_reduce_ref(
     reduce: str,
     mask_inactive: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (reduced (R,), any_active (R,) bool)."""
-    valid = nbr != PAD
-    safe = torch.where(valid, nbr, 0)
-    v = values[safe]
-    d = degrees[safe]
-    msg = gather_msg(gather, v, wgt.to(v.dtype), d)
-    live = valid
-    if mask_inactive:
-        live = live & active[safe]
-    msg = torch.where(live, msg, _identity(reduce, msg.dtype))
-    return row_reduce(reduce, msg, 1), torch.any(live, dim=1)
+    """Returns (reduced (R,), any_active (R,) bool); a float min/max's
+    tied zeros settled as :func:`settle_zero_ties` says."""
+    msg, live = edge_block_messages(nbr, wgt, values, degrees, active,
+                                    gather=gather, reduce=reduce,
+                                    mask_inactive=mask_inactive)
+    red = row_reduce(reduce, msg, 1)
+    if reduce != "add" and red.dtype.is_floating_point:
+        red = settle_zero_ties(red, zero_wins(msg, reduce).any(1), reduce)
+    return red, torch.any(live, dim=1)
+
+
+def zero_wins(msg: torch.Tensor, reduce: str) -> torch.Tensor:
+    """Where a float min's (max's) message is the zero that wins a tie of
+    +0 and -0: -0 for a min, +0 for a max."""
+    return (msg == 0) & (torch.signbit(msg) == (reduce == "min"))
+
+
+def settle_zero_ties(red: torch.Tensor, wins: torch.Tensor,
+                     reduce: str) -> torch.Tensor:
+    """A float min/max table's zeros as the CUDA kernels' combines settle
+    a +0/-0 tie in any order (the order -0 < +0): where ``red`` is a zero,
+    the winning zero if ``wins`` (a message of it reached the entry), else
+    the other.  torch's reductions leave the sign of a tied zero to their
+    order.  Integer tables and add come back as they were."""
+    if reduce == "add" or not red.dtype.is_floating_point:
+        return red
+    win = torch.tensor(-0.0 if reduce == "min" else 0.0, dtype=red.dtype,
+                       device=red.device)
+    return torch.where(red == 0, torch.where(wins, win, -win), red)
 
 
 def push_scatter_reduce_ref(

@@ -251,10 +251,12 @@ class _BatchGroup:
         self.occupants: list[GraphQuery | None] = [None] * slots
         self.waiting: collections.deque[GraphQuery] = collections.deque()
         self.supersteps = 0            # sliced supersteps executed (max lane)
-        # batched supersteps run, those that ran the batched masked sweep,
-        # slices that stepped a lane, and reads of finished lanes' tables
+        # batched supersteps run, those that ran the batched masked sweep
+        # and those that ran the batched push, slices that stepped a lane,
+        # and reads of finished lanes' tables
         self.batched_supersteps = 0
         self.masked_sweeps = 0
+        self.lane_pushes = 0
         self.slices = 0
         self.harvests = 0
         self._reads0 = compiled.lane_reads
@@ -288,11 +290,13 @@ class _BatchGroup:
             return
         c = self.compiled
         before = int(np.max(self.state.iters))
-        steps, sweeps = c.lane_supersteps, c.lane_sweeps
+        steps, sweeps, pushes = c.lane_supersteps, c.lane_sweeps, \
+            c.lane_pushes
         self.state = c.run_batch_slice(self.state, budget)
         self.supersteps += int(np.max(self.state.iters)) - before
         self.batched_supersteps += c.lane_supersteps - steps
         self.masked_sweeps += c.lane_sweeps - sweeps
+        self.lane_pushes += c.lane_pushes - pushes
         self.slices += int(c.lane_supersteps > steps)
 
     def harvest(self, now: float) -> list[GraphQuery]:
@@ -902,13 +906,14 @@ class GraphServer:
 
     def counters(self) -> dict:
         """The serving plane's work so far, summed over its batch groups:
-        batched supersteps, those that ran the batched masked sweep,
-        slices that stepped a lane, reads of finished lanes' tables, and
-        all device→host reads."""
+        batched supersteps, those that ran the batched masked sweep and
+        those that ran the batched push, slices that stepped a lane, reads
+        of finished lanes' tables, and all device→host reads."""
         groups = list(self._groups.values())
         return {k: sum(getattr(grp, k) for grp in groups)
-                for k in ("batched_supersteps", "masked_sweeps", "slices",
-                          "harvests", "host_reads")}
+                for k in ("batched_supersteps", "masked_sweeps",
+                          "lane_pushes", "slices", "harvests",
+                          "host_reads")}
 
     def run(self) -> list[GraphQuery]:
         """Drain every pending query; returns them in completion order."""

@@ -28,6 +28,7 @@ from repro_torch.core import graph as G
 from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
 from repro_torch.kernels import edge_block as teb
+from repro_torch.kernels import lanes as tlanes
 from repro_torch.kernels import pull_bitmap as tpb
 from repro_torch.kernels import ref as tref
 
@@ -288,7 +289,7 @@ def test_lane_kernel_decomposition_matches_plain(gather, reduce, dtype,
     of the sum of the terms' magnitudes); k = 1, 3, 8 and 21 lanes in
     kernels built 1, 4, 8 and 32 lanes wide, widths 8 and 3."""
     for W, k in ((8, 1), (8, 3), (3, 8), (8, 21)):
-        K = next(w for w in teb.LANE_WIDTHS if w >= k)
+        K = next(w for w in tlanes.LANE_WIDTHS if w >= k)
         t = _lane_inputs(37, W, 70, k, dtype, seed=W * 31 + k)
         kw = dict(gather=gather, reduce=reduce, mask_inactive=mask)
         got = _lanes_decomposed(*t, **kw, K=K)
@@ -328,6 +329,28 @@ def test_lane_kernel_wrapper_on_cpu():
     assert teb.edge_block_reduce_lanes.lane_launches == 0   # no card here
 
 
+def test_lane_kernel_lane_map_on_cpu():
+    """A lane map sweeps the listed rows of the state in place: row j of
+    the result is lane ``lanes[j]``'s, listed out of order and past one
+    launch's 32 lanes; an empty map gives no rows; repeated or
+    out-of-range lanes raise."""
+    nbr, wgt, vals, deg, act = _lane_inputs(41, 8, 90, 37, np.float32, 6)
+    kw = dict(gather="div_deg", reduce="add")
+    every, every_any = teb.edge_block_reduce_lanes(nbr, wgt, vals, deg, act,
+                                                   **kw)
+    for lanes in ([5], [30, 2, 17], list(range(36, 0, -1))):
+        red, any_live = teb.edge_block_reduce_lanes(nbr, wgt, vals, deg, act,
+                                                    lanes, **kw)
+        np.testing.assert_array_equal(red.numpy(), every[lanes].numpy())
+        assert torch.equal(any_live, every_any[lanes])
+    red, any_live = teb.edge_block_reduce_lanes(nbr, wgt, vals, deg, act,
+                                                [], **kw)
+    assert red.shape == any_live.shape == (0, 41)
+    for bad in ([3, 3], [37], [-1]):
+        with pytest.raises(ValueError, match="distinct rows"):
+            teb.edge_block_reduce_lanes(nbr, wgt, vals, deg, act, bad, **kw)
+
+
 @pytest.mark.parametrize("reduce,dtype", [("min", np.int32),
                                           ("max", np.float32),
                                           ("add", np.int32),
@@ -348,3 +371,64 @@ def test_subrow_combine_lane_axis(graphs, reduce, dtype):
     for i in range(5):
         one = tpb.subrow_combine(sub[i], tp, ident, reduce, sub.dtype)
         assert torch.equal(lanes[i], one), i
+
+
+# ---------------------------------------------------------------------------
+# the routes of a batched superstep
+# ---------------------------------------------------------------------------
+
+
+_MIXED = [("bfs", ROOTS), ("sssp", ROOTS), ("wcc", ROOTS),
+          ("bfs", np.asarray([0, 299, 17, 150, 5, 42, 250, 9]))]
+
+
+@pytest.mark.parametrize("template,roots", _MIXED,
+                         ids=[f"{t}-{len(r)}" for t, r in _MIXED])
+def test_run_batch_mixes_swept_and_pushed_lanes(graphs, template, roots,
+                                                monkeypatch):
+    """Dense auto (alpha 8: a lane goes back to pull once its frontier's
+    out-edges pass E/8): batched supersteps in which some lanes take the
+    fused lane sweep and others the lane push, both into one table; every
+    lane equals the JAX package's run_batch and the port's sequential run,
+    and no lane takes the single-lane compacted push."""
+    rg, tg = graphs
+    name, args = TEMPLATES[template]
+    rp = RT.translate(getattr(RD, name)(*args), rg, RS.ScheduleConfig(
+        direction=RS.DirectionPolicy(mode="auto", alpha=8.0)))
+    tp = TT.translate(getattr(TD, name)(*args), tg, TS.ScheduleConfig(
+        direction=TS.DirectionPolicy(mode="auto", alpha=8.0)), device="cpu")
+    calls = {"fold": [], "push": [], "single": 0}
+    fold, push = teb.edge_block_fold_lanes, TT.push_ell_kernel.\
+        push_ell_lanes_reduce
+    single = TT.push_ell_kernel.push_ell_reduce
+
+    def spy_fold(*a, **kw):
+        calls["fold"].append(tp.lane_supersteps)
+        return fold(*a, **kw)
+
+    def spy_push(*a, **kw):
+        calls["push"].append(tp.lane_supersteps)
+        return push(*a, **kw)
+
+    def spy_single(*a, **kw):
+        calls["single"] += 1
+        return single(*a, **kw)
+
+    monkeypatch.setattr(TT.edge_block_kernel, "edge_block_fold_lanes",
+                        spy_fold)
+    monkeypatch.setattr(TT.push_ell_kernel, "push_ell_lanes_reduce",
+                        spy_push)
+    monkeypatch.setattr(TT.push_ell_kernel, "push_ell_reduce", spy_single)
+    sweeps0, pushes0 = tp.lane_sweeps, tp.lane_pushes
+    tv, ti = tp.run_batch(roots)
+    assert set(calls["fold"]) & set(calls["push"]), calls
+    assert calls["single"] == 0
+    assert tp.lane_sweeps - sweeps0 == len(calls["fold"])
+    assert tp.lane_pushes - pushes0 == len(calls["push"])
+    monkeypatch.undo()
+    rv, ri = rp.run_batch(roots)
+    np.testing.assert_array_equal(np.asarray(rv), tv.numpy())
+    np.testing.assert_array_equal(np.asarray(ri), ti.numpy())
+    stats = tp.last_run_stats
+    _same_stats(rp.last_run_stats, stats)
+    _lane_matches_run(tp, tv, ti, stats, roots)
