@@ -51,7 +51,13 @@ and the script exits non-zero):
    1, 3, 4, 8, 17, 32 and 33 lanes listed out of order in a state with
    lanes left out, NaN, +0 and -0, int adds that wrap, the push's table
    then shared with a sweep of the other lanes: exactly their plain
-   versions.
+   versions.  The streamed engine's routes on 3 pieces of those
+   graphs' views (an owner's rows in several pieces): the fused lane
+   sweep in accumulate mode on one pre-pass for all pieces equal to the
+   unsplit sweep and the plain accumulate, the lane push over the pieces
+   with ``got`` equal to the unsplit push and the plain got, and kernel 1
+   and the lane kernel on prepared tables equal to their unprepared
+   launches, bit for bit.
 4. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
    from root 0 through ``algorithms.bfs`` under pull, push and auto on
    three paths, each held against a numpy level-synchronous BFS, with the
@@ -108,11 +114,42 @@ and the script exits non-zero):
    the lane push at k = 1, 8 and 32 on root 0's BFS frontiers and a
    random 1% frontier against k compactions + fused pushes (and its plain
    version), exactly, timed beside them and its bound.
-6. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
+6. stream  — out-of-core streaming on the main phase's scale-22 graph
+   with ``ScheduleConfig(partitions=8)`` (the plan's partition count and
+   the store's rows and entry bytes printed): BFS from root 0 under pull,
+   push and auto equal to the resident dense run on the card (values,
+   iters; push/pull superstep counts) and to ``numpy_bfs``, every
+   ``run_stats`` counter equal to a numpy replay of the stream's
+   accounting from the oracle's levels, swept + skipped = partitions ×
+   supersteps, launches of the fused lane sweep in accumulate mode = swept
+   pull partitions and of the lane push = swept push partitions, one
+   pre-pass a superstep, no kernel 1, fused push or ``segment_reduce``
+   launch, one device read a superstep, and a profile of the auto run
+   with no ``scatter_reduce``/``index_reduce`` and no fused push kernel;
+   ``torch.cuda.max_memory_allocated`` of the streamed run below the
+   resident dense runs'; steady walls (median of 3, in turns), MTEPS,
+   bytes a run and a superstep, transfer / compute / wall and
+   ``overlap_efficiency``, the copies' H2D rate against a plain pinned
+   ``copy_`` of the largest entry; ``run_batch`` over 8 roots = the
+   resident ``run_batch``; a checkpointed auto BFS (every 8 sweeps) =
+   uncut, and one killed by ``lane.crash`` at a partition boundary and
+   resumed = uncut; ``GraphServer`` on the streamed schedule serving 16
+   bfs (numpy seed 0) = sequential resident runs bitwise with bytes
+   streamed; each streamed route timed per partition (CUDA events)
+   against its plain version and byte bound: the fold in accumulate mode,
+   the lane push with got, their pre-passes, and (scale 20, pagerank)
+   kernel 1 on prepared tables + kernel 4 beside a CSR product.  At scale
+   20: SSSP streamed = resident bitwise, PageRank (20 iterations) within
+   ``rtol=1e-5`` of the resident run and bitwise equal across two
+   streamed runs with one kernel 1 and one kernel 4 launch a swept
+   partition, and a container from ``data.graphs.container_from_graph``
+   under a ``partition_budget_bytes`` that forces evictions = the
+   resident BFS.
+7. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
    ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
    component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
    iteration), ``k_core(k=4)`` (= a numpy peel).
-7. lm      — the LM serving path at full width: ``launch.serve.main``
+8. lm      — the LM serving path at full width: ``launch.serve.main``
    through qwen3-8b (all 36 layers and widths, bf16, weights from
    ``torch.Generator`` seed 0), 8 slots at capacity 4096, 16 requests
    with prompts of 256–2048 tokens (numpy seed 0), 64 new tokens each;
@@ -850,6 +887,162 @@ def _check_lane_routes(torch, rng):
     return checked["fold"], checked["push"], worst["fold"], worst["push"]
 
 
+def _row_pieces(rng, rows, n=3):
+    """``n`` consecutive row ranges covering ``[0, rows)``, cut at random
+    rows (so a hub's run of sub-rows falls into several pieces)."""
+    cuts = np.sort(rng.choice(np.arange(1, rows), n - 1, replace=False))
+    edges = [0, *cuts.tolist(), rows]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def _check_stream_routes(torch, rng):
+    """The streamed engine's kernel routes against their plain versions
+    and the unsplit kernels, on ``LANE_GRAPHS``' first two graphs, the
+    views cut into 3 pieces at random rows (the stream's partitions: an
+    owner's rows in several pieces, runs crossing warp and block edges in
+    each): the fused lane sweep in accumulate mode, fed one pre-pass
+    (``lanes_prepare``) for all pieces, equals the unsplit fused sweep and
+    the plain accumulate bit for bit (red and got); the lane push over the
+    pieces into one table with ``got`` and one pre-pass
+    (``push_lanes_prepare``) equals the unsplit push, its got the plain
+    version's; kernel 1 and the lane kernel on prepared tables
+    (``edge_block_prepare`` / ``lanes_prepare``) equal their unprepared
+    launches bit for bit on each piece, float add included.  Every
+    gather x order-free reduce x dtype x mask_inactive, k of 1, 3, 8 and
+    33.  Returns (cases, max |kernel - plain|)."""
+    import types
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels.ref import GATHER_OPS, REDUCE_OPS, _identity
+    checked, worst = 0, 0.0
+    for V, E, hub, max_width, ks in LANE_GRAPHS[:2]:
+        plan, fe, deg = _lane_graph(torch, V, E, hub, max_width, rng)
+        R = plan.flat_dst.shape[0]
+        pieces = _row_pieces(rng, R)
+        fpieces = _row_pieces(rng, fe.num_rows)
+        views = [types.SimpleNamespace(flat_dst=plan.flat_dst[a:b],
+                                       flat_wgt=plan.flat_wgt[a:b],
+                                       owner8=plan.owner8[a:b])
+                 for a, b in pieces]
+        for k in [k for k in ks if k in (1, 3, 8, 33)]:
+            kk = k + 2
+            lanes = [int(i) for i in rng.permutation(kk)[:k]]
+            for dtype in (np.int32, np.float32):
+                vals, act = _lane_state(torch, rng, kk, V, dtype, 0.3)
+                for gather in GATHER_OPS:
+                    if gather == "div_deg" and dtype == np.int32:
+                        continue
+                    for mask in (True, False):
+                        kw = dict(gather=gather, mask_inactive=mask)
+                        prep = eb.lanes_prepare(vals, deg, act, lanes, **kw)
+                        tag = (f"{gather}/{dtype.__name__} V={V} k={k} "
+                               f"mask={mask}")
+                        for reduce in REDUCE_OPS:
+                            if reduce == "add" and dtype == np.float32:
+                                continue
+                            ident = _identity(reduce, vals.dtype)
+                            red = torch.full((kk, V), ident,
+                                             dtype=vals.dtype, device="cuda")
+                            got = torch.zeros((kk, V), dtype=torch.bool,
+                                              device="cuda")
+                            pred, pgot = red.clone(), got.clone()
+                            for view in views:
+                                eb.edge_block_fold_lanes(
+                                    view, vals, deg, act, lanes,
+                                    reduce=reduce, red=red, got=got,
+                                    accumulate=True, prepared=prep, **kw)
+                                eb.edge_block_fold_lanes_plain(
+                                    view, vals, deg, act, lanes,
+                                    reduce=reduce, red=pred, got=pgot,
+                                    accumulate=True, **kw)
+                            whole = eb.edge_block_fold_lanes(
+                                plan, vals, deg, act, lanes, reduce=reduce,
+                                **kw)
+                            torch.cuda.synchronize()
+                            if not (_same_bits(red, whole[0])
+                                    and _same_bits(red, pred)
+                                    and _same(got, whole[1])
+                                    and _same(got, pgot)):
+                                raise AssertionError(
+                                    f"edge_block_fold accumulate {tag} "
+                                    f"{reduce}: max err "
+                                    f"{_max_err(red, pred)} against plain, "
+                                    f"{_max_err(red, whole[0])} against "
+                                    "the unsplit sweep, or a flag differs")
+                            worst = max(worst, _max_err(red, pred))
+                            checked += 1
+                            if not mask:
+                                continue
+                            # the lane push over the forward ELL's pieces
+                            pprep = pe.push_lanes_prepare(act, lanes)
+                            table = torch.full((kk, V), ident,
+                                               dtype=vals.dtype,
+                                               device="cuda")
+                            tgot = torch.zeros((kk, V), dtype=torch.bool,
+                                               device="cuda")
+                            for a, b in fpieces:
+                                pe.push_ell_lanes_reduce(
+                                    fe.row_src[a:b], fe.dst[a:b],
+                                    fe.weights[a:b], vals, deg, act, lanes,
+                                    num_rows=b - a, gather=gather,
+                                    reduce=reduce, identity=ident,
+                                    table=table, got=tgot, prepared=pprep)
+                            pkw = dict(num_rows=fe.num_rows, gather=gather,
+                                       reduce=reduce, identity=ident)
+                            args = (fe.row_src, fe.dst, fe.weights, vals,
+                                    deg, act, lanes)
+                            whole = pe.push_ell_lanes_reduce(*args, **pkw)
+                            wgot = torch.zeros_like(tgot)
+                            want = pe.push_ell_lanes_reduce_plain(
+                                *args, **pkw, got=wgot)
+                            torch.cuda.synchronize()
+                            if not (_same_bits(table, whole)
+                                    and _same_bits(table, want)
+                                    and _same(tgot, wgot)):
+                                raise AssertionError(
+                                    f"push_ell_lanes pieces {tag} {reduce}: "
+                                    f"max err {_max_err(table, want)}, or "
+                                    "got differs")
+                            worst = max(worst, _max_err(table, want))
+                            checked += 1
+                        # kernel 1 and the lane kernel on prepared tables
+                        for reduce in REDUCE_OPS:
+                            for a, b in pieces:
+                                blk = (plan.flat_dst[a:b], plan.flat_wgt[a:b])
+                                one = eb.edge_block_prepare(
+                                    vals[lanes[0]], deg, act[lanes[0]], **kw)
+                                p1 = eb.edge_block_reduce(
+                                    *blk, vals[lanes[0]], deg,
+                                    act[lanes[0]], reduce=reduce,
+                                    prepared=one, **kw)
+                                u1 = eb.edge_block_reduce(
+                                    *blk, vals[lanes[0]], deg,
+                                    act[lanes[0]], reduce=reduce, **kw)
+                                pl = eb.edge_block_reduce_lanes(
+                                    *blk, vals, deg, act, lanes,
+                                    reduce=reduce, prepared=prep, **kw)
+                                ul = eb.edge_block_reduce_lanes(
+                                    *blk, vals, deg, act, lanes,
+                                    reduce=reduce, **kw)
+                                torch.cuda.synchronize()
+                                if not (_same_bits(p1[0], u1[0])
+                                        and _same(p1[1], u1[1])
+                                        and _same_bits(pl[0], ul[0])
+                                        and _same(pl[1], ul[1])):
+                                    raise AssertionError(
+                                        f"prepared launch {tag} {reduce} "
+                                        f"rows {a}:{b} differs from the "
+                                        "unprepared one")
+                                checked += 1
+    log(f"[kernels] streamed routes: {checked} cases of the fused lane "
+        "sweep in accumulate mode over 3 pieces of a view (= the unsplit "
+        "sweep and the plain accumulate, bit for bit), the lane push over "
+        "3 pieces with got (= the unsplit push and the plain got), and "
+        "kernel 1 / the lane kernel on prepared tables (= unprepared), "
+        f"one pre-pass for all pieces; max |err| {worst}")
+    return checked, worst
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import edge_block as eb
     from repro_torch.kernels import push_ell as pe
@@ -944,7 +1137,8 @@ def phase_kernels(torch):
     n_lane, worst["edge_block_lanes"] = _check_lane_kernel(torch, live_rng)
     n_fold, n_lpush, worst["edge_block_fold"], worst["push_ell_lanes"] = \
         _check_lane_routes(torch, live_rng)
-    checked += n_seg + n_push + n_lane + n_fold + n_lpush
+    n_stream, worst["stream_routes"] = _check_stream_routes(torch, live_rng)
+    checked += n_seg + n_push + n_lane + n_fold + n_lpush + n_stream
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
     n_split, split_err = _check_decode_splits(torch)
     worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
@@ -1068,6 +1262,11 @@ def _counters():
             "edge_block_lanes": (eb.edge_block_reduce_lanes,
                                  "lane_launches"),
             "edge_block_fold": (eb.edge_block_fold_lanes, "launches"),
+            "edge_block_fold_acc": (eb.edge_block_fold_lanes,
+                                    "accumulate_launches"),
+            "edge_block_prepare": (eb.edge_block_prepare, "launches"),
+            "lanes_prepare": (eb.lanes_prepare, "launches"),
+            "push_lanes_prepare": (pe.push_lanes_prepare, "launches"),
             "push_ell": (pe.push_ell_message_block, "launches"),
             "push_ell_fused": (pe.push_ell_fused_reduce, "launches"),
             "push_ell_lanes": (pe.push_ell_lanes_reduce, "launches"),
@@ -2274,6 +2473,672 @@ def phase_sparse(torch, g, oracle, traversed, smi):
             "profile_pull": prof}
 
 
+STREAM_PARTITIONS = 8       # the stream phase's ScheduleConfig(partitions=8)
+STREAM_BATCH = 8            # run_batch roots
+STREAM_QUERIES = 16         # bfs queries served over the stream
+
+
+def _stream_replay(oracle, deg, store, mode, policy, num_edges):
+    """A numpy replay of the streamed engine's accounting of a BFS from
+    root 0, from the oracle's levels alone (superstep s's frontier is the
+    level-s vertices): each superstep's interval counts, direction
+    (``'auto'`` replays the hysteresis on ``n_f``, ``m_f`` and the pull
+    cost), live partitions, edges, pull cost and bytes shipped.  Returns
+    ``(run_stats counters, iters, sweeps a plane, pre-passes a plane,
+    lane.crash trips, plane a superstep)``."""
+    cuts, P, V = store.cuts, store.partitions, len(oracle)
+    part = np.searchsorted(cuts[1:], np.arange(V), side="right")
+    epp = np.asarray(store.edges_per_partition, np.int64)
+    entry = store.stats()["entry_bytes"]
+    top = int(oracle[oracle < INT_MAX].max())
+    out = {"push_supersteps": 0, "direction_switches": 0,
+           "edges_traversed": 0, "pull_cost_model": int(num_edges),
+           "partitions_swept": 0, "partitions_skipped": 0,
+           "partitions_transferred": 0, "partition_bytes_h2d": 0}
+    sweeps = {"pull": 0, "push": 0}
+    prepasses = {"pull": 0, "push": 0}
+    trips, planes = [], []
+    direction = 0
+    for s in range(top + 1):
+        act = oracle == s
+        counts = np.bincount(part[act], minlength=P)
+        n_f, m_f = int(act.sum()), int(deg[act].sum())
+        if mode == "pull":
+            d = 0
+        elif mode == "push":
+            d = 1
+        elif direction == 1:
+            d = int(m_f * policy.alpha < out["pull_cost_model"])
+        else:
+            d = int(n_f * policy.beta < V)
+        live = np.flatnonzero((counts > 0) & (epp > 0))
+        pull_edges = int(epp[counts > 0].sum())
+        plane = "push" if d else "pull"
+        out["edges_traversed"] += m_f if d else pull_edges
+        if d == 0:
+            out["pull_cost_model"] = pull_edges
+        out["direction_switches"] += int(s > 0 and d != direction)
+        direction = d
+        out["push_supersteps"] += d
+        out["partitions_swept"] += len(live)
+        out["partitions_skipped"] += P - len(live)
+        out["partitions_transferred"] += len(live)
+        out["partition_bytes_h2d"] += len(live) * entry[plane]
+        sweeps[plane] += len(live)
+        prepasses[plane] += int(len(live) > 0)
+        trips.append(("superstep", s))
+        trips += [("partition", int(p)) for p in live]
+        planes.append(plane)
+    out["pull_supersteps"] = top + 1 - out["push_supersteps"]
+    return out, top + 1, sweeps, prepasses, trips, planes
+
+
+def _partition_on_card(torch, store, plane, p):
+    """Partition p's streamed arrays of ``plane``, copied to the card,
+    cut to its real rows: ``(key, slot, wgt, rows)``."""
+    host = store.push_arrays(p) if plane == "push" else store.pull_arrays(p)
+    rows = int(store.rows_per_partition[plane][p])
+    dev = {k: v.to("cuda")[:rows] for k, v in host.items()}
+    return dev["key"], dev["slot"], dev["wgt"], rows
+
+
+def _stream_route_timing(torch, g, oracle, store, push_level, smi):
+    """Each streamed route's time per partition at the stream's shapes
+    (scale 22, one lane), against its plain version and its byte bound:
+    the fused lane sweep in accumulate mode on the largest pull partition
+    at the widest BFS level's frontier, the lane push at the level of
+    auto's heaviest push superstep, over the partition that holds most of
+    that frontier's out-edges, and the pre-passes of both."""
+    import types
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels.ref import PAD
+    V = g.num_vertices
+    degd = g.out_degrees.to(device="cuda", dtype=torch.int32)
+    lv = torch.as_tensor(oracle.astype(np.int32)).to("cuda")
+    sizes = np.bincount(oracle[oracle < INT_MAX])
+    wide = int(np.argmax(sizes))
+    out = {}
+
+    def state(level):
+        vals = torch.where(lv <= level, lv, INT_MAX)[None].contiguous()
+        return vals, (lv == level)[None].contiguous()
+
+    # pull: the fused lane sweep in accumulate mode, prepared tables
+    p = int(np.argmax(store.rows_per_partition["pull"]))
+    key, slot, wgt, rows = _partition_on_card(torch, store, "pull", p)
+    view = types.SimpleNamespace(flat_dst=slot, flat_wgt=wgt, owner8=key)
+    vals, act = state(wide)
+    kw = dict(gather="plus_one", reduce="min", need_got=False,
+              accumulate=True)
+    prep = eb.lanes_prepare(vals, degd, act, [0], gather="plus_one")
+    red = torch.full((1, V), 2**31 - 1, dtype=torch.int32, device="cuda")
+    want = eb.edge_block_fold_lanes_plain(view, vals, degd, act, [0],
+                                          red=red.clone(), **kw)[0]
+    got = eb.edge_block_fold_lanes(view, vals, degd, act, [0],
+                                   red=red.clone(), prepared=prep, **kw)[0]
+    torch.cuda.synchronize()
+    if not _same(got, want):
+        raise AssertionError("streamed fold on the scale-22 partition != "
+                             "plain accumulate")
+    ms = _time_ms(torch, lambda: eb.edge_block_fold_lanes(
+        view, vals, degd, act, [0], red=red, prepared=prep, **kw), reps=20)
+    plain = _time_ms(torch, lambda: eb.edge_block_fold_lanes_plain(
+        view, vals, degd, act, [0], red=red, **kw), reps=5, warmup=1)
+    # what this partition's launch must move: its ids and owners once, the
+    # frontier bits of its source interval, the message of each frontier
+    # source its slots name, and the running entry of each owner it holds,
+    # read and written
+    lo, hi = int(store.cuts[p]), int(store.cuts[p + 1])
+    srcs = torch.unique(slot[slot != PAD].long())
+    n_msg = int(act[0][srcs].sum())
+    n_own = int(torch.unique(key[key < V]).numel())
+    nbytes = rows * 36 + (hi - lo) / 8 + n_msg * 4 + n_own * 8
+    bound = 1e3 * nbytes / _BANDWIDTH
+    prep_ms = _time_ms(torch, lambda: eb.lanes_prepare(
+        vals, degd, act, [0], gather="plus_one"), reps=20)
+    prep_bound = 1e3 * (V * 5 + V * 4 + V // 8) / _BANDWIDTH
+    out["fold"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                   "max_abs_err": _max_err(got, want), "rows": rows,
+                   "partition": p, "level": wide,
+                   "frontier": int(sizes[wide]), "interval": hi - lo,
+                   "messages": n_msg, "owners": n_own,
+                   "shape": [rows, 8, V, 1]}
+    out["prepare"] = {"ms": prep_ms, "bound_ms": prep_bound}
+    log(f"[stream] fused lane sweep, accumulate mode, on pull partition {p} "
+        f"({rows} rows, source interval of {hi - lo}, {n_own} owners, "
+        f"{n_msg} frontier sources named) at BFS level {wide} "
+        f"({int(sizes[wide])} frontier vertices): {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms ({bound / ms:.3f} of it); its pre-pass "
+        f"(lanes_prepare, once a superstep) {prep_ms:.4f} ms against "
+        f"{prep_bound:.4f} ms, on {smi}")
+
+    # push: the lane push with got over the partition holding most of the
+    # level's frontier out-edges
+    front = oracle == push_level
+    part = np.searchsorted(store.cuts[1:], np.flatnonzero(front),
+                           side="right")
+    p = int(np.argmax(np.bincount(
+        part, weights=g.out_degrees.numpy()[front],
+        minlength=store.partitions)))
+    key, slot, wgt, rows = _partition_on_card(torch, store, "push", p)
+    vals, act = state(push_level)
+    pprep = pe.push_lanes_prepare(act, [0])
+    table = torch.full((1, V), 2**31 - 1, dtype=torch.int32, device="cuda")
+    gotp = torch.zeros((1, V), dtype=torch.bool, device="cuda")
+    pkw = dict(num_rows=rows, gather="plus_one", reduce="min",
+               identity=2**31 - 1)
+    args = (key, slot, wgt, vals, degd, act, [0])
+    want_t = pe.push_ell_lanes_reduce_plain(*args, **pkw,
+                                            table=table.clone())
+    got_t = pe.push_ell_lanes_reduce(*args, **pkw, table=table.clone(),
+                                     got=gotp, prepared=pprep)
+    torch.cuda.synchronize()
+    if not _same(got_t, want_t):
+        raise AssertionError("streamed push on the scale-22 partition != "
+                             "plain")
+    pms = _time_ms(torch, lambda: pe.push_ell_lanes_reduce(
+        *args, **pkw, table=table, got=gotp, prepared=pprep), reps=20)
+    pplain = _time_ms(torch, lambda: pe.push_ell_lanes_reduce_plain(
+        *args, **pkw, table=table), reps=5, warmup=1)
+    live_rows = act[0][key.long()]
+    n_live = int(live_rows.sum())
+    dst = slot[live_rows]
+    dst = dst[dst != PAD].long()
+    valid = int(dst.numel())
+    n_dst = int(torch.unique(dst).numel())
+    n_src = int(torch.unique(key[live_rows]).numel())
+    lo, hi = int(store.cuts[p]), int(store.cuts[p + 1])
+    # what this partition's launch must move: row_src and its source
+    # interval's bits once, a live row's ids, a live source's value, and
+    # the running entry of each destination a message reaches, read and
+    # written, with its got byte
+    pbytes = rows * 4 + (hi - lo) / 8 + n_live * 32 + n_src * 4 + n_dst * 9
+    pbound = 1e3 * pbytes / _BANDWIDTH
+    pprep_ms = _time_ms(torch, lambda: pe.push_lanes_prepare(act, [0]),
+                        reps=20)
+    out["push"] = {"ms": pms, "plain_ms": pplain, "bound_ms": pbound,
+                   "max_abs_err": _max_err(got_t, want_t), "rows": rows,
+                   "partition": p, "level": push_level,
+                   "live_rows": n_live, "valid_slots": valid,
+                   "destinations": n_dst, "shape": [rows, 8, V, 1, n_live]}
+    out["push_prepare"] = {"ms": pprep_ms,
+                           "bound_ms": 1e3 * (V + V // 8) / _BANDWIDTH}
+    log(f"[stream] lane push with got on push partition {p} ({rows} rows, "
+        f"{n_live} live at BFS level {push_level}, {valid} messages to "
+        f"{n_dst} vertices): {pms:.4f} ms, plain "
+        f"{pplain:.4f} ms, bound {pbound:.4f} ms ({pbound / pms:.3f} of "
+        f"it); its pre-pass {pprep_ms:.4f} ms, on {smi}")
+    return out
+
+
+def _pagerank_route_timing(torch, g2, prog, smi):
+    """The float-add route on the largest pull partition of the scale-20
+    streamed pagerank: kernel 1 on prepared tables, then kernel 4 by the
+    partition's keys, against the plain versions, the byte bound and one
+    library call (a CSR matrix-vector product of the partition's
+    adjacency with the message table)."""
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.kernels.ref import PAD
+    store = prog.store
+    V = g2.num_vertices
+    degd = g2.out_degrees.to(device="cuda", dtype=torch.int32)
+    p = int(np.argmax(store.rows_per_partition["pull"]))
+    key, slot, wgt, rows = _partition_on_card(torch, store, "pull", p)
+    vals = torch.full((V,), 1.0, device="cuda")
+    act = torch.ones(V, dtype=torch.bool, device="cuda")
+    kw = dict(gather="div_deg", reduce="add", mask_inactive=False)
+    prep = eb.edge_block_prepare(vals, degd, act, gather="div_deg",
+                                 mask_inactive=False)
+
+    def kernels():
+        sums, _ = eb.edge_block_reduce(slot, wgt, vals, degd, act,
+                                       prepared=prep, **kw)
+        return ss.segment_reduce(key, sums, V, reduce="add")
+
+    def plain():
+        sums, _ = eb.edge_block_reduce_plain(slot, wgt, vals, degd, act,
+                                             **kw)
+        return ss.segment_reduce_ref(key, sums, V, reduce="add")
+
+    got, want = kernels(), plain()
+    torch.cuda.synchronize()
+    if not _close(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError("streamed float-add route != plain")
+    ms = _time_ms(torch, kernels, reps=20)
+    plain_ms = _time_ms(torch, plain, reps=5, warmup=1)
+    valid = slot != PAD
+    n_valid = int(valid.sum())
+    # the library call: the partition's (V x V) CSR times the messages
+    owner = key.long()[:, None].expand_as(slot)[valid]
+    cols = slot[valid].long()
+    order = torch.argsort(owner * V + cols)
+    crow = torch.zeros(V + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(owner, minlength=V), 0)
+    A = torch.sparse_csr_tensor(crow, cols[order],
+                                torch.ones(n_valid, device="cuda"),
+                                size=(V, V))
+    msg = vals / torch.clamp_min(degd, 1).to(torch.float32)
+    lib = A @ msg
+    torch.cuda.synchronize()
+    if not _close(lib, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError("the CSR product != the float-add route")
+    lib_ms = _time_ms(torch, lambda: A @ msg, reps=20)
+    # ids and keys once, the message of each source the slots name once,
+    # the (V,) partial written
+    n_src = int(torch.unique(slot[valid].long()).numel())
+    nbytes = rows * 36 + n_src * 4 + V * 4
+    bound = 1e3 * nbytes / _BANDWIDTH
+    log(f"[stream] float-add route (kernel 1 on prepared tables + kernel "
+        f"4) on pagerank's pull partition {p} ({rows} rows) at scale "
+        f"{OTHERS_SCALE}: {ms:.4f} ms, plain {plain_ms:.4f} ms, CSR "
+        f"product {lib_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.3f} "
+        f"of it), on {smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "max_abs_err": _max_err(got, want),
+            "rows": rows, "partition": p, "sources": n_src,
+            "shape": [rows, 8, V]}
+
+
+def phase_stream(torch, dev_info, main):
+    """Out-of-core streaming on the main phase's scale-22 graph: see the
+    module docstring (step 6)."""
+    import gc
+    import shutil
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import dsl, faults, preprocess
+    from repro_torch.core import graph as G
+    from repro_torch.core.comm import CommManager
+    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
+    from repro_torch.core.translator import translate
+    from repro_torch.data import graphs as D
+    from repro_torch.errors import InjectedFault
+    from repro_torch.serve.graph_serve import GraphServer
+
+    t_phase = time.perf_counter()
+    g, oracle, smi = main["g"], main["oracle"], dev_info["smi"]
+    V, E, P = g.num_vertices, g.num_edges, STREAM_PARTITIONS
+    deg = g.out_degrees.numpy().astype(np.int64)
+    traversed = alg.traversed_edges(g, oracle)
+    bfs = dsl.bfs_program(INT_MAX)
+    work = os.path.join(ROOT, "build", "stream")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def cfg(mode="pull", **kw):
+        return ScheduleConfig(direction=DirectionPolicy(mode=mode), **kw)
+
+    # ---- the resident dense runs on the card: the answers to hold, and
+    # the device memory the resident engine needs
+    for lay in preprocess._LAYOUT_CACHE.values():
+        lay._on_device.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    resident = {}
+    for d in ("pull", "push", "auto"):
+        prog = translate(bfs, g, cfg(d, pull_sweep="dense"), device="cuda")
+        v, it = prog.run(roots=0)
+        resident[d] = (v.cpu().numpy(), it, dict(prog.last_run_stats))
+    torch.cuda.synchronize()
+    mem_res = torch.cuda.max_memory_allocated()
+    del prog, v
+    for d in ("pull", "push", "auto"):
+        if not np.array_equal(resident[d][0].astype(np.int64), oracle):
+            raise AssertionError(f"resident bfs {d} != numpy_bfs")
+
+    # ---- the streamed programs, one a direction ------------------------
+    progs = {}
+    for lay in preprocess._LAYOUT_CACHE.values():
+        lay._on_device.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_s = torch.cuda.memory_allocated()
+    checks = {}
+    for d in ("pull", "push", "auto"):
+        comm = CommManager()
+        t0 = time.perf_counter()
+        prog = translate(bfs, g, cfg(d, partitions=P), comm, device="cuda")
+        translate_s = time.perf_counter() - t0
+        reads0 = prog.lane_reads
+        _zero_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        v, it = prog.run(roots=0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        launches = _read_counts()
+        reads = prog.lane_reads - reads0
+        st = dict(prog.last_run_stats)
+        store = prog.store
+        if d == "pull":
+            mem_stream = torch.cuda.max_memory_allocated()
+            ss_ = store.stats()
+            log(f"[stream] ScheduleConfig(partitions={P}) at scale {SCALE}: "
+                f"plan {prog.report.num_partitions} partitions, cuts "
+                f"{store.cuts.tolist()}, edges a partition "
+                f"{store.edges_per_partition.tolist()}; pull_rows "
+                f"{ss_['pull_rows']}, push_rows {ss_['push_rows']}, "
+                f"entry_bytes {ss_['entry_bytes']} (real rows a partition: "
+                f"pull {store.rows_per_partition['pull'].tolist()}, push "
+                f"{store.rows_per_partition['push'].tolist()})")
+        want, iters, sweeps, prepasses, trips, planes = _stream_replay(
+            oracle, deg, store, d, prog._policy, E)
+        vv = v.cpu().numpy()
+        if not (np.array_equal(vv, resident[d][0]) and it == resident[d][1]
+                and it == iters):
+            raise AssertionError(f"streamed bfs {d}: values or iters "
+                                 f"({it}) != the resident run's "
+                                 f"({resident[d][1]}) or the oracle's")
+        bad = {k: (st[k], w) for k, w in want.items() if st[k] != w}
+        # the counters both engines define alike (the resident engine also
+        # counts a push run's first superstep as a switch, and sweeps all
+        # E edges a pull superstep)
+        same = ("push_supersteps", "pull_supersteps")
+        if d != "auto":
+            bad.update({k: (st[k], resident[d][2][k]) for k in same
+                        if st[k] != resident[d][2][k]})
+        if bad:
+            raise AssertionError(f"streamed bfs {d}: run_stats (got, want) "
+                                 f"{bad}")
+        if st["partitions_swept"] + st["partitions_skipped"] != P * it:
+            raise AssertionError("partitions swept + skipped != P x steps")
+        expect = {"edge_block_fold": sweeps["pull"],
+                  "edge_block_fold_acc": sweeps["pull"],
+                  "push_ell_lanes": sweeps["push"],
+                  "lanes_prepare": prepasses["pull"],
+                  "push_lanes_prepare": prepasses["push"],
+                  "edge_block": 0, "edge_block_skip": 0,
+                  "edge_block_lanes": 0, "edge_block_prepare": 0,
+                  "push_ell": 0, "push_ell_fused": 0, "segment_reduce": 0}
+        wrong = {k: (launches[k], n) for k, n in expect.items()
+                 if launches[k] != n}
+        if wrong or reads != it:
+            raise AssertionError(f"streamed bfs {d}: launches (got, want) "
+                                 f"{wrong}; device reads {reads} for {it} "
+                                 "supersteps")
+        checks[d] = {"iters": it, "launches": launches, "reads": reads,
+                     "first_run_s": first_s, "translate_s": translate_s,
+                     "run_stats": st, "sweeps": sweeps, "trips": trips,
+                     "planes": planes}
+        progs[d] = prog
+        log(f"[stream] bfs {d}: iters {it} = resident = oracle, values = "
+            f"resident bitwise; run_stats = the numpy replay of the "
+            f"stream's accounting {json.dumps(want)}; launches {launches}; "
+            f"{reads} device reads for {it} supersteps; translate "
+            f"{translate_s:.2f} s, first run {first_s:.2f} s (store built "
+            f"then: {store.stats()['build_s']:.2f} s)")
+    if not mem_stream < mem_res:
+        raise AssertionError(f"streamed peak device memory {mem_stream} >= "
+                             f"the resident dense run's {mem_res}")
+    log(f"[stream] torch.cuda.max_memory_allocated: streamed pull run "
+        f"{mem_stream / 2**30:.3f} GiB (from {base_s / 2**30:.3f} GiB held "
+        f"before), resident dense runs {mem_res / 2**30:.3f} GiB (from "
+        f"{base / 2**30:.3f} GiB), on {smi}")
+
+    # no scatter_reduce_ and no single-lane fused push: the profiler of
+    # a streamed auto run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        progs["auto"].run(roots=0)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    scat = sum(e.count for e in ev if "scatter_reduce" in e.key
+               or "index_reduce" in e.key)
+    fused_k = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
+                  and "push_ell_fused" in e.key)
+    kern = sorted({e.key[:60] for e in ev
+                   if e.device_type == DeviceType.CUDA
+                   and ("fold" in e.key or "lanes" in e.key)})
+    if scat or fused_k or not kern:
+        raise AssertionError(f"streamed auto profile: scatter/index_reduce "
+                             f"{scat}, fused push kernels {fused_k}, lane "
+                             f"kernels {kern}")
+    log(f"[stream] profile of a streamed auto run: no scatter_reduce / "
+        f"index_reduce, no fused push kernel; lane kernels {kern}")
+
+    # ---- steady walls, in turns ------------------------------------------
+    walls = {d: [] for d in progs}
+    stats = {}
+    for _ in range(3):
+        for d, prog in progs.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prog.run(roots=0)
+            torch.cuda.synchronize()
+            walls[d].append(time.perf_counter() - t1)
+            stats[d] = dict(prog.last_run_stats)
+    steady = {}
+    for d in progs:
+        w = float(np.median(walls[d]))
+        st = stats[d]
+        it = st["push_supersteps"] + st["pull_supersteps"]
+        rate = st["partition_bytes_h2d"] / st["partition_transfer_s"] \
+            if st["partition_transfer_s"] > 0 else 0.0
+        steady[d] = {"run_wall_s": w, "walls_s": walls[d],
+                     "mteps": traversed / w / 1e6, "iters": it,
+                     "bytes_run": st["partition_bytes_h2d"],
+                     "bytes_superstep": st["partition_bytes_h2d"] / it,
+                     "transfer_s": st["partition_transfer_s"],
+                     "compute_s": st["partition_compute_s"],
+                     "wall_s": st["partition_wall_s"],
+                     "overlap_efficiency": st["overlap_efficiency"],
+                     "h2d_rate": rate,
+                     "partitions_swept": st["partitions_swept"]}
+        log(f"[stream] bfs {d} steady: run wall {w * 1e3:.3f} ms (runs "
+            f"{[round(x * 1e3, 3) for x in walls[d]]}), MTEPS "
+            f"{traversed / w / 1e6:.1f}; {st['partition_bytes_h2d']} bytes "
+            f"shipped a run ({st['partition_bytes_h2d'] / it:.0f} a "
+            f"superstep, {st['partitions_swept']} partition sweeps); "
+            f"transfer {st['partition_transfer_s'] * 1e3:.3f} ms, compute "
+            f"{st['partition_compute_s'] * 1e3:.3f} ms, streamed wall "
+            f"{st['partition_wall_s'] * 1e3:.3f} ms, overlap_efficiency "
+            f"{st['overlap_efficiency']:.3f}; H2D {rate / 1e9:.2f} GB/s, on "
+            f"{smi}")
+
+    # the transfer phase's bound: a plain pinned copy of the largest entry
+    store = progs["pull"].store
+    biggest = max(store.stats()["entry_bytes"].values())
+    host = torch.empty(biggest, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(biggest, dtype=torch.uint8, device="cuda")
+    copy_ms = _time_ms(torch, lambda: dev.copy_(host, non_blocking=True),
+                       reps=10)
+    pinned_rate = biggest / (copy_ms / 1e3)
+    del host, dev
+    log(f"[stream] a plain pinned copy_ of the largest entry ({biggest} "
+        f"bytes): {copy_ms:.4f} ms, {pinned_rate / 1e9:.2f} GB/s; the "
+        f"stream's copies reached "
+        f"{', '.join(f'{d} {steady[d]['h2d_rate'] / 1e9:.2f}' for d in steady)}"
+        f" GB/s")
+
+    # ---- run_batch over 8 roots ----------------------------------------
+    res_prog = translate(bfs, g, cfg("pull", pull_sweep="dense"),
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    cand = np.flatnonzero(deg > 0)
+    roots = rng.choice(cand, STREAM_BATCH, replace=False)
+    vb, ib = progs["pull"].run_batch(roots)
+    rb, rib = res_prog.run_batch(roots)
+    if not (torch.equal(vb, rb) and torch.equal(ib, rib)):
+        raise AssertionError("streamed run_batch != resident run_batch")
+    log(f"[stream] run_batch over {STREAM_BATCH} roots = resident "
+        f"run_batch bitwise (iters {ib.tolist()})")
+
+    # ---- a checkpointed bfs killed at a partition boundary -------------
+    prog = progs["auto"]
+    trips = checks["auto"]["trips"]
+    ref_v = resident["auto"][0]
+    ck1 = os.path.join(work, "ck_plain")
+    v, it = prog.run(roots=0, checkpoint_dir=ck1, checkpoint_every=8)
+    st1 = dict(prog.last_run_stats)
+    if not np.array_equal(v.cpu().numpy(), ref_v):
+        raise AssertionError("checkpointed streamed bfs != uncut run")
+    at = [i for i, (kind, _) in enumerate(trips) if kind == "partition"]
+    after = at[len(at) // 2]
+    ck2 = os.path.join(work, "ck_crash")
+    plan = faults.arm("lane.crash", times=1, after=after)
+    try:
+        prog.run(roots=0, checkpoint_dir=ck2, checkpoint_every=8)
+    except InjectedFault:
+        pass
+    finally:
+        faults.reset()
+    if plan.fired != 1:
+        raise AssertionError("the armed lane.crash never fired")
+    v, it2 = prog.run(roots=0, checkpoint_dir=ck2, checkpoint_every=8,
+                      resume=True)
+    st2 = dict(prog.last_run_stats)
+    if not np.array_equal(v.cpu().numpy(), ref_v) or it2 != it \
+            or st2["checkpoint_loads"] != 1:
+        raise AssertionError("crashed and resumed streamed bfs != uncut")
+    log(f"[stream] checkpointed bfs auto (every 8 sweeps) = uncut: saves "
+        f"{st1['checkpoint_saves']}; killed at trip {after} "
+        f"({trips[after]}, a partition boundary) and resumed from its "
+        f"snapshot: = uncut, loads {st2['checkpoint_loads']}")
+
+    # ---- serving over the streamed schedule ------------------------------
+    comm = CommManager()
+    srv = GraphServer(g, schedule=cfg("auto", partitions=P), comm=comm,
+                      device="cuda")
+    qroots = rng.choice(cand, STREAM_QUERIES, replace=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qs = [srv.submit("bfs", int(r)) for r in qroots]
+    srv.run()
+    serve_s = time.perf_counter() - t1
+    for q, r in zip(qs, qroots):
+        ref, _ = res_prog.run(roots=int(r))
+        if not (q.done and np.array_equal(np.asarray(q.result),
+                                          ref.cpu().numpy())):
+            raise AssertionError(f"served streamed bfs root {r} != the "
+                                 "sequential resident run")
+    if comm.stats.partition_bytes_h2d <= 0:
+        raise AssertionError("the server streamed no partition bytes")
+    log(f"[stream] GraphServer over ScheduleConfig(partitions={P}): "
+        f"{STREAM_QUERIES} bfs = sequential resident runs bitwise, "
+        f"{serve_s:.2f} s ({STREAM_QUERIES / serve_s:.1f} queries/s), "
+        f"{comm.stats.partition_bytes_h2d} bytes streamed, overlap "
+        f"{comm.stats.overlap_efficiency():.3f}; counters {srv.counters()}")
+    del srv
+
+    # ---- the routes' kernels at the stream's shapes ---------------------
+    # the push route at auto's heaviest push superstep (most frontier
+    # out-edges), the pull route at the widest level
+    pushed = [s for s, plane in enumerate(checks["auto"]["planes"])
+              if plane == "push"] or [1]
+    push_level = max(pushed, key=lambda s: int(deg[oracle == s].sum()))
+    timing = _stream_route_timing(torch, g, oracle, store, push_level, smi)
+    build_s = {d: p.store.stats()["build_s"] for d, p in progs.items()}
+    launches_bfs = {d: checks[d]["launches"] for d in checks}
+    del progs, res_prog, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- scale 20: SSSP, PageRank, a container under a byte budget ------
+    V2, E2 = 1 << OTHERS_SCALE, 16 << OTHERS_SCALE
+    src, dst = G.rmat_edges(V2, E2, seed=1)
+    w = np.random.default_rng(2).uniform(1.0, 10.0, len(src)) \
+        .astype(np.float32)
+    g2 = G.from_edge_list(src, dst, num_vertices=V2, weights=w)
+    del src, dst, w
+    ref_d, _ = translate(dsl.sssp_program(), g2, cfg("auto"),
+                         device="cuda").run(roots=0)
+    d_s, _ = translate(dsl.sssp_program(), g2, cfg("auto", partitions=P),
+                       device="cuda").run(roots=0)
+    if not _same_bits(ref_d, d_s):
+        raise AssertionError("streamed sssp != resident sssp bitwise")
+    ref_r, _ = translate(dsl.pagerank_program(), g2, cfg("pull"),
+                         device="cuda").run()
+    pr = translate(dsl.pagerank_program(), g2, cfg("pull", partitions=P),
+                   device="cuda")
+    _zero_counts()
+    r1, pit = pr.run()
+    torch.cuda.synchronize()
+    pr_launches = _read_counts()
+    r2, _ = pr.run()
+    pst = pr.last_run_stats
+    if not (_close(r1, ref_r, rtol=1e-5, atol=1e-7)
+            and _same_bits(r1, r2)):
+        raise AssertionError(f"streamed pagerank: max err "
+                             f"{_max_err(r1, ref_r)} against resident, or "
+                             "two streamed runs differ")
+    if pr_launches["edge_block"] != pst["partitions_swept"] \
+            or pr_launches["segment_reduce"] != pst["partitions_swept"] \
+            or pr_launches["edge_block_prepare"] != pit \
+            or pr_launches["edge_block_fold"] != 0:
+        raise AssertionError(f"streamed pagerank launches {pr_launches}")
+    pr_timing = _pagerank_route_timing(torch, g2, pr, smi)
+    log(f"[stream] scale {OTHERS_SCALE}: streamed sssp = resident bitwise; "
+        f"streamed pagerank ({pit} iterations) within rtol 1e-5 of the "
+        f"resident run (max |err| {_max_err(r1, ref_r):.3e}) and bitwise "
+        f"equal across two streamed runs; launches {pr_launches}")
+    path = D.container_from_graph(os.path.join(work, "scale20.npz"), g2, P)
+    c = D.load_partition_container(path)
+    budget = 3 * int(max(c.pull_rows.max(), c.push_rows.max())) * (4 + 64)
+    ref_b, _ = translate(bfs, g2, cfg("auto"), device="cuda").run(roots=0)
+    pc = translate(bfs, c, cfg("auto", partition_budget_bytes=budget),
+                   device="cuda")
+    b_c, _ = pc.run(roots=0)
+    cst = pc.last_run_stats["partition_store"]
+    if not torch.equal(b_c, ref_b) or cst["evictions"] <= 0:
+        raise AssertionError(f"container bfs under a {budget}-byte budget "
+                             f"!= resident, or no eviction: {cst}")
+    log(f"[stream] container (container_from_graph, scale "
+        f"{OTHERS_SCALE}, {c.partitions} partitions) under "
+        f"partition_budget_bytes={budget}: bfs = resident bitwise, store "
+        f"{json.dumps(cst)}")
+    del pc, c, pr, g2
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[stream] phase wall {phase_s:.1f} s; store build (set-up) s by "
+        f"program {json.dumps({k: round(v, 2) for k, v in build_s.items()})}")
+    summary = {"partitions": P, "checks": {
+        d: {k: v for k, v in c_.items() if k != "trips"}
+        for d, c_ in checks.items()},
+        "steady": steady, "memory": {"streamed_peak": mem_stream,
+                                     "resident_peak": mem_res,
+                                     "streamed_base": base_s,
+                                     "resident_base": base},
+        "pinned_copy_ms": copy_ms, "pinned_rate": pinned_rate,
+        "timing": timing, "pagerank_timing": pr_timing,
+        "build_s": build_s, "phase_s": phase_s, "card": smi}
+    with open(os.path.join(OUT_DIR, "chip_smoke_stream.json"), "w") as f:
+        json.dump(summary, f, indent=1, default=str)
+    fold, push = timing["fold"], timing["push"]
+    return [
+        {"name": "edge_block_fold_lanes (streamed, accumulate)",
+         "route": "cuda", "source": "src/repro_torch/csrc/edge_block.cu",
+         "replaces": "src/repro/kernels/edge_block.py:147",
+         "launches": launches_bfs["pull"]["edge_block_fold_acc"],
+         "max_abs_err": fold["max_abs_err"], "ms": fold["ms"],
+         "plain_ms": fold["plain_ms"], "bound_ms": fold["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "shape": fold["shape"]},
+        {"name": "push_ell_lanes_reduce (streamed, got)",
+         "route": "cuda", "source": "src/repro_torch/csrc/push_ell.cu",
+         "replaces": "src/repro/kernels/push_ell.py:134",
+         "launches": launches_bfs["push"]["push_ell_lanes"],
+         "max_abs_err": push["max_abs_err"], "ms": push["ms"],
+         "plain_ms": push["plain_ms"], "bound_ms": push["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "shape": push["shape"]},
+        {"name": "edge_block_reduce + segment_reduce (streamed float add)",
+         "route": "cuda", "source": "src/repro_torch/csrc/edge_block.cu",
+         "replaces": "src/repro/kernels/edge_block.py:33",
+         "launches": pr_launches["edge_block"],
+         "max_abs_err": pr_timing["max_abs_err"], "ms": pr_timing["ms"],
+         "plain_ms": pr_timing["plain_ms"],
+         "bound_ms": pr_timing["bound_ms"], "bound_by": "bytes",
+         "library_ms": pr_timing["library_ms"],
+         "shape": pr_timing["shape"]},
+    ]
+
+
 def numpy_k_core(src, dst, V, k):
     """k-core membership by peeling on the undirected multigraph (each
     edge both ways), independent of the port."""
@@ -2739,6 +3604,7 @@ def main():
     phase_kernels(torch)
     kernels, main_graph = phase_main(torch, dev_info)
     kernels.extend(phase_serve(torch, dev_info, main_graph))
+    kernels.extend(phase_stream(torch, dev_info, main_graph))
     del main_graph
     phase_others(torch)
     kernels.append(phase_lm(torch, dev_info))

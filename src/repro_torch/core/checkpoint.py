@@ -61,6 +61,7 @@ from . import faults
 
 __all__ = [
     "SNAPSHOT_VERSION",
+    "DEFAULT_STREAM_SWEEPS",
     "DEFAULT_LANE_SUPERSTEPS",
     "KEEP_SNAPSHOTS",
     "array_crc32",
@@ -80,9 +81,10 @@ __all__ = [
 SNAPSHOT_VERSION = 1
 FORMAT_NAME = "repro-checkpoint"
 
-# default checkpoint cadences, the JAX package's: the resident engine
-# snapshots after every K supersteps of its budgeted slice loop; the
-# streamed engine's cadence (partition sweeps) waits for that engine.
+# default checkpoint cadences, the JAX package's: the streamed engine
+# snapshots after every N partition sweeps, the resident engine after
+# every K supersteps of its budgeted slice loop
+DEFAULT_STREAM_SWEEPS = 8
 DEFAULT_LANE_SUPERSTEPS = 4
 
 # how many committed snapshots a writer keeps per kind: the newest is
@@ -114,11 +116,26 @@ def array_crc32(arr) -> int:
 
 
 def fingerprint_graph(source) -> str:
-    """Fingerprint a resident graph by its CSR structure arrays.
+    """Fingerprint a resident graph or a partition container.
 
-    Vertex *values* never enter the fingerprint: they are run state, not
-    graph identity.  Streamed partition containers are not ported yet.
+    A container (anything with ``partition_coo``) is fingerprinted from
+    its cut geometry and build-time per-partition CRCs, as the JAX package
+    does, so the two packages agree; a resident graph hashes its CSR
+    structure arrays.  Vertex *values* never enter the fingerprint: they
+    are run state, not graph identity.
     """
+    if hasattr(source, "partition_coo"):
+        crc = zlib.crc32(np.ascontiguousarray(
+            np.asarray(source.cuts, np.int64)).tobytes())
+        crc = zlib.crc32(np.ascontiguousarray(
+            np.asarray(source.edges_per_partition, np.int64)).tobytes(), crc)
+        checksums = getattr(source, "checksums", None)
+        if checksums is not None:
+            crc = zlib.crc32(np.ascontiguousarray(
+                np.asarray(checksums, np.int64)).tobytes(), crc)
+        return (f"container:V{int(source.num_vertices)}"
+                f":E{int(source.num_edges)}:P{int(source.partitions)}"
+                f":{crc & 0xFFFFFFFF:08x}")
     off = _host(source.edge_offsets)
     dst = _host(source.edges_dst)
     crc = zlib.crc32(off.tobytes())

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from .graph import to_device
@@ -40,7 +41,19 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class TransferStats:
-    """Placement bytes plus the (single-device: empty) exchange plane."""
+    """Placement bytes, the (single-device: empty) exchange plane, and the
+    streamed engine's partition plane.
+
+    The partition fields, as in the JAX package: bytes the partition
+    stream shipped host→device, the partition sweeps it covered and those
+    the frontier skipped before any transfer, and the transfer / compute
+    / wall triple that overlap is measured from (perfect overlap: wall ≈
+    max(transfer, compute); none: wall ≈ transfer + compute).  On CUDA the
+    transfer and compute seconds are CUDA-event times of the copies on the
+    copy stream and of the sweeps on the compute stream; the wall is the
+    host clock.  Retries and corruptions count the fetch failures the
+    stream absorbed.
+    """
 
     host_to_device_bytes: int = 0
     device_to_host_bytes: int = 0
@@ -49,6 +62,14 @@ class TransferStats:
     collective_supersteps: int = 0
     collective_bytes_total: int = 0
     placements: int = 0
+    partition_bytes_h2d: int = 0
+    partitions_transferred: int = 0
+    partitions_skipped: int = 0
+    partition_prefetch_s: float = 0.0
+    partition_compute_s: float = 0.0
+    partition_wall_s: float = 0.0
+    partition_retries: int = 0
+    partition_corruptions: int = 0
 
     def record_h2d(self, nbytes: int):
         self.host_to_device_bytes += int(nbytes)
@@ -56,6 +77,40 @@ class TransferStats:
 
     def record_d2h(self, nbytes: int):
         self.device_to_host_bytes += int(nbytes)
+
+    def record_partition_h2d(self, nbytes: int, seconds: float = 0.0):
+        """One partition's arrays entered the stream."""
+        self.partition_bytes_h2d += int(nbytes)
+        self.partitions_transferred += 1
+        self.partition_prefetch_s += float(seconds)
+
+    def record_partition_skip(self, n: int = 1):
+        """Partition sweeps the frontier summary killed before transfer."""
+        self.partitions_skipped += int(n)
+
+    def record_partition_superstep(self, wall_s: float, compute_s: float):
+        """One streamed superstep's wall clock and compute time."""
+        self.partition_wall_s += float(wall_s)
+        self.partition_compute_s += float(compute_s)
+
+    def overlap_efficiency(self) -> float:
+        """Measured transfer/compute overlap of the partition stream, 0..1:
+        ``(transfer + compute − wall) / min(transfer, compute)``, the share
+        of the shorter phase that was hidden (0 when nothing streamed)."""
+        shorter = min(self.partition_prefetch_s, self.partition_compute_s)
+        if shorter <= 0.0 or self.partition_wall_s <= 0.0:
+            return 0.0
+        hidden = (self.partition_prefetch_s + self.partition_compute_s
+                  - self.partition_wall_s)
+        return float(np.clip(hidden / shorter, 0.0, 1.0))
+
+    def record_partition_retry(self, n: int = 1):
+        """A transient partition fetch failure was retried."""
+        self.partition_retries += int(n)
+
+    def record_partition_corruption(self, n: int = 1):
+        """A checksum mismatch forced an evict and a re-read."""
+        self.partition_corruptions += int(n)
 
 
 def _nbytes(tree: Any) -> int:
@@ -114,5 +169,8 @@ class CommManager:
         return vol
 
     def report(self, device=None) -> dict:
-        """Stats + status snapshot."""
-        return dataclasses.asdict(self.stats) | self.status(device)
+        """Stats + status snapshot, with the partition stream's measured
+        ``overlap_efficiency``."""
+        return (dataclasses.asdict(self.stats)
+                | {"overlap_efficiency": self.stats.overlap_efficiency()}
+                | self.status(device))

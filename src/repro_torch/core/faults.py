@@ -8,16 +8,19 @@ Arming is deterministic: a point fires for an exact number of trips
 probabilistically under a *seeded* PRNG (``rate``/``seed``) so a chaos
 run replays bit-identically.
 
-Registered points (all six are registered; this package trips three of
-them, the other three belong to planes not ported yet):
+Registered points (all six are registered; this package trips five of
+them, ``comm.collective`` belongs to the multi-PE plane, not ported yet):
 
 ========================  ====================================================
 point                     trips in
 ========================  ====================================================
-``prefetch.device_put``   out-of-core streaming (not ported yet)
-``container.read``        the partition container reader (not ported yet)
+``prefetch.device_put``   ``core/stream.py`` — before a partition's copy to
+                          the device (inside the fetch retry ladder)
+``container.read``        ``data/graphs.py`` — between a partition's read
+                          and its CRC32 check (``mode='corrupt'`` flips it)
 ``lane.superstep``        ``core/translator.py`` ``run_batch_slice`` — before
-                          a budget slice executes
+                          a budget slice executes; ``core/stream.py`` —
+                          before each streamed superstep
 ``comm.collective``       the multi-PE exchange (not ported yet)
 ``checkpoint.write``      ``core/checkpoint.py`` — before a snapshot's
                           temp files are renamed into place (models a crash
@@ -25,9 +28,11 @@ point                     trips in
                           snapshot is never visible under its final name)
 ``lane.crash``            ``core/translator.py`` / ``serve/graph_serve.py`` —
                           at the slice boundaries of checkpointed runs and
-                          of the server's step (models a process crash; the
-                          caller catches it, re-translates fresh, and
-                          resumes from the last durable snapshot)
+                          of the server's step; ``core/stream.py`` — at
+                          each superstep and partition boundary (models a
+                          process crash; the caller catches it,
+                          re-translates fresh, and resumes from the last
+                          durable snapshot)
 ========================  ====================================================
 
 Raise-mode faults raise :class:`repro_torch.errors.InjectedFault` (a

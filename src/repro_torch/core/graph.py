@@ -69,14 +69,15 @@ def to_device(obj, device):
 
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     """Pack a boolean mask into 32-bit words (bit ``i`` of word ``w`` is
-    ``mask[32w + i]``), returned as int64 holding the uint32 pattern."""
-    n = mask.shape[0]
+    ``mask[32w + i]``), returned as int64 holding the uint32 pattern; a
+    ``(k, n)`` batch packs each row."""
+    *lead, n = mask.shape
     if n == 0:
-        return torch.zeros((1,), dtype=torch.int64, device=mask.device)
+        return torch.zeros((*lead, 1), dtype=torch.int64, device=mask.device)
     pad = (-n) % BITMAP_BITS
     b = torch.nn.functional.pad(mask.to(torch.int64), (0, pad))
     shifts = torch.arange(BITMAP_BITS, dtype=torch.int64, device=mask.device)
-    return (b.reshape(-1, BITMAP_BITS) << shifts[None, :]).sum(dim=1)
+    return (b.reshape(*lead, -1, BITMAP_BITS) << shifts).sum(dim=-1)
 
 
 def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
@@ -134,6 +135,65 @@ def bitmap_select(words: torch.Tensor, capacity: int,
     if num_items is not None:
         ok = ok & (idx < num_items)
     return torch.where(ok, idx, 0).to(torch.int32), ok
+
+
+def interval_live_counts(words: torch.Tensor,
+                         cuts: torch.Tensor) -> torch.Tensor:
+    """Per-interval set-bit counts of a packed bitmap, on its device.
+
+    ``words`` holds the 32-bit patterns of :func:`pack_bits`, ``(nw,)``
+    or a batch ``(k, nw)``; ``cuts`` is the ``(P+1,)`` vertex cut points
+    (``0 = cuts[0] <= ... <= cuts[P] <= 32 * nw``).  Returns the int32
+    count of set bits in each ``[cuts[i], cuts[i+1])``, ``(P,)`` or
+    ``(k, P)``: one popcount cumsum over the words plus a masked partial
+    word at each (possibly mid-word) cut, as in the JAX package.
+    """
+    nw = words.shape[-1]
+    pop = popcount_words(words).to(torch.int64)
+    cum = torch.nn.functional.pad(torch.cumsum(pop, dim=-1), (1, 0))
+    c = cuts.to(device=words.device, dtype=torch.int64)
+    w = c // BITMAP_BITS
+    rem = c - w * BITMAP_BITS
+    mask = torch.where(rem > 0, (1 << rem) - 1, 0)
+    part = popcount_words(words[..., torch.clamp(w, max=nw - 1)] & mask)
+    below = cum[..., torch.clamp(w, max=nw)] \
+        + torch.where(w < nw, part.to(torch.int64), 0)
+    return (below[..., 1:] - below[..., :-1]).to(torch.int32)
+
+
+def edge_interval_cuts(out_degrees: np.ndarray, parts: int) -> np.ndarray:
+    """Edge-balanced contiguous vertex cut points (host numpy).
+
+    A ``(parts+1,)`` int64 array, ``cuts[0] == 0``, ``cuts[-1] == V``,
+    monotone; interval ``i`` owns the out-edges of vertices
+    ``[cuts[i], cuts[i+1])``.  Cuts fall on the cumulative out-degree at
+    equal fractions of E, as in the JAX package; an interval may be empty
+    on extreme skew (a hub owning more than E/parts edges).
+    """
+    if parts < 1:
+        raise ValueError(f"parts must be >= 1, got {parts}")
+    deg = np.asarray(out_degrees, np.int64)
+    v = len(deg)
+    cum = np.zeros(v + 1, np.int64)
+    np.cumsum(deg, out=cum[1:])
+    targets = cum[-1] * np.arange(1, parts, dtype=np.float64) / parts
+    inner = np.searchsorted(cum[1:], targets, side="left") + 1
+    cuts = np.concatenate([[0], np.clip(inner, 0, v), [v]])
+    return np.maximum.accumulate(cuts).astype(np.int64)
+
+
+def partition_coo(g: "Graph", lo: int, hi: int
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One source-vertex interval's edges as host COO ``(src, dst, wgt)``:
+    the CSR's contiguous edge range ``offsets[lo]:offsets[hi]``, with
+    global vertex ids."""
+    offsets = _np(g.edge_offsets).astype(np.int64)
+    e0, e1 = int(offsets[lo]), int(offsets[hi])
+    deg = offsets[lo + 1:hi + 1] - offsets[lo:hi]
+    src = np.repeat(np.arange(lo, hi, dtype=np.int32), deg)
+    dst = _np(g.edges_dst)[e0:e1]
+    wgt = _np(g.edge_weights)[e0:e1]
+    return src, dst.astype(np.int32), wgt
 
 
 # ---------------------------------------------------------------------------

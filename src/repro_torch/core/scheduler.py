@@ -1,9 +1,10 @@
 """Runtime scheduler (paper §V-C2): schedule knobs and the direction policy.
 
 Counterpart of ``repro.core.scheduler`` for one device.  ``plan`` resolves
-the backend and the chunk geometry; a plan over several processing
-elements or several streamed partitions raises ``NotImplementedError``
-until those planes are ported (``ROADMAP.md`` §1 items 5 and 4).
+the backend, the chunk geometry and the out-of-core partition axis (the
+streamed engine, :mod:`repro_torch.core.stream`); a plan over several
+processing elements raises ``NotImplementedError`` until that plane is
+ported (``ROADMAP.md`` §1 item 5).
 :class:`AdmissionPolicy` holds the serving plane's batching knobs.
 """
 from __future__ import annotations
@@ -102,7 +103,13 @@ class ScheduleConfig:
     push_ell_width: int = 8      # forward-ELL row width (compacted push)
     pull_sweep: str = "auto"     # 'auto' | 'bitmap' | 'dense'
     pull_block_slots: int = 64   # edge slots per pull block (multiple of 8)
-    partitions: int = 1          # streamed partitions (only 1 is ported)
+    # out-of-core: split the edge set into ``partitions`` contiguous
+    # source-vertex intervals streamed host→device each superstep, or
+    # derive the count from ``partition_budget_bytes`` for one plane's
+    # streamed arrays (estimate_stream_bytes); with both, the larger
+    # resolved count wins.  One partition and no budget: resident.
+    partitions: int = 1
+    partition_budget_bytes: int | None = None
     # hard superstep budget; None resolves to V+1 (the diameter bound)
     max_supersteps: int | None = None
     # opt-in NaN probe between supersteps (float programs): a NaN freezes
@@ -127,6 +134,9 @@ class ScheduleConfig:
             raise TypeError("direction must be a DirectionPolicy")
         if self.partitions < 1:
             raise ValueError("partitions must be >= 1")
+        if self.partition_budget_bytes is not None \
+                and self.partition_budget_bytes < 1:
+            raise ValueError("partition_budget_bytes must be >= 1 (or None)")
         if self.max_supersteps is not None and self.max_supersteps < 1:
             raise ValueError("max_supersteps must be >= 1 (or None)")
 
@@ -150,15 +160,23 @@ class SchedulePlan:
     num_chunks: int              # edge-stream chunks (>= 1)
     chunk_size: int              # edges per chunk (padded, >= 1)
     direction: DirectionPolicy = DirectionPolicy()  # carried from config
+    # the resolved interval-partition count (1: resident) and the byte
+    # budget that resolved it (None when the count was given)
     num_partitions: int = 1
+    partition_budget_bytes: int | None = None
     pes: int = 1
 
     def describe(self) -> str:
         """One-line summary for IR/pass dumps (backend-selection pass)."""
+        parts = ""
+        if self.num_partitions > 1:
+            budget = self.partition_budget_bytes
+            parts = (f" partitions={self.num_partitions}"
+                     + (f"(budget={budget}B)" if budget else ""))
         return (f"backend={self.backend} pipelines={self.num_chunks} "
                 f"chunk_size={self.chunk_size} pes={self.pes} "
                 f"direction={self.direction.describe()} "
-                f"pull_sweep={self.config.pull_sweep}")
+                f"pull_sweep={self.config.pull_sweep}{parts}")
 
 
 def push_capacity_tiers(num_rows: int) -> tuple[int, int]:
@@ -193,6 +211,19 @@ def pull_block_capacities(num_blocks: int) -> tuple:
                  for f in PULL_BLOCK_TIERS)
 
 
+# Streamed bytes per edge of one partition plane (width-8 ELL): 8 bytes of
+# slot and weight times ~1.3 padding on power-law graphs, plus the row's
+# key (4 bytes a width of slots).  A planning estimate, the JAX
+# package's: the store reports exact bytes at run time.
+STREAM_BYTES_PER_EDGE = 11
+
+
+def estimate_stream_bytes(num_edges: int, width: int = 8) -> int:
+    """Planning estimate of one streamed plane's edge-array bytes, which
+    :func:`plan` divides by ``partition_budget_bytes``."""
+    return int(num_edges * STREAM_BYTES_PER_EDGE)
+
+
 def choose_backend(cfg: ScheduleConfig, *, num_vertices: int,
                    num_edges: int, avg_degree: float) -> str:
     """Module selection heuristic: dense ELL blocks at moderate degree,
@@ -202,21 +233,38 @@ def choose_backend(cfg: ScheduleConfig, *, num_vertices: int,
     return "dense" if avg_degree >= 4.0 else "sparse"
 
 
-def plan(cfg: ScheduleConfig, *, num_vertices: int,
-         num_edges: int) -> SchedulePlan:
-    """Resolve ``cfg`` for a graph on one device."""
+def plan(cfg: ScheduleConfig, *, num_vertices: int, num_edges: int,
+         fixed_partitions: int | None = None) -> SchedulePlan:
+    """Resolve ``cfg`` for a graph on one device.
+
+    The partition count is ``fixed_partitions`` when given (a partition
+    container's own cuts), else the larger of ``cfg.partitions`` and the
+    count the byte budget needs, clamped to ``[1, V]``.
+    """
+    if fixed_partitions is not None:
+        num_partitions = max(1, int(fixed_partitions))
+    else:
+        num_partitions = max(1, cfg.partitions)
+        if cfg.partition_budget_bytes is not None:
+            est = estimate_stream_bytes(num_edges, cfg.push_ell_width)
+            num_partitions = max(num_partitions,
+                                 -(-est // cfg.partition_budget_bytes))
+    num_partitions = min(num_partitions, max(num_vertices, 1))
+    if num_partitions > 1 and cfg.pes > 1:
+        raise ValueError(
+            "partitioned execution is single-PE: the streamed partitions "
+            f"already tile the edge set (got partitions={num_partitions}, "
+            f"pes={cfg.pes})")
     if cfg.pes > 1:
         raise NotImplementedError(
             f"pes={cfg.pes}: the multi-PE exchange is not ported yet "
             "(ROADMAP.md §1 item 5)")
-    if cfg.partitions > 1:
-        raise NotImplementedError(
-            f"partitions={cfg.partitions}: out-of-core streaming is not "
-            "ported yet (ROADMAP.md §1 item 4)")
     avg_degree = num_edges / max(num_vertices, 1)
     backend = choose_backend(cfg, num_vertices=num_vertices,
                              num_edges=num_edges, avg_degree=avg_degree)
     num_chunks = max(1, min(cfg.pipelines, math.ceil(num_edges / 1024)))
     chunk_size = max(1, math.ceil(num_edges / num_chunks))
     return SchedulePlan(config=cfg, backend=backend, num_chunks=num_chunks,
-                        chunk_size=chunk_size, direction=cfg.direction)
+                        chunk_size=chunk_size, direction=cfg.direction,
+                        num_partitions=num_partitions,
+                        partition_budget_bytes=cfg.partition_budget_bytes)

@@ -58,8 +58,11 @@ lane through their single-lane superstep.  Checkpointed runs
 (``run(checkpoint_dir=...)``) are one-lane slice loops that commit a
 :mod:`~repro_torch.core.checkpoint` snapshot after every slice.
 
-Not ported yet, and refused with ``NotImplementedError``: several PEs
-(``ROADMAP.md`` §1 item 5) and streamed partitions (item 4).
+A plan over several partitions, or a partition container in place of a
+resident graph, goes to the streamed engine
+(:func:`repro_torch.core.stream.translate_partitioned`), as in the JAX
+package.  Not ported yet, and refused with ``NotImplementedError``:
+several PEs (``ROADMAP.md`` §1 item 5).
 """
 from __future__ import annotations
 
@@ -181,6 +184,8 @@ class TranslationReport:
     est_frontier_bytes: int = 0
     pull_block_tiers: tuple | None = None  # bitmap plane's m_f tier caps
     pull_blocks_total: int | None = None   # skippable blocks (bitmap plane)
+    num_partitions: int = 1                # streamed partitions (1: resident)
+    partition_budget_bytes: int | None = None
 
 
 class CompiledGraphProgram:
@@ -1342,7 +1347,7 @@ def _emit_push_ell(ir: SuperstepIR, push_op: PushScatterOp,
 
 def translate(
     program: VertexProgram,
-    g: G.Graph,
+    g,
     schedule: ScheduleConfig | None = None,
     comm: CommManager | None = None,
     *,
@@ -1362,20 +1367,36 @@ def translate(
     ``strict=True`` refuses a program carrying a warning- or error-severity
     diagnostic.  ``checkpoint_dir``/``checkpoint_every`` are the defaults
     of :meth:`CompiledGraphProgram.run`'s checkpointed runs.
+
+    ``g`` may be a partition container (:class:`repro_torch.data.graphs.
+    PartitionContainer`), and the schedule may ask for several partitions
+    (``partitions`` or ``partition_budget_bytes``): both stage onto the
+    streamed engine and return a :class:`~repro_torch.core.stream.
+    PartitionedGraphProgram`.  ``validate=True`` checks a resident graph's
+    CSR, or a container's partitions one by one.
     """
     t0 = time.perf_counter()
     device = resolve_device(device)
     use_kernels = device.type == "cuda"
     schedule = schedule or ScheduleConfig()
     comm = comm or CommManager()
-    if not isinstance(g, G.Graph):
-        raise NotImplementedError(
-            "streamed partition containers are not ported yet "
-            "(ROADMAP.md §1 item 4)")
     if validate:
-        G.validate_graph(g, reduce=program.reduce)
+        if isinstance(g, G.Graph):
+            G.validate_graph(g, reduce=program.reduce)
+        elif hasattr(g, "validate_partitions"):
+            g.validate_partitions(reduce=program.reduce)
     splan = plan(schedule, num_vertices=g.num_vertices,
-                 num_edges=g.num_edges)
+                 num_edges=g.num_edges,
+                 fixed_partitions=getattr(g, "partitions", None))
+    # out-of-core dispatch: a plan over several partitions, or a source
+    # that is not resident (a partition container), streams
+    if splan.num_partitions > 1 or not isinstance(g, G.Graph):
+        from . import stream
+        return stream.translate_partitioned(
+            program, g, schedule, splan, comm, device=device,
+            report_cls=TranslationReport, dump_passes=dump_passes,
+            strict=strict, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every)
 
     # ---- stages 1+2: lower to IR, run the pass pipeline -----------------
     t_passes0 = time.perf_counter()

@@ -183,6 +183,7 @@ struct Args {
   void* any;
   long long rows;
   int width;
+  int stage;                // Stage
   cudaStream_t stream;
 };
 
@@ -203,7 +204,8 @@ template <typename T, int G, int R, bool kMask>
 cudaError_t launch(const Args& a) {
   constexpr int kThreads = 256;
   constexpr bool kMsg = needs_msg(G);
-  if ((kMask || kMsg) && a.V > 0) {
+  if (a.stage == kPackOnly) {
+    if (!(kMask || kMsg) || a.V == 0) return cudaSuccess;
     const long long blocks = (a.V + kThreads - 1) / kThreads;
     edge_block_pack_kernel<T, G, kMask, kMsg>
         <<<blocks, kThreads, 0, a.stream>>>(
@@ -211,8 +213,7 @@ cudaError_t launch(const Args& a) {
             static_cast<const int*>(a.degrees),
             static_cast<const uint8_t*>(a.active),
             static_cast<unsigned*>(a.bits), static_cast<T*>(a.msg), a.V);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
   }
   const T* msg = static_cast<const T*>(kMsg ? a.msg : a.values);
   // the width-8 path loads rows as 16-byte vectors
@@ -309,6 +310,15 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 // identity writes nothing; the got table (zero-filled bytes) takes a plain
 // store of 1 for each lane with a live slot, since a message can equal the
 // identity.  Pad sub-rows (owner V) and threads past the view write nothing.
+//
+// Accumulate mode (the streamed engine's pull partitions, the counterpart
+// of the per-partition jax.ops.segment_* and the partials' combine in
+// repro/core/stream.py): the tables hold the earlier partitions' partials
+// on entry, so a whole run's plain store becomes a read-combine-store
+// (one thread owns the entry in the launch, so it needs no atomic), the
+// pieces' atomics combine as before, and got takes its stores of 1, an
+// OR.  An owner's rows lie in several partitions, and each partition's
+// launch folds its own runs into the running table.
 //
 // What bounds the fold kernel on an H100: bytes.  It must read the ids once
 // (R8 x 32 B, 0.40 GB at scale 22), owner8 (R8 x 4 B), each lane's values
@@ -455,7 +465,8 @@ __global__ void __launch_bounds__(256) edge_block_fold_kernel(
     const int* __restrict__ nbr, const float* __restrict__ wgt,
     const int* __restrict__ owner8, const unsigned* __restrict__ bits,
     const T* __restrict__ msg, LaneMap map, T* red, uint8_t* got,
-    long long rows, long long V, int width, int k, bool mask, bool w8) {
+    long long rows, long long V, int width, int k, bool mask, bool w8,
+    bool accumulate) {
   const T ident = reduce_identity<T, R>();
   const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
@@ -502,7 +513,7 @@ __global__ void __launch_bounds__(256) edge_block_fold_kernel(
       if (got != nullptr && ((any >> l) & 1u)) got[at] = 1;
       if (acc[l] != ident) {
         if (whole) {
-          red[at] = acc[l];
+          red[at] = accumulate ? combine<T, R>(red[at], acc[l]) : acc[l];
         } else {
           atomic_combine<T, R>(red + at, acc[l],
                                R == kAdd ? T(0) : __ldcg(red + at));
@@ -528,6 +539,7 @@ struct LaneArgs {
   int k;
   long long rows;
   int width;
+  int stage;                // Stage
   cudaStream_t stream;
 };
 
@@ -544,6 +556,7 @@ struct FoldOut {
   const void* owner8;
   void* red;
   void* got;
+  bool accumulate;          // combine into the tables' partials
 };
 
 template <typename T, int G, int R, int K, typename Out>
@@ -554,12 +567,15 @@ cudaError_t launch_lanes(const LaneArgs& a, const Out& o) {
                 std::is_floating_point<T>::value && R == kAdd) {
     return cudaErrorInvalidValue;      // a float sum's fold has an order
   } else {
-    cudaError_t err = launch_lanes_pack<T, G, K, true>(
-        static_cast<const T*>(a.values), static_cast<const int*>(a.degrees),
-        static_cast<const uint8_t*>(a.active), a.map,
-        static_cast<unsigned*>(a.bits), static_cast<T*>(a.msg), a.V, a.k,
-        a.mask, a.stream);
-    if (err != cudaSuccess || a.rows == 0) return err;
+    if (a.stage == kPackOnly) {
+      return launch_lanes_pack<T, G, K, true>(
+          static_cast<const T*>(a.values),
+          static_cast<const int*>(a.degrees),
+          static_cast<const uint8_t*>(a.active), a.map,
+          static_cast<unsigned*>(a.bits), static_cast<T*>(a.msg), a.V, a.k,
+          a.mask, a.stream);
+    }
+    if (a.rows == 0) return cudaSuccess;
     const bool w8 = a.width == 8 &&
                     reinterpret_cast<uintptr_t>(a.nbr) % 16 == 0 &&
                     (!weighted(G) ||
@@ -580,7 +596,7 @@ cudaError_t launch_lanes(const LaneArgs& a, const Out& o) {
           <<<blocks, kThreads, 0, a.stream>>>(
               nbr, wgt, static_cast<const int*>(o.owner8), bits, msg, a.map,
               static_cast<T*>(o.red), static_cast<uint8_t*>(o.got), a.rows,
-              a.V, a.width, a.k, a.mask, w8);
+              a.V, a.width, a.k, a.mask, w8, o.accumulate);
     }
     return cudaGetLastError();
   }
@@ -641,16 +657,19 @@ cudaError_t use_device(int device) {
 // the block-skipping variant over blocks of block_rows rows.  `bits`
 // (ceil(V / 32) int32 words, with mask_inactive) and `msg` ((V,) of the
 // value type, for plus_one and div_deg) are scratch for the pre-pass, null
-// where unused.  Returns the cudaError_t of the launches (0 = success).
+// where unused.  `stage` (Stage) launches the pre-pass, or the main kernel
+// on the tables a pre-pass call wrote.  Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int edge_block_reduce_launch(
     int device, int gather, int reduce, int value_is_float, int mask_inactive,
     const void* block_live, long long block_rows, const void* nbr,
     const void* wgt, const void* values, const void* degrees,
     const void* active, void* bits, void* msg, long long V, void* out,
     void* any,
-    long long rows, int width, void* stream) {
+    long long rows, int width, int stage, void* stream) {
   using namespace repro_torch;
   if (block_live != nullptr && block_rows < 1) return cudaErrorInvalidValue;
+  if (!valid_stage(stage)) return cudaErrorInvalidValue;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return err;
@@ -659,7 +678,7 @@ extern "C" int edge_block_reduce_launch(
     if (err != cudaSuccess) return err;
   }
   const Args a{block_live, block_rows, nbr, wgt, values, degrees, active,
-               bits, msg, V, out, any, rows, width,
+               bits, msg, V, out, any, rows, width, stage,
                static_cast<cudaStream_t>(stream)};
   return value_is_float ? by_gather<float>(a, gather, reduce, mask_inactive)
                         : by_gather<int>(a, gather, reduce, mask_inactive);
@@ -672,22 +691,23 @@ extern "C" int edge_block_reduce_launch(
 // mask_inactive) and `msg` ((V, K) of the value type) are scratch for the
 // pre-pass; `out` is (k, rows) of the value type and `any` (k, rows)
 // bytes, or null when the caller needs no flags, row l for lanes[l].
-// Returns the cudaError_t of the launches (0 = success).
+// `stage` as edge_block_reduce_launch's.  Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int edge_block_lanes_launch(
     int device, int gather, int reduce, int value_is_float, int mask_inactive,
     int K, const void* nbr, const void* wgt, const void* values,
     const void* degrees, const void* active, const int* lanes, int k,
     long long lane_rows, void* bits, void* msg, long long V, void* out,
-    void* any, long long rows, int width, void* stream) {
+    void* any, long long rows, int width, int stage, void* stream) {
   using namespace repro_torch;
   LaneMap map;
-  if (!make_lane_map(lanes, k, K, lane_rows, &map)) {
+  if (!make_lane_map(lanes, k, K, lane_rows, &map) || !valid_stage(stage)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
-                   map, bits, msg, V, k, rows, width,
+                   map, bits, msg, V, k, rows, width, stage,
                    static_cast<cudaStream_t>(stream)};
   const SubRowOut o{out, any};
   return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)
@@ -698,26 +718,29 @@ extern "C" int edge_block_lanes_launch(
 // kernel's inputs, and owner8, the flat view's (rows,) owner vertices (V
 // for pad sub-rows).  `red` is (lane_rows, V) of the value type holding
 // the reduce identity in the listed rows on entry, `got` (lane_rows, V)
-// bytes holding 0 there, or null.  Returns the cudaError_t of the
-// launches (0 = success).
+// bytes holding 0 there, or null; with `accumulate` they hold running
+// partials instead, which the launch combines into.  `stage` as
+// edge_block_reduce_launch's.  Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int edge_block_fold_launch(
     int device, int gather, int reduce, int value_is_float, int mask_inactive,
     int K, const void* nbr, const void* wgt, const void* owner8,
     const void* values, const void* degrees, const void* active,
     const int* lanes, int k, long long lane_rows, void* bits, void* msg,
     long long V, void* red, void* got, long long rows, int width,
-    void* stream) {
+    int accumulate, int stage, void* stream) {
   using namespace repro_torch;
   LaneMap map;
-  if (owner8 == nullptr || !make_lane_map(lanes, k, K, lane_rows, &map)) {
+  if (owner8 == nullptr || !make_lane_map(lanes, k, K, lane_rows, &map) ||
+      !valid_stage(stage)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
-                   map, bits, msg, V, k, rows, width,
+                   map, bits, msg, V, k, rows, width, stage,
                    static_cast<cudaStream_t>(stream)};
-  const FoldOut o{owner8, red, got};
+  const FoldOut o{owner8, red, got, accumulate != 0};
   return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)
                         : lanes_by_gather<int>(a, o, gather, reduce, K);
 }

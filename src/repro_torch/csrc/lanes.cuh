@@ -17,6 +17,18 @@ namespace {
 
 constexpr int kMaxLanes = 32;
 
+// What a call of a C entry launches: the pre-pass alone (its tables
+// written to scratch the caller keeps), or the main kernel alone on the
+// tables a pre-pass call wrote for the same state.  The wrappers run the
+// pre-pass before each main launch they are given no tables for; the
+// streamed engine runs it once a superstep and the main kernel once a
+// partition.
+enum Stage { kPackOnly = 0, kMainOnly = 1 };
+
+inline bool valid_stage(int stage) {
+  return stage == kPackOnly || stage == kMainOnly;
+}
+
 struct LaneMap {
   int row[kMaxLanes];
 };

@@ -73,7 +73,13 @@
 // does.  Each lane's messages are those the fused kernel computes for that
 // lane alone, with the same arithmetic, so each lane's table equals its
 // compacted push's bit for bit (both settle a float +0/-0 tie in
-// atomic_combine, a min keeping -0 and a max +0, in any order).
+// atomic_combine, a min keeping -0 and a max +0, in any order).  The
+// streamed engine's push partitions (repro/core/stream.py's push partial,
+// jax.ops.segment_* over each partition's forward ELL) run 3L over each
+// partition's rows into the running (k', V) table, whose atomics combine
+// any partials already there, and a got table that takes a plain store of
+// 1 for each message that lands (the JAX package's segment_max(live) > 0);
+// the pre-pass runs once a superstep (Stage in lanes.cuh).
 //
 // What bounds 3L: bytes.  It must read row_src (R x 4 B, 50 MB at scale
 // 22), each pushing lane's frontier (k x V B, in the pre-pass) and the
@@ -285,8 +291,8 @@ __global__ void push_ell_lanes_kernel(
     const int* __restrict__ row_src, const int* __restrict__ ell_dst,
     const float* __restrict__ ell_wgt, const T* __restrict__ values,
     const int* __restrict__ degrees, const unsigned* __restrict__ bits,
-    LaneMap map, T* table, long long rows, int width, long long V,
-    bool vec8) {
+    LaneMap map, T* table, uint8_t* got, long long rows, int width,
+    long long V, bool vec8) {
   const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (r >= rows) return;
@@ -330,6 +336,7 @@ __global__ void push_ell_lanes_kernel(
           static_cast<long long>(map.row[__ffs(left) - 1]) * V;
       const T v = __ldg(values + base + s);
       T* lane_table = table + base;
+      uint8_t* lane_got = got == nullptr ? nullptr : got + base;
       T cur[kSlotBatch];
 #pragma unroll
       for (int i = 0; i < kSlotBatch; ++i) {
@@ -342,6 +349,7 @@ __global__ void push_ell_lanes_kernel(
         if (static_cast<unsigned>(u[i]) >= V) continue;
         atomic_combine<T, R>(lane_table + u[i], gather_op<T, G>(v, w[i], d),
                              cur[i]);
+        if (lane_got != nullptr) lane_got[u[i]] = 1;
       }
     }
   }
@@ -358,19 +366,23 @@ struct PushLaneArgs {
   int k;
   void* bits;               // ceil(V K / 32) words of scratch
   void* table;              // (k', V), the identity in the mapped rows
+  void* got;                // (k', V) bytes, or null
   long long rows;
   int width;
   long long V;
+  int stage;                // Stage (lanes.cuh)
   cudaStream_t stream;
 };
 
 template <typename T, int G, int R, int K>
 cudaError_t launch_push_lanes(const PushLaneArgs& a) {
   constexpr int kThreads = 256;
-  cudaError_t err = launch_lanes_pack<int, kCopy, K, false>(
-      nullptr, nullptr, static_cast<const uint8_t*>(a.active), a.map,
-      static_cast<unsigned*>(a.bits), nullptr, a.V, a.k, true, a.stream);
-  if (err != cudaSuccess || a.rows == 0) return err;
+  if (a.stage == kPackOnly) {
+    return launch_lanes_pack<int, kCopy, K, false>(
+        nullptr, nullptr, static_cast<const uint8_t*>(a.active), a.map,
+        static_cast<unsigned*>(a.bits), nullptr, a.V, a.k, true, a.stream);
+  }
+  if (a.rows == 0) return cudaSuccess;
   const bool vec8 = a.width == kSlotBatch &&
                     reinterpret_cast<uintptr_t>(a.ell_dst) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(a.ell_wgt) % 16 == 0;
@@ -380,7 +392,7 @@ cudaError_t launch_push_lanes(const PushLaneArgs& a) {
       static_cast<const float*>(a.ell_wgt), static_cast<const T*>(a.values),
       static_cast<const int*>(a.degrees),
       static_cast<const unsigned*>(a.bits), a.map, static_cast<T*>(a.table),
-      a.rows, a.width, a.V, vec8);
+      static_cast<uint8_t*>(a.got), a.rows, a.width, a.V, vec8);
   return cudaGetLastError();
 }
 
@@ -484,7 +496,11 @@ extern "C" int push_ell_fused_launch(int device, int gather, int reduce,
 // (rows,) int32, ell_dst (rows, width) int32, ell_wgt (rows, width)
 // float32).  `bits` (ceil(V K / 32) words) is the pre-pass's scratch;
 // `table` (lane_rows, V) holds the reduce identity in the listed rows on
-// entry.  Returns the cudaError_t of the launches (0 = success).
+// entry (or running partials: the atomics combine into it either way);
+// `got` (lane_rows, V) bytes, or null, takes a 1 for each (lane, vertex)
+// a live message reached.  `stage` (lanes.cuh's Stage) launches the
+// pre-pass, or the kernel on the bits a pre-pass call wrote.  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int push_ell_lanes_launch(int device, int gather, int reduce,
                                      int value_is_float, int K,
                                      const void* row_src, const void* ell_dst,
@@ -492,17 +508,18 @@ extern "C" int push_ell_lanes_launch(int device, int gather, int reduce,
                                      const void* degrees, const void* active,
                                      const int* lanes, int k,
                                      long long lane_rows, void* bits,
-                                     void* table, long long rows, int width,
-                                     long long V, void* stream) {
+                                     void* table, void* got, long long rows,
+                                     int width, long long V, int stage,
+                                     void* stream) {
   using namespace repro_torch;
   LaneMap map;
-  if (!make_lane_map(lanes, k, K, lane_rows, &map)) {
+  if (!make_lane_map(lanes, k, K, lane_rows, &map) || !valid_stage(stage)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const PushLaneArgs a{row_src, ell_dst, ell_wgt, values, degrees, active,
-                       map, k, bits, table, rows, width, V,
+                       map, k, bits, table, got, rows, width, V, stage,
                        static_cast<cudaStream_t>(stream)};
   return value_is_float ? push_lanes_by_gather<float>(a, gather, reduce, K)
                         : push_lanes_by_gather<int>(a, gather, reduce, K);

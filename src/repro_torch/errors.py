@@ -47,7 +47,8 @@ class GraphValidationError(ReproError, ValueError):
 class ChecksumError(ReproError):
     """A partition's payload did not match its stored CRC32 checksum.
 
-    Raised by the partition container reader (not ported yet) when a
+    Raised by the partition container reader
+    (:class:`repro_torch.data.graphs.PartitionContainer`) when a
     streamed fetch reads bytes whose checksum disagrees with the one
     recorded at container-build time.  The streaming layer evicts and
     re-reads once (transient corruption — a torn read, a poisoned cache

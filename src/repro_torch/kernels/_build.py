@@ -38,13 +38,13 @@ _ENTRY = {
                     _L, _L, _L, _L, _L, _P, _L, _P, _P, _P, _P]},
     "edge_block": {"edge_block_reduce_launch":
                    [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                    _L, _P, _P, _L, _I, _P],
+                    _L, _P, _P, _L, _I, _I, _P],
                    "edge_block_lanes_launch":
                    [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _IP, _I, _L,
-                    _P, _P, _L, _P, _P, _L, _I, _P],
+                    _P, _P, _L, _P, _P, _L, _I, _I, _P],
                    "edge_block_fold_launch":
                    [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _I,
-                    _L, _P, _P, _L, _P, _P, _L, _I, _P]},
+                    _L, _P, _P, _L, _P, _P, _L, _I, _I, _I, _P]},
     "push_ell": {"push_ell_message_launch":
                  [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
                  "push_ell_fused_launch":
@@ -52,7 +52,7 @@ _ENTRY = {
                   _I, _L, _P],
                  "push_ell_lanes_launch":
                  [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _I, _L,
-                  _P, _P, _L, _I, _L, _P]},
+                  _P, _P, _P, _L, _I, _L, _I, _P]},
     "segment_sum": {"segment_reduce_launch":
                     [_I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P]},
 }

@@ -34,6 +34,20 @@ the same rows of its tables.  Count: ``launches``.  Both lane kernels
 read the lanes they sweep in place, through a lane map that goes to the
 kernel by value (no index tensor is copied to the device).
 
+The streamed engine (``core/stream.py``) sweeps one state over many
+partitions.  Its pull partitions go through the fused lane sweep in
+accumulate mode (``accumulate=True``): the ``(k', V)`` tables hold the
+earlier partitions' partials, a whole run of owners combines into its
+entry instead of overwriting it, and ``got`` is OR-ed; a float add's
+partitions take kernel 1 (one lane) or the lane kernel, whose per-row
+sums ``segment_sum`` folds by owner.  Every kernel's pre-pass runs apart
+from its main kernel: :func:`lanes_prepare` (the lane kernels') and
+:func:`edge_block_prepare` (kernel 1's) launch it, and the main kernel
+reads its tables.  A wrapper given no tables (``prepared=None``) calls
+the prepare function itself; the streamed engine calls it once a
+superstep and hands the tables to each partition's launch.  The
+pre-pass launches count apart (``launches`` of each prepare function).
+
 The wrappers take the plain version for tensors on the CPU and launch the
 kernel for tensors on a CUDA device; they never fall back from one to the
 other.
@@ -43,27 +57,33 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .lanes import lane_chunks, lane_list
+from .lanes import Prepared, check_prepared, lane_chunks, lane_list
 from .pull_bitmap import subrow_combine
-from .ref import (GATHER_OPS, REDUCE_OPS, _identity, edge_block_messages,
-                  edge_block_reduce_ref, row_reduce, settle_zero_ties,
-                  zero_wins)
+from .ref import (GATHER_OPS, REDUCE_OPS, _identity, combine_settled,
+                  edge_block_messages, edge_block_reduce_ref, row_reduce,
+                  settle_zero_ties, zero_wins)
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
 _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
 # gathers whose per-vertex message the kernel's pre-pass tabulates
 _MESSAGE_TABLE = ("plus_one", "div_deg")
+# the C entries' stage argument (csrc/lanes.cuh, Stage)
+_PACK_ONLY, _MAIN_ONLY = 0, 1
 
 
 def edge_block_reduce_plain(nbr, wgt, values, degrees, active, *, gather: str,
                             reduce: str, mask_inactive: bool = True,
-                            block_live=None, block_rows: int | None = None):
+                            block_live=None, block_rows: int | None = None,
+                            prepared: Prepared | None = None):
     """Plain PyTorch version of the kernel (the oracle it is held to).
 
     With ``block_live``, the full sweep's rows of every dead block are
     overwritten with the identity and ``any=False``: what the early-out
     kernel computes, also where a caller marks a live block dead.
+    ``prepared`` is only checked to be for this call: the answer comes
+    from the state.
     """
+    check_prepared(prepared, (0,), gather, mask_inactive)
     red, any_live = edge_block_reduce_ref(nbr, wgt, values, degrees, active,
                                           gather=gather, reduce=reduce,
                                           mask_inactive=mask_inactive)
@@ -87,6 +107,7 @@ def edge_block_reduce(
     mask_inactive: bool = True,
     block_live: torch.Tensor | None = None,  # (ceil(R/block_rows),) flags
     block_rows: int | None = None,
+    prepared: Prepared | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row reduce of the menu gather over live slots.
 
@@ -96,8 +117,10 @@ def edge_block_reduce(
     (bool, int8 or uint8; nonzero is live) with ``block_rows`` selects the
     early-out variant: the rows of a dead block hold the identity and
     ``any=False``.  Callers pass a conservative liveness to get the full
-    sweep's result.
+    sweep's result.  ``prepared`` (:func:`edge_block_prepare`'s tables of
+    this very state) spares the launch its own pre-pass.
     """
+    check_prepared(prepared, (0,), gather, mask_inactive)
     if block_live is not None:
         if block_rows is None or block_rows < 1:
             raise ValueError("block_live needs block_rows >= 1")
@@ -120,7 +143,8 @@ def edge_block_reduce(
                                        gather=gather, reduce=reduce,
                                        mask_inactive=mask_inactive,
                                        block_live=block_live,
-                                       block_rows=block_rows)
+                                       block_rows=block_rows,
+                                       prepared=prepared)
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_reduce runs on CPU or CUDA tensors, "
                          f"got {values.device}")
@@ -146,9 +170,10 @@ def edge_block_reduce(
     if R == 0:
         return out, any_live.view(torch.bool)
     # the pre-pass's frontier bits and messages
-    bits = torch.empty((-(-V // 32),), dtype=torch.int32,
-                       device=values.device) if mask_inactive else None
-    msg = torch.empty_like(values) if gather in _MESSAGE_TABLE else None
+    if prepared is None:
+        prepared = edge_block_prepare(values, degrees, active, gather=gather,
+                                      mask_inactive=mask_inactive)
+    _, _, _, _, bits, msg = prepared.chunks[0]
     lib = _build.library("edge_block")
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.edge_block_reduce_launch(
@@ -160,7 +185,7 @@ def edge_block_reduce(
         values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
         None if bits is None else bits.data_ptr(),
         None if msg is None else msg.data_ptr(), V, out.data_ptr(),
-        any_live.data_ptr(), R, W, stream)
+        any_live.data_ptr(), R, W, _MAIN_ONLY, stream)
     if err != 0:
         raise RuntimeError(f"edge_block kernel launch failed: "
                            f"cudaError_t {err}")
@@ -177,13 +202,103 @@ edge_block_reduce.launches = 0
 edge_block_reduce.skip_launches = 0
 
 
+def edge_block_prepare(values, degrees, active, *, gather: str,
+                       mask_inactive: bool = True) -> Prepared:
+    """Kernel 1's pre-pass alone, for a ``(V,)`` state: its frontier
+    bitmap (with ``mask_inactive``) and message table (``plus_one``,
+    ``div_deg``), for the ``prepared=`` launches of
+    :func:`edge_block_reduce` over any number of edge blocks of this very
+    state.  CPU tensors get no tables (the plain version needs none);
+    CUDA tensors launch the pre-pass (``edge_block_prepare.launches``)."""
+    if gather not in GATHER_OPS:
+        raise ValueError(f"not a menu gather: {gather!r}")
+    V = values.shape[0]
+    if values.device.type == "cpu":
+        return Prepared((0,), gather, bool(mask_inactive), ())
+    if values.device.type != "cuda" or values.dtype not in _VALUE_DTYPES:
+        raise ValueError(f"edge_block_prepare takes int32/float32 tensors "
+                         f"on CPU or CUDA, got {values.dtype} on "
+                         f"{values.device}")
+    bits = torch.empty((-(-V // 32),), dtype=torch.int32,
+                       device=values.device) if mask_inactive else None
+    msg = torch.empty_like(values) if gather in _MESSAGE_TABLE else None
+    if V and (bits is not None or msg is not None):
+        lib = _build.library("edge_block")
+        err = lib.edge_block_reduce_launch(
+            values.device.index or 0, GATHER_OPS.index(gather), 0,
+            _VALUE_DTYPES[values.dtype], int(mask_inactive), None, 0, None,
+            None, values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
+            None if bits is None else bits.data_ptr(),
+            None if msg is None else msg.data_ptr(), V, None, None, 0, 8,
+            _PACK_ONLY, torch.cuda.current_stream(values.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"edge_block pre-pass launch failed: "
+                               f"cudaError_t {err}")
+        edge_block_prepare.launches += 1
+    return Prepared((0,), gather, bool(mask_inactive),
+                    ((0, None, 1, 1, bits, msg),))
+
+
+# launches of kernel 1's pre-pass alone since the count was last set to 0
+edge_block_prepare.launches = 0
+
+
+def lanes_prepare(values, degrees, active, lanes, *, gather: str,
+                  mask_inactive: bool = True) -> Prepared:
+    """The lane kernels' pre-pass alone (``lanes_pack_kernel``) for the
+    rows ``lanes`` of a ``(k', V)`` state: per launch of at most 32 lanes,
+    the K-bit frontier words (with ``mask_inactive``) and the vertex-major
+    messages, for the ``prepared=`` launches of
+    :func:`edge_block_fold_lanes` and :func:`edge_block_reduce_lanes` over
+    any number of edge blocks of this very state.  CPU tensors get no
+    tables (the plain versions need none); CUDA tensors launch the
+    pre-pass (``lanes_prepare.launches``, one a launch)."""
+    if gather not in GATHER_OPS:
+        raise ValueError(f"not a menu gather: {gather!r}")
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    if values.device.type == "cpu":
+        return Prepared(tuple(lanes), gather, bool(mask_inactive), ())
+    if values.device.type != "cuda" or values.dtype not in _VALUE_DTYPES:
+        raise ValueError(f"lanes_prepare takes int32/float32 tensors on "
+                         f"CPU or CUDA, got {values.dtype} on "
+                         f"{values.device}")
+    chunks = []
+    for lo, lane_map, k, K in lane_chunks(lanes):
+        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
+                           device=values.device) if mask_inactive else None
+        msg = torch.empty((V * K,), dtype=values.dtype, device=values.device)
+        lib = _build.library("edge_block")
+        err = lib.edge_block_lanes_launch(
+            values.device.index or 0, GATHER_OPS.index(gather), 0,
+            _VALUE_DTYPES[values.dtype], int(mask_inactive), K, None, None,
+            values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
+            lane_map, k, kk, None if bits is None else bits.data_ptr(),
+            msg.data_ptr(), V, None, None, 0, 8, _PACK_ONLY,
+            torch.cuda.current_stream(values.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"edge_block lane pre-pass launch failed: "
+                               f"cudaError_t {err}")
+        lanes_prepare.launches += 1
+        chunks.append((lo, lane_map, k, K, bits, msg))
+    return Prepared(tuple(lanes), gather, bool(mask_inactive), tuple(chunks))
+
+
+# launches of the lane kernels' pre-pass alone since the count was last
+# set to 0
+lanes_prepare.launches = 0
+
+
 def edge_block_reduce_lanes_plain(nbr, wgt, values, degrees, active,
                                   lanes=None, *, gather: str, reduce: str,
-                                  mask_inactive: bool = True):
+                                  mask_inactive: bool = True,
+                                  prepared: Prepared | None = None):
     """Plain version of the lane-axis kernel: the single-lane plain
-    version applied to each listed lane, stacked to ``(k, R)``."""
-    rows = range(values.shape[0]) if lanes is None \
+    version applied to each listed lane, stacked to ``(k, R)``
+    (``prepared`` only checked)."""
+    rows = list(range(values.shape[0])) if lanes is None \
         else lane_list(lanes, values.shape[0])
+    check_prepared(prepared, rows, gather, mask_inactive)
     outs = [edge_block_reduce_plain(nbr, wgt, values[i], degrees, active[i],
                                     gather=gather, reduce=reduce,
                                     mask_inactive=mask_inactive)
@@ -208,6 +323,7 @@ def edge_block_reduce_lanes(
     reduce: str,
     mask_inactive: bool = True,
     need_any: bool = True,
+    prepared: Prepared | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Kernel 1 over k lanes: per lane and row, the reduce of the menu
     gather over the row's live slots.
@@ -218,7 +334,8 @@ def edge_block_reduce_lanes(
     1's order).  ``need_any=False`` skips the flags (returned as
     ``None``).  A lane map longer than
     :data:`~repro_torch.kernels.lanes.MAX_LANES` runs as several
-    launches.
+    launches.  ``prepared`` (:func:`lanes_prepare`'s tables of this very
+    state and lanes) spares the call its own pre-pass.
     """
     if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
         raise ValueError(f"not a menu module: gather={gather!r}, "
@@ -231,7 +348,7 @@ def edge_block_reduce_lanes(
     if values.device.type == "cpu":
         red, any_live = edge_block_reduce_lanes_plain(
             nbr, wgt, values, degrees, active, lanes, gather=gather,
-            reduce=reduce, mask_inactive=mask_inactive)
+            reduce=reduce, mask_inactive=mask_inactive, prepared=prepared)
         return red, any_live if need_any else None
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_reduce_lanes runs on CPU or CUDA "
@@ -242,6 +359,7 @@ def edge_block_reduce_lanes(
     R, W = nbr.shape
     kk, V = values.shape
     lanes = list(range(kk)) if lanes is None else lane_list(lanes, kk)
+    check_prepared(prepared, lanes, gather, mask_inactive)
     k = len(lanes)
     want = {"nbr": (nbr, torch.int32, (R, W)),
             "wgt": (wgt, torch.float32, (R, W)),
@@ -262,11 +380,10 @@ def edge_block_reduce_lanes(
         return out, None if any_live is None else any_live.view(torch.bool)
     lib = _build.library("edge_block")
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    for lo, lane_map, kc, K in lane_chunks(lanes):
-        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
-                           device=values.device) if mask_inactive else None
-        msg = torch.empty((V * K,), dtype=values.dtype,
-                          device=values.device)
+    if prepared is None:
+        prepared = lanes_prepare(values, degrees, active, lanes,
+                                 gather=gather, mask_inactive=mask_inactive)
+    for lo, lane_map, kc, K, bits, msg in prepared.chunks:
         err = lib.edge_block_lanes_launch(
             values.device.index or 0, GATHER_OPS.index(gather),
             REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
@@ -275,7 +392,7 @@ def edge_block_reduce_lanes(
             lane_map, kc, kk, None if bits is None else bits.data_ptr(),
             msg.data_ptr(), V, out[lo].data_ptr(),
             None if any_live is None else any_live[lo].data_ptr(), R, W,
-            stream)
+            _MAIN_ONLY, stream)
         if err != 0:
             raise RuntimeError(f"edge_block lane kernel launch failed: "
                                f"cudaError_t {err}")
@@ -301,42 +418,72 @@ def _fold_check(gather, reduce, values, active):
                          f"{tuple(values.shape)} and {tuple(active.shape)}")
 
 
+def _fold_by_owner(rows: torch.Tensor, owner8: torch.Tensor, V: int,
+                   reduce: str, ident) -> torch.Tensor:
+    """Per-row values folded into their owners' ``(V,)`` entries (pad
+    rows, owner ``V``, dropped): an order-free scatter, the plain form of
+    the fold kernel's runs for any flat view."""
+    idx = owner8.long()
+    table = torch.full((V + 1,), ident, dtype=rows.dtype, device=rows.device)
+    if reduce == "add":
+        return table.index_add_(0, idx, rows)[:V]
+    return table.scatter_reduce_(0, idx, rows, "amin" if reduce == "min"
+                                 else "amax", include_self=True)[:V]
+
+
 def edge_block_fold_lanes_plain(plan, values, degrees, active, lanes, *,
                                 gather: str, reduce: str,
                                 mask_inactive: bool = True,
-                                need_got: bool = True, red=None):
+                                need_got: bool = True, red=None, got=None,
+                                accumulate: bool = False,
+                                prepared: Prepared | None = None):
     """Plain version of the fused lane sweep: for each listed lane, the
     single-lane plain sweep over the flat view, then
     :func:`~repro_torch.kernels.pull_bitmap.subrow_combine` of its
     reductions and of its any-live flags, into that lane's row; a float
     min/max's tied zeros settled as the kernel's combines settle them
-    (``ref.settle_zero_ties``)."""
+    (``ref.settle_zero_ties``).  In accumulate mode (any flat view: only
+    ``flat_dst``, ``flat_wgt`` and ``owner8`` are read) each lane's rows
+    fold into their owners by an order-free scatter and combine into the
+    running ``red`` (``ref.combine_settled``), ``got`` OR-ed.
+    ``prepared`` is only checked."""
     _fold_check(gather, reduce, values, active)
     kk, V = values.shape
     lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, gather, mask_inactive)
     ident = _identity(reduce, values.dtype)
     if red is None:
         red = torch.full((kk, V), ident, dtype=values.dtype,
                          device=values.device)
-    got = torch.zeros((kk, V), dtype=torch.bool, device=values.device) \
-        if need_got else None
+    if not need_got:
+        got = None
+    elif got is None:
+        got = torch.zeros((kk, V), dtype=torch.bool, device=values.device)
 
-    def fold(sub_flags):
-        return subrow_combine(sub_flags.to(torch.int8), plan, 0, "max",
-                              torch.int8) != 0
+    def fold(rows, op, fill):
+        if accumulate:
+            return _fold_by_owner(rows, plan.owner8, V, op, fill)
+        return subrow_combine(rows, plan, fill, op, rows.dtype)
 
     for i in lanes:
         msg, live = edge_block_messages(
             plan.flat_dst, plan.flat_wgt, values[i], degrees, active[i],
             gather=gather, reduce=reduce, mask_inactive=mask_inactive)
-        red_i = subrow_combine(row_reduce(reduce, msg, 1), plan, ident,
-                               reduce, values.dtype)
+        red_i = fold(row_reduce(reduce, msg, 1), reduce, ident)
         if values.dtype.is_floating_point:      # min or max
-            red_i = settle_zero_ties(
-                red_i, fold(zero_wins(msg, reduce).any(1)), reduce)
-        red[i] = red_i
-        if need_got:
-            got[i] = fold(live.any(1))
+            red_i = settle_zero_ties(red_i, fold(
+                zero_wins(msg, reduce).any(1).to(torch.int8), "max", 0) != 0,
+                reduce)
+        got_i = fold(live.any(1).to(torch.int8), "max", 0) != 0 \
+            if need_got else None
+        if accumulate:
+            red[i] = combine_settled(red[i], red_i, reduce)
+            if need_got:
+                got[i] |= got_i
+        else:
+            red[i] = red_i
+            if need_got:
+                got[i] = got_i
     return red, got
 
 
@@ -352,6 +499,9 @@ def edge_block_fold_lanes(
     mask_inactive: bool = True,
     need_got: bool = True,
     red: torch.Tensor | None = None,
+    got: torch.Tensor | None = None,
+    accumulate: bool = False,
+    prepared: Prepared | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The lane sweep with the sub-row fold fused in (min, max, int add).
 
@@ -368,13 +518,25 @@ def edge_block_fold_lanes(
     a batched superstep.  A lane map longer than
     :data:`~repro_torch.kernels.lanes.MAX_LANES` runs
     as several launches.
+
+    ``accumulate=True`` (the streamed engine's pull partitions; ``plan``
+    may then be any flat view with ``flat_dst``, ``flat_wgt`` and
+    ``owner8``): ``red`` (required) and ``got`` (a ``(k', V)`` bool table,
+    required with ``need_got``) hold running partials, which the call
+    combines the listed lanes' reductions into and ORs the flags into.
+    ``got`` may be given without it too, holding 0 in the listed rows.
+    ``prepared`` (:func:`lanes_prepare`'s tables of this very state and
+    lanes) spares the call its own pre-pass.
     """
     _fold_check(gather, reduce, values, active)
+    if accumulate and (red is None or (need_got and got is None)):
+        raise ValueError("accumulate mode needs the running red table "
+                         "(and got, with need_got)")
     if values.device.type == "cpu":
         return edge_block_fold_lanes_plain(
             plan, values, degrees, active, lanes, gather=gather,
             reduce=reduce, mask_inactive=mask_inactive, need_got=need_got,
-            red=red)
+            red=red, got=got, accumulate=accumulate, prepared=prepared)
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_fold_lanes runs on CPU or CUDA "
                          f"tensors, got {values.device}")
@@ -383,6 +545,7 @@ def edge_block_fold_lanes(
                         f"got {values.dtype}")
     kk, V = values.shape
     lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, gather, mask_inactive)
     nbr, wgt, owner8 = plan.flat_dst, plan.flat_wgt, plan.owner8
     R, W = nbr.shape
     want = {"flat_dst": (nbr, torch.int32, (R, W)),
@@ -393,6 +556,8 @@ def edge_block_fold_lanes(
             "active": (active, torch.bool, (kk, V))}
     if red is not None:
         want["red"] = (red, values.dtype, (kk, V))
+    if need_got and got is not None:
+        want["got"] = (got, torch.bool, (kk, V))
     for name, (t, dtype, shape) in want.items():
         if t.device != values.device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -403,17 +568,18 @@ def edge_block_fold_lanes(
     if red is None:
         red = torch.full((kk, V), _identity(reduce, values.dtype),
                          dtype=values.dtype, device=values.device)
-    got = torch.zeros((kk, V), dtype=torch.uint8, device=values.device) \
-        if need_got else None
+    if not need_got:
+        got = None
+    elif got is None:
+        got = torch.zeros((kk, V), dtype=torch.bool, device=values.device)
     if not lanes or V == 0:
-        return red, None if got is None else got.view(torch.bool)
+        return red, got
     lib = _build.library("edge_block")
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    for _, lane_map, k, K in lane_chunks(lanes):
-        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
-                           device=values.device) if mask_inactive else None
-        msg = torch.empty((V * K,), dtype=values.dtype,
-                          device=values.device)
+    if prepared is None:
+        prepared = lanes_prepare(values, degrees, active, lanes,
+                                 gather=gather, mask_inactive=mask_inactive)
+    for _, lane_map, k, K, bits, msg in prepared.chunks:
         err = lib.edge_block_fold_launch(
             values.device.index or 0, GATHER_OPS.index(gather),
             REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
@@ -422,13 +588,17 @@ def edge_block_fold_lanes(
             active.data_ptr(), lane_map, k, kk,
             None if bits is None else bits.data_ptr(), msg.data_ptr(), V,
             red.data_ptr(), None if got is None else got.data_ptr(), R, W,
-            stream)
+            int(accumulate), _MAIN_ONLY, stream)
         if err != 0:
             raise RuntimeError(f"edge_block fold kernel launch failed: "
                                f"cudaError_t {err}")
         edge_block_fold_lanes.launches += 1
-    return red, None if got is None else got.view(torch.bool)
+        if accumulate:
+            edge_block_fold_lanes.accumulate_launches += 1
+    return red, got
 
 
-# launches of the fused lane sweep since the count was last set to 0
+# launches of the fused lane sweep since the counts were last set to 0, all
+# of them and those in accumulate mode
 edge_block_fold_lanes.launches = 0
+edge_block_fold_lanes.accumulate_launches = 0

@@ -30,7 +30,11 @@ needs no compaction: the combine is exact in any order, so one thread
 takes each forward-ELL row, reads its source's lane bits (packed by a
 pre-pass) and stops when no lane is live there.  The lanes are rows of
 the state named by a lane map passed by value; each lane's table row
-equals its compacted push's bit for bit.
+equals its compacted push's bit for bit.  The streamed engine
+(``core/stream.py``) runs it over each push partition's forward ELL into
+one running ``(k', V)`` table (its atomics combine into the earlier
+partitions' partials) with ``got=`` (where a live message landed), after
+one pre-pass a superstep (:func:`push_lanes_prepare`, ``prepared=``).
 
 Work is O(R + capacity·width) per superstep; the translator picks the
 capacity tier from the live row count ``r_f`` (or the dense fallback).
@@ -43,11 +47,13 @@ from typing import Callable
 import torch
 
 from . import _build
-from .lanes import lane_chunks, lane_list
-from .ref import (_SCATTER_REDUCE, GATHER_OPS, PAD, REDUCE_OPS, gather_msg,
-                  settle_zero_ties, zero_wins)
+from .lanes import Prepared, check_prepared, lane_chunks, lane_list
+from .ref import (_SCATTER_REDUCE, GATHER_OPS, PAD, REDUCE_OPS,
+                  combine_settled, gather_msg, settle_zero_ties, zero_wins)
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
+# the C entry's stage argument (csrc/lanes.cuh, Stage)
+_PACK_ONLY, _MAIN_ONLY = 0, 1
 
 
 def compact_rows(live: torch.Tensor, num_rows: int, capacity: int
@@ -324,12 +330,17 @@ def compacted_push_reduce(row_src, ell_dst, ell_wgt, live, values, degrees,
 
 def push_ell_lanes_reduce_plain(row_src, ell_dst, ell_wgt, values, degrees,
                                 active, lanes, *, num_rows: int, gather: str,
-                                reduce: str, identity, table=None):
+                                reduce: str, identity, table=None, got=None,
+                                prepared: Prepared | None = None):
     """Plain version of the lane push: for each listed lane, its compacted
     push (:func:`compact_rows` over the lane's live rows, then
-    :func:`push_ell_fused_reduce_plain`) into that lane's row."""
+    :func:`push_ell_fused_reduce_plain`) combined into that lane's row
+    (``ref.combine_settled``, as the atomics combine), and with ``got``,
+    the touched destinations OR-ed into that lane's row.  ``prepared`` is
+    only checked."""
     kk, V = values.shape
     lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, "copy", True)
     if table is None:
         table = torch.full((kk, V), identity, dtype=values.dtype,
                            device=values.device)
@@ -339,11 +350,50 @@ def push_ell_lanes_reduce_plain(row_src, ell_dst, ell_wgt, values, degrees,
         if num_rows == 0:
             live = torch.zeros_like(live)
         sel, ok = compact_rows(live, num_rows, live.shape[0])
-        table[i] = push_ell_fused_reduce_plain(
+        red, touched = push_ell_fused_reduce_plain(
             sel, ok, row_src, ell_dst, ell_wgt, values[i], degrees,
             reduce=reduce, identity=identity, num_vertices=V,
-            dtype=values.dtype, gather=gather)[0]
+            dtype=values.dtype, gather=gather, emit_touched=got is not None)
+        table[i] = combine_settled(table[i], red, reduce)
+        if got is not None:
+            got[i] |= touched
     return table
+
+
+def push_lanes_prepare(active, lanes) -> Prepared:
+    """The lane push's pre-pass alone (``lanes_pack_kernel`` without
+    messages) for the rows ``lanes`` of a ``(k', V)`` frontier: per launch
+    of at most 32 lanes, the K-bit frontier words, for the ``prepared=``
+    launches of :func:`push_ell_lanes_reduce` over any number of forward
+    ELLs of this very state.  CPU tensors get no tables (the plain
+    version needs none); CUDA tensors launch the pre-pass
+    (``push_lanes_prepare.launches``, one a launch)."""
+    kk, V = active.shape
+    lanes = lane_list(lanes, kk)
+    if active.device.type == "cpu":
+        return Prepared(tuple(lanes), "copy", True, ())
+    chunks = []
+    for lo, lane_map, k, K in lane_chunks(lanes):
+        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
+                           device=active.device)
+        lib = _build.library("push_ell")
+        err = lib.push_ell_lanes_launch(
+            active.device.index or 0, GATHER_OPS.index("copy"),
+            REDUCE_OPS.index("min"), 0, K, None, None, None, None, None,
+            active.data_ptr(), lane_map, k, kk, bits.data_ptr(), None, None,
+            0, 8, V, _PACK_ONLY,
+            torch.cuda.current_stream(active.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"push_ell lane pre-pass launch failed: "
+                               f"cudaError_t {err}")
+        push_lanes_prepare.launches += 1
+        chunks.append((lo, lane_map, k, K, bits, None))
+    return Prepared(tuple(lanes), "copy", True, tuple(chunks))
+
+
+# launches of the lane push's pre-pass alone since the count was last set
+# to 0
+push_lanes_prepare.launches = 0
 
 
 def push_ell_lanes_reduce(
@@ -360,6 +410,8 @@ def push_ell_lanes_reduce(
     reduce: str,
     identity,
     table: torch.Tensor | None = None,
+    got: torch.Tensor | None = None,
+    prepared: Prepared | None = None,
 ) -> torch.Tensor:
     """The push superstep's reduce over the listed lanes: ``(k', V)``.
 
@@ -369,8 +421,14 @@ def push_ell_lanes_reduce(
     where none; bit for bit :func:`push_ell_reduce` on that lane alone.
     ``table``, when given, is a ``(k', V)`` table holding ``identity`` in
     the listed rows, which the call fills (other rows stay as they were);
-    else a fresh one holds ``identity`` in every row not listed.  Min, max
-    and integer add only (the reduces a push may run).
+    else a fresh one holds ``identity`` in every row not listed.  The
+    combine is exact in any order, so ``table`` may hold running partials
+    (the streamed engine's earlier partitions), which the messages combine
+    into.  ``got``, a ``(k', V)`` bool table, takes True where a listed
+    lane's live message landed (OR-ed in).  ``prepared``
+    (:func:`push_lanes_prepare`'s words of this very frontier and lanes)
+    spares the call its own pre-pass.  Min, max and integer add only (the
+    reduces a push may run).
     """
     if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
         raise ValueError(f"not a menu module: gather={gather!r}, "
@@ -389,7 +447,7 @@ def push_ell_lanes_reduce(
         return push_ell_lanes_reduce_plain(
             row_src, ell_dst, ell_wgt, values, degrees, active, lanes,
             num_rows=num_rows, gather=gather, reduce=reduce,
-            identity=identity, table=table)
+            identity=identity, table=table, got=got, prepared=prepared)
     if values.device.type != "cuda":
         raise ValueError(f"push_ell_lanes_reduce runs on CPU or CUDA "
                          f"tensors, got {values.device}")
@@ -398,6 +456,7 @@ def push_ell_lanes_reduce(
                         f"got {values.dtype}")
     kk, V = values.shape
     lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, "copy", True)
     R, W = ell_dst.shape
     if not 0 <= num_rows <= R:
         raise ValueError(f"num_rows {num_rows} outside [0, {R}]")
@@ -409,6 +468,8 @@ def push_ell_lanes_reduce(
             "active": (active, torch.bool, (kk, V))}
     if table is not None:
         want["table"] = (table, values.dtype, (kk, V))
+    if got is not None:
+        want["got"] = (got, torch.bool, (kk, V))
     for name, (t, dtype, shape) in want.items():
         if t.device != values.device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -423,16 +484,17 @@ def push_ell_lanes_reduce(
         return table
     lib = _build.library("push_ell")
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    for _, lane_map, k, K in lane_chunks(lanes):
-        bits = torch.empty((-(-V * K // 32),), dtype=torch.int32,
-                           device=values.device)
+    if prepared is None:
+        prepared = push_lanes_prepare(active, lanes)
+    for _, lane_map, k, K, bits, _ in prepared.chunks:
         err = lib.push_ell_lanes_launch(
             values.device.index or 0, GATHER_OPS.index(gather),
             REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype], K,
             row_src.data_ptr(), ell_dst.data_ptr(), ell_wgt.data_ptr(),
             values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
-            lane_map, k, kk, bits.data_ptr(), table.data_ptr(), num_rows, W,
-            V, stream)
+            lane_map, k, kk, bits.data_ptr(), table.data_ptr(),
+            None if got is None else got.data_ptr(), num_rows, W, V,
+            _MAIN_ONLY, stream)
         if err != 0:
             raise RuntimeError(f"push_ell lane kernel launch failed: "
                                f"cudaError_t {err}")

@@ -120,6 +120,18 @@ def settle_zero_ties(red: torch.Tensor, wins: torch.Tensor,
     return torch.where(red == 0, torch.where(wins, win, -win), red)
 
 
+def combine_settled(a: torch.Tensor, b: torch.Tensor,
+                    reduce: str) -> torch.Tensor:
+    """The kernels' elementwise combine of two tables (``gather_ops.cuh``'s
+    ``combine``): add (int32 wraps), or min/max propagating NaN with a
+    +0/-0 tie settled as :func:`settle_zero_ties` says."""
+    if reduce == "add":
+        return a + b
+    out = torch.minimum(a, b) if reduce == "min" else torch.maximum(a, b)
+    return settle_zero_ties(out, zero_wins(a, reduce) | zero_wins(b, reduce),
+                            reduce)
+
+
 def push_scatter_reduce_ref(
     src: torch.Tensor,        # (E,) int32 source vertex ids (forward COO)
     dst: torch.Tensor,        # (E,) int32 destination vertex ids

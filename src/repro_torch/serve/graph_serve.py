@@ -36,7 +36,13 @@ the same batch plane.
 
 Compiled programs are cached per program object (memoized DSL templates
 return the *same* ``VertexProgram`` per parameter tuple), so a server
-translates one logical query shape once.
+translates one logical query shape once.  Over a partitioned schedule
+(``ScheduleConfig(partitions=P)`` or a byte budget) ``translate`` returns
+the streamed engine's :class:`~repro_torch.core.stream.
+PartitionedGraphProgram`, and the groups serve through its lane API
+(:class:`~repro_torch.core.stream.PartitionedLaneState`), as the JAX
+package's server does: the partitions stream once a batched superstep
+for all lanes.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from ..core import faults
 from ..core import graph as G
 from ..core.comm import CommManager, resolve_device
 from ..core.scheduler import AdmissionPolicy, ScheduleConfig
+from ..core.stream import PartitionedGraphProgram
 from ..core.translator import CompiledGraphProgram, translate
 from ..errors import (CheckpointError, CheckpointMismatchError, InvalidQuery,
                       QueueFull)
@@ -239,12 +246,15 @@ class _BatchGroup:
     Mirrors :class:`repro_torch.serve.decode.BatchScheduler`'s slot pool:
     ``occupants[lane]`` is the query running in that lane (None = idle),
     ``waiting`` holds admitted-but-unslotted queries.  The lane state is
-    the translator's :class:`BatchLaneState`; admission writes one lane
+    the translator's :class:`BatchLaneState` (a streamed program's
+    :class:`~repro_torch.core.stream.PartitionedLaneState`, with the same
+    lane API and counters); admission writes one lane
     (`lane_admit`), slices advance every live lane, harvest frees lanes
     whose query converged.
     """
 
-    def __init__(self, compiled: CompiledGraphProgram, slots: int):
+    def __init__(self, compiled: CompiledGraphProgram
+                 | PartitionedGraphProgram, slots: int):
         self.compiled = compiled
         self.slots = slots
         self.state = compiled.batch_idle(slots)

@@ -179,11 +179,17 @@ def test_verify_ir_flags_broken_ir():
 
 
 def test_plan_refuses_unported_planes():
+    """Several PEs are refused, naming the ROADMAP; the partition axis,
+    refused until the streamed engine was ported, now resolves as the JAX
+    package's plan does."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.plan(TS.ScheduleConfig(pes=2), num_vertices=10, num_edges=40)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.plan(TS.ScheduleConfig(partitions=2), num_vertices=10,
-                num_edges=40)
+    sp = TS.plan(TS.ScheduleConfig(partitions=2), num_vertices=10,
+                 num_edges=40)
+    rsp = RS.plan(RS.ScheduleConfig(partitions=2), num_vertices=10,
+                  num_edges=40)
+    assert sp.num_partitions == rsp.num_partitions == 2
+    assert sp.describe() == rsp.describe()
     assert TS.push_capacity_tiers(5000) == RS.push_capacity_tiers(5000)
     assert TS.pull_block_capacities(777) == RS.pull_block_capacities(777)
 

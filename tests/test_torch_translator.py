@@ -193,16 +193,40 @@ def test_default_device_is_cuda_and_never_falls_back(graphs, monkeypatch):
 
 
 def test_unported_paths_raise_with_roadmap_item(graphs, tmp_path):
-    """Several PEs and streamed partitions are still refused, naming their
-    ROADMAP items; batched runs and checkpointed runs, refused until the
-    lane API was ported, now give the JAX package's answers."""
+    """Several PEs are still refused, naming their ROADMAP item.  Streamed
+    partitions (a plan over 3 partitions, or a partition container as the
+    source), refused until the streamed engine was ported, now give the
+    JAX package's streamed answers and counters, and a source that is
+    neither fails in both packages alike; batched runs and checkpointed
+    runs, refused until the lane API was ported, give the JAX package's
+    answers."""
+    from repro.data import graphs as RDATA
+    from repro_torch.core.stream import PartitionedGraphProgram
+    from repro_torch.data import graphs as TDATA
     rg, tg = graphs
-    for kw, item in ((dict(pes=2), "item 5"), (dict(partitions=3),
-                                               "item 4")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-            TT.translate(TD.bfs_program(), tg, TS.ScheduleConfig(**kw),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
+        TT.translate(TD.bfs_program(), tg, TS.ScheduleConfig(pes=2),
+                     device="cpu")
+    path = TDATA.container_from_graph(str(tmp_path / "c.npz"), tg, 3)
+    for rsrc, tsrc, kw in (
+            (rg, tg, dict(partitions=3)),
+            (RDATA.load_partition_container(path),
+             TDATA.load_partition_container(path), {})):
+        rprog = RT.translate(RD.bfs_program(), rsrc, RS.ScheduleConfig(**kw))
+        prog = TT.translate(TD.bfs_program(), tsrc, TS.ScheduleConfig(**kw),
+                            device="cpu")
+        assert isinstance(prog, PartitionedGraphProgram)
+        assert prog.report.num_partitions == rprog.report.num_partitions == 3
+        rv, ri = rprog.run(roots=0)
+        tv, ti = prog.run(roots=0)
+        _same(rv, tv)
+        assert int(ri) == ti
+        for key in ("partitions_swept", "partitions_skipped",
+                    "partition_bytes_h2d", *STATS):
+            assert rprog.last_run_stats[key] == prog.last_run_stats[key], key
+    with pytest.raises(AttributeError):
+        RT.translate(RD.bfs_program(), object())
+    with pytest.raises(AttributeError):
         TT.translate(TD.bfs_program(), object(), device="cpu")
     rprog = RT.translate(RD.bfs_program(), rg)
     prog = TT.translate(TD.bfs_program(), tg, device="cpu",
