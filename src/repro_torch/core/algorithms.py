@@ -3,8 +3,10 @@
 Counterpart of ``repro.core.algorithms``.  Every algorithm is built from
 the DSL and goes through translate → run, the paper's Algorithm 1 flow.
 ``device=None`` runs on the CUDA device and raises when there is none;
-the tests pass ``device="cpu"``.  Results come back as tensors on the
-run's device.
+the tests pass ``device="cpu"``.  ``pes`` runs on a PE group:
+``devices`` lists its devices (a device may repeat; by default every
+visible card, or the one CPU, and fewer devices than ``pes`` degrade to
+fewer PEs).  Results come back as tensors on the run's device.
 """
 from __future__ import annotations
 
@@ -32,13 +34,14 @@ def _schedule(pipelines: int, pes: int, backend: str,
 def bfs(g: Graph, root: int = 0, *, pipelines: int = 8, pes: int = 1,
         backend: str = "auto", direction: str | DirectionPolicy = "auto",
         comm: CommManager | None = None, device=None,
-        pull_sweep: str = "auto"):
+        devices=None, pull_sweep: str = "auto"):
     """Paper Algorithm 1. Returns ``(levels (V,), iterations, report)``;
     the levels are the same under every direction and ``pull_sweep``
     (``'auto'``, ``'bitmap'`` or ``'dense'``)."""
     prog = translate(dsl.bfs_program(INT_MAX), g,
                      _schedule(pipelines, pes, backend, direction,
-                               pull_sweep), comm, device=device)
+                               pull_sweep), comm, device=device,
+                     devices=devices)
     levels, iters = prog.run(roots=root)
     return levels, iters, prog.report
 
@@ -46,19 +49,21 @@ def bfs(g: Graph, root: int = 0, *, pipelines: int = 8, pes: int = 1,
 def sssp(g: Graph, root: int = 0, *, pipelines: int = 8, pes: int = 1,
          backend: str = "auto", direction: str | DirectionPolicy = "auto",
          comm: CommManager | None = None, device=None,
-         pull_sweep: str = "auto"):
+         devices=None, pull_sweep: str = "auto"):
     prog = translate(dsl.sssp_program(), g,
                      _schedule(pipelines, pes, backend, direction,
-                               pull_sweep), comm, device=device)
+                               pull_sweep), comm, device=device,
+                     devices=devices)
     dist, iters = prog.run(roots=root)
     return dist, iters, prog.report
 
 
 def pagerank(g: Graph, *, iters: int = 20, damping: float = 0.85,
              pipelines: int = 8, pes: int = 1, backend: str = "auto",
-             comm: CommManager | None = None, device=None):
+             comm: CommManager | None = None, device=None, devices=None):
     prog = translate(dsl.pagerank_program(damping, iters), g,
-                     _schedule(pipelines, pes, backend), comm, device=device)
+                     _schedule(pipelines, pes, backend), comm, device=device,
+                     devices=devices)
     ranks, n = prog.run()
     return ranks, n, prog.report
 
@@ -66,7 +71,7 @@ def pagerank(g: Graph, *, iters: int = 20, damping: float = 0.85,
 def wcc(g: Graph, *, pipelines: int = 8, pes: int = 1,
         backend: str = "auto", direction: str | DirectionPolicy = "auto",
         comm: CommManager | None = None, device=None,
-        pull_sweep: str = "auto"):
+        devices=None, pull_sweep: str = "auto"):
     """Weakly connected components: label propagation on G ∪ Gᵀ."""
     src, dst, _ = to_coo(g)
     und = from_edge_list(np.concatenate([src, dst]),
@@ -74,17 +79,19 @@ def wcc(g: Graph, *, pipelines: int = 8, pes: int = 1,
                          num_vertices=g.num_vertices)
     prog = translate(dsl.wcc_program(), und,
                      _schedule(pipelines, pes, backend, direction,
-                               pull_sweep), comm, device=device)
+                               pull_sweep), comm, device=device,
+                     devices=devices)
     labels, iters = prog.run()
     return labels, iters, prog.report
 
 
 def spmv(g: Graph, x, *, pipelines: int = 8, pes: int = 1,
          backend: str = "auto", comm: CommManager | None = None,
-         device=None):
+         device=None, devices=None):
     """y[v] = Σ_{(u→v)} w(u,v)·x[u] — one GAS superstep."""
     prog = translate(dsl.spmv_program(), g,
-                     _schedule(pipelines, pes, backend), comm, device=device)
+                     _schedule(pipelines, pes, backend), comm, device=device,
+                     devices=devices)
     values, active = prog.init_state(values=x)
     y, _ = prog.superstep(values, active)
     return y, prog.report

@@ -8,8 +8,8 @@ Arming is deterministic: a point fires for an exact number of trips
 probabilistically under a *seeded* PRNG (``rate``/``seed``) so a chaos
 run replays bit-identically.
 
-Registered points (all six are registered; this package trips five of
-them, ``comm.collective`` belongs to the multi-PE plane, not ported yet):
+Registered points (all six, each tripped by this package as by the JAX
+package):
 
 ========================  ====================================================
 point                     trips in
@@ -21,7 +21,9 @@ point                     trips in
 ``lane.superstep``        ``core/translator.py`` ``run_batch_slice`` — before
                           a budget slice executes; ``core/stream.py`` —
                           before each streamed superstep
-``comm.collective``       the multi-PE exchange (not ported yet)
+``comm.collective``       ``core/comm.py`` ``TransferStats.record_collective``
+                          — when a multi-PE run (``run``, ``run_batch``, a
+                          checkpointed run) records its executed exchanges
 ``checkpoint.write``      ``core/checkpoint.py`` — before a snapshot's
                           temp files are renamed into place (models a crash
                           mid-write; the atomic rename means a half-written

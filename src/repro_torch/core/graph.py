@@ -484,6 +484,101 @@ def forward_ell(g: Graph, *, width: int = 8) -> ForwardELL:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardedForwardELL:
+    """Per-PE partition of a :class:`ForwardELL` into contiguous row
+    intervals, the multi-PE push engine's layout (the JAX package's, array
+    for array).
+
+    The rows split into ``pes`` intervals cut at vertex boundaries (a
+    vertex's rows never straddle two PEs) and balanced by edge count.
+    Row ids are PE-local, destination ids global, so the per-PE partial
+    tables come from disjoint edge sets and the reduce-matched collective
+    combines them exactly.  Every interval is padded to the longest
+    (``rows_per_pe_max``) with ``row_valid`` masking the padding, as the
+    JAX package's ``shard_map`` needs one shape; the port launches PE ``p``
+    on its first ``rows_per_pe[p]`` rows only (:meth:`interval`), so a
+    padding row (``row_src`` 0) is never read.  ``vertex_cuts`` (this
+    package's own) gives PE ``p`` the rows of vertices
+    ``[vertex_cuts[p], vertex_cuts[p+1])``, which is how the run loop
+    counts each PE's live rows from the per-vertex row counts.
+    """
+
+    row_src: torch.Tensor           # (pes, Rp) int32 owner vertex (global)
+    dst: torch.Tensor               # (pes, Rp, width) int32, PAD-padded
+    weights: torch.Tensor           # (pes, Rp, width) edge weights
+    row_valid: torch.Tensor         # (pes, Rp) bool: real row vs padding
+    rows_per_pe: tuple              # real rows per PE
+    edges_per_pe: tuple             # edges per PE (balance stats)
+    rows_per_pe_max: int            # Rp
+    pes: int
+    width: int
+    num_vertices: int
+    num_edges: int
+    vertex_cuts: tuple              # (pes + 1,) vertex bounds of the PEs
+
+    def interval(self, p: int) -> tuple:
+        """PE ``p``'s real rows ``(row_src (n,), dst (n, W), weights (n,
+        W))``, views of the padded arrays."""
+        n = self.rows_per_pe[p]
+        return self.row_src[p, :n], self.dst[p, :n], self.weights[p, :n]
+
+
+def shard_forward_ell(fe: ForwardELL, pes: int) -> ShardedForwardELL:
+    """Split a forward ELL into ``pes`` degree-balanced row intervals.
+
+    Host numpy, as the JAX package builds it: cut points at equal
+    fractions of E on the cumulative edge count, snapped to vertex
+    boundaries; an interval may be empty on extreme skew (that PE
+    contributes the identity table).
+    """
+    if pes < 1:
+        raise ValueError(f"pes must be >= 1, got {pes}")
+    V = fe.num_vertices
+    rows_per_v = _np(fe.rows_per_vertex).astype(np.int64)
+    row_off = np.zeros(V + 1, np.int64)
+    np.cumsum(rows_per_v, out=row_off[1:])
+    fe_src, fe_dst, fe_wgt = _np(fe.row_src), _np(fe.dst), _np(fe.weights)
+    # valid (non-PAD) slots a row = that row's edge count
+    row_edges = (fe_dst != PAD).sum(axis=1).astype(np.int64)
+    if fe.num_rows == 0:
+        row_edges = np.zeros(1, np.int64)
+    vertex_edges = np.bincount(fe_src[:fe.num_rows],
+                               weights=row_edges[:fe.num_rows],
+                               minlength=V).astype(np.int64)
+    cum_edges_v = np.zeros(V + 1, np.int64)
+    np.cumsum(vertex_edges, out=cum_edges_v[1:])
+    targets = fe.num_edges * np.arange(1, pes, dtype=np.float64) / pes
+    cut_vertices = np.searchsorted(cum_edges_v[1:], targets, side="left") + 1
+    vcuts = np.maximum.accumulate(np.concatenate(
+        [[0], np.clip(cut_vertices, 0, V), [V]]).astype(np.int64))
+    cuts = np.concatenate([[0], row_off[np.clip(cut_vertices, 0, V)],
+                           [max(fe.num_rows, 0)]]).astype(np.int64)
+    cuts = np.maximum.accumulate(cuts)
+    starts, ends = cuts[:-1], cuts[1:]
+    rows_per_pe = tuple(int(e - s) for s, e in zip(starts, ends))
+    rp = max(max(rows_per_pe), 1)
+    row_src = np.zeros((pes, rp), np.int32)
+    dst = np.full((pes, rp, fe.width), PAD, np.int32)
+    wgt = np.zeros((pes, rp, fe.width), fe_wgt.dtype)
+    valid = np.zeros((pes, rp), bool)
+    edges_per_pe = []
+    for p, (s, e) in enumerate(zip(starts, ends)):
+        n = int(e - s)
+        if n:
+            row_src[p, :n] = fe_src[s:e]
+            dst[p, :n] = fe_dst[s:e]
+            wgt[p, :n] = fe_wgt[s:e]
+            valid[p, :n] = True
+        edges_per_pe.append(int(row_edges[s:e].sum()))
+    return ShardedForwardELL(
+        row_src=torch.from_numpy(row_src), dst=torch.from_numpy(dst),
+        weights=torch.from_numpy(wgt), row_valid=torch.from_numpy(valid),
+        rows_per_pe=rows_per_pe, edges_per_pe=tuple(edges_per_pe),
+        rows_per_pe_max=rp, pes=pes, width=fe.width, num_vertices=V,
+        num_edges=fe.num_edges, vertex_cuts=tuple(int(c) for c in vcuts))
+
+
+@dataclasses.dataclass(frozen=True)
 class PullBitmapPlan:
     """Static layout + combine metadata of the flat width-8 pull view.
 

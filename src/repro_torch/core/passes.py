@@ -11,8 +11,9 @@ order (:func:`default_pipeline`).  What differs:
   ``'dense_torch'`` as the JAX package's XLA path does, on
   ``'dense_cuda'`` by the H100 walls in :data:`CUDA_AUTO_SWEEP_NOTE`
   (the JAX package picks the bitmap plane under Pallas unmeasured);
-* plans are single-PE (``scheduler.plan`` refuses more), so the exchange
-  op is always elided and the multi-PE legality rules are not here.
+* the resolved PE count (``SchedulePlan.pes``, a device list's length)
+  decides the multi-PE legality rules and the exchange op, as the JAX
+  package's mesh size does.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from ..errors import IRVerificationError
 from .analysis import (analyze_program, apply_is_elementwise,
                        apply_preserves_identity, classify_gather,
                        gather_absorbs_identity, verify_ir)
+from .comm import REDUCE_COLLECTIVE
 from .diagnostics import Diagnostic
 from .dsl import reduce_identity
 from .ir import (ApplyOp, ExchangeOp, FrontierUpdateOp, FusedGatherReduceOp,
@@ -265,6 +267,20 @@ class ProgramAnalysisPass(Pass):
                 "harmless",
                 "set mask_inactive=True, or frontier='all' if every "
                 "vertex should stay live"))
+        # keyed on the requested pes, not the plan's device-clamped one:
+        # the rule flags the deployment intent, which a host with fewer
+        # devices would otherwise mask by degrading to one PE
+        if program.reduce == "add" and ir.value_dtype.is_floating_point \
+                and getattr(ctx.schedule, "pes", 1) > 1 \
+                and getattr(ctx.schedule, "message_dtype", None) is not None:
+            ctx.diagnose(Diagnostic(
+                "A006", "warning", "Exchange",
+                f"float 'add' reduce over a quantized "
+                f"(message_dtype={ctx.schedule.message_dtype!r}) multi-PE "
+                f"(pes={ctx.schedule.pes}) exchange: wire rounding "
+                "compounds per superstep and per PE on hub-heavy graphs",
+                "drop message_dtype (full-precision exchange) or use a "
+                "min/max reduce"))
         summary = facts.summary()
         rendered = " ".join(f"{k}={v!r}" for k, (v, _) in summary.items())
         probed = [k for k, (_, prov) in summary.items() if prov != "static"]
@@ -313,6 +329,16 @@ class DirectionLegalityPass(Pass):
     * ``frontier='changed'`` — a sparse frontier exists to push from
       (``'all'`` re-activates every vertex, push degenerates to pull).
 
+    Under a multi-PE plan (``pes > 1``) push is additionally legal only on
+    the compacted forward-ELL data path: the dense backend (after the
+    unmatched-gather downgrade, which this pass anticipates) *and* an
+    identity-fixpoint apply (``apply(x, identity) == x``, probed).  The
+    sharded engine partitions the forward ELL into disjoint per-PE row
+    intervals and combines the per-PE partial tables with the
+    reduce-matched collective; the chunk-streamed ``coo_chunks`` push
+    stays single-PE, so non-fixpoint applies pin to pull on multi-PE
+    plans, with the reason noted in the IR.
+
     A legal program gets ``Gather.direction='both'``; a pinned program
     keeps ``'pull'`` and the reason lands in the IR notes (and thus the
     pass dump — ``translate(..., dump_passes=True)``).  Which push *data
@@ -330,6 +356,7 @@ class DirectionLegalityPass(Pass):
         if gop is None or rop is None or gop.direction != "pull":
             return ir
         program = ir.program
+        pes = ctx.plan.pes
         reasons = []
         if rop.op not in COMMUTATIVE_REDUCES:
             reasons.append(f"reduce '{rop.op}' is not commutative-with-identity")
@@ -345,10 +372,33 @@ class DirectionLegalityPass(Pass):
         if program.frontier != "changed":
             reasons.append(f"frontier='{program.frontier}' keeps every "
                            "vertex active (no sparse frontier to push from)")
+        if pes > 1 and not reasons:
+            # multi-PE push runs only on the sharded forward-ELL engine;
+            # anticipate the backend-selection downgrade (an unmatched
+            # gather forces sparse) so the note names the real reason
+            dense = ctx.plan.backend == "dense" and gop.module is not None
+            kept_dense = ctx.plan.backend == "dense" \
+                and _general_table_dense(ir, ctx, gop.module)
+            if not dense and not kept_dense:
+                reasons.append(
+                    f"multi-PE push (pes={pes}) needs the dense forward-ELL "
+                    "engine; the sparse plan shards the pull plane instead")
+            elif kept_dense:
+                reasons.append(
+                    f"multi-PE push (pes={pes}) needs a menu-matched gather "
+                    "(the unmatched table sweep runs replicated)")
+            elif not _facts(ir).identity_fixpoint.value:
+                reasons.append(
+                    f"multi-PE push (pes={pes}) needs an identity-fixpoint "
+                    "apply (the touched-mask coo_chunks layout is single-PE)")
         if reasons:
             return ir.with_note("direction: pinned to pull ("
                                 + "; ".join(reasons) + ")")
         ir = ir.replace_op(gop, dataclasses.replace(gop, direction="both"))
+        if pes > 1:
+            return ir.with_note(
+                f"direction: push legal across pes={pes} (disjoint "
+                "forward-ELL row intervals, reduce-matched collective)")
         return ir.with_note("direction: push legal (commutative reduce, "
                             "identity masking, sparse frontier)")
 
@@ -380,15 +430,20 @@ class BackendSelectionPass(Pass):
     ``dense`` becomes the CUDA (kernels on) or plain PyTorch ELL
     edge-block module, ``sparse`` the segment-scan module.  An unmatched
     gather downgrades dense → sparse (only the sparse module has a
-    general gather path).  Plans are single-PE, so the cross-PE
-    :class:`~repro_torch.core.ir.ExchangeOp` is always deleted.
+    general gather path).  The cross-PE
+    :class:`~repro_torch.core.ir.ExchangeOp` is resolved to its
+    reduce-matched collective whenever a plane will shard — the sparse
+    pull plane, or the dense plan's sharded forward-ELL *push* plane (the
+    direction-legality pass widened the gather to ``'both'``) — and
+    deleted otherwise (one PE, or a dense pull-only plan, whose masked
+    sweep runs replicated).
     """
 
     name = "backend-selection"
     kind = "transform"
 
     def run(self, ir: SuperstepIR, ctx: PassContext) -> SuperstepIR:
-        """Set ``ir.backend`` and delete the exchange op."""
+        """Set ``ir.backend`` and resolve or delete the exchange op."""
         backend = ctx.plan.backend
         gop = ir.find(GatherOp)
         fused = ir.find(FusedGatherReduceOp)
@@ -415,7 +470,22 @@ class BackendSelectionPass(Pass):
 
         xop = ir.find(ExchangeOp)
         if xop is not None:
-            ir = ir.replace_op(xop, None)  # single PE: dead exchange
+            # the resolved PE count, not config.pes: the plan may have
+            # degraded to fewer devices
+            pes = ctx.plan.pes
+            direction = gop.direction if gop is not None else "pull"
+            push_plane = backend == "dense" and direction == "both"
+            if pes <= 1 or (backend == "dense" and not push_plane):
+                ir = ir.replace_op(xop, None)  # dead exchange: elide
+            else:
+                coll = REDUCE_COLLECTIVE[xop.reduce]
+                ir = ir.replace_op(xop, dataclasses.replace(
+                    xop, pes=pes, collective=coll))
+                if push_plane:
+                    ir = ir.with_note(
+                        f"exchange: push plane (pes={pes}, {coll} over "
+                        "disjoint forward-ELL intervals); pull sweep "
+                        "stays replicated")
         return ir.with_note(f"schedule: {ctx.plan.describe()}")
 
 

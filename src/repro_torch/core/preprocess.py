@@ -71,6 +71,7 @@ class GraphLayouts:
     _reverse_coo: tuple | None = None
     _forward_coo_chunks: dict = dataclasses.field(default_factory=dict)
     _forward_ell: dict = dataclasses.field(default_factory=dict)
+    _forward_ell_shards: dict = dataclasses.field(default_factory=dict)
     _pull_plan: dict = dataclasses.field(default_factory=dict)
     _on_device: dict = dataclasses.field(default_factory=dict)
 
@@ -135,6 +136,29 @@ class GraphLayouts:
                 lambda: G.forward_ell(self.graph, width=width))
         return self._forward_ell[width]
 
+    def forward_ell_shards(self, width: int, pes: int
+                           ) -> G.ShardedForwardELL:
+        """Per-PE row-interval partition of the forward ELL (multi-PE
+        push), keyed per ``(width, pes)``, so an elastic re-plan onto
+        another PE count partitions once and then hits the cache."""
+        key = (width, pes)
+        if key not in self._forward_ell_shards:
+            fe = self.forward_ell(width)
+            self._forward_ell_shards[key] = self._timed(
+                f"forward_ell_shards_w{width}_p{pes}",
+                lambda: G.shard_forward_ell(fe, pes))
+        return self._forward_ell_shards[key]
+
+    def on_pe(self, shards: G.ShardedForwardELL, p: int, device) -> tuple:
+        """PE ``p``'s interval of ``shards`` (a product of this cache),
+        :meth:`~repro_torch.core.graph.ShardedForwardELL.interval`, on
+        ``device``: only that PE's rows are copied, once per device."""
+        key = ("pe", id(shards), p, str(device))
+        if key not in self._on_device:
+            self._on_device[key] = (shards, tuple(
+                t.to(device) for t in shards.interval(p)))
+        return self._on_device[key][1]
+
     def on(self, layout, device):
         """``layout`` (a product of this cache) with its tensors on
         ``device``, copied once per device."""
@@ -149,7 +173,9 @@ class GraphLayouts:
         upper bound, the right direction for a budget."""
         products = [self._reverse, self._reverse_bucketed, self._reverse_coo,
                     *self._forward_coo_chunks.values(),
-                    *self._forward_ell.values(), *self._pull_plan.values()]
+                    *self._forward_ell.values(),
+                    *self._forward_ell_shards.values(),
+                    *self._pull_plan.values()]
         return sum(_product_nbytes(p) for p in products if p is not None)
 
     def stats(self) -> dict:

@@ -1,16 +1,24 @@
-"""Runtime scheduler (paper §V-C2): schedule knobs and the direction policy.
+"""Runtime scheduler (paper §V-C2): ``pipelines × PEs`` and the
+direction policy.
 
-Counterpart of ``repro.core.scheduler`` for one device.  ``plan`` resolves
-the backend, the chunk geometry and the out-of-core partition axis (the
-streamed engine, :mod:`repro_torch.core.stream`); a plan over several
-processing elements raises ``NotImplementedError`` until that plane is
-ported (``ROADMAP.md`` §1 item 5).
-:class:`AdmissionPolicy` holds the serving plane's batching knobs.
+Counterpart of ``repro.core.scheduler``.  ``plan`` resolves the backend,
+the chunk geometry, the PE group and the out-of-core partition axis (the
+streamed engine, :mod:`repro_torch.core.stream`).  A PE group is a list
+of devices (the JAX package's ``pe`` mesh): one controller drives every
+PE, each PE's shard lives on its device, and a device may repeat, which
+is how several PEs share one card.  Fewer devices than PEs asked for
+degrade the plan to fewer PEs (:func:`plan_for_devices` is the elastic
+re-planning hook).  :class:`AdmissionPolicy` holds the serving plane's
+batching knobs.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+
+import torch
+
+from .comm import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +104,10 @@ class ScheduleConfig:
     """
 
     pipelines: int = 8           # edge-stream chunks per superstep
-    pes: int = 1                 # processing elements (only 1 is ported)
+    pes: int = 1                 # processing elements (a device list)
     backend: str = "auto"        # 'auto' | 'dense' | 'sparse'
     block_rows: int = 128        # early-out kernel rows per liveness flag
+    message_dtype: str | None = None   # 'int8': quantized float-add exchange
     direction: DirectionPolicy = DirectionPolicy()  # push/pull/auto policy
     push_ell_width: int = 8      # forward-ELL row width (compacted push)
     pull_sweep: str = "auto"     # 'auto' | 'bitmap' | 'dense'
@@ -125,6 +134,9 @@ class ScheduleConfig:
             raise ValueError("push_ell_width must be >= 1")
         if self.block_rows < 1:
             raise ValueError("block_rows must be >= 1")
+        if self.message_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported message_dtype: "
+                             f"{self.message_dtype!r}")
         if self.pull_sweep not in ("auto", "bitmap", "dense"):
             raise ValueError(f"unsupported pull_sweep: {self.pull_sweep}")
         if self.pull_block_slots < 8 or self.pull_block_slots % 8:
@@ -153,18 +165,22 @@ class ScheduleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SchedulePlan:
-    """Resolved schedule: backend and chunk geometry for this graph."""
+    """Resolved schedule: backend, chunk geometry and PE group for this
+    graph.  ``num_chunks`` is already a multiple of the resolved ``pes``
+    (each PE owns an equal chunk slice) and the translator stages exactly
+    these numbers; ``devices`` is the PE group (``None``: one PE)."""
 
     config: ScheduleConfig
     backend: str                 # resolved ('dense' | 'sparse')
-    num_chunks: int              # edge-stream chunks (>= 1)
+    num_chunks: int              # edge-stream chunks (>= 1, multiple of pes)
     chunk_size: int              # edges per chunk (padded, >= 1)
     direction: DirectionPolicy = DirectionPolicy()  # carried from config
     # the resolved interval-partition count (1: resident) and the byte
     # budget that resolved it (None when the count was given)
     num_partitions: int = 1
     partition_budget_bytes: int | None = None
-    pes: int = 1
+    pes: int = 1                 # resolved PE count
+    devices: tuple | None = None  # the PE group's devices (pes > 1)
 
     def describe(self) -> str:
         """One-line summary for IR/pass dumps (backend-selection pass)."""
@@ -233,13 +249,28 @@ def choose_backend(cfg: ScheduleConfig, *, num_vertices: int,
     return "dense" if avg_degree >= 4.0 else "sparse"
 
 
+def default_devices(device) -> list[torch.device]:
+    """The PE group a plan takes when the caller names none: every
+    visible card for a CUDA run, the one CPU for a CPU run (several PEs on
+    one device need a repeated list)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def plan(cfg: ScheduleConfig, *, num_vertices: int, num_edges: int,
+         devices=None, device=None,
          fixed_partitions: int | None = None) -> SchedulePlan:
-    """Resolve ``cfg`` for a graph on one device.
+    """Resolve ``cfg`` for a graph.
 
     The partition count is ``fixed_partitions`` when given (a partition
     container's own cuts), else the larger of ``cfg.partitions`` and the
-    count the byte budget needs, clamped to ``[1, V]``.
+    count the byte budget needs, clamped to ``[1, V]``.  With ``cfg.pes >
+    1`` the PE group is the first ``pes`` of ``devices`` (default: the
+    visible devices of ``device``'s type, ``device=None`` meaning CUDA);
+    fewer devices than asked degrade to fewer PEs instead of failing.
     """
     if fixed_partitions is not None:
         num_partitions = max(1, int(fixed_partitions))
@@ -255,16 +286,34 @@ def plan(cfg: ScheduleConfig, *, num_vertices: int, num_edges: int,
             "partitioned execution is single-PE: the streamed partitions "
             f"already tile the edge set (got partitions={num_partitions}, "
             f"pes={cfg.pes})")
+    pes, group = 1, None
     if cfg.pes > 1:
-        raise NotImplementedError(
-            f"pes={cfg.pes}: the multi-PE exchange is not ported yet "
-            "(ROADMAP.md §1 item 5)")
+        if devices is None:
+            devices = default_devices(resolve_device(device))
+        devices = [torch.device(d) for d in devices]
+        # elastic degrade: fewer devices than PEs asked re-plan, not fail
+        pes = max(1, min(cfg.pes, len(devices)))
+        if pes > 1:
+            group = tuple(devices[:pes])
     avg_degree = num_edges / max(num_vertices, 1)
     backend = choose_backend(cfg, num_vertices=num_vertices,
                              num_edges=num_edges, avg_degree=avg_degree)
+    # the chunk count rounds up to a multiple of the PE count, so each PE
+    # owns an equal chunk slice; chunk_size >= 1 keeps an edgeless graph's
+    # chunks well formed
     num_chunks = max(1, min(cfg.pipelines, math.ceil(num_edges / 1024)))
+    num_chunks = -(-num_chunks // pes) * pes
     chunk_size = max(1, math.ceil(num_edges / num_chunks))
     return SchedulePlan(config=cfg, backend=backend, num_chunks=num_chunks,
                         chunk_size=chunk_size, direction=cfg.direction,
                         num_partitions=num_partitions,
-                        partition_budget_bytes=cfg.partition_budget_bytes)
+                        partition_budget_bytes=cfg.partition_budget_bytes,
+                        pes=pes, devices=group)
+
+
+def plan_for_devices(cfg: ScheduleConfig, num_devices: int,
+                     **graph_meta) -> SchedulePlan:
+    """Elastic re-planning hook: the same program on a degraded pool of
+    ``num_devices`` devices."""
+    cfg = dataclasses.replace(cfg, pes=min(cfg.pes, max(1, num_devices)))
+    return plan(cfg, **graph_meta)

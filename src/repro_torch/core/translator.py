@@ -58,11 +58,26 @@ lane through their single-lane superstep.  Checkpointed runs
 (``run(checkpoint_dir=...)``) are one-lane slice loops that commit a
 :mod:`~repro_torch.core.checkpoint` snapshot after every slice.
 
+A plan over several PEs (``ScheduleConfig(pes=p)`` on a device list,
+``translate(..., devices=[...])``) shards a plane as the JAX package's
+mesh does, with one controller driving every PE: a dense plan shards its
+push plane (:func:`_emit_push_ell`: each PE runs the compacted
+push, kernel 3f, on its forward-ELL interval into a partial table on its
+device, and the reduce-matched collective of :mod:`~repro_torch.core.
+comm` combines them; a frontier too wide for the largest tier on any PE
+takes the replicated dense sweep, kernel 1, with no exchange), a sparse
+plan its pull plane (:func:`_emit_exchange`: each PE scatters its slice
+of the chunks, then the collective, or ``quantized_psum`` for an int8
+float add, and ``bitmap_or`` of the touched masks).  The batched push
+lanes run the lane push (3L) a PE over that PE's interval.  Values,
+``iters`` and ``run_stats`` equal the JAX package's at the same PE
+count, and the run loop records the executed exchanges on the comm
+manager (``comm.collective``).
+
 A plan over several partitions, or a partition container in place of a
 resident graph, goes to the streamed engine
 (:func:`repro_torch.core.stream.translate_partitioned`), as in the JAX
-package.  Not ported yet, and refused with ``NotImplementedError``:
-several PEs (``ROADMAP.md`` §1 item 5).
+package.
 """
 from __future__ import annotations
 
@@ -79,8 +94,9 @@ from ..kernels import edge_block as edge_block_kernel
 from ..kernels import pull_bitmap as pull_bitmap_kernel
 from ..kernels import push_ell as push_ell_kernel
 from ..kernels import push_scatter as push_scatter_kernel
-from ..kernels.ref import row_reduce
+from ..kernels.ref import combine_settled, row_reduce
 from . import checkpoint as ckpt
+from . import comm as C
 from . import faults
 from . import graph as G
 from . import preprocess
@@ -88,7 +104,7 @@ from .analysis import analyze_program, apply_batches_over_lanes
 from .comm import CommManager, resolve_device
 from .diagnostics import max_severity, render_table
 from .dsl import VertexProgram
-from .ir import (ApplyOp, FrontierUpdateOp, FusedGatherReduceOp,
+from .ir import (ApplyOp, ExchangeOp, FrontierUpdateOp, FusedGatherReduceOp,
                  FusedSuperstepOp, PushScatterOp, SuperstepIR, lower_program)
 from .passes import PassContext, classify_gather, default_pipeline
 from .scheduler import (DirectionPolicy, ScheduleConfig, SchedulePlan, plan,
@@ -104,7 +120,7 @@ class BatchLaneState(typing.NamedTuple):
 
     ``values`` and ``active`` are ``(k, V)`` tensors on the run's device;
     the other thirteen fields are host numpy ``int32`` arrays with a
-    leading lane axis (``pe_rows`` is ``(k, 1)``), since the host loop
+    leading lane axis (``pe_rows`` is ``(k, pes)``), since the host loop
     reads and decides per lane: iterations, the direction register, the
     push/compacted/switch counters, the push and pull edge counters split
     into 16-bit words (as the staged loop splits them, so snapshots cross
@@ -127,7 +143,7 @@ class BatchLaneState(typing.NamedTuple):
     switches: np.ndarray     # (k,) direction switches
     pe_hi: np.ndarray        # (k,) push edge counter, high 16-bit words
     pe_lo: np.ndarray        # (k,) push edge counter, low words
-    pe_rows: np.ndarray      # (k, 1) live fwd-ELL rows
+    pe_rows: np.ndarray      # (k, pes) live fwd-ELL rows per PE
     pl_hi: np.ndarray        # (k,) pull swept-edge counter, high words
     pl_lo: np.ndarray        # (k,) pull swept-edge counter, low words
     bl_swept: np.ndarray     # (k,) pull blocks swept (bitmap plane)
@@ -142,7 +158,8 @@ _COUNTERS = BatchLaneState._fields[2:]
 class _LaneOccupancy:
     """Each lane's occupancy as of its last read (host arrays): the
     frontier's out-edges ``m_f``, vertices ``n_f``, live forward-ELL rows
-    ``r_f``, and whether its table holds a NaN (with the probe on)."""
+    ``r_f`` (``(k, pes)``: a column a PE), and whether its table holds a
+    NaN (with the probe on)."""
 
     m_f: np.ndarray
     n_f: np.ndarray
@@ -186,6 +203,12 @@ class TranslationReport:
     pull_blocks_total: int | None = None   # skippable blocks (bitmap plane)
     num_partitions: int = 1                # streamed partitions (1: resident)
     partition_budget_bytes: int | None = None
+    # the sparse module's chunk geometry, the plan's (num_chunks, chunk_size)
+    staged_chunks: tuple | None = None
+    exchange_plane: str | None = None      # 'pull' | 'push' | None
+    exchange_quantized: bool = False       # int8 wire on the exchange
+    push_pe_rows: tuple | None = None      # forward-ELL rows a PE
+    push_pe_edges: tuple | None = None     # edges a PE (balance stats)
 
 
 class CompiledGraphProgram:
@@ -204,19 +227,33 @@ class CompiledGraphProgram:
                  push_tiers, num_vertices: int, num_edges: int,
                  probe_divergence: bool = False, lane_step=None,
                  lane_push: bool = False, base_values=None,
+                 rf_cuts: tuple | None = None,
+                 comm: CommManager | None = None,
+                 exchange_plane: str | None = None,
+                 collective_bytes_per_superstep: int = 0,
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int | None = None,
                  fingerprints_fn=None):
         # (values, active, m_f) → (new, nxt, (swept_edges, blocks_swept,
         # blocks_skipped)); each counter a Python int or a 0-d tensor
         self._pull_step = pull_step
-        self._push_step = push_step          # → (new, nxt, r_f) | None
+        # (values, active, r_f) → (new, nxt, r_f) | None; r_f the live
+        # forward-ELL rows a PE
+        self._push_step = push_step
         self._init_state = init_state
         self._direction = direction
         self._mode = direction.mode if push_step is not None else "pull"
         self._out_degrees = out_degrees
         self._rows_per_vertex = rows_per_vertex   # None: no forward ELL
         self._push_tiers = push_tiers
+        # the vertex bounds of the push plane's PEs (one PE: (0, V)); the
+        # live rows of PE p are those of the frontier's vertices in
+        # [rf_cuts[p], rf_cuts[p + 1])
+        self._rf_cuts = rf_cuts or (0, num_vertices)
+        self._npe = len(self._rf_cuts) - 1
+        self._comm = comm
+        self._exchange_plane = exchange_plane      # 'pull' | 'push' | None
+        self._collective_bytes = int(collective_bytes_per_superstep)
         self._num_vertices = num_vertices
         self._num_edges = num_edges
         self._probe = bool(probe_divergence)
@@ -280,20 +317,29 @@ class CompiledGraphProgram:
         """Whether occupancy reads count live forward-ELL rows."""
         return self._mode != "pull" and self._rows_per_vertex is not None
 
+    def _live_rows(self, active) -> list:
+        """Live forward-ELL rows a PE of a ``(V,)`` or ``(k, V)`` frontier
+        (a tensor a PE, summed over the last axis): the rows of the
+        frontier's vertices inside each PE's vertex bounds."""
+        rows = torch.where(active, self._rows_per_vertex, 0)
+        cuts = self._rf_cuts
+        return [rows[..., lo:hi].sum(-1, dtype=torch.int64)
+                for lo, hi in zip(cuts[:-1], cuts[1:])]
+
     def _occupancy(self, active, pull_stats=()):
         """``(m_f, n_f, r_f, pull_stats)`` in one device→host transfer.
 
         ``m_f`` is the frontier's out-edges, ``n_f`` its vertices
         (``n_f > 0`` is the loop condition), ``r_f`` its live forward-ELL
-        rows (0 without a forward-ELL push twin); ``pull_stats`` comes
-        back as Python ints, its tensors read in the same transfer.
+        rows a PE (a list, zeros without a forward-ELL push twin);
+        ``pull_stats`` comes back as Python ints, its tensors read in the
+        same transfer.
         """
         parts = [torch.where(active, self._out_degrees, 0).sum(
                      dtype=torch.int64),
                  active.sum(dtype=torch.int64)]
         if self._with_rf:
-            parts.append(torch.where(active, self._rows_per_vertex, 0)
-                         .sum(dtype=torch.int64))
+            parts += self._live_rows(active)
         n = len(parts)
         parts += [s.reshape(()).to(torch.int64) for s in pull_stats
                   if isinstance(s, torch.Tensor)]
@@ -301,7 +347,8 @@ class CompiledGraphProgram:
         rest = iter(host[n:])
         stats = tuple(next(rest) if isinstance(s, torch.Tensor) else int(s)
                       for s in pull_stats)
-        return host[0], host[1], host[2] if n > 2 else 0, stats
+        r_f = host[2:n] if n > 2 else [0] * self._npe
+        return host[0], host[1], r_f, stats
 
     def _choose(self, prev_dir: int, m_f: int, n_f: int,
                 pull_cost: int) -> int:
@@ -323,6 +370,13 @@ class CompiledGraphProgram:
         return int(np.float32(n_f) * np.float32(pol.beta)
                    < np.float32(self._num_vertices))
 
+    def _exchanges(self, pulls, compact):
+        """Supersteps that ran the exchange: every pull superstep of a
+        sharded pull plane, every compacted push superstep of a sharded
+        push plane (its fallback sweep is replicated), else none."""
+        return {"pull": pulls, "push": compact}.get(self._exchange_plane,
+                                                    0 * pulls)
+
     def _scalar_stats(self, iters, pushes, compact, switches, push_edges,
                       live_rows, pull_edges, swept, skipped, pull_cost,
                       live, nanfree) -> dict:
@@ -334,6 +388,7 @@ class CompiledGraphProgram:
             terminated = "budget"
         else:
             terminated = "converged"
+        exchanges = self._exchanges(iters - pushes, compact)
         return {
             "push_supersteps": pushes,
             "push_compacted_supersteps": compact,
@@ -341,15 +396,22 @@ class CompiledGraphProgram:
             "pull_supersteps": iters - pushes,
             "direction_switches": switches,
             "edges_traversed": pull_edges + push_edges,
-            "pes": 1,
-            "push_live_rows_per_pe": [live_rows],
+            "pes": self.report.pes,
+            "push_live_rows_per_pe": list(live_rows),
             "pull_blocks_swept": swept,
             "pull_blocks_skipped": skipped,
             "pull_cost_model": pull_cost,
-            "exchange_supersteps": 0,
-            "exchange_bytes": 0,
+            "exchange_supersteps": exchanges,
+            "exchange_bytes": exchanges * self._collective_bytes,
             "terminated": terminated,
         }
+
+    def _record_exchanges(self, supersteps: int, tables: int | None = None):
+        """The executed exchanges on the comm manager (the
+        ``comm.collective`` fault point); nothing for an unsharded plan."""
+        if self._comm is not None and self._exchange_plane is not None:
+            self._comm.stats.record_collective(self._collective_bytes,
+                                               supersteps, tables)
 
     def run(self, roots=None, values=None, *, checkpoint_dir=None,
             checkpoint_every=None, resume=False):
@@ -372,6 +434,13 @@ class CompiledGraphProgram:
         against this program, graph and schedule, and continues exactly.
         ``run_stats`` then gains ``checkpoint_saves``,
         ``checkpoint_loads`` and ``checkpoint_write_s``.
+
+        Under a multi-PE plan the stats also hold the exchanges that ran
+        (``exchange_supersteps``: every pull superstep of the sharded pull
+        plane, every compacted push superstep of the sharded push plane;
+        ``exchange_bytes``) and each PE's live rows summed over the push
+        supersteps (``push_live_rows_per_pe``); the exchanges accumulate
+        on the translation's comm manager.
         """
         if checkpoint_dir is None:
             checkpoint_dir = self._checkpoint_dir
@@ -381,7 +450,8 @@ class CompiledGraphProgram:
         values, active = self.init_state(roots=roots, values=values)
         tiers = self._push_tiers
         it = direction = pushes = compact = switches = syncs = 0
-        push_edges = pull_edges = live_rows = swept = skipped = 0
+        push_edges = pull_edges = swept = skipped = 0
+        live_rows = [0] * self._npe
         pull_cost = self._num_edges
         pending = ()     # the last pull superstep's counters, read next
         probe = self._probe and values.dtype.is_floating_point
@@ -403,8 +473,8 @@ class CompiledGraphProgram:
                 pushes += 1
                 # a coo_chunks push has no dense fallback: it counts as
                 # compacted, as in the JAX package
-                compact += int(tiers is None or r_f <= tiers[-1])
-                live_rows += r_f
+                compact += int(tiers is None or max(r_f) <= tiers[-1])
+                live_rows = [a + b for a, b in zip(live_rows, r_f)]
                 push_edges += m_f
             else:
                 values, active, pending = self._pull_step(values, active,
@@ -423,6 +493,7 @@ class CompiledGraphProgram:
         stats = self._scalar_stats(it, pushes, compact, switches, push_edges,
                                    live_rows, pull_edges, swept, skipped,
                                    pull_cost, live, nanfree)
+        self._record_exchanges(stats["exchange_supersteps"])
         self.last_run_stats = stats
         self.last_run_syncs = syncs
         self.report.run_stats = stats
@@ -487,7 +558,7 @@ class CompiledGraphProgram:
         stats = self._scalar_stats(
             int(c["iters"]), int(c["pushes"]), int(c["compact"]),
             int(c["switches"]), (int(c["pe_hi"]) << 16) + int(c["pe_lo"]),
-            int(c["pe_rows"][0]), (int(c["pl_hi"]) << 16) + int(c["pl_lo"]),
+            c["pe_rows"].tolist(), (int(c["pl_hi"]) << 16) + int(c["pl_lo"]),
             int(c["bl_swept"]), int(c["bl_skip"]), int(c["pull_cost"]),
             bool(occ.n_f[0] > 0), not bool(occ.nan[0]))
         stats["checkpoint_saves"] = saves
@@ -508,6 +579,11 @@ class CompiledGraphProgram:
         counters) while slower lanes finish; per-lane direction stats land
         on ``last_run_stats`` (lists, one entry per lane).  One
         device→host read per batched superstep serves every lane.
+
+        Under a multi-PE plan each lane's ``exchange_supersteps`` and
+        ``exchange_bytes`` are what its sequential run would count, while
+        the comm manager records what the batch executed (see
+        :meth:`_advance`).
         """
         state = self._advance(self.batch_init(roots), None)
         stats = self.lane_stats(state)
@@ -536,7 +612,7 @@ class CompiledGraphProgram:
                 terminated.append("budget")
             else:
                 terminated.append("running")
-        zeros = np.zeros_like(pulls)
+        exchanges = self._exchanges(pulls, compact)
         return {
             "batch_size": int(iters.shape[0]),
             "push_supersteps": pushes.tolist(),
@@ -545,12 +621,14 @@ class CompiledGraphProgram:
             "pull_supersteps": pulls.tolist(),
             "direction_switches": state.switches.astype(np.int64).tolist(),
             "edges_traversed": (pull_edges + push_edges).tolist(),
-            "pes": 1,
+            "pes": self.report.pes,
             "push_live_rows_per_pe": state.pe_rows.astype(np.int64).tolist(),
             "pull_blocks_swept": state.bl_swept.astype(np.int64).tolist(),
             "pull_blocks_skipped": state.bl_skip.astype(np.int64).tolist(),
-            "exchange_supersteps": zeros.tolist(),
-            "exchange_bytes": zeros.tolist(),
+            # each lane's logical count (its sequential run's); what the
+            # batch exchanged is on the comm manager (see run_batch)
+            "exchange_supersteps": exchanges.tolist(),
+            "exchange_bytes": (exchanges * self._collective_bytes).tolist(),
             "terminated": terminated,
         }
 
@@ -572,9 +650,13 @@ class CompiledGraphProgram:
         deg, rpv, nan = self._host_inputs()
         roots = np.asarray(roots, np.int64)
         k = roots.shape[0]
+        # a root's rows are all on the PE whose vertex bounds hold it
+        r_f = np.zeros((k, self._npe), np.int64)
+        owner = np.searchsorted(np.asarray(self._rf_cuts[1:-1]), roots,
+                                side="right")
+        r_f[np.arange(k), owner] = rpv[roots]
         return _LaneOccupancy(m_f=deg[roots].copy(),
-                              n_f=np.ones(k, np.int64),
-                              r_f=rpv[roots].copy(),
+                              n_f=np.ones(k, np.int64), r_f=r_f,
                               nan=np.full(k, nan))
 
     def _remember(self, state: BatchLaneState, occ: _LaneOccupancy):
@@ -585,16 +667,15 @@ class CompiledGraphProgram:
         lane indices, or None for all) and the pending pull counters
         ``{lane: (swept_edges, blocks_swept, blocks_skipped)}`` (tensors
         or ints).  Returns ``(m_f, n_f, r_f, nan)`` host arrays over
-        ``lanes`` and ``{lane: (ints)}``.  The sums run over every lane
-        (no index tensor is copied to the device) and the host keeps the
-        rows it asked for."""
+        ``lanes`` (``r_f`` a column a PE) and ``{lane: (ints)}``.  The
+        sums run over every lane (no index tensor is copied to the device)
+        and the host keeps the rows it asked for."""
         kk = active.shape[0]
         parts = [torch.where(active, self._out_degrees, 0).sum(
                      1, dtype=torch.int64),
                  active.sum(1, dtype=torch.int64)]
         if self._with_rf:
-            parts.append(torch.where(active, self._rows_per_vertex, 0)
-                         .sum(1, dtype=torch.int64))
+            parts += self._live_rows(active)
         probe = self._probe and values.dtype.is_floating_point
         if probe:
             parts.append(torch.isnan(values).any(1).to(torch.int64))
@@ -612,8 +693,8 @@ class CompiledGraphProgram:
         stats = {lane: tuple(next(rest) if isinstance(t, torch.Tensor)
                              else int(t) for t in st)
                  for lane, st in pending.items()}
-        r_f = block[:, 2] if self._with_rf else np.zeros(len(block),
-                                                         np.int64)
+        r_f = (block[:, 2:2 + self._npe] if self._with_rf
+               else np.zeros((len(block), self._npe), np.int64))
         nan = block[:, -1] != 0 if probe else np.zeros(len(block), bool)
         return block[:, 0], block[:, 1], r_f, nan, stats
 
@@ -651,7 +732,7 @@ class CompiledGraphProgram:
             values=values, active=active, iters=z.copy(),
             direction=z.copy(), pushes=z.copy(), compact=z.copy(),
             switches=z.copy(), pe_hi=z.copy(), pe_lo=z.copy(),
-            pe_rows=np.zeros((k, 1), np.int32), pl_hi=z.copy(),
+            pe_rows=np.zeros((k, self._npe), np.int32), pl_hi=z.copy(),
             pl_lo=z.copy(), bl_swept=z.copy(), bl_skip=z.copy(),
             pull_cost=np.full(k, self._num_edges, np.int32))
         self._remember(state, self._fresh_occupancy(roots))
@@ -664,8 +745,9 @@ class CompiledGraphProgram:
         state = self.batch_init(np.zeros(slots, np.int64))
         state = state._replace(active=torch.zeros_like(state.active))
         z = np.zeros(slots, np.int64)
-        self._remember(state, _LaneOccupancy(z, z.copy(), z.copy(),
-                                             np.zeros(slots, bool)))
+        self._remember(state, _LaneOccupancy(
+            z, z.copy(), np.zeros((slots, self._npe), np.int64),
+            np.zeros(slots, bool)))
         return state
 
     def lane_admit(self, state: BatchLaneState, lane,
@@ -718,7 +800,10 @@ class CompiledGraphProgram:
         One read per batched superstep brings back each stepped lane's
         occupancy and pending pull counters; the last one is remembered
         for this state, so ``lane_done``/``lane_stats`` and the next
-        slice read nothing.
+        slice read nothing.  Under a multi-PE plan the comm manager
+        records the batched supersteps that exchanged and the tables
+        they carried: a batched push exchanges the batch's ``(k, V)``
+        partials, a lane stepped alone its ``(V,)`` table.
         """
         occ = self._lane_occupancy(state).copy()
         k = state.iters.shape[0]
@@ -730,6 +815,7 @@ class CompiledGraphProgram:
         probe = self._probe and values.dtype.is_floating_point
         device = values.device
         steps = np.zeros(k, np.int64)
+        ex_steps = ex_tables = 0
         while True:
             stepping = [i for i in range(k)
                         if occ.n_f[i] > 0 and iters[i] < self.max_iters
@@ -742,7 +828,7 @@ class CompiledGraphProgram:
             sweep = [] if self._lane_step is None else [
                 i for i in stepping
                 if dirs[i] == 0 or (tiers is not None
-                                    and occ.r_f[i] > tiers[-1])]
+                                    and occ.r_f[i].max() > tiers[-1])]
             # push lanes within a tier: one batched push when the plane
             # has it, else each its own compacted push
             pushes = [i for i in stepping
@@ -751,6 +837,7 @@ class CompiledGraphProgram:
             singles = [i for i in stepping
                        if i not in sweep and i not in pushes]
             pending = {}
+            tables = 0
             if sweep or pushes:
                 # one batched superstep over those lanes, read and written
                 # in place: fresh tensors, other rows as they were
@@ -764,14 +851,18 @@ class CompiledGraphProgram:
                                 if dirs[i] == 0})
             if pushes:
                 self.lane_pushes += 1
+                tables += values.shape[0] * (self._exchange_plane == "push")
             if singles and not owned:
                 values, active = values.clone(), active.clone()
                 owned = True
             for i in singles:
                 if dirs[i]:
-                    new, nxt, _ = self._push_step(values[i], active[i],
-                                                  int(occ.r_f[i]))
+                    r_f = occ.r_f[i].tolist()
+                    new, nxt, _ = self._push_step(values[i], active[i], r_f)
+                    if tiers is None or max(r_f) <= tiers[-1]:
+                        tables += self._exchange_plane == "push"
                 else:
+                    tables += self._exchange_plane == "pull"
                     new, nxt, pending[i] = self._pull_step(
                         values[i], active[i], int(occ.m_f[i]))
                 values[i] = new
@@ -782,16 +873,19 @@ class CompiledGraphProgram:
             for i in stepping:
                 d = dirs[i]
                 if d:
-                    r_f, m_f = int(occ.r_f[i]), int(occ.m_f[i])
+                    r_f, m_f = occ.r_f[i], int(occ.m_f[i])
                     c["pushes"][i] += 1
-                    c["compact"][i] += int(tiers is None or r_f <= tiers[-1])
-                    c["pe_rows"][i, 0] += r_f
+                    c["compact"][i] += int(tiers is None
+                                           or r_f.max() <= tiers[-1])
+                    c["pe_rows"][i] += r_f.astype(np.int32)
                     c["pe_hi"][i] += m_f >> 16
                     c["pe_lo"][i] += m_f & 0xFFFF
                 c["switches"][i] += int(d != direction[i])
                 direction[i] = d
                 iters[i] += 1
                 steps[i] += 1
+            ex_steps += tables > 0
+            ex_tables += tables
             m_f, n_f, r_f, nan, done = self._lane_read(values, active,
                                                        stepping, pending)
             self.lane_supersteps += 1
@@ -806,6 +900,7 @@ class CompiledGraphProgram:
                 c["pull_cost"][i] = swept_e
         out = BatchLaneState(values=values, active=active, **c)
         self._remember(out, occ)
+        self._record_exchanges(int(ex_steps), int(ex_tables))
         return out
 
     def lane_done(self, state: BatchLaneState) -> np.ndarray:
@@ -847,6 +942,12 @@ class CompiledGraphProgram:
             raise CheckpointCorruptError(
                 f"lane snapshot is missing carry fields: "
                 f"{', '.join(missing)}", member=missing[0])
+        rows = np.shape(arrays["pe_rows"])
+        if rows[1:] != (self._npe,):
+            raise CheckpointMismatchError(
+                f"lane snapshot's pe_rows {rows} is not (k, {self._npe}): "
+                f"it was taken with another PE count", field="pe_rows",
+                expected=str(self._npe), got=str(rows[1:]))
         base = self._base_values
         values = torch.as_tensor(np.asarray(arrays["values"])).to(
             device=base.device, dtype=base.dtype)
@@ -979,8 +1080,8 @@ def _row_mask(kk: int, rows: list, device):
 def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
                     pplan: G.PullBitmapPlan, out_deg, sub_sweep, apply_fn,
                     frontier_op: FrontierUpdateOp, touched_free: bool,
-                    use_kernels: bool, fe: G.ForwardELL | None,
-                    push_op: PushScatterOp | None):
+                    use_kernels: bool, push_op: PushScatterOp | None,
+                    pe_push: tuple | None):
     """The batched superstep of the lane API's dense plane.
 
     Returns ``(lane_step, lane_push)``.  ``lane_step(values, active,
@@ -1007,6 +1108,14 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
     :func:`~repro_torch.core.analysis.apply_batches_over_lanes` finds that
     a ``(2, V)`` batch of lanes gives each lane its own result; any other
     apply runs lane by lane.
+
+    ``pe_push`` is the forward-ELL push's PE group (see
+    :func:`_emit_push_ell`; ``None``: no forward-ELL push twin): each
+    non-empty interval runs the lane push on its PE's device (one pre-pass
+    a device), the first one on the home device straight into the
+    reduced table, the others into ``(k', V)`` partials that the
+    collective combines into it (the order-free reduces make both the
+    same).  The sweep rows stay replicated.
     """
     program = ir.program
     dtype = ir.value_dtype
@@ -1021,7 +1130,7 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
     fold = fused.gather.module is not None \
         and dtype in (torch.int32, torch.float32) \
         and not (op == "add" and dtype.is_floating_point)
-    lane_push = fold and fe is not None and push_op is not None \
+    lane_push = fold and pe_push is not None and push_op is not None \
         and push_op.gather.module is not None
 
     def apply_lanes(values, red, rows):
@@ -1097,10 +1206,30 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
                 mask_inactive=program.mask_inactive, need_got=need_got,
                 red=red)
         if pushes:
-            red = push_ell_kernel.push_ell_lanes_reduce(
-                fe.row_src, fe.dst, fe.weights, values, out_deg, active,
-                pushes, num_rows=fe.num_rows, gather=push_op.gather.module,
-                reduce=push_op.reduce.op, identity=ident, table=red)
+            rows_per_pe, intervals, pe_deg, devices, home, combine = pe_push
+            parts, on_dev, into = [], {}, red
+            for p, (rs, dst, wgt) in enumerate(intervals):
+                if rows_per_pe[p] == 0:
+                    continue
+                d = devices[p]
+                if d not in on_dev:
+                    a_d = active.to(d, non_blocking=True)
+                    on_dev[d] = (values.to(d, non_blocking=True), a_d,
+                                 push_ell_kernel.push_lanes_prepare(
+                                     a_d, pushes))
+                v_d, a_d, prep = on_dev[d]
+                if d != home:
+                    into = None
+                part = push_ell_kernel.push_ell_lanes_reduce(
+                    rs, dst, wgt, v_d, pe_deg[p], a_d, pushes,
+                    num_rows=rows_per_pe[p], gather=push_op.gather.module,
+                    reduce=push_op.reduce.op, identity=ident, table=into,
+                    prepared=prep)
+                if into is None:
+                    parts.append(part)
+                into = None
+            if parts:
+                red = combine_settled(red, combine(parts, device=home), op)
         return finish(values, active, red, got, sorted(sweep + pushes),
                       pulls)
 
@@ -1255,26 +1384,81 @@ def _emit_segment_scan_reduce(ir: SuperstepIR, fused: FusedGatherReduceOp,
     chunks.  The loop is ``push_scatter.push_scatter_reduce`` with the
     receiving ids as destinations (every source counts as active without
     ``mask_inactive``).  Chunks are slices of the flat arrays, so no
-    padded copy is kept.  ``partial_reduce(values, active, need_got)``
-    returns ``(red, got)``.
+    padded copy is kept (past the edges a chunk may be absent).  Returns
+    ``(partial_reduce, chunks)``: ``partial_reduce(values, active,
+    need_got, chunks=None, degrees=None)`` gives ``(red, got)`` over
+    ``chunks`` (all of them by default; a PE passes its slice, on its
+    device, with the out-degrees there).
     """
     program = ir.program
     ident = fused.reduce.identity.item()
     seg_dst, src, wts = reverse_coo
     starts = range(0, min(num_edges, splan.num_chunks * splan.chunk_size),
                    splan.chunk_size)
-    chunks = [[a[s:s + splan.chunk_size] for s in starts]
-              for a in (seg_dst, src, wts)]
+    all_chunks = [[a[s:s + splan.chunk_size] for s in starts]
+                  for a in (seg_dst, src, wts)]
 
-    def partial_reduce(values, active, need_got=True):
+    def partial_reduce(values, active, need_got=True, chunks=None,
+                       degrees=None):
         if not program.mask_inactive:
             active = torch.ones_like(active)
         return push_scatter_kernel.push_scatter_reduce(
-            *chunks, values, out_deg, active, gather_fn=fused.gather.fn,
-            reduce=fused.reduce.op, identity=ident, num_vertices=num_vertices,
+            *(all_chunks if chunks is None else chunks), values,
+            out_deg if degrees is None else degrees, active,
+            gather_fn=fused.gather.fn, reduce=fused.reduce.op,
+            identity=ident, num_vertices=num_vertices,
             dtype=ir.value_dtype, emit_touched=need_got)
 
-    return partial_reduce
+    return partial_reduce, all_chunks
+
+
+def _emit_exchange(xop: ExchangeOp, partial_reduce, chunks, nchunk: int,
+                   out_deg, devices: tuple, home, quantized: bool,
+                   num_vertices: int):
+    """The sharded pull plane: each PE scatters its slice of the chunks,
+    then the PEs' partial tables combine.
+
+    PE ``p`` takes chunks ``[p·k, (p+1)·k)``, ``k = nchunk / pes`` (the
+    plan rounded ``nchunk`` to a multiple of ``pes``), copied to its
+    device once here; the values and frontier follow it there each
+    superstep.  The tables combine by the reduce-matched collective, or
+    by :func:`~repro_torch.core.comm.quantized_psum` when ``quantized``
+    (the caller sets it for a float add only, so min, max and integer add
+    stay exact), and the touched masks by
+    :func:`~repro_torch.core.comm.bitmap_or` of packed words below 16
+    PEs, else by an int8 max, as in the JAX package.  Returns a
+    partial-reduce module ``(values, active, need_got) → (red, got)`` on
+    the home device.
+    """
+    pes = xop.pes
+    k = nchunk // pes
+    combine = C.quantized_psum if quantized else C.COLLECTIVES[xop.collective]
+    pe_chunks = [[[c.to(d) for c in part[p * k:(p + 1) * k]]
+                  for part in chunks] for p, d in enumerate(devices)]
+    pe_deg = [out_deg.to(d) for d in devices]
+
+    def sharded_reduce(values, active, need_got=True):
+        reds, gots = [], []
+        for p, d in enumerate(devices):
+            red, got = partial_reduce(
+                values.to(d, non_blocking=True),
+                active.to(d, non_blocking=True), need_got,
+                chunks=pe_chunks[p], degrees=pe_deg[p])
+            reds.append(red)
+            gots.append(got)
+        red = combine(reds, device=home)
+        got = None
+        if need_got:
+            if pes < 16:
+                got = G.unpack_bits(C.bitmap_or(
+                    [G.pack_bits(t) for t in gots], device=home),
+                    num_vertices)
+            else:
+                got = C.pmax([t.to(torch.int8) for t in gots],
+                             device=home) != 0
+        return red, got
+
+    return sharded_reduce
 
 
 def _emit_push_scatter(ir: SuperstepIR, push_op: PushScatterOp, chunks,
@@ -1296,48 +1480,67 @@ def _emit_push_scatter(ir: SuperstepIR, push_op: PushScatterOp, chunks,
     return partial_reduce
 
 
-def _emit_push_ell(ir: SuperstepIR, push_op: PushScatterOp,
-                   fe: G.ForwardELL, out_deg, apply_fn, pull_reduce_module,
+def _emit_push_ell(ir: SuperstepIR, push_op: PushScatterOp, pe_push: tuple,
+                   tiers: tuple, apply_fn, pull_reduce_module,
                    use_kernels: bool):
-    """The frontier-compacted forward-ELL push superstep.
+    """The frontier-compacted forward-ELL push superstep over a PE group.
 
-    The live row count ``r_f`` picks the smallest capacity tier that
-    covers the frontier, or the dense fallback (the pull module's masked
-    sweep) when it is wider than the largest tier; all branches compute
-    the same superstep.  The compacted branches apply the reduced table
-    everywhere and skip the touched mask: the fusion pass binds this
-    layout only for an identity-fixpoint apply.  Returns
-    ``(push_superstep, tiers)``; the superstep maps ``(values, active,
-    r_f)`` to ``(new, next_active, r_f)``, with ``r_f`` computed here when
-    the caller passes ``None``.
+    ``pe_push`` is ``(rows_per_pe, intervals, degrees, devices, home,
+    collective)``: PE ``p`` owns the forward-ELL row interval
+    ``intervals[p]`` (its ``rows_per_pe[p]`` real rows on ``devices[p]``;
+    one PE owns the whole forward ELL on the run's device) and runs the
+    compaction and fused messages-and-combine (kernel 3f on CUDA) on it
+    into a ``(V,)`` partial on its device; the disjoint partials combine
+    on the home device by the reduce-matched collective (one partial
+    combines to itself).  The capacity ``tiers`` come from the largest
+    interval (``rows_per_pe_max``), as in the JAX package, and each PE
+    picks its own tier from its live rows.  The fallback is global: when
+    any PE's live rows pass the largest tier, the whole superstep takes
+    the dense sweep (the pull module, kernel 1, replicated: no exchange).
+    An empty interval launches nothing (its partial is the identity).
+    The compacted branches apply the reduced table everywhere and skip
+    the touched mask: the fusion pass binds this layout only for an
+    identity-fixpoint apply.
+
+    Returns the superstep, which maps ``(values, active, r_f)`` to
+    ``(new, next_active, r_f)``, ``r_f`` the live rows a PE (the run
+    loop's occupancy read; counted here when ``None``).
     """
     dtype = ir.value_dtype
-    V = fe.num_vertices
+    rows_per_pe, intervals, pe_deg, devices, home, combine = pe_push
+    V = pe_deg[0].shape[0]
     ident = push_op.reduce.identity.item()
-    tiers = push_capacity_tiers(fe.num_rows)
-    rows_per_v = fe.rows_per_vertex
-
-    def compacted(capacity, values, active):
-        red, _ = push_ell_kernel.push_ell_reduce(
-            fe.row_src, fe.dst, fe.weights, values, out_deg, active,
-            num_rows=fe.num_rows, capacity=capacity,
-            gather_fn=push_op.gather.fn, reduce=push_op.reduce.op,
-            identity=ident, num_vertices=V, dtype=dtype,
-            gather_module=push_op.gather.module, use_kernels=use_kernels)
-        return red
+    pe_src = [rs[:n].long() for (rs, _, _), n in zip(intervals, rows_per_pe)]
 
     def push_superstep(values, active, r_f=None):
         if r_f is None:
-            r_f = int(torch.where(active, rows_per_v, 0).sum())
-        tier = sum(int(r_f > c) for c in tiers)
-        if tier < len(tiers):
-            red = compacted(tiers[tier], values, active)
-        else:
+            r_f = [int(active.to(d)[src].sum())
+                   for src, d in zip(pe_src, devices)]
+        if max(r_f) > tiers[-1]:
             red, _ = pull_reduce_module(values, active, need_got=False)
+        else:
+            parts = []
+            for p, (rs, dst, wgt) in enumerate(intervals):
+                if rows_per_pe[p] == 0:
+                    continue
+                d = devices[p]
+                v_p = values.to(d, non_blocking=True)
+                live = active.to(d, non_blocking=True)[pe_src[p]]
+                cap = tiers[sum(int(r_f[p] > c) for c in tiers[:-1])]
+                red_p, _ = push_ell_kernel.compacted_push_reduce(
+                    rs, dst, wgt, live, v_p, pe_deg[p],
+                    num_rows=rows_per_pe[p], capacity=cap,
+                    gather_fn=push_op.gather.fn, reduce=push_op.reduce.op,
+                    identity=ident, num_vertices=V, dtype=dtype,
+                    gather_module=push_op.gather.module,
+                    use_kernels=use_kernels)
+                parts.append(red_p)
+            red = combine(parts, device=home) if parts else torch.full(
+                (V,), ident, dtype=dtype, device=home)
         new = apply_fn(values, red)
         return new, new != values, r_f
 
-    return push_superstep, tiers
+    return push_superstep
 
 
 # ---------------------------------------------------------------------------
@@ -1352,6 +1555,7 @@ def translate(
     comm: CommManager | None = None,
     *,
     device=None,
+    devices=None,
     dump_passes: bool = False,
     validate: bool = False,
     strict: bool = False,
@@ -1374,6 +1578,13 @@ def translate(
     streamed engine and return a :class:`~repro_torch.core.stream.
     PartitionedGraphProgram`.  ``validate=True`` checks a resident graph's
     CSR, or a container's partitions one by one.
+
+    With ``schedule.pes > 1`` the PEs are the first ``pes`` of
+    ``devices`` (default: every visible card of a CUDA run, the one CPU
+    of a CPU run; fewer devices degrade the plan to fewer PEs).  A device
+    may repeat: ``devices=["cpu"] * 2`` puts two PEs on the CPU,
+    ``[cuda0] * 4`` four on one card.  The run's state stays on
+    ``device``; every PE device must be of its type.
     """
     t0 = time.perf_counter()
     device = resolve_device(device)
@@ -1386,8 +1597,13 @@ def translate(
         elif hasattr(g, "validate_partitions"):
             g.validate_partitions(reduce=program.reduce)
     splan = plan(schedule, num_vertices=g.num_vertices,
-                 num_edges=g.num_edges,
+                 num_edges=g.num_edges, devices=devices, device=device,
                  fixed_partitions=getattr(g, "partitions", None))
+    pe_devices = splan.devices or (device,)
+    if any(d.type != device.type for d in pe_devices):
+        raise ValueError(f"the PE devices {[str(d) for d in pe_devices]} "
+                         f"must be of the run's device type ({device}): a "
+                         "PE never runs on another kind of device")
     # out-of-core dispatch: a plan over several partitions, or a source
     # that is not resident (a partition container), streams
     if splan.num_partitions > 1 or not isinstance(g, G.Graph):
@@ -1429,6 +1645,8 @@ def translate(
     policy = splan.direction
     push_op = ir.find(PushScatterOp) if policy.mode != "pull" else None
     push_layout = push_op.layout if push_op is not None else None
+    exchange_op = ir.find(ExchangeOp)
+    pes = 1 if exchange_op is None else exchange_op.pes
 
     # ---- stage 3: layouts, kernels, supersteps --------------------------
     t_emit0 = time.perf_counter()
@@ -1446,10 +1664,19 @@ def translate(
         host["fe"] = lay.forward_ell(schedule.push_ell_width)
     if push_layout == "coo_chunks":
         host["fchunks"] = lay.forward_coo_chunks(splan.num_chunks)
+    # a dense plan shards its push plane over forward-ELL intervals (an
+    # edgeless graph's push stays replicated, as in the JAX package)
+    shards = None
+    if exchange_op is not None and dense and push_layout == "fwd_ell" \
+            and host["fe"].num_rows >= 1:
+        shards = lay.forward_ell_shards(schedule.push_ell_width, pes)
     preprocess_s = sum(lay.build_times_s.values()) - pre_before
     t_move0 = time.perf_counter()
     on = {k: lay.on(v, device) for k, v in host.items()}
     out_deg = g.out_degrees.to(device=device, dtype=torch.int32)
+    pe_deg = [out_deg.to(d) for d in pe_devices]
+    intervals = None if shards is None else [
+        lay.on_pe(shards, p, d) for p, d in enumerate(pe_devices)]
     transfer_s = time.perf_counter() - t_move0
     build_s = 0.0
     if use_kernels and dense:
@@ -1461,12 +1688,24 @@ def translate(
         build_s = time.perf_counter() - t_build0
 
     sub_sweep = None
+    exchange_plane, exchange_quantized, staged_chunks = None, False, None
     if dense:
         reduce_module, sub_sweep = _emit_dense_pull_reduce(
             ir, fused, on["pplan"], out_deg, use_kernels)
     else:
-        reduce_module = _emit_segment_scan_reduce(
+        reduce_module, chunks = _emit_segment_scan_reduce(
             ir, fused, on["rcoo"], V, E, out_deg, splan)
+        staged_chunks = (splan.num_chunks, splan.chunk_size)
+        if exchange_op is not None:
+            # the int8 wire only for a float add: min, max and integer
+            # add keep the exact collective
+            exchange_quantized = (schedule.message_dtype == "int8"
+                                  and exchange_op.collective == "psum"
+                                  and dtype.is_floating_point)
+            reduce_module = _emit_exchange(
+                exchange_op, reduce_module, chunks, splan.num_chunks,
+                out_deg, pe_devices, device, exchange_quantized, V)
+            exchange_plane = "pull"
     apply_fn = apply_op.fn
     frontier_dead = frontier_op.dead
     changed = frontier_op.mode == "changed"
@@ -1505,18 +1744,33 @@ def translate(
             return (*full_sweep(values, active), (E, 0, 0))
 
     # ---- push twin -------------------------------------------------------
-    push_step = push_tiers = rows_per_vertex = None
+    push_step = push_tiers = rows_per_vertex = pe_push = None
     if push_layout == "fwd_ell":
-        push_step, push_tiers = _emit_push_ell(
-            ir, push_op, on["fe"], out_deg, apply_fn, reduce_module,
-            use_kernels)
-        rows_per_vertex = on["fe"].rows_per_vertex
+        fe = on["fe"]
+        if shards is not None:
+            pe_push = (shards.rows_per_pe, intervals, pe_deg, pe_devices)
+            rows_max = shards.rows_per_pe_max
+            exchange_plane = "push"
+        else:   # one PE: the whole forward ELL on the run's device
+            pe_push = ((fe.num_rows,), [(fe.row_src, fe.dst, fe.weights)],
+                       [out_deg], (device,))
+            rows_max = fe.num_rows
+        combine = C.COLLECTIVES[C.REDUCE_COLLECTIVE[push_op.reduce.op]]
+        pe_push = (*pe_push, device, combine)
+        push_tiers = push_capacity_tiers(rows_max)
+        push_step = _emit_push_ell(ir, push_op, pe_push, push_tiers,
+                                   apply_fn, reduce_module, use_kernels)
+        rows_per_vertex = fe.rows_per_vertex
     elif push_layout == "coo_chunks":
         scatter_step = make_superstep(_emit_push_scatter(
             ir, push_op, on["fchunks"], out_deg, V))
 
         def push_step(values, active, r_f=None):
-            return (*scatter_step(values, active), 0)
+            return (*scatter_step(values, active), r_f)
+    if dense and exchange_plane != "push":
+        # a dense plan whose push plane did not shard (no push twin, or an
+        # edgeless forward ELL) runs replicated: one PE
+        pes = 1
 
     lane_step, lane_push = None, False
     if dense and pull_sweep != "bitmap":
@@ -1524,7 +1778,7 @@ def translate(
         lane_step, lane_push = _emit_lane_step(
             ir, fused, on["pplan"], out_deg, sub_sweep, apply_fn,
             frontier_op, touched_free, use_kernels,
-            on["fe"] if fwd else None, push_op if fwd else None)
+            push_op if fwd else None, pe_push)
 
     base_values = program.materialize_init(V, device)
 
@@ -1547,19 +1801,26 @@ def translate(
     emit_s = time.perf_counter() - t_emit0 - preprocess_s - transfer_s \
         - build_s
     tt = time.perf_counter() - t0
+    est_collective = comm.estimate_collective_bytes(
+        V, dtype, pes if exchange_plane is not None else 1,
+        quantized=exchange_quantized)
+    # the sharded pull plane also ships the touched mask each superstep,
+    # a packed bitmap below 16 PEs
+    est_frontier = comm.estimate_frontier_bytes(
+        V, pes if exchange_plane == "pull" else 1, packed=pes < 16)
     report = TranslationReport(
         program=program.name,
         backend=ir.backend,
         gather_module=fused.gather.module,
         reduce_module=fused.reduce.op,
         pipelines=splan.num_chunks,
-        pes=1,
+        pes=pes,
         device=str(device),
         translate_time_s=tt,
         est_flops_per_superstep=2.0 * E,
         est_bytes_per_superstep=float(E * (4 + 4 + dtype.itemsize)),
-        est_collective_bytes=comm.estimate_collective_bytes(V, dtype, 1),
-        est_frontier_bytes=comm.estimate_frontier_bytes(V, 1),
+        est_collective_bytes=est_collective,
+        est_frontier_bytes=est_frontier,
         diagnostics=tuple(ctx.diagnostics),
         pass_report=(render_table(ctx.diagnostics, title="-- diagnostics --")
                      + "\n\n" + pipeline_report.render())
@@ -1577,6 +1838,11 @@ def translate(
         pull_sweep=pull_sweep,
         pull_block_tiers=pull_block_tiers,
         pull_blocks_total=pull_blocks_total,
+        staged_chunks=staged_chunks,
+        exchange_plane=exchange_plane,
+        exchange_quantized=exchange_quantized,
+        push_pe_rows=None if shards is None else shards.rows_per_pe,
+        push_pe_edges=None if shards is None else shards.edges_per_pe,
     )
     return CompiledGraphProgram(
         pull_step, push_step, init_state, report,
@@ -1586,5 +1852,8 @@ def translate(
         num_vertices=V, num_edges=E,
         probe_divergence=schedule.probe_divergence, lane_step=lane_step,
         lane_push=lane_push, base_values=base_values,
+        rf_cuts=None if shards is None else shards.vertex_cuts, comm=comm,
+        exchange_plane=exchange_plane,
+        collective_bytes_per_superstep=est_collective + est_frontier,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         fingerprints_fn=lambda: ckpt.run_fingerprints(program, g, schedule))

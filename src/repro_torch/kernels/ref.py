@@ -128,6 +128,8 @@ def combine_settled(a: torch.Tensor, b: torch.Tensor,
     if reduce == "add":
         return a + b
     out = torch.minimum(a, b) if reduce == "min" else torch.maximum(a, b)
+    if not out.dtype.is_floating_point:     # no signed zeros to settle
+        return out
     return settle_zero_ties(out, zero_wins(a, reduce) | zero_wins(b, reduce),
                             reduce)
 

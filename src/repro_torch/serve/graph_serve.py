@@ -9,7 +9,9 @@ analogue of the decode slot pool in :mod:`repro_torch.serve.decode`.  The
 lanes run on the run's device (CUDA unless the caller passes
 ``device="cpu"``); a batched superstep makes one device→host read for
 all of its lanes, and a harvest copies only the finished lanes' tables
-to the host.
+to the host.  Under ``ScheduleConfig(pes=p)`` the programs run on a PE
+group (``devices=``, passed to ``translate``): a dense plan's push lanes
+run sharded, and every answer still equals a sequential run's.
 
 Structure::
 
@@ -216,7 +218,7 @@ def choose_landmarks(g: G.Graph, k: int) -> np.ndarray:
 
 def build_landmark_table(g: G.Graph, k: int, *,
                          schedule: ScheduleConfig | None = None,
-                         device=None) -> LandmarkTable:
+                         device=None, devices=None) -> LandmarkTable:
     """SSSP from k landmarks on g and its transpose, batched per sweep.
 
     Both sweeps run through the same translate/run_batch plane the server
@@ -226,9 +228,10 @@ def build_landmark_table(g: G.Graph, k: int, *,
     """
     lm = choose_landmarks(g, k)
     prog = dsl.sssp_program()
-    fwd = translate(prog, g, schedule, device=device)
+    fwd = translate(prog, g, schedule, device=device, devices=devices)
     d_out, _ = fwd.run_batch(lm)
-    bwd = translate(prog, G.reverse(g), schedule, device=device)
+    bwd = translate(prog, G.reverse(g), schedule, device=device,
+                    devices=devices)
     d_in, _ = bwd.run_batch(lm)
     return LandmarkTable(landmarks=lm,
                          d_out=d_out.cpu().numpy().astype(np.float32),
@@ -475,13 +478,14 @@ class GraphServer:
                  admission: AdmissionPolicy | None = None,
                  landmarks: int = 0,
                  comm: CommManager | None = None,
-                 device=None,
+                 device=None, devices=None,
                  ppr_damping: float = 0.85, ppr_iters: int = 20):
         self.graph = g
         self.schedule = schedule or ScheduleConfig()
         self.admission = admission or AdmissionPolicy()
         self._comm = comm
         self.device = resolve_device(device)
+        self.devices = devices
         self._ppr_damping = ppr_damping
         self._ppr_iters = ppr_iters
         self._programs: dict[Any, CompiledGraphProgram] = {}
@@ -494,7 +498,7 @@ class GraphServer:
         self._snap_seq = 0
         self.table: LandmarkTable | None = (
             build_landmark_table(g, landmarks, schedule=self.schedule,
-                                 device=self.device)
+                                 device=self.device, devices=devices)
             if landmarks > 0 else None)
 
     # -- submission --------------------------------------------------------
@@ -580,7 +584,8 @@ class GraphServer:
             compiled = self._programs.get(program)
             if compiled is None:
                 compiled = translate(program, self.graph, self.schedule,
-                                     self._comm, device=self.device)
+                                     self._comm, device=self.device,
+                                     devices=self.devices)
                 self._programs[program] = compiled
             # per-root programs (ppr) can't share lanes across roots —
             # their group is single-lane and distinct per root, relying on

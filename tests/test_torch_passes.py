@@ -179,11 +179,15 @@ def test_verify_ir_flags_broken_ir():
 
 
 def test_plan_refuses_unported_planes():
-    """Several PEs are refused, naming the ROADMAP; the partition axis,
-    refused until the streamed engine was ported, now resolves as the JAX
-    package's plan does."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.plan(TS.ScheduleConfig(pes=2), num_vertices=10, num_edges=40)
+    """Planes once refused until ported now resolve as the JAX package's
+    plan does: several PEs (on a list of two CPU devices, as the JAX
+    package's mesh over two of its host devices) and the partition
+    axis."""
+    tp = TS.plan(TS.ScheduleConfig(pes=2), num_vertices=10, num_edges=40,
+                 devices=["cpu"] * 2)
+    rp = RS.plan(RS.ScheduleConfig(pes=2), num_vertices=10, num_edges=40)
+    assert tp.pes == rp.pes == 2
+    assert tp.describe() == rp.describe()
     sp = TS.plan(TS.ScheduleConfig(partitions=2), num_vertices=10,
                  num_edges=40)
     rsp = RS.plan(RS.ScheduleConfig(partitions=2), num_vertices=10,

@@ -193,7 +193,10 @@ def test_default_device_is_cuda_and_never_falls_back(graphs, monkeypatch):
 
 
 def test_unported_paths_raise_with_roadmap_item(graphs, tmp_path):
-    """Several PEs are still refused, naming their ROADMAP item.  Streamed
+    """Paths once refused until their ROADMAP item was ported.  Several
+    PEs (refused until the multi-PE port) give the JAX package's values
+    and every ``run_stats`` entry at the same PE count, on a PE group of
+    two CPU devices.  Streamed
     partitions (a plan over 3 partitions, or a partition container as the
     source), refused until the streamed engine was ported, now give the
     JAX package's streamed answers and counters, and a source that is
@@ -204,9 +207,15 @@ def test_unported_paths_raise_with_roadmap_item(graphs, tmp_path):
     from repro_torch.core.stream import PartitionedGraphProgram
     from repro_torch.data import graphs as TDATA
     rg, tg = graphs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        TT.translate(TD.bfs_program(), tg, TS.ScheduleConfig(pes=2),
-                     device="cpu")
+    rprog = RT.translate(RD.bfs_program(), rg, RS.ScheduleConfig(pes=2))
+    prog = TT.translate(TD.bfs_program(), tg, TS.ScheduleConfig(pes=2),
+                        device="cpu", devices=["cpu"] * 2)
+    assert prog.report.pes == rprog.report.pes == 2
+    rv, ri = rprog.run(roots=0)
+    tv, ti = prog.run(roots=0)
+    _same(rv, tv)
+    assert int(ri) == ti
+    assert rprog.last_run_stats == prog.last_run_stats
     path = TDATA.container_from_graph(str(tmp_path / "c.npz"), tg, 3)
     for rsrc, tsrc, kw in (
             (rg, tg, dict(partitions=3)),
