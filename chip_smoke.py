@@ -63,7 +63,20 @@ and the script exits non-zero):
    rows exist) against their plain versions, and the PEs' partials
    combined by the reduce-matched collective against the unsharded plain
    push, bit for bit.
-4. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
+4. analysis — the static analysis tier (``core/analysis.py``): each
+   template's and each adversarial program's facts with their provenance
+   and codes (templates all ``static``; the evader's apply not
+   elementwise and the coincidence gather no menu module, each with
+   A002; an untraceable gather ``probed`` with A001), the cold seconds a
+   program (cache cleared) and a cached hit, the process's first trace
+   apart.  The coincidence program (``where(v < 100, v + 1, v * 2)``,
+   ``plus_one`` on the probe batch) on a 120-vertex chain under pull,
+   push and auto on the card: equal to a numpy replay of the user's
+   function bit for bit (vertex 101 = 200), no menu kernel launched.
+   The evader through ``run_batch`` over 8 roots at scale 12: each lane
+   equal to its sequential run bitwise, a lane kernel launched, and its
+   apply on the whole ``(k, V)`` batch shown to differ from lane by lane.
+5. main    — R-MAT at Graph500 scale 22 (edge factor 16, seed 0), BFS
    from root 0 through ``algorithms.bfs`` under pull, push and auto on
    three paths, each held against a numpy level-synchronous BFS, with the
    launch counts set to 0 just before each run and read just after: the
@@ -87,7 +100,7 @@ and the script exits non-zero):
    reverse COO's sorted receiving ids with bfs's messages (its result must
    be the BFS levels; the device time of each of its three launches),
    beside ``scatter_reduce_``.
-5. serve   — the graph-query server on the main phase's scale-22 graph:
+6. serve   — the graph-query server on the main phase's scale-22 graph:
    ``GraphServer(slots=8, slice_supersteps=4, landmarks=4)`` on CUDA
    (the landmark table: SSSP from 4 landmarks on the graph and its
    transpose through ``run_batch``), a first stream submitted at once
@@ -119,7 +132,7 @@ and the script exits non-zero):
    the lane push at k = 1, 8 and 32 on root 0's BFS frontiers and a
    random 1% frontier against k compactions + fused pushes (and its plain
    version), exactly, timed beside them and its bound.
-6. stream  — out-of-core streaming on the main phase's scale-22 graph
+7. stream  — out-of-core streaming on the main phase's scale-22 graph
    with ``ScheduleConfig(partitions=8)`` (the plan's partition count and
    the store's rows and entry bytes printed): BFS from root 0 under pull,
    push and auto equal to the resident dense run on the card (values,
@@ -143,7 +156,17 @@ and the script exits non-zero):
    streamed; each streamed route timed per partition (CUDA events)
    against its plain version and byte bound: the fold in accumulate mode,
    the lane push with got, their pre-passes, and (scale 20, pagerank)
-   kernel 1 on prepared tables + kernel 4 beside a CSR product.  At scale
+   kernel 1 on prepared tables + kernel 4 beside a CSR product.  Weighted
+   gathers outside the menu on the scale-22 graph with uniform(0.5, 2)
+   weights (numpy seed 4) through the general partial: ``v + 2 * w``
+   under min (pull, push, auto) bitwise equal to the resident run of the
+   same program on the card, and ``v * w + 1`` under add (5 iterations,
+   pull) within ``rtol=1e-5`` of the resident run and of a float64 replay
+   of the program, two streamed runs and two resident runs bitwise
+   equal, iterations equal, kernel 4 launched once a
+   swept pull partition and no lane kernel; kernel 4 on the route timed
+   (largest pull partition) against its plain version, ``scatter_reduce_``
+   and its byte bound.  At scale
    20: SSSP streamed = resident bitwise, PageRank (20 iterations) within
    ``rtol=1e-5`` of the resident run and bitwise equal across two
    streamed runs with one kernel 1 and one kernel 4 launch a swept
@@ -151,7 +174,7 @@ and the script exits non-zero):
    under a ``partition_budget_bytes`` that forces evictions = the
    resident BFS.  The float-add route's time also by the profiler's
    device time of its kernels.
-7. multi_pe — a PE group of repeated devices (``devices=[cuda:0] * p``)
+8. multi_pe — a PE group of repeated devices (``devices=[cuda:0] * p``)
    on the main phase's scale-22 graph: dense BFS from root 0 under push
    and auto at p = 1, 2 and 4 (the sharded push: kernel 3f a PE on its
    forward-ELL interval, the collective, kernel 1 on the replicated
@@ -172,11 +195,11 @@ and the script exits non-zero):
    scale 20: SSSP and WCC at p = 2 = p = 1 bitwise, sparse PageRank at p
    = 2 within ``rtol=1e-5`` of p = 1 and with the int8 exchange within
    the JAX package's bound ``d/(1-d) · p · max|r|/127 + 1e-6``.
-8. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
+9. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
    ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
    component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
    iteration), ``k_core(k=4)`` (= a numpy peel).
-9. lm      — the LM serving path at full width: ``launch.serve.main``
+10. lm     — the LM serving path at full width: ``launch.serve.main``
    through qwen3-8b (all 36 layers and widths, bf16, weights from
    ``torch.Generator`` seed 0), 8 slots at capacity 4096, 16 requests
    with prompts of 256–2048 tokens (numpy seed 0), 64 new tokens each;
@@ -335,8 +358,9 @@ def _close(a, b, rtol=1e-5, atol=1e-6):
 
 
 def _max_err(a, b):
+    """Largest |a - b|, equal entries (infinities, NaN with NaN) at 0."""
     if a.dtype.is_floating_point:
-        ok = ~(a.isnan() & b.isnan())
+        ok = ~((a.isnan() & b.isnan()) | (a == b))
         d = (a[ok].double() - b[ok].double()).abs()
         return float(d.max()) if d.numel() else 0.0
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
@@ -1302,6 +1326,185 @@ def phase_kernels(torch):
     return worst
 
 
+ANALYSIS_CHAIN = 120        # the coincidence program's chain (values < 2**31)
+ANALYSIS_SCALE = 12         # the evader's R-MAT graph
+ANALYSIS_BATCH = 8          # the evader's run_batch lanes
+
+
+def _adversarial_programs(torch, dsl):
+    """The programs built to fool the sampling probes (the JAX package's
+    ``tests/test_analysis.py``), and one the tracer cannot follow."""
+    def host_gather(v, w, d):
+        if bool(v.sum() >= 0):           # data-dependent Python control
+            return v + 1
+        return v
+
+    return {
+        # elementwise on every probe batch; a cross-lane flip once the
+        # table's sum passes 1e6 (a (k, V) batch of lanes gets there)
+        "evader": dsl.VertexProgram(
+            name="evader", gather=lambda v, w, d: v + 1, reduce="min",
+            apply=lambda old, s: torch.where(
+                old.sum() > 1e6, torch.flip(s, (0,)), torch.minimum(old, s)),
+            init_value=100.0, frontier="changed", value_dtype=torch.float32),
+        # plus_one on the probe batch by coincidence, v * 2 from 100 up
+        "coincidence": dsl.VertexProgram(
+            name="coincidence",
+            gather=lambda v, w, d: torch.where(v < 100, v + 1, v * 2),
+            reduce="min", apply=torch.minimum, init_value=2**20,
+            frontier="changed", value_dtype=torch.int32),
+        "untraceable": dsl.VertexProgram(
+            name="untraceable", gather=host_gather, reduce="min",
+            apply=torch.minimum, init_value=2**20, frontier="changed",
+            value_dtype=torch.int32),
+    }
+
+
+def _coincidence_replay(V):
+    """The coincidence program on the chain 0 → 1 → … → V-1 from root 0,
+    superstep by superstep in numpy (int64, then checked to fit int32)."""
+    val = np.full(V, 2**20, np.int64)
+    val[0] = 0
+    active = np.zeros(V, bool)
+    active[0] = True
+    while active.any():
+        src = np.flatnonzero(active[:-1])
+        msg = np.full(V, np.iinfo(np.int32).max, np.int64)
+        msg[src + 1] = np.where(val[src] < 100, val[src] + 1, val[src] * 2)
+        new = np.minimum(val, msg)
+        active = new != val
+        val = new
+    if val.max() >= 2**31:
+        raise AssertionError("the chain's values leave int32")
+    return val.astype(np.int32)
+
+
+def phase_analysis(torch, dev_info):
+    """The static analysis tier on the card's host, and the two programs
+    it now routes differently: see the module docstring (step 4)."""
+    from repro_torch.core import analysis, dsl
+    from repro_torch.core import graph as G
+    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
+    from repro_torch.core.translator import translate
+
+    smi = dev_info["smi"]
+    progs = {name: factory() for name, factory in
+             sorted(dsl.PROGRAM_TEMPLATES.items())}
+    progs.update(_adversarial_programs(torch, dsl))
+    # the process's first trace pays make_fx's imports and the menu's
+    # signatures once
+    analysis.analysis_cache_clear()
+    t0 = time.perf_counter()
+    analysis.analyze_program(progs["bfs"])
+    first_s = time.perf_counter() - t0
+    facts, seconds = {}, {}
+    for name, prog in progs.items():
+        analysis.analysis_cache_clear()
+        t0 = time.perf_counter()
+        res = analysis.analyze_program(prog)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if analysis.analyze_program(prog) is not res:
+            raise AssertionError(f"{name}: the analysis was not cached")
+        seconds[name] = (cold, time.perf_counter() - t0)
+        facts[name] = {"facts": res.summary(),
+                       "codes": [d.code for d in res.diagnostics]}
+        log(f"[analysis] {name}: {res.summary()} codes "
+            f"{facts[name]['codes']}; cold {cold:.4f} s, cached "
+            f"{seconds[name][1] * 1e6:.1f} us")
+    want = {
+        "evader": ("elementwise", (False, "static"), "A002"),
+        "coincidence": ("gather_module", (None, "static"), "A002"),
+        "untraceable": ("gather_module", ("plus_one", "probed"), "A001"),
+    }
+    for name, (prop, fact, code) in want.items():
+        got = facts[name]
+        if got["facts"][prop] != fact or code not in got["codes"]:
+            raise AssertionError(f"{name}: {prop} {got['facts'][prop]} "
+                                 f"codes {got['codes']}")
+    for name in dsl.PROGRAM_TEMPLATES:
+        if {p for _, p in facts[name]["facts"].values()} != {"static"}:
+            raise AssertionError(f"{name}: a fact not static: {facts[name]}")
+    log(f"[analysis] first analysis in the process (make_fx's imports, the "
+        f"menu's signatures) {first_s:.3f} s; cold analysis per program "
+        f"{min(c for c, _ in seconds.values()):.4f}–"
+        f"{max(c for c, _ in seconds.values()):.4f} s on the host of "
+        f"{smi}")
+
+    # ---- the coincidence program on the card: no menu kernel may
+    # evaluate it (the kernels' plus_one would give vertex 101 the value
+    # 101); the sparse backend runs the user's gather
+    V = ANALYSIS_CHAIN
+    src = np.arange(V - 1, dtype=np.int32)
+    chain = G.from_edge_list(src, src + 1, num_vertices=V)
+    want_v = _coincidence_replay(V)
+    coinc = {}
+    for mode in ("pull", "push", "auto"):
+        prog = translate(progs["coincidence"], chain, ScheduleConfig(
+            direction=DirectionPolicy(mode=mode)), device="cuda")
+        _zero_counts()
+        v, it = prog.run(roots=0)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        got = v.cpu().numpy()
+        if not np.array_equal(got, want_v) or int(got[101]) != 200 \
+                or prog.report.gather_module is not None \
+                or any(launches.values()):
+            raise AssertionError(
+                f"coincidence {mode}: vertex 101 = {int(got[101])} (want "
+                f"200), equal to the numpy replay: "
+                f"{np.array_equal(got, want_v)}; module "
+                f"{prog.report.gather_module}; launches {launches}")
+        coinc[mode] = {"iters": it, "backend": prog.report.backend,
+                       "analysis_s": prog.report.translate_breakdown[
+                           "analysis_s"]}
+    log(f"[analysis] coincidence on a {V}-vertex chain under pull, push and "
+        f"auto on the card: = the numpy replay bit for bit (vertex 101 = "
+        f"200, vertex {V - 1} = {int(want_v[-1])}), gather module None, "
+        f"backend {coinc['auto']['backend']}, no menu kernel launched; "
+        f"{json.dumps(coinc)}")
+
+    # ---- the evader in a batch of lanes: its apply runs lane by lane
+    Vg = 1 << ANALYSIS_SCALE
+    s_, d_ = G.rmat_edges(Vg, 16 * Vg, seed=3)
+    g = G.from_edge_list(s_, d_, num_vertices=Vg)
+    deg = g.out_degrees.numpy()
+    roots = np.random.default_rng(0).choice(np.flatnonzero(deg > 0),
+                                            ANALYSIS_BATCH, replace=False)
+    ev = progs["evader"]
+    prog = translate(ev, g, device="cuda")
+    _zero_counts()
+    vb, ib = prog.run_batch(roots)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    for i, r in enumerate(roots):
+        v, it = prog.run(roots=int(r))
+        if not (torch.equal(vb[i], v) and int(ib[i]) == it):
+            raise AssertionError(f"evader lane {i} (root {r}) != its "
+                                 "sequential run")
+    if launches["edge_block_fold"] + launches["push_ell_lanes"] <= 0:
+        raise AssertionError(f"evader run_batch launched no lane kernel: "
+                             f"{launches}")
+    # the same apply on the whole (k, V) batch is not the lanes' results:
+    # at the lanes' init values (100 a vertex) the batch's sum passes 1e6
+    old = torch.full_like(vb, 100.0)
+    batched = ev.apply(old, vb)
+    per_lane = torch.stack([ev.apply(old[i], vb[i])
+                            for i in range(len(roots))])
+    if torch.equal(batched, per_lane):
+        raise AssertionError("the evader's apply batches over lanes")
+    log(f"[analysis] evader run_batch over {len(roots)} roots at scale "
+        f"{ANALYSIS_SCALE}: each lane = its sequential run bitwise (iters "
+        f"{ib.tolist()}); the apply ran lane by lane (on the (k, V) batch "
+        f"it flips the lanes); launches {launches}")
+    summary = {"facts": facts, "seconds": seconds, "first_s": first_s,
+               "coincidence": coinc, "evader_launches": launches,
+               "card": smi}
+    with open(os.path.join(OUT_DIR, "chip_smoke_analysis.json"), "w") as f:
+        json.dump(summary, f, indent=1, default=str)
+    return summary
+
+
 def _time_ms(torch, fn, reps=30, warmup=3, batch=1):
     """Median CUDA-event milliseconds of one call after ``warmup``, over
     ``reps`` samples of ``batch`` calls back to back."""
@@ -2245,7 +2448,7 @@ def _profile_serve(torch, srv, roots, step_ms, smi):
 
 def phase_serve(torch, dev_info, main):
     """The graph-query server at the main scale: see the module docstring
-    (step 5)."""
+    (step 6)."""
     import tempfile
     import scipy.sparse as sp
     from scipy.sparse.csgraph import dijkstra
@@ -2900,9 +3103,204 @@ def _pagerank_route_timing(torch, g2, prog, smi):
             "shape": [rows, 8, V]}
 
 
+def _general_programs(torch, dsl):
+    """Weighted gathers outside the menu, one a reduce the general
+    partial folds differently: min (exact) and float add (kernel 4's
+    order, within rtol 1e-5)."""
+    return {
+        "min": dsl.VertexProgram(
+            name="two_w", gather=lambda v, w, d: v + 2 * w, reduce="min",
+            apply=torch.minimum, init_value=float("inf"),
+            frontier="changed", value_dtype=torch.float32),
+        "add": dsl.VertexProgram(
+            name="affine_w", gather=lambda v, w, d: v * w + 1,
+            reduce="add", apply=lambda old, s: 0.5 * s, init_value=1.0,
+            frontier="all", value_dtype=torch.float32, mask_inactive=False,
+            max_iters=5),
+    }
+
+
+def _general_route_timing(torch, store, gather, values, smi):
+    """Kernel 4 on the general partial's route: the largest pull
+    partition's rows (the user's gather over its slots at ``values``,
+    each row min-reduced) folded by owner, against its plain version,
+    ``scatter_reduce_`` amin into an identity-filled table, and the byte
+    bound (keys and row values read once, the (V,) partial written)."""
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.kernels.ref import PAD
+    V = values.shape[0]
+    p = int(np.argmax(store.rows_per_partition["pull"]))
+    key, slot, wgt, rows = _partition_on_card(torch, store, "pull", p)
+    valid = slot != PAD
+    safe = torch.where(valid, slot, 0).long()
+    msg = torch.where(valid, gather(values[safe], wgt, None), float("inf"))
+    row = msg.amin(1)
+
+    def kernel():
+        return ss.segment_reduce(key, row, V, reduce="min")
+
+    got = kernel()
+    want = ss.segment_reduce_ref(key, row, V, reduce="min")
+    table = torch.full((V,), float("inf"), device="cuda")
+    key64 = key.long()
+    table.scatter_reduce_(0, key64, row, "amin", include_self=True)
+    torch.cuda.synchronize()
+    if not (_same(got, want) and _same(got, table)):
+        raise AssertionError("kernel 4 on the general route != its plain "
+                             "version or scatter_reduce_")
+    ms = _time_ms(torch, kernel, reps=20)
+    dev_ms = _device_ms(torch, kernel, "segment_")
+    plain_ms = _time_ms(torch, lambda: ss.segment_reduce_ref(
+        key, row, V, reduce="min"), reps=10)
+    # amin is idempotent: the repeated calls need no fresh table
+    lib_ms = _time_ms(torch, lambda: table.scatter_reduce_(
+        0, key64, row, "amin", include_self=True), reps=20)
+    bound = 1e3 * max((rows * 8 + V * 4) / _BANDWIDTH, rows / _SCALAR_OPS)
+    log(f"[stream] kernel 4 on the general route (pull partition {p}, "
+        f"{rows} rows, min): {ms:.4f} ms (device "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}), plain "
+        f"{plain_ms:.4f} ms, scatter_reduce_ amin {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({bound / ms:.3f} of it), on {smi}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound,
+            "max_abs_err": _max_err(got, want), "partition": p,
+            "shape": [rows, V]}
+
+
+def _float64_replay(torch, g, prog, iters):
+    """``prog`` (frontier 'all', every source sending, a float add) for
+    ``iters`` supersteps in float64 on the card, ``index_add_`` over every
+    edge: the sums without float32's reassociation, to hold a float-add
+    run against."""
+    V = g.num_vertices
+    deg = g.out_degrees.to("cuda")
+    src = torch.repeat_interleave(torch.arange(V, device="cuda"),
+                                  deg.long())
+    dst = g.edges_dst.to("cuda").long()
+    w = g.edge_weights.to("cuda", torch.float64)
+    v = torch.full((V,), float(prog.init_value), dtype=torch.float64,
+                   device="cuda")
+    for _ in range(iters):
+        s = torch.zeros_like(v).index_add_(
+            0, dst, prog.gather(v[src], w, deg[src]).double())
+        v = prog.apply(v, s)
+    return v
+
+
+def _max_rel(a, b):
+    """Largest |a - b| / |b| (``b`` the reference), in float64."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def _stream_general(torch, g, smi):
+    """Weighted gathers outside the menu streamed through the general
+    partial on the scale-22 graph with random weights, in
+    ``STREAM_PARTITIONS`` partitions: the min program bitwise equal to the
+    resident run of the same program on the card; the float add within
+    rtol 1e-5 of the resident run and of a float64 replay, two streamed
+    runs and two resident runs each bitwise equal; iterations equal,
+    kernel 4's launches against the swept pull partitions, no lane
+    kernel; then kernel 4 timed on the route."""
+    import dataclasses
+    from repro_torch.core import dsl, preprocess
+    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
+    from repro_torch.core.translator import translate
+
+    P = STREAM_PARTITIONS
+    w = np.random.default_rng(4).uniform(0.5, 2.0, g.num_edges)
+    gw = dataclasses.replace(g, edge_weights=torch.from_numpy(
+        w.astype(np.float32)))
+    del w
+    lane_kernels = ("edge_block", "edge_block_skip", "edge_block_lanes",
+                    "edge_block_fold", "edge_block_prepare", "lanes_prepare",
+                    "push_lanes_prepare", "push_ell", "push_ell_fused",
+                    "push_ell_lanes")
+    out, timing, seg_launches = {}, None, 0
+    for red, prog in _general_programs(torch, dsl).items():
+        root = 0 if red == "min" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident = translate(prog, gw, ScheduleConfig(), device="cuda")
+        ref, rit = resident.run(roots=root)
+        torch.cuda.synchronize()
+        res_s = time.perf_counter() - t0
+        for mode in ("pull", "push", "auto") if red == "min" else ("pull",):
+            sp = translate(prog, gw, ScheduleConfig(
+                partitions=P, direction=DirectionPolicy(mode=mode)),
+                device="cuda")
+            if not sp._general or sp.report.gather_module is not None:
+                raise AssertionError(f"{prog.name}: not the general route")
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, it = sp.run(roots=root)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_counts()
+            st = sp.last_run_stats
+            extra = {}
+            if red == "min":
+                same = _same_bits(v, ref)
+            else:
+                exact = _float64_replay(torch, gw, prog, prog.max_iters)
+                v2, _ = sp.run(roots=root)
+                extra = {"stream_vs_float64": _max_rel(v, exact),
+                         "resident_vs_float64": _max_rel(ref, exact),
+                         "stream_vs_resident": _max_rel(v, ref),
+                         "stream_runs_bitwise": _same_bits(v, v2),
+                         "resident_runs_bitwise": _same_bits(
+                             resident.run()[0], ref)}
+                same = _close(v, ref, rtol=1e-5, atol=1e-6) \
+                    and _close(v.double(), exact, rtol=1e-5, atol=1e-6) \
+                    and extra["stream_runs_bitwise"] \
+                    and extra["resident_runs_bitwise"]
+                del exact, v2
+            segs = launches["segment_reduce"]
+            swept = st["partitions_swept"]
+            want_segs = {"pull": swept, "push": 0}.get(mode)
+            if not same or it != rit \
+                    or any(launches[k] for k in lane_kernels) \
+                    or (want_segs is not None and segs != want_segs) \
+                    or not (st["pull_supersteps"] == 0 or 0 < segs <= swept):
+                raise AssertionError(
+                    f"streamed {prog.name} {mode}: agrees {same} (max err "
+                    f"to the resident run {_max_err(v, ref)}; {extra}), "
+                    f"iters {it} / {rit}, kernel 4 launches {segs} for "
+                    f"{swept} swept partitions, launches {launches}")
+            if red == "min" and mode == "pull":
+                seg_launches = segs
+                timing = _general_route_timing(
+                    torch, sp.store, prog.gather, ref, smi)
+            out[f"{red} {mode}"] = {
+                "iters": it, "wall_s": wall, "resident_s": res_s,
+                "launches_segment_reduce": segs, "partitions_swept": swept,
+                "bytes": st["partition_bytes_h2d"],
+                "max_abs_err": _max_err(v, ref), **extra}
+            held = ("bitwise the resident run" if red == "min" else
+                    f"within rtol 1e-5 of the resident run (max rel "
+                    f"{extra['stream_vs_resident']:.3e}) and of a float64 "
+                    f"replay (the stream {extra['stream_vs_float64']:.3e}, "
+                    f"the resident run {extra['resident_vs_float64']:.3e} "
+                    f"from it), two streamed and two resident runs "
+                    f"bitwise")
+            log(f"[stream] general route {prog.name} ({red}) {mode}: {held} "
+                f"(resident {res_s:.3f} s with its set-up), iters {it}; "
+                f"{wall:.3f} s (store built in it), "
+                f"{st['partition_bytes_h2d']} bytes, kernel 4 launches "
+                f"{segs} for {swept} swept partitions, no lane kernel, on "
+                f"{smi}")
+            del sp, v
+        del resident
+    # the weighted copy's layouts (host and device) go with it
+    preprocess._LAYOUT_CACHE.pop(preprocess._layout_key(gw), None)
+    del gw, ref
+    return out, seg_launches, timing
+
+
 def phase_stream(torch, dev_info, main):
     """Out-of-core streaming on the main phase's scale-22 graph: see the
-    module docstring (step 6)."""
+    module docstring (step 7)."""
     import gc
     import shutil
     from repro_torch.core import algorithms as alg
@@ -3200,6 +3598,11 @@ def phase_stream(torch, dev_info, main):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- weighted gathers outside the menu: the general partial ---------
+    general, general_segs, gtime = _stream_general(torch, g, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- scale 20: SSSP, PageRank, a container under a byte budget ------
     V2, E2 = 1 << OTHERS_SCALE, 16 << OTHERS_SCALE
     src, dst = G.rmat_edges(V2, E2, seed=1)
@@ -3267,6 +3670,7 @@ def phase_stream(torch, dev_info, main):
                                      "resident_base": base},
         "pinned_copy_ms": copy_ms, "pinned_rate": pinned_rate,
         "timing": timing, "pagerank_timing": pr_timing,
+        "general": general, "general_timing": gtime,
         "build_s": build_s, "phase_s": phase_s, "card": smi}
     with open(os.path.join(OUT_DIR, "chip_smoke_stream.json"), "w") as f:
         json.dump(summary, f, indent=1, default=str)
@@ -3295,6 +3699,13 @@ def phase_stream(torch, dev_info, main):
          "bound_ms": pr_timing["bound_ms"], "bound_by": "bytes",
          "library_ms": pr_timing["library_ms"],
          "shape": pr_timing["shape"]},
+        {"name": "segment_reduce (streamed general gather, by owner)",
+         "route": "cuda", "source": "src/repro_torch/csrc/segment_sum.cu",
+         "replaces": "src/repro/kernels/segment_sum.py:24",
+         "launches": general_segs, "max_abs_err": gtime["max_abs_err"],
+         "ms": gtime["ms"], "plain_ms": gtime["plain_ms"],
+         "bound_ms": gtime["bound_ms"], "bound_by": "bytes",
+         "library_ms": gtime["library_ms"], "shape": gtime["shape"]},
     ]
 
 
@@ -3428,7 +3839,7 @@ def _multi_pe_kernel_timing(torch, lay, g, oracle, pes, smi):
 def phase_multi_pe(torch, dev_info, main):
     """Multi-PE execution on one card: a PE group of repeated devices
     (``devices=[cuda:0] * p``) on the main phase's scale-22 graph; see the
-    module docstring (step 7)."""
+    module docstring (step 8)."""
     import gc
     from repro_torch.core import algorithms as alg
     from repro_torch.core import comm as C
@@ -4275,6 +4686,7 @@ def main():
     import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
     phase_kernels(torch)
+    phase_analysis(torch, dev_info)
     kernels, main_graph = phase_main(torch, dev_info)
     kernels.extend(phase_serve(torch, dev_info, main_graph))
     kernels.extend(phase_stream(torch, dev_info, main_graph))

@@ -1,26 +1,56 @@
-"""Program analysis by sampling probes, and the structural IR verifier.
+"""Static program analysis over traced ATen graphs, and the IR verifier.
 
-Counterpart of ``repro.core.analysis`` without its jaxpr tier: every
-property the pass pipeline needs is decided by evaluating the user's
-gather or apply on fixed seeded batches (provenance ``'probed'``).  A
-probe is evidence, not proof — a callable that misbehaves only outside
-the batch slips through — which is why the JAX package decides these
-statically where it can.  The static tier over torch.fx traces is queued
-in ``ROADMAP.md`` (§1 item 6).
+Counterpart of ``repro.core.analysis``.  Every legality decision the pass
+pipeline makes about a user's ``gather``/``apply`` is decided by walking
+the callable's traced graph rather than by sampling it:
+:func:`analyze_program` traces both callables with
+``torch.fx.experimental.proxy_tensor.make_fx`` on fake ``(8,)`` tensors
+(the counterpart of ``jax.make_jaxpr`` on abstract avals), which gives
+ATen-level nodes whatever Python spelling the user chose, and decides
 
-:func:`verify_ir` is structural and carries over unchanged: the pass
-pipeline runs it between every pass pair under ``verify=True``.
+* **gather module matching**: canonical-graph signature equality against
+  the menu (``kernels.ref.gather_msg`` traced the same way), not numeric
+  coincidence on a 16-element batch;
+* **weight-use**: backward liveness of the weight placeholder;
+* **elementwise-ness**: no cross-lane ATen op is live;
+* **identity-fixpoint** / **identity-absorption**: abstract evaluation of
+  the graph at the reduce identity over concrete tensors, symbolic
+  input-plus-offset intervals and bounded intervals;
+* **monotonicity under min/max reduces**: a clamp-shaped apply plus a
+  sign-bounded gather offset proves values move one way only;
+* **overflow**: integer folds are redone in int64, so ``gather(init)``
+  wrapping int32 becomes the ``A003`` error.
+
+Each fact records its **provenance**: ``'static'`` (decided from the
+graph), ``'probed'`` (the callable could not be traced, or the abstract
+domain was too coarse, so a sampling probe decided; an ``A001``
+diagnostic says so) or ``'declined'`` (neither ran; the conservative
+verdict).  Where both the graph and a probe reach a verdict they are
+cross-checked: disagreement raises ``A002`` and the conservative verdict
+wins.  A callable fails to trace when it needs concrete values (Python
+control flow on a tensor, ``.item()``, a NumPy conversion), as a JAX
+callable fails on a concretization error.
+
+:func:`verify_ir` is the structural half: the pass pipeline runs it
+between every pass pair under ``verify=True``.
+
+Results are cached per program object, so repeat translations pay
+nothing (:func:`analysis_cache_clear` drops them).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import operator
 from collections import OrderedDict
+from functools import partial
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.fx.experimental.proxy_tensor import make_fx
 
-from ..kernels.ref import GATHER_OPS, gather_msg
+from ..kernels.ref import GATHER_OPS, WEIGHT_FREE_GATHERS, gather_msg
 from .diagnostics import Diagnostic
 from .dsl import VertexProgram, reduce_identity
 
@@ -28,24 +58,37 @@ __all__ = [
     "PropertyFact",
     "ProgramAnalysis",
     "analyze_program",
+    "analysis_cache_clear",
     "verify_ir",
     "classify_gather",
     "apply_preserves_identity",
     "gather_absorbs_identity",
     "apply_is_elementwise",
     "apply_batches_over_lanes",
-    "gather_uses_weight",
-    "is_monotone",
 ]
+
+# Number of lanes traced; any small n > 1 works (the trace pins only dtype
+# and rank).
+_N = 8
+
+# Finite stand-in for "any finite magnitude" in interval bounds.
+_FIN = float(np.finfo(np.float64).max)
 
 _COMMUTATIVE_REDUCES = ("add", "min", "max")
 
 _PROVENANCES = ("static", "probed", "declined")
 
 
+# ---------------------------------------------------------------------------
+# Result types
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass(frozen=True)
 class PropertyFact:
-    """One analyzed property: its verdict and how it was reached."""
+    """One analyzed property: its verdict and how it was reached
+    (``'static'``, ``'probed'`` or ``'declined'``, see the module
+    docstring); ``detail`` is a short justification."""
 
     value: object
     provenance: str
@@ -65,6 +108,7 @@ class ProgramAnalysis:
     ``identity_fixpoint`` the push layout and touched-mask elision,
     ``identity_absorbing`` the masked sweep, and ``monotone`` is
     termination evidence for ``'changed'``-frontier programs.
+    ``diagnostics`` carries the program-level findings.
     """
 
     gather_module: PropertyFact      # str | None
@@ -86,7 +130,581 @@ class ProgramAnalysis:
 
 
 # ---------------------------------------------------------------------------
-# Sampling probes
+# Tracing and canonical signatures
+# ---------------------------------------------------------------------------
+
+
+def _trace(fn: Callable, *examples):
+    """``make_fx`` on fake tensors shaped like ``examples``; ``None`` if
+    the callable cannot be traced.  A user callable can raise anything
+    while it is traced, so every exception means "untraceable"."""
+    try:
+        return make_fx(fn, tracing_mode="fake",
+                       _allow_non_fake_inputs=True)(*examples)
+    except Exception:
+        return None
+
+
+def _gather_examples(dtype: torch.dtype):
+    # the weight takes the value dtype, as the resident engine passes it
+    # (``wgt.to(v.dtype)``) and the JAX package traces it
+    return (torch.zeros(_N, dtype=dtype), torch.zeros(_N, dtype=dtype),
+            torch.zeros(_N, dtype=torch.int32))  # (values, weights, degrees)
+
+
+def _apply_examples(dtype: torch.dtype):
+    return torch.zeros(_N, dtype=dtype), torch.zeros(_N, dtype=dtype)
+
+
+def _op_name(node) -> str:
+    """The ATen op's name without its overload (``'add'`` for
+    ``aten.add.Tensor``), ``'getitem'`` for a tuple index."""
+    target = node.target
+    if target is operator.getitem:
+        return "getitem"
+    packet = getattr(target, "overloadpacket", None)
+    return packet.__name__ if packet is not None else repr(target)
+
+
+def _meta(node):
+    """The fake value make_fx recorded for ``node`` (a tensor, a tuple)."""
+    return node.meta.get("val")
+
+
+def _aval(node) -> str:
+    val = _meta(node)
+    if isinstance(val, torch.Tensor):
+        return f"{str(val.dtype).removeprefix('torch.')}{list(val.shape)}"
+    return type(val).__name__
+
+
+def _const_repr(val) -> str:
+    a = val.detach().cpu() if isinstance(val, torch.Tensor) \
+        else torch.as_tensor(val)
+    if a.numel() <= 16:
+        return f"c({a.dtype}:{tuple(a.shape)}:{a.tolist()})"
+    raw = a.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    return f"c({a.dtype}:{tuple(a.shape)}:#{hash(raw)})"
+
+
+def _param_repr(val, vname) -> str:
+    if isinstance(val, torch.fx.Node):
+        return vname(val)
+    if isinstance(val, (tuple, list)):
+        return "(" + ",".join(_param_repr(v, vname) for v in val) + ")"
+    if isinstance(val, torch.Tensor):
+        return _const_repr(val)
+    if isinstance(val, (bool, int, float)):
+        return f"{type(val).__name__}:{val!r}"
+    return repr(val)
+
+
+# Two-operand ops whose operand order is semantically irrelevant: their
+# operand reprs are sorted so ``a + b`` and ``b + a`` match.
+_COMMUTATIVE_OPS = frozenset([
+    "add", "mul", "minimum", "maximum", "eq", "ne", "bitwise_and",
+    "bitwise_or", "bitwise_xor", "logical_and", "logical_or", "logical_xor"])
+
+
+def _signature(gm) -> str:
+    """Canonical text of a traced graph under sequential renaming:
+    constants in by value, commutative operands sorted."""
+    names: dict = {}
+
+    def vname(n):
+        if n not in names:
+            names[n] = f"v{len(names)}"
+        return names[n]
+
+    ins, parts = [], []
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            ins.append(f"{vname(node)}:{_aval(node)}")
+        elif node.op == "get_attr":
+            parts.append(f"const {vname(node)}="
+                         + _const_repr(getattr(gm, node.target)))
+        elif node.op == "call_function":
+            args = [_param_repr(a, vname) for a in node.args]
+            if _op_name(node) in _COMMUTATIVE_OPS and len(args) == 2 \
+                    and node.kwargs.get("alpha", 1) == 1:
+                args = sorted(args)
+            kwargs = ",".join(f"{k}={_param_repr(v, vname)}"
+                              for k, v in sorted(node.kwargs.items()))
+            parts.append(f"{vname(node)} = {node.target}[{kwargs}] "
+                         + ",".join(args))
+        elif node.op == "output":
+            parts.append("out " + _param_repr(node.args[0], vname))
+    return "; ".join(["in " + ",".join(ins)] + parts)
+
+
+_MENU_SIG_CACHE: dict = {}
+
+
+def _menu_signatures(dtype: torch.dtype) -> dict:
+    """``{canonical signature: module name}`` for the menu, per dtype."""
+    if dtype not in _MENU_SIG_CACHE:
+        sigs = {}
+        for name in GATHER_OPS:
+            gm = _trace(partial(gather_msg, name), *_gather_examples(dtype))
+            if gm is not None:
+                sigs[_signature(gm)] = name
+        _MENU_SIG_CACHE[dtype] = sigs
+    return _MENU_SIG_CACHE[dtype]
+
+
+# ---------------------------------------------------------------------------
+# Liveness (which placeholders reach the output)
+# ---------------------------------------------------------------------------
+
+# Ops that read only their first operand's shape and dtype, never its
+# values (``ones_like(v)`` is JAX's ``broadcast_in_dim`` of a literal).
+_SHAPE_ONLY = frozenset(["ones_like", "zeros_like", "full_like",
+                         "new_ones", "new_zeros", "new_full"])
+
+
+def _data_inputs(node) -> list:
+    inputs = node.all_input_nodes
+    if node.op == "call_function" and _op_name(node) in _SHAPE_ONLY \
+            and node.args and isinstance(node.args[0], torch.fx.Node):
+        inputs = [n for n in inputs if n is not node.args[0]]
+    return inputs
+
+
+def _output_node(gm):
+    return next(n for n in reversed(gm.graph.nodes) if n.op == "output")
+
+
+def _live_nodes(gm):
+    """The call nodes whose values (transitively) reach the output, in
+    graph order, and every node they read."""
+    out = _output_node(gm)
+    live_vars = set(out.all_input_nodes)
+    live = []
+    for node in reversed(list(gm.graph.nodes)):
+        if node in live_vars:
+            live_vars.update(_data_inputs(node))
+            if node.op == "call_function":
+                live.append(node)
+    live.reverse()
+    return live, live_vars
+
+
+def _uses_placeholder(gm, index: int) -> bool:
+    """Backward liveness: does the ``index``-th input reach the output?"""
+    placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+    _, live_vars = _live_nodes(gm)
+    return placeholders[index] in live_vars
+
+
+# ---------------------------------------------------------------------------
+# Elementwise-ness (cross-lane op walk)
+# ---------------------------------------------------------------------------
+
+# Ops that act independently on each lane of the vertex axis (output lane
+# i depends only on operand lanes i, the same way at every i).  As in the
+# JAX package, position-dependent ops (``arange``: "which lane am I?") are
+# excluded though they read no other lane: the fused superstep tiles the
+# vertex axis and only a position-independent apply commutes with that.
+_LANEWISE = frozenset([
+    "add", "sub", "rsub", "mul", "div", "remainder", "fmod", "pow", "neg",
+    "sign", "sgn", "floor", "ceil", "round", "trunc", "frac", "abs", "exp",
+    "exp2", "log", "log2", "log10", "log1p", "expm1", "sqrt", "rsqrt",
+    "reciprocal", "sin", "cos", "tan", "asin", "acos", "atan", "atan2",
+    "sinh", "cosh", "tanh", "asinh", "acosh", "atanh", "sigmoid", "erf",
+    "erfc", "erfinv", "minimum", "maximum", "fmin", "fmax", "clamp",
+    "clamp_min", "clamp_max", "bitwise_and", "bitwise_or", "bitwise_xor",
+    "bitwise_not", "bitwise_left_shift", "bitwise_right_shift",
+    "logical_and", "logical_or", "logical_xor", "logical_not", "eq", "ne",
+    "lt", "le", "gt", "ge", "where", "_to_copy", "clone", "alias", "detach",
+    "lift_fresh_copy", "copy", "isfinite", "isnan", "isinf", "nextafter",
+    "square", "floor_divide", "hypot", "copysign", "signbit", "nan_to_num",
+    "relu", "masked_fill", "scalar_tensor", "full", "ones", "zeros",
+    *_SHAPE_ONLY,
+])
+
+# Ops that mix lanes, change the lane structure or read the lane position:
+# any live occurrence refutes elementwise-ness outright.
+_CROSS_LANE = frozenset([
+    "arange", "sum", "prod", "mean", "amax", "amin", "max", "min", "argmax",
+    "argmin", "any", "all", "var", "std", "var_mean", "std_mean", "norm",
+    "linalg_vector_norm", "logsumexp", "_softmax", "_log_softmax",
+    "count_nonzero", "cumsum", "cumprod", "cummax", "cummin",
+    "logcumsumexp", "sort", "argsort", "topk", "kthvalue", "median", "mode",
+    "gather", "scatter", "scatter_add", "scatter_reduce", "index",
+    "_unsafe_index", "index_select", "index_put", "index_add", "index_copy",
+    "index_fill", "index_reduce", "take", "masked_select", "nonzero",
+    "unique_dim", "_unique2", "unique_consecutive", "flip", "roll", "rot90",
+    "cat", "stack", "constant_pad_nd", "pad", "slice", "select", "narrow",
+    "diff", "repeat", "tril", "triu", "searchsorted", "bincount", "histc",
+    "mm", "mv", "dot", "bmm", "matmul", "convolution", "_fft_r2c",
+    "_fft_c2r", "_fft_c2c", "randperm",
+])
+
+
+def _walk_elementwise(gm) -> bool | None:
+    """``True`` every live op lanewise, ``False`` a cross-lane op is live,
+    ``None`` an unclassified op appeared (undecided)."""
+    live, _ = _live_nodes(gm)
+    undecided = False
+    for node in live:
+        name = _op_name(node)
+        if name in _CROSS_LANE:
+            return False
+        if name in _LANEWISE:
+            continue
+        if name == "expand":
+            # scalar → vector (a constant per lane) is lanewise; anything
+            # reshaping an existing vector axis is not provably so
+            src, out = _meta(node.args[0]), _meta(node)
+            if src.dim() == 0 or src.shape == out.shape:
+                continue
+        undecided = True                 # unknown op: punt to the probe
+    return None if undecided else True
+
+
+def _static_elementwise(gm) -> bool | None:
+    out = _output_node(gm).args[0]
+    if not isinstance(out, torch.fx.Node) \
+            or not isinstance(_meta(out), torch.Tensor) \
+            or tuple(_meta(out).shape) != (_N,):
+        return False                     # shape change is never elementwise
+    return _walk_elementwise(gm)
+
+
+# ---------------------------------------------------------------------------
+# Abstract interpreter (symbolic evaluation at the reduce identity)
+# ---------------------------------------------------------------------------
+
+
+class _Top:
+    """Unknown value (abstract ⊤)."""
+
+    def __repr__(self):
+        return "⊤"
+
+
+_TOP = _Top()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Aff:
+    """``input[var] + δ`` with the additive offset δ ∈ ``[lo, hi]``."""
+
+    var: int
+    lo: float
+    hi: float
+
+
+@dataclasses.dataclass(frozen=True)
+class _Rng:
+    """Unknown value bounded to ``[lo, hi]`` (per lane)."""
+
+    lo: float
+    hi: float
+
+
+class _EvalState:
+    """Per-evaluation flags: opacity and detected integer wraparound."""
+
+    def __init__(self):
+        self.opaque = False              # hit an op we cannot model
+        self.wrapped = False             # an integer fold over/underflowed
+
+
+def _is_conc(x) -> bool:
+    """A concrete value: a real tensor or a Python number."""
+    return isinstance(x, (torch.Tensor, bool, int, float))
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+def _any(x) -> bool:
+    return bool(_as_tensor(x).any())
+
+
+def _all_nonfinite(x) -> bool:
+    t = _as_tensor(x)
+    return t.dtype.is_floating_point and bool((~torch.isfinite(t)).all())
+
+
+def _uniform_scalar(a):
+    """The scalar ``c`` if every element of ``a`` equals ``c``, else None."""
+    flat = _as_tensor(a).reshape(-1)
+    if flat.numel() == 0:
+        return None
+    c = flat[0]
+    return c.item() if bool((flat == c).all()) else None
+
+
+def _bounds(x) -> tuple[float, float] | None:
+    """Interval bounds of a non-symbolic abstract value, if known."""
+    if _is_conc(x):
+        t = _as_tensor(x)
+        if t.numel() == 0:
+            return None
+        t = t.to(torch.float64)
+        return float(t.min()), float(t.max())
+    if isinstance(x, _Rng):
+        return x.lo, x.hi
+    return None
+
+
+def _int_dtype(dtype) -> torch.dtype | None:
+    """``dtype`` if it is an integer type narrower than 64 bits."""
+    if isinstance(dtype, torch.dtype) and not dtype.is_floating_point \
+            and not dtype.is_complex and dtype != torch.bool \
+            and dtype.itemsize < 8:
+        return dtype
+    return None
+
+
+def _out_of_range(lo: float, hi: float, int_dtype) -> bool:
+    info = torch.iinfo(int_dtype)
+    return lo < info.min or hi > info.max
+
+
+def _widen(a):
+    """A concrete integer operand in int64, for the wraparound re-check."""
+    if isinstance(a, torch.Tensor) and _int_dtype(a.dtype) is not None:
+        return a.to(torch.int64)
+    return a
+
+
+_WRAP_CHECKED = ("add", "sub", "rsub", "mul")
+
+
+def _fold(node, args, kwargs, state: _EvalState):
+    """Concretely evaluate one node; flags integer wraparound."""
+    try:
+        out = node.target(*args, **kwargs)
+    except Exception:                    # an op the real kernel refuses
+        state.opaque = True
+        return _TOP
+    if _op_name(node) in _WRAP_CHECKED and isinstance(out, torch.Tensor) \
+            and _int_dtype(out.dtype) is not None:
+        wide = node.target(*[_widen(a) for a in args], **kwargs)
+        if not torch.equal(out.to(torch.int64), wide.to(torch.int64)):
+            state.wrapped = True
+    return out
+
+
+def _add_rule(a, b, sign: int, state: _EvalState, int_dtype):
+    """Abstract ``a + sign*b`` (sign=-1 for sub)."""
+    if isinstance(a, _Aff) and (bnds := _bounds(b)) is not None:
+        lo, hi = bnds
+        if sign < 0:
+            lo, hi = -hi, -lo
+        return _Aff(a.var, a.lo + lo, a.hi + hi)
+    if isinstance(b, _Aff) and sign > 0 and (bnds := _bounds(a)) is not None:
+        return _Aff(b.var, b.lo + bnds[0], b.hi + bnds[1])
+    ba, bb = _bounds(a), _bounds(b)
+    if ba is not None and bb is not None:
+        # ±inf + finite stays ±inf; inf - inf is unknowable
+        lo = ba[0] + sign * (bb[1] if sign < 0 else bb[0])
+        hi = ba[1] + sign * (bb[0] if sign < 0 else bb[1])
+        if math.isnan(lo) or math.isnan(hi):
+            return _TOP
+        if int_dtype is not None and _out_of_range(lo, hi, int_dtype):
+            state.wrapped = True
+            return _TOP
+        # a concrete ±inf array shifted by a finite interval is unchanged
+        finite_b = math.isfinite(bb[0]) and math.isfinite(bb[1])
+        finite_a = math.isfinite(ba[0]) and math.isfinite(ba[1])
+        if _is_conc(a) and _all_nonfinite(a) and finite_b:
+            return a
+        if _is_conc(b) and sign > 0 and _all_nonfinite(b) and finite_a:
+            return b
+        return _Rng(lo, hi)
+    return _TOP
+
+
+def _mul_rule(a, b, state: _EvalState, int_dtype):
+    ba, bb = _bounds(a), _bounds(b)
+    if ba is None or bb is None:
+        # x * 1 (exactly) passes an _Aff through
+        for sym, conc in ((a, b), (b, a)):
+            if isinstance(sym, _Aff) and _is_conc(conc) \
+                    and _uniform_scalar(conc) == 1:
+                return sym
+        return _TOP
+    # all-zero concrete × any finite interval is zero
+    for z, obnds in ((a, bb), (b, ba)):
+        if _is_conc(z) and not _any(z) and math.isfinite(obnds[0]) \
+                and math.isfinite(obnds[1]):
+            return z
+    cands = [ba[0] * bb[0], ba[0] * bb[1], ba[1] * bb[0], ba[1] * bb[1]]
+    if any(math.isnan(c) for c in cands):
+        return _TOP
+    lo, hi = min(cands), max(cands)
+    if int_dtype is not None and _out_of_range(lo, hi, int_dtype):
+        state.wrapped = True
+        return _TOP
+    return _Rng(lo, hi)
+
+
+def _div_rule(a, b, out_dtype, rounding):
+    ba, bb = _bounds(a), _bounds(b)
+    if ba is None or bb is None:
+        return _TOP
+    if _is_conc(a) and not _any(a) and bb[0] > 0:
+        return _as_tensor(a).to(out_dtype)     # 0 / positive = 0
+    if bb[0] > 0 or bb[1] < 0:           # denominator excludes zero
+        cands = [ba[0] / bb[0], ba[0] / bb[1], ba[1] / bb[0], ba[1] / bb[1]]
+        if any(math.isnan(c) for c in cands):
+            return _TOP
+        lo, hi = min(cands), max(cands)
+        if rounding is not None:         # floor or trunc stays in [⌊lo⌋, ⌈hi⌉]
+            lo, hi = math.floor(lo), math.ceil(hi)
+        return _Rng(lo, hi)
+    return _TOP
+
+
+def _minmax_rule(name: str, a, b, out_dtype):
+    pick = min if name == "min" else max
+    # x clamped against the reduce identity of its own extreme is x
+    for sym, conc in ((a, b), (b, a)):
+        if isinstance(sym, _Aff) and _is_conc(conc):
+            c = _uniform_scalar(conc)
+            if c is not None:
+                if out_dtype.is_floating_point:
+                    neutral = math.inf if name == "min" else -math.inf
+                else:
+                    info = torch.iinfo(out_dtype)
+                    neutral = info.max if name == "min" else info.min
+                if c == neutral:
+                    return sym
+            return _TOP                  # a real clamp of an unknown base
+    if isinstance(a, _Aff) and isinstance(b, _Aff) and a.var == b.var:
+        return _Aff(a.var, pick(a.lo, b.lo), pick(a.hi, b.hi))
+    ba, bb = _bounds(a), _bounds(b)
+    if ba is not None and bb is not None:
+        return _Rng(pick(ba[0], bb[0]), pick(ba[1], bb[1]))
+    return _TOP
+
+
+_COMPARISONS = frozenset(["eq", "ne", "lt", "le", "gt", "ge"])
+_COPIES = frozenset(["clone", "alias", "detach", "lift_fresh_copy"])
+
+
+def _eval_call(node, ins, out_dtype, state: _EvalState):
+    """One abstract op over the operands ``ins`` (``node.args`` with the
+    graph's values in place of its nodes)."""
+    name = _op_name(node)
+    int_dtype = _int_dtype(out_dtype)
+    if name in ("add", "sub", "rsub"):
+        a, b = ins[0], ins[1]
+        if name == "rsub":               # rsub(x, c) = c - alpha * x
+            a, b = b, a
+        alpha = node.kwargs.get("alpha", 1)
+        if alpha != 1:
+            b = _mul_rule(b, alpha, state, int_dtype)
+        return _add_rule(a, b, 1 if name == "add" else -1, state, int_dtype)
+    if name == "mul":
+        return _mul_rule(ins[0], ins[1], state, int_dtype)
+    if name == "div":
+        return _div_rule(ins[0], ins[1], out_dtype,
+                         node.kwargs.get("rounding_mode"))
+    if name in ("minimum", "maximum"):
+        return _minmax_rule(name[:3], ins[0], ins[1], out_dtype)
+    if name in ("clamp_min", "clamp_max"):
+        return _minmax_rule("max" if name == "clamp_min" else "min",
+                            ins[0], ins[1], out_dtype)
+    if name == "clamp":
+        x = ins[0]
+        lo = ins[1] if len(ins) > 1 else None
+        hi = ins[2] if len(ins) > 2 else None
+        if lo is not None:
+            x = _minmax_rule("max", x, lo, out_dtype)
+        if hi is not None:
+            x = _minmax_rule("min", x, hi, out_dtype)
+        return x
+    if name == "neg":
+        b = _bounds(ins[0])
+        return _Rng(-b[1], -b[0]) if b is not None \
+            and not _is_conc(ins[0]) else _TOP
+    if name == "_to_copy":
+        x = ins[0]
+        src = _meta(node.args[0]).dtype
+        if isinstance(x, _Aff):
+            return x if src == out_dtype else _TOP
+        return x if isinstance(x, _Rng) else _TOP   # bounds survive a cast
+    if name == "expand":
+        x = ins[0]
+        return x if isinstance(x, (_Rng, _Aff)) else _TOP
+    if name in _COPIES:
+        return ins[0]
+    if name == "where":
+        branches = ins[1:]
+        if all(_is_conc(b) for b in branches) and all(
+                torch.equal(_as_tensor(b), _as_tensor(branches[0]))
+                for b in branches[1:]):
+            return branches[0]
+        if not _is_conc(branches[0]) and all(
+                isinstance(b, type(branches[0])) and b == branches[0]
+                for b in branches[1:]):
+            return branches[0]
+        return _TOP
+    if name in _COMPARISONS:
+        return _Rng(0.0, 1.0)            # unknown predicate, bounded bool
+    state.opaque = True
+    return _TOP
+
+
+def _eval_graph(gm, args, state: _EvalState):
+    """Abstractly evaluate a traced graph over the concrete / _Aff / _Rng /
+    ⊤ domain; returns the single output's value (⊤ for several)."""
+    env: dict = {}
+    placeholders = iter(args)
+
+    def read(a):
+        if isinstance(a, torch.fx.Node):
+            return env[a]
+        if isinstance(a, (tuple, list)):
+            return type(a)(read(x) for x in a)
+        return a
+
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            env[node] = next(placeholders)
+        elif node.op == "get_attr":
+            env[node] = getattr(gm, node.target)
+        elif node.op == "output":
+            out = read(node.args[0])
+            if isinstance(out, (bool, int, float)):
+                return torch.as_tensor(out)
+            return out if _is_conc(out) or isinstance(out, (_Aff, _Rng)) \
+                else _TOP
+        elif node.target is operator.getitem:
+            seq = env[node.args[0]]
+            env[node] = seq[node.args[1]] \
+                if isinstance(seq, (tuple, list)) else _TOP
+        else:
+            ins = [read(a) for a in node.args]
+            kwargs = {k: read(v) for k, v in node.kwargs.items()}
+            operands = [env[n] for n in node.all_input_nodes]
+            if all(_is_conc(x) or isinstance(x, (tuple, list))
+                   for x in operands):
+                env[node] = _fold(node, ins, kwargs, state)
+                continue
+            if _op_name(node) in _SHAPE_ONLY:
+                # the value never depends on the first operand's values
+                ins[0] = torch.zeros(_meta(node.args[0]).shape,
+                                     dtype=_meta(node.args[0]).dtype)
+                env[node] = _fold(node, ins, kwargs, state)
+                continue
+            val = _meta(node)
+            if isinstance(val, torch.Tensor):
+                env[node] = _eval_call(node, ins, val.dtype, state)
+            else:                        # a tuple-valued op (sort, max.dim)
+                state.opaque = True
+                env[node] = _TOP
+    return _TOP
+
+
+# ---------------------------------------------------------------------------
+# Sampling probes (the fallback tier and the static tier's cross-check)
 # ---------------------------------------------------------------------------
 
 
@@ -109,7 +727,10 @@ def classify_gather(gather: Callable, dtype: torch.dtype) -> str | None:
 
     Evaluates the gather on a fixed random batch and compares against
     every menu entry (``kernels.ref.GATHER_OPS``); returns the matched
-    module name, or ``None`` for the general path.
+    module name, or ``None`` for the general path.  Numeric coincidence on
+    the batch does not decide the module on its own: it is the fallback
+    for an untraceable gather and a cross-check on the graph signature
+    (:func:`analyze_program`).
     """
     rng = np.random.default_rng(0)
     v = _batch(rng.uniform(1, 8, (16,)), dtype)
@@ -125,20 +746,6 @@ def classify_gather(gather: Callable, dtype: torch.dtype) -> str | None:
                                                    atol=1e-5):
             return name
     return None
-
-
-def gather_uses_weight(gather: Callable, dtype: torch.dtype) -> bool:
-    """Probe whether the message depends on the edge weight: evaluate
-    with two different weight batches and compare."""
-    rng = np.random.default_rng(3)
-    v = _batch(rng.uniform(1, 8, (16,)), dtype)
-    d = _batch(rng.integers(1, 9, (16,)), torch.int32)
-    w1 = _batch(rng.uniform(1, 8, (16,)), _weight_dtype(dtype)).to(dtype)
-    w2 = _batch(rng.uniform(9, 16, (16,)), _weight_dtype(dtype)).to(dtype)
-    try:
-        return not _equal(gather(v, w1, d), gather(v, w2, d))
-    except Exception:
-        return True
 
 
 def apply_preserves_identity(apply: Callable, reduce: str,
@@ -244,44 +851,226 @@ def apply_batches_over_lanes(apply: Callable, dtype: torch.dtype,
     return _equal(both, per)
 
 
-def is_monotone(program: VertexProgram) -> bool:
-    """Probe termination evidence for a min/max program: the apply is the
-    reduce's clamp ``min/max(old, reduced)`` and the gather is the source
-    value plus an offset of the sign the reduce needs (non-negative
-    weights, as ``validate_graph`` requires under ``min``).  Integer-valued
-    batches keep float arithmetic exact."""
+# ---------------------------------------------------------------------------
+# Property deciders (static first, probe as fallback and cross-check)
+# ---------------------------------------------------------------------------
+
+
+def _identity_full(program: VertexProgram) -> torch.Tensor:
+    ident = reduce_identity(program.reduce, program.value_dtype)
+    return torch.full((_N,), ident.item(), dtype=ident.dtype)
+
+
+def _decide_module(program, gather_gm, diags) -> PropertyFact:
+    probe = classify_gather(program.gather, program.value_dtype)
+    if gather_gm is None:
+        if probe is None:
+            return PropertyFact(None, "declined",
+                                "gather untraceable and probe matched nothing")
+        diags.append(Diagnostic(
+            "A001", "info", "gather",
+            f"module match {probe!r} rests on a 16-element sampling probe "
+            "(gather is opaque to make_fx tracing)",
+            "prefer traceable gathers so the match is proved, not sampled"))
+        return PropertyFact(probe, "probed",
+                            f"probe matched {probe!r} (graph opaque)")
+    static = _menu_signatures(program.value_dtype).get(_signature(gather_gm))
+    if static is None and probe is not None:
+        diags.append(Diagnostic(
+            "A002", "warning", "gather",
+            f"sampling probe matched module {probe!r} but the gather's "
+            "graph is not that module — numeric coincidence on the probe "
+            "batch; the general path is used",
+            "if the gather really is the menu op, write it in the menu "
+            "form so the signatures align"))
+    detail = (f"canonical graph signature matched {static!r}" if static
+              else "canonical graph signature matched no menu module")
+    return PropertyFact(static, "static", detail)
+
+
+def _decide_weight_use(program, gather_gm) -> PropertyFact:
+    if gather_gm is not None:
+        used = _uses_placeholder(gather_gm, 1)
+        return PropertyFact(
+            used, "static",
+            "weight argument is " + ("live in" if used else "dead in")
+            + " the gather graph")
+    probe = classify_gather(program.gather, program.value_dtype)
+    if probe is not None:
+        return PropertyFact(probe not in WEIGHT_FREE_GATHERS, "probed",
+                            f"inferred from probe-matched module {probe!r}")
+    return PropertyFact(True, "declined",
+                        "gather untraceable; conservatively weight-using")
+
+
+def _decide_elementwise(program, apply_gm, diags) -> PropertyFact:
+    probe_ok = None
+
+    def probe():
+        nonlocal probe_ok
+        if probe_ok is None:
+            probe_ok = apply_is_elementwise(program.apply,
+                                            program.value_dtype)
+        return probe_ok
+
+    if apply_gm is None:
+        diags.append(Diagnostic(
+            "A001", "info", "apply",
+            "elementwise-ness decided by sampling probe only (apply is "
+            "opaque to make_fx tracing)",
+            "prefer traceable applies so fusion legality is proved"))
+        return PropertyFact(probe(), "probed", "apply graph opaque")
+    static = _static_elementwise(apply_gm)
+    if static is None:
+        diags.append(Diagnostic(
+            "A001", "info", "apply",
+            "elementwise-ness decided by sampling probe (an unclassified "
+            "op appears in the apply graph)", ""))
+        return PropertyFact(probe(), "probed",
+                            "unclassified op in the apply graph")
+    if static is False and probe():
+        diags.append(Diagnostic(
+            "A002", "warning", "apply",
+            "sampling probe calls the apply elementwise but its graph "
+            "contains a cross-lane op — the probe batch missed the mixing; "
+            "fusion is declined", ""))
+    return PropertyFact(
+        static, "static",
+        "live apply ops are all lanewise" if static
+        else "a cross-lane op is live in the apply graph")
+
+
+def _decide_fixpoint(program, apply_gm, diags) -> PropertyFact:
+    probe_val = apply_preserves_identity(program.apply, program.reduce,
+                                         program.value_dtype)
+    if apply_gm is None:
+        diags.append(Diagnostic(
+            "A001", "info", "apply",
+            "identity-fixpoint decided by sampling probe only (apply is "
+            "opaque to make_fx tracing)", ""))
+        return PropertyFact(probe_val, "probed", "apply graph opaque")
+    out = _eval_graph(apply_gm, [_Aff(0, 0.0, 0.0), _identity_full(program)],
+                      _EvalState())
+    if isinstance(out, _Aff) and out.var == 0 and out.lo == 0 == out.hi:
+        static, detail = True, "apply(x, identity) reduces to x symbolically"
+    elif isinstance(out, _Aff) and (out.lo > 0 or out.hi < 0):
+        static, detail = False, "apply(x, identity) is x plus a nonzero offset"
+    elif _is_conc(out) or isinstance(out, _Rng):
+        static, detail = False, \
+            "apply(x, identity) is independent of x (cannot equal x for all x)"
+    else:
+        static, detail = None, "symbolic evaluation too coarse"
+    if static is None:
+        diags.append(Diagnostic(
+            "A001", "info", "apply",
+            "identity-fixpoint decided by sampling probe (symbolic "
+            "evaluation of the apply at the identity was inconclusive)", ""))
+        return PropertyFact(probe_val, "probed", detail)
+    if static != probe_val:
+        diags.append(Diagnostic(
+            "A002", "warning", "apply",
+            f"identity-fixpoint: probe says {probe_val}, static evaluation "
+            f"says {static} — conservative verdict "
+            f"{static and probe_val} is used", ""))
+        return PropertyFact(static and probe_val, "static",
+                            detail + " (probe disagreed)")
+    return PropertyFact(static, "static", detail)
+
+
+def _decide_absorbing(program, gather_gm, diags) -> PropertyFact:
+    probe_val = gather_absorbs_identity(program.gather, program.reduce,
+                                        program.value_dtype)
+    if gather_gm is None:
+        diags.append(Diagnostic(
+            "A001", "info", "gather",
+            "identity-absorption decided by sampling probe only (gather is "
+            "opaque to make_fx tracing)", ""))
+        return PropertyFact(probe_val, "probed", "gather graph opaque")
+    ident = _identity_full(program)
+    out = _eval_graph(gather_gm, [ident, _Rng(-_FIN, _FIN),
+                                  _Rng(1.0, float(2**31 - 1))], _EvalState())
+    iscalar = ident[0].item()
+    if _is_conc(out):
+        static = _equal(out, ident.to(out.dtype))
+        detail = ("gather(identity, w, d) folds to the identity" if static
+                  else "gather(identity, w, d) folds to a non-identity value")
+    elif isinstance(out, _Rng):
+        if out.lo == out.hi == iscalar:
+            static, detail = True, "gather(identity) is pinned to the identity"
+        elif iscalar < out.lo or iscalar > out.hi:
+            static, detail = False, \
+                "gather(identity) is bounded away from the identity"
+        else:
+            static, detail = None, "interval bounds straddle the identity"
+    else:
+        static, detail = None, "symbolic evaluation too coarse"
+    if static is None:
+        diags.append(Diagnostic(
+            "A001", "info", "gather",
+            "identity-absorption decided by sampling probe (symbolic "
+            "evaluation of the gather at the identity was inconclusive)", ""))
+        return PropertyFact(probe_val, "probed", detail)
+    if static != probe_val:
+        diags.append(Diagnostic(
+            "A002", "warning", "gather",
+            f"identity-absorption: probe says {probe_val}, static "
+            f"evaluation says {static} — conservative verdict "
+            f"{static and probe_val} is used", ""))
+        return PropertyFact(static and probe_val, "static",
+                            detail + " (probe disagreed)")
+    return PropertyFact(static, "static", detail)
+
+
+def _apply_is_clamp(apply_gm, reduce: str) -> bool:
+    """Structurally: is the apply exactly ``minimum/maximum(old, reduced)``?"""
+    if apply_gm is None or reduce not in ("min", "max"):
+        return False
+    live, _ = _live_nodes(apply_gm)
+    out = _output_node(apply_gm).args[0]
+    if len(live) != 1 or live[0] is not out:
+        return False
+    node = live[0]
+    if _op_name(node) != {"min": "minimum", "max": "maximum"}[reduce]:
+        return False
+    placeholders = {n for n in apply_gm.graph.nodes if n.op == "placeholder"}
+    return all(isinstance(a, torch.fx.Node) for a in node.args) \
+        and set(node.args) == placeholders
+
+
+def _decide_monotone(program, gather_gm, apply_gm) -> PropertyFact:
     if program.reduce not in ("min", "max"):
-        return False
-    dtype = program.value_dtype
-    clamp = torch.minimum if program.reduce == "min" else torch.maximum
-    rng = np.random.default_rng(4)
-    x = _batch(rng.integers(-8, 8, 16), dtype)
-    r = _batch(rng.integers(-8, 8, 16), dtype)
-    v = _batch(rng.integers(0, 64, 16), dtype)
-    w = _batch(rng.integers(0, 8, 16), dtype)
-    d = _batch(rng.integers(1, 9, 16), torch.int32)
-    try:
-        if not _equal(program.apply(x, r), clamp(x, r)):
-            return False
-        off = program.gather(v, w, d) - v
-        shifted = program.gather(v + 3, w, d) - (v + 3)
-    except Exception:
-        return False
-    if not _equal(off, shifted):
-        return False
-    return bool((off >= 0).all() if program.reduce == "min"
-                else (off <= 0).all())
+        return PropertyFact(
+            False, "static",
+            f"reduce '{program.reduce}' has no monotone-convergence "
+            "argument (only min/max clamp the value lattice)")
+    if not _apply_is_clamp(apply_gm, program.reduce):
+        prov = "static" if apply_gm is not None else "declined"
+        return PropertyFact(False, prov,
+                            "apply is not the reduce's clamp "
+                            f"({program.reduce}(old, reduced))")
+    if gather_gm is None:
+        return PropertyFact(False, "declined",
+                            "gather untraceable; no offset-sign evidence")
+    # non-negative weights: validate_graph's per-reduce weight-domain check
+    out = _eval_graph(gather_gm, [_Aff(0, 0.0, 0.0), _Rng(0.0, _FIN),
+                                  _Rng(1.0, float(2**31 - 1))], _EvalState())
+    if isinstance(out, _Aff) and out.var == 0:
+        ok = out.lo >= 0 if program.reduce == "min" else out.hi <= 0
+        side = ">=" if program.reduce == "min" else "<="
+        return PropertyFact(
+            ok, "static",
+            f"clamp apply; gather offset in [{out.lo:g}, {out.hi:g}] "
+            f"({'is' if ok else 'is not'} {side} 0 as '{program.reduce}' "
+            "needs)")
+    return PropertyFact(False, "static",
+                        "gather message is not source-value plus a "
+                        "sign-bounded offset")
 
 
-# ---------------------------------------------------------------------------
-# analyze_program (cached)
-# ---------------------------------------------------------------------------
-
-
-def _overflow_diags(program: VertexProgram, diags: list) -> None:
+def _overflow_diags(program, gather_gm, diags) -> None:
     """A003: does ``gather(init)`` wrap the integer value dtype?"""
     dtype = program.value_dtype
-    if dtype.is_floating_point or dtype == torch.int64:
+    if _int_dtype(dtype) is None:
         return
     init = program.init_value
     if isinstance(init, str) or callable(init) \
@@ -297,18 +1086,14 @@ def _overflow_diags(program: VertexProgram, diags: list) -> None:
             "first superstep",
             f"use an init below {info.max} or widen value_dtype"))
         return
-    rng = np.random.default_rng(5)
-    w = rng.integers(0, 9, 8)
-    d = torch.as_tensor(rng.integers(1, 9, 8)).to(torch.int32)
-    try:
-        narrow = program.gather(torch.full((8,), i, dtype=dtype),
-                                torch.as_tensor(w).to(dtype), d)
-        wide = program.gather(torch.full((8,), i, dtype=torch.int64),
-                              torch.as_tensor(w).to(torch.int64), d)
-    except Exception:
+    if gather_gm is None:
         return
-    if narrow.dtype == dtype and not torch.equal(narrow.to(torch.int64),
-                                                 wide.to(torch.int64)):
+    state = _EvalState()
+    # nominal weight magnitudes (the probes' uniform(1, 8) batch)
+    _eval_graph(gather_gm, [torch.full((_N,), i, dtype=dtype),
+                            _Rng(0.0, 8.0), _Rng(1.0, float(2**31 - 1))],
+                state)
+    if state.wrapped:
         diags.append(Diagnostic(
             "A003", "error", "gather",
             f"gather evaluated at the init value {i} overflows {dtype} — "
@@ -342,17 +1127,34 @@ def _lattice_diags(program: VertexProgram, facts: dict, diags: list) -> None:
             "frontier='changed' with no max_iters and no "
             "monotone-convergence evidence — only the superstep budget "
             "bounds the run",
-            "set max_iters, or use a min/max clamp apply"))
+            "set max_iters, or use a min/max clamp apply the analyzer "
+            "can prove monotone"))
 
+
+# ---------------------------------------------------------------------------
+# analyze_program (cached)
+# ---------------------------------------------------------------------------
 
 _ANALYSIS_CACHE: OrderedDict = OrderedDict()
 _ANALYSIS_CACHE_MAX = 64
 
 
+def analysis_cache_clear() -> None:
+    """Drop all memoized :class:`ProgramAnalysis` results."""
+    _ANALYSIS_CACHE.clear()
+
+
 def analyze_program(program: VertexProgram) -> ProgramAnalysis:
-    """Decide every property the pass pipeline needs by probe (cached per
-    program object; the template factories are memoized, so repeat
-    translations pay nothing)."""
+    """Analyze a vertex program's gather and apply from their traced graphs
+    (cached per program object).
+
+    Traces both callables on fake ``(8,)`` tensors and decides every
+    property the pass pipeline needs (see :class:`ProgramAnalysis`); a
+    callable that cannot be traced falls back to the sampling probes with
+    provenance ``'probed'`` and an ``A001`` diagnostic.  The DSL's
+    template factories are memoized, so the natural
+    ``translate(dsl.bfs_program(), ...)`` repeat hits this cache.
+    """
     try:
         hash(program)                    # unhashable programs skip the cache
         key = program
@@ -363,31 +1165,19 @@ def analyze_program(program: VertexProgram) -> ProgramAnalysis:
         return _ANALYSIS_CACHE[key]
 
     dtype = program.value_dtype
+    gather_gm = _trace(program.gather, *_gather_examples(dtype))
+    apply_gm = _trace(program.apply, *_apply_examples(dtype))
+    diags: list = []
 
-    def probed(value, detail):
-        return PropertyFact(value, "probed", detail)
-
-    module = classify_gather(program.gather, dtype)
     facts = {
-        "gather_module": probed(module, "16-element probe against the menu"),
-        "weight_use": probed(gather_uses_weight(program.gather, dtype),
-                             "two weight batches compared"),
-        "elementwise": probed(apply_is_elementwise(program.apply, dtype),
-                              "per-element and locality probe"),
-        "identity_fixpoint": probed(
-            apply_preserves_identity(program.apply, program.reduce, dtype),
-            "apply(x, identity) == x on the probe batch"),
-        "identity_absorbing": probed(
-            gather_absorbs_identity(program.gather, program.reduce, dtype),
-            "gather(identity, w, d) == identity on the probe batch"),
-        "monotone": probed(is_monotone(program),
-                           "clamp apply and signed gather offset probe"),
+        "gather_module": _decide_module(program, gather_gm, diags),
+        "weight_use": _decide_weight_use(program, gather_gm),
+        "elementwise": _decide_elementwise(program, apply_gm, diags),
+        "identity_fixpoint": _decide_fixpoint(program, apply_gm, diags),
+        "identity_absorbing": _decide_absorbing(program, gather_gm, diags),
     }
-    diags: list = [Diagnostic(
-        "A001", "info", "program",
-        "every property was decided by sampling probe (the port has no "
-        "static tier yet)", "")]
-    _overflow_diags(program, diags)
+    facts["monotone"] = _decide_monotone(program, gather_gm, apply_gm)
+    _overflow_diags(program, gather_gm, diags)
     _lattice_diags(program, facts, diags)
 
     result = ProgramAnalysis(diagnostics=tuple(diags), **facts)

@@ -36,7 +36,7 @@ SEVERITIES = ("info", "warning", "error")
 DIAGNOSTIC_CODES = {
     # -- analyzer / lint rules -------------------------------------------
     "A001": "gather/apply property decided by sampling probe only "
-            "(the port has no static jaxpr tier)",
+            "(opaque to make_fx tracing)",
     "A002": "probe and static analysis disagree (soundness alarm: the "
             "conservative verdict is used)",
     "A003": "gather overflows the value dtype when evaluated at the "

@@ -158,7 +158,7 @@ class PushScatterOp:
       (``kernels/push_ell.py``): cumsum-compacted active rows, capacity
       tiers, segment-reduce combine, dense-engine fallback beyond the
       largest tier.  Requires the dense backend and an identity-fixpoint
-      apply (``apply(x, identity) == x``, probed) since it skips the
+      apply (``apply(x, identity) == x``, analyzed) since it skips the
       touched-mask scatter.  This is also the only multi-PE-shardable
       layout: under ``pes > 1`` the translator partitions the forward ELL
       into disjoint per-PE row intervals and combines the partial tables
@@ -245,7 +245,7 @@ class FusedSuperstepOp:
     """A whole superstep fused into one emitted stage.
 
     Produced by the superstep-fusion pass when the apply is provably
-    *elementwise* (probed like module matching): the
+    *elementwise* (analyzed like module matching): the
     ``FusedGatherReduce → Apply → FrontierUpdate`` triple collapses so the
     reduced per-vertex values flow straight into the apply and the
     change-mask computation inside a single emitted stage — no

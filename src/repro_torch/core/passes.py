@@ -5,8 +5,9 @@ order (:func:`default_pipeline`).  What differs:
 
 * the backend flavors are ``'dense_cuda'`` (kernels on, the run's device
   is CUDA), ``'dense_torch'`` and ``'sparse_torch'``;
-* every fact comes from the probe-only analyzer
-  (:mod:`repro_torch.core.analysis`);
+* every fact comes from the static analyzer over traced ATen graphs
+  (:mod:`repro_torch.core.analysis`; sampling probes only for an
+  untraceable callable);
 * ``pull_sweep='auto'`` resolves dense on both flavors: on
   ``'dense_torch'`` as the JAX package's XLA path does, on
   ``'dense_cuda'`` by the H100 walls in :data:`CUDA_AUTO_SWEEP_NOTE`
@@ -294,8 +295,10 @@ class GatherClassificationPass(Pass):
 
     Records the paper's module-matching result on
     :attr:`~repro_torch.core.ir.GatherOp.module` — decided by the
-    analyzer's sampling probe against the menu; an unmatched gather stays ``None`` and later takes the
-    general sparse path (or the dense table sweep when weight-free).
+    gather graph's canonical signature against the menu's (a sampling
+    probe only for an untraceable gather); an unmatched gather stays
+    ``None`` and later takes the general sparse path (or the dense table
+    sweep when weight-free).
     """
 
     name = "gather-classification"
@@ -332,7 +335,7 @@ class DirectionLegalityPass(Pass):
     Under a multi-PE plan (``pes > 1``) push is additionally legal only on
     the compacted forward-ELL data path: the dense backend (after the
     unmatched-gather downgrade, which this pass anticipates) *and* an
-    identity-fixpoint apply (``apply(x, identity) == x``, probed).  The
+    identity-fixpoint apply (``apply(x, identity) == x``, analyzed).  The
     sharded engine partitions the forward ELL into disjoint per-PE row
     intervals and combines the per-PE partial tables with the
     reduce-matched collective; the chunk-streamed ``coo_chunks`` push
@@ -344,7 +347,7 @@ class DirectionLegalityPass(Pass):
     pass dump — ``translate(..., dump_passes=True)``).  Which push *data
     path* a legal program gets (compacted forward ELL vs chunk-streamed
     scatter) is the fusion pass's job, where the apply-identity-fixpoint
-    probe gates the compacted engine.
+    fact gates the compacted engine.
     """
 
     name = "direction-legality"
@@ -506,7 +509,7 @@ class GatherReduceFusionPass(Pass):
 
     * ``'fwd_ell'`` — the frontier-compacted forward-ELL engine — needs a
       dense backend *and* an identity-fixpoint apply
-      (``apply(x, identity) == x``, probed like module matching): the
+      (``apply(x, identity) == x``, analyzed like module matching): the
       compacted kernel applies the reduced table everywhere instead of
       scattering a touched mask, so untouched vertices must be fixpoints;
     * ``'coo_chunks'`` — the chunk-streamed forward-COO scatter —

@@ -1,7 +1,8 @@
-"""Preprocessing library (paper §IV-C): FIFO and Layout, host-side.
+"""Preprocessing library (paper §IV-C): FIFO, Layout, Partition, Reorder.
 
-Counterpart of ``repro.core.preprocess``: edge-list I/O, the paper-sized
-synthetic graphs, the graph-keyed cache of derived layouts that
+Counterpart of ``repro.core.preprocess``, host-side numpy: edge-list and
+value I/O, layout conversions, edge partitions, vertex reordering, the
+paper-sized synthetic graphs, the graph-keyed cache of derived layouts that
 ``translate`` reads (with its byte budget), and the streamed engine's
 :class:`PartitionStore`, a byte-budgeted LRU of per-partition ELL
 layouts held in pinned host memory when the run is on CUDA.
@@ -48,6 +49,36 @@ def write_edge_list(path: str, src: np.ndarray, dst: np.ndarray) -> None:
     with open(path, "w") as f:
         for a, b in zip(src, dst):
             f.write(f"{int(a)} {int(b)}\n")
+
+
+def write_values(path: str, values) -> None:
+    """Save a result table as ``.npy`` (a tensor is copied to the host)."""
+    if isinstance(values, torch.Tensor):
+        values = values.cpu().numpy()
+    np.save(path, np.asarray(values))
+
+
+# ---------------------------------------------------------------------------
+# Layout — COO / CSR / CSC / ELL conversions
+# ---------------------------------------------------------------------------
+
+
+def layout(src: np.ndarray, dst: np.ndarray, to: str = "csr",
+           num_vertices: int | None = None, weights: np.ndarray | None = None):
+    """Paper: ``GraphCSC = Layout(Graph, CSC)``; ``to`` is ``'csr'``,
+    ``'csc'`` (the transposed CSR) or ``'ell'`` (the degree-bucketed
+    ELL of :func:`~repro_torch.core.graph.bucketize`)."""
+    if to == "csr":
+        return G.from_edge_list(src, dst, num_vertices=num_vertices,
+                                weights=weights)
+    if to == "csc":
+        return G.from_edge_list(dst, src, num_vertices=num_vertices,
+                                weights=weights)
+    if to == "ell":
+        return G.bucketize(G.from_edge_list(src, dst,
+                                            num_vertices=num_vertices,
+                                            weights=weights))
+    raise ValueError(to)
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +533,112 @@ class PartitionStore:
                 "push_rows": self.push_rows_max,
                 "pull_rows": self.pull_rows_max,
                 "entry_bytes": dict(self._entry_bytes)}
+
+
+# ---------------------------------------------------------------------------
+# Partition — edge partitions for PEs (paper cites PowerLyra/PathGraph)
+# ---------------------------------------------------------------------------
+
+
+def partition_edges(src: np.ndarray, dst: np.ndarray, parts: int,
+                    strategy: str = "block", *, device=None
+                    ) -> list[np.ndarray]:
+    """Return per-part edge index arrays.
+
+    * ``block``: contiguous equal-size slices (the paper's "basic
+      partition");
+    * ``dst_hash``: by destination (vertex-cut-free pull partitions);
+    * ``hybrid``: PowerLyra-style: low-degree destinations grouped by
+      destination, hub destinations' edges striped round-robin;
+    * ``community``: weakly connected components (the DSL's WCC, run on
+      ``device``, the card unless the caller names the CPU) packed into
+      parts greedily by size, so no edge crosses parts.
+    """
+    e = len(src)
+    ids = np.arange(e)
+    if parts <= 1:
+        return [ids]
+    if strategy == "block":
+        return list(np.array_split(ids, parts))
+    if strategy == "dst_hash":
+        return [ids[dst % parts == p] for p in range(parts)]
+    if strategy == "hybrid":
+        deg = np.bincount(dst)
+        hub_cut = max(np.percentile(deg[deg > 0], 99.0), 64) \
+            if (deg > 0).any() else 64
+        is_hub_edge = deg[dst] > hub_cut
+        out: list[list] = [[] for _ in range(parts)]
+        normal = ids[~is_hub_edge]
+        for p in range(parts):
+            out[p].extend(normal[dst[normal] % parts == p].tolist())
+        hub = ids[is_hub_edge]
+        for i, eid in enumerate(hub):
+            out[i % parts].append(eid)
+        return [np.asarray(sorted(o), np.int64) for o in out]
+    if strategy == "community":
+        from . import algorithms as alg
+        nv = int(max(src.max(initial=-1), dst.max(initial=-1)) + 1)
+        g = G.from_edge_list(src, dst, num_vertices=nv)
+        labels, _, _ = alg.wcc(g, device=device)
+        labels = labels.cpu().numpy()
+        comps, sizes = np.unique(labels, return_counts=True)
+        order = np.argsort(-sizes)
+        part_of_comp = {}
+        load = np.zeros(parts, np.int64)
+        for ci in order:
+            p = int(np.argmin(load))
+            part_of_comp[int(comps[ci])] = p
+            load[p] += sizes[ci]
+        edge_part = np.asarray([part_of_comp[int(lab)]
+                                for lab in labels[src]])
+        return [ids[edge_part == p] for p in range(parts)]
+    raise ValueError(strategy)
+
+
+# ---------------------------------------------------------------------------
+# Reorder — degree sort / locality (paper cites Balaji & Lucia)
+# ---------------------------------------------------------------------------
+
+
+def reorder(src: np.ndarray, dst: np.ndarray, num_vertices: int,
+            strategy: str = "degree"
+            ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Relabel vertices; returns ``(new_src, new_dst, perm)`` with
+    ``perm[old_id] = new_id``.
+
+    * ``degree``: descending out-degree (hubs first);
+    * ``bfs``: BFS order from the max-degree vertex (locality);
+    * ``identity``: no-op.
+    """
+    if strategy == "identity":
+        return src, dst, np.arange(num_vertices)
+    deg = np.bincount(src, minlength=num_vertices)
+    if strategy == "degree":
+        order = np.argsort(-deg, kind="stable")          # new → old
+    elif strategy == "bfs":
+        adj_off = np.zeros(num_vertices + 1, np.int64)
+        np.cumsum(np.bincount(src, minlength=num_vertices), out=adj_off[1:])
+        sorted_dst = dst[np.argsort(src, kind="stable")]
+        seen = np.zeros(num_vertices, bool)
+        order_list = []
+        for root in np.argsort(-deg, kind="stable"):
+            if seen[root]:
+                continue
+            q = collections.deque([root])
+            seen[root] = True
+            while q:
+                v = q.popleft()
+                order_list.append(v)
+                for u in sorted_dst[adj_off[v]:adj_off[v + 1]]:
+                    if not seen[u]:
+                        seen[u] = True
+                        q.append(u)
+        order = np.asarray(order_list)
+    else:
+        raise ValueError(strategy)
+    perm = np.empty(num_vertices, np.int64)
+    perm[order] = np.arange(num_vertices)
+    return perm[src].astype(np.int32), perm[dst].astype(np.int32), perm
 
 
 # ---------------------------------------------------------------------------

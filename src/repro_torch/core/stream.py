@@ -41,9 +41,17 @@ partition's launch:
   ``acc + partial``: no atomics, so a streamed pagerank is the same from
   run to run.
 
-On the CPU the wrappers take their plain versions.  A gather outside the
-menu runs when it is weight-free: its message table is computed once a
-superstep and the kernels gather it with ``copy``.
+On the CPU the wrappers take their plain versions.  A weight-free gather
+outside the menu runs on those kernels: its message table is computed
+once a superstep and the kernels gather it with ``copy``.  Any other
+gather outside the menu (one that reads the weight), and values of a
+dtype other than int32/float32, take the general partial, as the JAX
+package's streamed partial evaluates any gather: the user's gather in
+PyTorch over the partition's slots, masked to the identity and reduced a
+row, then on the pull plane folded by owner through kernel 4 and on the
+push plane scattered to the destinations with ``scatter_reduce_``
+(min, max and integer add, exact in any order; the pass pipeline never
+binds push for a float add).
 
 Bit-exactness: the finish mirrors the resident superstep case for case
 (dead frontier, touched-free apply, take-if-touched, a freeze guard for
@@ -75,6 +83,7 @@ from ..errors import (CheckpointCorruptError, CheckpointMismatchError,
 from ..kernels import edge_block as edge_block_kernel
 from ..kernels import push_ell as push_ell_kernel
 from ..kernels import segment_sum as segment_sum_kernel
+from ..kernels.ref import _SCATTER_REDUCE, combine_settled, row_reduce
 from . import checkpoint as ckpt
 from . import faults
 from . import graph as G
@@ -171,7 +180,8 @@ class PartitionedGraphProgram:
                  device: torch.device, ir, fstep, fused, apply_op,
                  frontier_op, push_legal: bool, splan: SchedulePlan,
                  comm: CommManager, out_degrees: np.ndarray,
-                 table_gather=None, probe_divergence: bool = False,
+                 table_gather=None, general: bool = False,
+                 probe_divergence: bool = False,
                  max_retries: int = 3, retry_base_s: float = 0.01,
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int | None = None,
@@ -207,6 +217,9 @@ class PartitionedGraphProgram:
         # table computed from a weight-free gather outside the menu
         self._table_gather = table_gather
         self._gather = fused.gather.module or "copy"
+        # the user's gather in PyTorch, in place of the kernels' sweeps
+        self._general = general
+        self._gather_fn = fused.gather.fn
         self._apply = apply_op.fn
         self._frontier_mode = frontier_op.mode
         self._frontier_dead = frontier_op.dead
@@ -335,6 +348,39 @@ class PartitionedGraphProgram:
             vals, self._deg, active, lanes, gather=self._gather,
             mask_inactive=self._mask_inactive)
 
+    def _general_partial(self, plane: str, key, slot, wgt, values, active,
+                         lanes, red, got):
+        """One partition's partial for a gather the kernels do not take:
+        the user's gather over the slots (the JAX package's streamed
+        partial), each row reduced, then combined into ``red`` and
+        ``got``: by owner through kernel 4 (pull) or by destination with
+        ``scatter_reduce_`` (push)."""
+        V, op, dtype = self._num_vertices, self._op, self._dtype
+        valid = slot != G.PAD
+        safe = torch.where(valid, slot, 0).long()
+        src = key.long()[:, None].expand_as(slot) if plane == "push" \
+            else safe
+        flat = safe.reshape(-1)
+        for i in lanes:
+            live = valid & active[i][src] if self._mask_inactive else valid
+            msg = self._gather_fn(values[i][src], wgt, self._deg[src])
+            msg = torch.where(live, msg.to(dtype), self._ident)
+            if plane == "push":
+                red[i].scatter_reduce_(0, flat, msg.reshape(-1),
+                                       _SCATTER_REDUCE[op])
+                if got is not None:
+                    got[i] |= torch.zeros(
+                        (V,), dtype=torch.int32, device=slot.device
+                    ).scatter_reduce_(0, flat, live.reshape(-1).to(
+                        torch.int32), "amax") > 0
+                continue
+            part = segment_sum_kernel.segment_reduce(
+                key, row_reduce(op, msg, 1), V, reduce=op)
+            red[i] = combine_settled(red[i], part, op)
+            if got is not None:
+                got[i] |= segment_sum_kernel.segment_reduce(
+                    key, live.any(1).to(torch.int32), V, reduce="max") > 0
+
     def _partial(self, plane: str, f: _Fetch, vals, active, lanes, red,
                  got, prep):
         """One partition's sweep of the listed lanes, combined into the
@@ -344,6 +390,10 @@ class PartitionedGraphProgram:
         slot = f.buf["slot"][:rows]
         wgt = f.buf["wgt"][:rows]
         V = self._num_vertices
+        if self._general:
+            self._general_partial(plane, key, slot, wgt, vals, active,
+                                  lanes, red, got)
+            return
         if plane == "push":
             push_ell_kernel.push_ell_lanes_reduce(
                 key, slot, wgt, vals, self._deg, active, lanes,
@@ -392,8 +442,11 @@ class PartitionedGraphProgram:
         fetches, compute = [], []
         if not parts or not lanes:
             return red, got, fetches, compute
-        vals = self._messages(values)
-        prep = self._prepare(plane, vals, active, lanes)
+        if self._general:
+            vals, prep = values, None
+        else:
+            vals = self._messages(values)
+            prep = self._prepare(plane, vals, active, lanes)
         bufs = self._plane_buffers(plane)
         pending = None
         for i, p in enumerate(parts):
@@ -1007,10 +1060,10 @@ def translate_partitioned(program: VertexProgram, source,
     ``partition_coo(p)`` / ``cuts`` / ``out_degrees`` provider, such as
     :class:`repro_torch.data.graphs.PartitionContainer`) whose cuts pin
     the plan.  Runs the resident translator's IR lowering and pass
-    pipeline, then builds the streamed executable.  The kernels take
-    int32/float32 values and a menu gather, or a weight-free gather
-    outside the menu (its message table computed a superstep); others
-    raise ``NotImplementedError``.
+    pipeline, then builds the streamed executable.  The lane kernels take
+    int32/float32 values with a menu gather or a weight-free gather
+    outside the menu (its message table computed a superstep); any other
+    program takes the general partial (see the module docstring).
     """
     t0 = time.perf_counter()
     V = int(source.num_vertices)
@@ -1037,19 +1090,15 @@ def translate_partitioned(program: VertexProgram, source,
     if fused is None or apply_op is None or frontier_op is None:
         raise RuntimeError("pass pipeline left the IR incomplete")
     dtype = ir.value_dtype
-    if dtype not in (torch.int32, torch.float32):
-        raise NotImplementedError(
-            f"the streamed engine's kernels take int32 or float32 values, "
-            f"got {dtype}")
     table_gather = None
-    if fused.gather.module is None:
+    general = dtype not in (torch.int32, torch.float32)
+    if fused.gather.module is None and not general:
         facts = ir.facts if ir.facts is not None else analyze_program(
             program)
-        if facts.weight_use.value is not False:
-            raise NotImplementedError(
-                f"{program.name!r}: a weighted gather outside the menu has "
-                "no streamed kernel route yet (ROADMAP.md §2)")
-        table_gather = fused.gather.fn
+        if facts.weight_use.value is False:
+            table_gather = fused.gather.fn
+        else:
+            general = True
     push_op = ir.find(PushScatterOp)
     policy = splan.direction
     push_legal = push_op is not None and policy.mode != "pull"
@@ -1106,6 +1155,7 @@ def translate_partitioned(program: VertexProgram, source,
         fstep=fstep, fused=fused, apply_op=apply_op,
         frontier_op=frontier_op, push_legal=push_legal, splan=splan,
         comm=comm, out_degrees=out_deg, table_gather=table_gather,
+        general=general,
         probe_divergence=schedule.probe_divergence,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         fingerprints_fn=lambda: ckpt.run_fingerprints(program, source,

@@ -1383,7 +1383,8 @@ def _emit_segment_scan_reduce(ir: SuperstepIR, fused: FusedGatherReduceOp,
     reverse_coo`), where the JAX package runs ``lax.scan`` over the same
     chunks.  The loop is ``push_scatter.push_scatter_reduce`` with the
     receiving ids as destinations (every source counts as active without
-    ``mask_inactive``).  Chunks are slices of the flat arrays, so no
+    ``mask_inactive``); they ascend within a chunk, so a float add folds
+    each chunk through kernel 4, the same from run to run.  Chunks are slices of the flat arrays, so no
     padded copy is kept (past the edges a chunk may be absent).  Returns
     ``(partial_reduce, chunks)``: ``partial_reduce(values, active,
     need_got, chunks=None, degrees=None)`` gives ``(red, got)`` over
@@ -1407,7 +1408,7 @@ def _emit_segment_scan_reduce(ir: SuperstepIR, fused: FusedGatherReduceOp,
             out_deg if degrees is None else degrees, active,
             gather_fn=fused.gather.fn, reduce=fused.reduce.op,
             identity=ident, num_vertices=num_vertices,
-            dtype=ir.value_dtype, emit_touched=need_got)
+            dtype=ir.value_dtype, emit_touched=need_got, sorted_dst=True)
 
     return partial_reduce, all_chunks
 

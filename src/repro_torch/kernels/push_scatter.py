@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from . import segment_sum
 from .ref import _SCATTER_REDUCE, PAD
 
 
@@ -39,6 +40,7 @@ def push_scatter_reduce(
     num_vertices: int,
     dtype: torch.dtype,
     emit_touched: bool = True,
+    sorted_dst: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Chunk-streamed push scatter: ``(reduced (V,), touched (V,) bool)``.
 
@@ -49,6 +51,11 @@ def push_scatter_reduce(
     ``(V,)`` table (``scatter_reduce_`` with ``include_self=True``), and,
     with ``emit_touched``, an amax scatter marks the touched table
     (``None`` otherwise: an identity-fixpoint apply never reads it).
+    A float32 add over chunks whose destinations ascend (``sorted_dst``:
+    the sparse pull's reverse COO) folds each chunk through kernel 4
+    (``segment_sum.segment_reduce``) and adds the chunks' tables in chunk
+    order instead: a scatter's atomics would sum a hub's messages in an
+    order that changes from run to run.
     """
     if isinstance(identity, torch.Tensor):
         identity = identity.item()
@@ -64,8 +71,13 @@ def push_scatter_reduce(
         msg = gather_fn(v, ws.to(v.dtype), degrees[srcs])
         msg = torch.where(live, msg.to(dtype), identity)  # add: identity 0
         safe_dst = torch.where(valid, dst, 0).long()
-        red.scatter_reduce_(0, safe_dst, msg, _SCATTER_REDUCE[reduce],
-                            include_self=True)
+        if sorted_dst and reduce == "add" and dtype == torch.float32:
+            # PAD (past every vertex) is dropped by the segment reduce
+            red += segment_sum.segment_reduce(dst, msg, num_vertices,
+                                              reduce="add")
+        else:
+            red.scatter_reduce_(0, safe_dst, msg, _SCATTER_REDUCE[reduce],
+                                include_self=True)
         if emit_touched:
             got.scatter_reduce_(0, safe_dst, live.to(torch.uint8), "amax",
                                 include_self=True)

@@ -1,5 +1,5 @@
-"""Port parity: the pass pipeline and the probe-only analyzer against the
-JAX package, for each of the seven DSL templates.
+"""Port parity: the pass pipeline and the static analyzer against the JAX
+package, for each of the seven DSL templates.
 
 Flavor names map ``dense_pallas``→``dense_cuda``, ``dense_xla``→
 ``dense_torch`` and ``sparse_xla``→``sparse_torch``.  The one intended
@@ -92,16 +92,15 @@ def test_pipeline_decisions_match(name, kernels):
 
 @pytest.mark.parametrize("name", TEMPLATES)
 def test_analyzer_facts_match(name):
+    """Every template's facts equal the JAX package's in value and
+    provenance, all decided from the traced graph, with the same
+    diagnostic codes."""
     ref = RA.analyze_program(RD.PROGRAM_TEMPLATES[name]())
     port = TA.analyze_program(TD.PROGRAM_TEMPLATES[name]())
-    rs, ts = ref.summary(), port.summary()
-    assert {k: v for k, (v, _) in rs.items()} == \
-        {k: v for k, (v, _) in ts.items()}
-    assert all(prov == "probed" for _, prov in ts.values())
-    # program-level findings agree apart from the static-tier codes
-    codes = {"A003", "A004", "A007"}
-    assert {d.code for d in ref.diagnostics} & codes == \
-        {d.code for d in port.diagnostics} & codes
+    assert port.summary() == ref.summary()
+    assert all(prov == "static" for _, prov in port.summary().values())
+    assert [d.code for d in port.diagnostics] == \
+        [d.code for d in ref.diagnostics]
 
 
 @pytest.mark.parametrize("kernels", [False, True])
@@ -157,14 +156,23 @@ def test_probes_on_user_programs():
 
 
 def test_weight_use_probe_rederives_weight_free_menu():
+    """The analyzer's weight-use fact, from the gather graph's liveness,
+    partitions the menu as the pinned tuple does."""
     from functools import partial
     from repro.kernels.ref import WEIGHT_FREE_GATHERS as REF_FREE
     from repro_torch.kernels.ref import GATHER_OPS, WEIGHT_FREE_GATHERS, \
         gather_msg
     assert WEIGHT_FREE_GATHERS == REF_FREE
-    free = tuple(g for g in GATHER_OPS if not TA.gather_uses_weight(
-        partial(gather_msg, g), torch.float32))
-    assert free == WEIGHT_FREE_GATHERS
+    free = []
+    for g in GATHER_OPS:
+        facts = TA.analyze_program(TD.VertexProgram(
+            name=f"menu_{g}", gather=partial(gather_msg, g), reduce="min",
+            apply=torch.minimum, init_value=100.0, frontier="changed",
+            value_dtype=torch.float32))
+        assert facts.weight_use.provenance == "static"
+        if facts.weight_use.value is False:
+            free.append(g)
+    assert tuple(free) == WEIGHT_FREE_GATHERS
 
 
 def test_verify_ir_flags_broken_ir():

@@ -4,7 +4,7 @@ The sparse pull plane (a chunk-streamed scatter over the reverse COO) and
 its ``coo_chunks`` push twin: bfs, sssp and wcc under pull, push and auto
 are bit-exact in values, ``iters`` and every ``run_stats`` field;
 pagerank, spmv and in_degrees agree within ``rtol=1e-5`` (float sums
-scatter in another order).  A graph of average degree below 4 plans the
+fold in another order: each chunk through kernel 4's plain version).  A graph of average degree below 4 plans the
 sparse backend under ``backend='auto'``, as in the JAX package.
 """
 import numpy as np
@@ -91,6 +91,51 @@ def test_sparse_float_adds_within_tolerance(graphs):
     np.testing.assert_array_equal(
         t.numpy(), np.bincount(tg.edges_dst.numpy(),
                                minlength=tg.num_vertices))
+
+
+def test_sparse_float_add_folds_chunks_through_segment_reduce(graphs,
+                                                             monkeypatch):
+    """The sparse pull's float32 add folds each chunk (its receivers
+    ascend) through kernel 4's wrapper, chunk by chunk, so the sum has no
+    atomics on the card; the result agrees with the scatter form and the
+    JAX package."""
+    from repro_torch.kernels import push_scatter, segment_sum
+    rg, tg = graphs
+    lay = TP.layouts_for(tg)
+    dst, src, wgt = lay.reverse_coo()
+    assert bool((dst[1:] >= dst[:-1]).all())
+    calls = []
+    real = segment_sum.segment_reduce
+
+    def counted(seg, val, n, *, reduce="add"):
+        calls.append(seg.shape[0])
+        return real(seg, val, n, reduce=reduce)
+
+    monkeypatch.setattr(segment_sum, "segment_reduce", counted)
+    V = tg.num_vertices
+    cs = 1000
+    chunks = [[a[s:s + cs] for s in range(0, dst.shape[0], cs)]
+              for a in (dst, src, wgt)]
+    values = torch.as_tensor(np.random.default_rng(1).uniform(
+        0, 1, V).astype(np.float32))
+    kw = dict(gather_fn=lambda v, w, d: v * w, reduce="add", identity=0.0,
+              num_vertices=V, dtype=torch.float32)
+    deg = tg.out_degrees
+    act = torch.ones(V, dtype=torch.bool)
+    folded, _ = push_scatter.push_scatter_reduce(
+        *chunks, values, deg, act, sorted_dst=True, **kw)
+    assert calls == [c.shape[0] for c in chunks[0]]
+    scattered, _ = push_scatter.push_scatter_reduce(
+        *chunks, values, deg, act, **kw)
+    assert len(calls) == len(chunks[0])
+    np.testing.assert_allclose(folded.numpy(), scattered.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    calls.clear()
+    r, _ = RALG.spmv(rg, values.numpy(), backend="sparse")
+    t, _ = TALG.spmv(tg, values, backend="sparse", device="cpu")
+    assert calls
+    np.testing.assert_allclose(t.numpy(), np.asarray(r), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_low_degree_graph_plans_sparse():

@@ -297,6 +297,69 @@ def test_degree_streams_through_a_message_table(graphs):
     np.testing.assert_allclose(tv.numpy(), np.asarray(rv), rtol=1e-6)
 
 
+def _general_programs(pkg, np_mod):
+    """Weighted gathers outside the menu: ``v + 2 * w`` under min and
+    ``v * w + 1`` under add, in either package's DSL."""
+    inf = float("inf")
+    return {
+        "min": pkg.VertexProgram(
+            name="two_w", gather=lambda v, w, d: v + 2 * w, reduce="min",
+            apply=np_mod.minimum, init_value=inf, frontier="changed",
+            value_dtype=np_mod.float32),
+        "add": pkg.VertexProgram(
+            name="affine_w", gather=lambda v, w, d: v * w + 1, reduce="add",
+            apply=lambda old, s: 0.5 * s, init_value=1.0, frontier="all",
+            value_dtype=np_mod.float32, mask_inactive=False, max_iters=5),
+    }
+
+
+@pytest.mark.parametrize("reduce", ["min", "add"])
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("mode", ["pull", "push", "auto"])
+def test_weighted_general_gather_streams(wgraphs, reduce, parts, mode):
+    """A weighted gather outside the menu streams through the general
+    partial (the user's gather in PyTorch, folded by owner through kernel
+    4's plain version on the pull plane, scattered on the push plane):
+    min bit-exact and add within rtol 1e-5 of the JAX streamed engine,
+    every counter equal, bytes shipped included; and equal to the port's
+    resident run."""
+    import jax.numpy as jnp
+    rg, tg = wgraphs
+    rprog = _general_programs(RD, jnp)[reduce]
+    tprog = _general_programs(dsl, torch)[reduce]
+    root = 0 if reduce == "min" else None
+    rp, tp, (rv, rit), (tv, tit) = _both(lambda: rprog, lambda: tprog,
+                                         rg, tg, parts, mode, root)
+    assert tp._general and tp.report.gather_module is None
+    assert int(rit) == tit
+    assert _counters(rp.last_run_stats) == _counters(tp.last_run_stats)
+    assert tp.last_run_stats["partition_bytes_h2d"] > 0
+    ref, _ = translate(tprog, tg, device=CPU).run(roots=root)
+    if reduce == "min":
+        _same(rv, tv)
+        _same(ref, tv)
+    else:
+        np.testing.assert_allclose(tv.numpy(), np.asarray(rv), rtol=1e-5)
+        np.testing.assert_allclose(tv.numpy(), ref.numpy(), rtol=1e-5)
+
+
+def test_other_dtypes_stream_through_the_general_partial(wgraphs):
+    """Values outside the lane kernels' int32/float32 stream too (the
+    general partial), equal to the resident run of the same dtype."""
+    _, tg = wgraphs
+    prog = dsl.VertexProgram(
+        name="sssp64", gather=lambda v, w, d: v + w, reduce="min",
+        apply=torch.minimum, init_value=float("inf"), frontier="changed",
+        value_dtype=torch.float64)
+    for mode in ("pull", "push"):
+        tp = translate(prog, tg, _tcfg(3, mode), device=CPU)
+        assert tp._general
+        tv, tit = tp.run(roots=0)
+        ref, rit = translate(prog, tg, device=CPU).run(roots=0)
+        assert tv.dtype == torch.float64 and tit == rit
+        _same(ref, tv)
+
+
 def test_partitions_skipped_on_late_supersteps(graphs):
     rg, tg = graphs
     rp, tp, _, _ = _both(RD.bfs_program, dsl.bfs_program, rg, tg, 5,
