@@ -30,13 +30,17 @@ and the script exits non-zero):
    exact, float add within ``rtol=1e-5`` (the kernels add in their own
    fixed order, the plain versions in PyTorch's).  Kernel 5 (decode
    attention) over float32/bf16 × h
-   in {16, 64, 128, 256} × G in {1, 4, 8} × K in {1, 8} × S in {1, 33,
-   100, 4097}, with row lengths 1, S and random, ``pos = -1`` holes in
-   the middle and at the front, NaN in every masked slot, and caches read
-   through strides; then over ``DECODE_SPLIT_CASES``, which stress its
-   split over the sequence (uneven shares, shares past ``length`` or
-   wholly masked, ``length`` under one tile a split, B·K of 1 and 64, S of
-   32,768, two groups of query heads, h not a multiple of 16); float32
+   in {16, 64, 128, 256} × G in {1, 4, 6, 8, 16} × K in {1, 8} × S in {1,
+   33, 100, 4097} × soft-cap in {0, 30} (q scaled by 8 where capped, so
+   the cap bites), with row lengths 1, S and random, ``pos = -1`` holes
+   in the middle and at the front, NaN in every masked slot, and caches
+   read through strides; then over ``DECODE_SPLIT_CASES`` at both
+   soft-caps, which stress its split over the sequence (uneven shares,
+   shares past ``length`` or wholly masked, ``length`` under one tile a
+   split, B·K of 1 and 64, S of 32,768, two groups of query heads, h not
+   a multiple of 16) and hold the LM families' decode shapes (gemma3's G
+   = 2 at h = 256, recurrentgemma's G = 16 at K = 1, grok's G = 6,
+   moonshot's G = 1 at K = 16); float32
    within ``rtol=1e-4, atol=1e-5`` (``tests/test_kernels.py``'s), bf16
    within ``rtol=1e-2`` (one bf16 rounding is at most 2**-8 of a value)
    plus ``1e-3 * max|out|``, a bound that follows the size of the outputs
@@ -62,17 +66,24 @@ and the script exits non-zero):
    mid-graph, empty intervals, vertex 0 on the frontier while padding
    rows exist) against their plain versions, and the PEs' partials
    combined by the reduce-matched collective against the unsharded plain
-   push, bit for bit.
+   push, bit for bit.  The routes that reduce a float min/max through
+   torch's own order (the dense pull's sub-row fold and row combines, the
+   sparse backend's scatter on pull and push, the streamed general push)
+   on a graph sending +0, -0 and ±1 into 1,024 targets, one a hub split
+   into max-width rows: equal to a numpy table that settles each tie -0 <
+   +0, bit for bit, the -0 and +0 entries counted.
 4. analysis — the static analysis tier (``core/analysis.py``): each
    template's and each adversarial program's facts with their provenance
    and codes (templates all ``static``; the evader's apply not
    elementwise and the coincidence gather no menu module, each with
-   A002; an untraceable gather ``probed`` with A001), the cold seconds a
-   program (cache cleared) and a cached hit, the process's first trace
-   apart.  The coincidence program (``where(v < 100, v + 1, v * 2)``,
-   ``plus_one`` on the probe batch) on a 120-vertex chain under pull,
-   push and auto on the card: equal to a numpy replay of the user's
-   function bit for bit (vertex 101 = 200), no menu kernel launched.
+   A002; an untraceable gather, and the coincidence written so that the
+   tracer cannot follow it, ``probed`` ``plus_one`` with A001), the cold
+   seconds a program (cache cleared) and a cached hit, the process's
+   first trace apart.  The coincidence program (``where(v < 100, v + 1,
+   v * 2)``, ``plus_one`` on the probe batch), traced and untraceable, on
+   a 120-vertex chain under pull, push and auto on the card: equal to a
+   numpy replay of the user's function bit for bit (vertex 101 = 200), no
+   menu kernel launched (a probed module never reaches the kernels).
    The evader through ``run_batch`` over 8 roots at scale 12: each lane
    equal to its sequential run bitwise, a lane kernel launched, and its
    apply on the whole ``(k, V)`` batch shown to differ from lane by lane.
@@ -219,6 +230,30 @@ and the script exits non-zero):
    32,768-slot sequence (CUDA events, and the profiler's device time of
    its split and combine kernels), beside its bound, its plain version
    and ``scaled_dot_product_attention``.
+11. lm_families — the decoder-only families at full width and depth, one
+   model at a time (freed before the next), bf16, weights from
+   ``torch.Generator`` seed 0: gemma3-4b, recurrentgemma-9b,
+   falcon-mamba-7b and moonshot-v1-16b-a3b through ``launch.serve.main``
+   (4 slots × 2048, 8 requests with prompts of 256–1536 tokens, numpy
+   seed 0, 32 new tokens each): prefill s a request, ms a decode step,
+   tokens/s, the step's byte bound (weights + valid KV and state at 3.35
+   TB/s; for moonshot also over only the experts the step's tokens reach,
+   beside the served step, which computes every expert at capacity as the
+   reference does), host syncs a step (must be 1), kernel 5 launches a
+   step (must be the model's attention layers: 34, 12, 0, 48), peak
+   device memory beside the weights' bytes and a profiled steady step.
+   Decode ≡ full forward in float32 (max |Δ| / max |logit| <= 1e-3) at
+   full depth for gemma3, recurrentgemma and falcon-mamba, and at 8 of
+   moonshot's 48 layers with a capacity factor of E / k (asserted at
+   least E / k, so no token is dropped); gemma3's local rings wrapping
+   mid-decode and a prompt past its ``prefill_chunk``, through the
+   server's functions; grok-1-314b at smoke size with its soft-cap
+   reaching kernel 5 (every launch soft-capped).  Kernel 5 soft-capped
+   (30) at grok's attention shape (B 8, S 4096, K 8, G 6, h 128, bf16)
+   held against its plain version and timed beside its bound, the plain
+   version, the uncapped kernel and the library call (``flex_attention``
+   with a capping, masking ``score_mod``; sdpa takes no soft-cap); the
+   SSM prefill scan at falcon-mamba's longest prompt beside its bound.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Longer logs go to ``chiprun_out/``
@@ -248,11 +283,28 @@ LM_SERVE = dict(arch="qwen3-8b", slots=8, capacity=4096, requests=16,
 LM_KEEP = (32, 17)
 LM_EQUIV = (2, 32, 16)      # prompts, prefilled tokens, decode steps
 # (prompt, cache capacity, decode steps) of the served long paths: a
-# prompt past prefill_chunk = 4096 (two chunks of 2,304), no wrap; and a
+# prompt past prefill_chunk = 4096 (chunks of 4,096 and 512), no wrap; and a
 # ring that wraps at the 33rd decode step
 LM_CHUNKED = (4608, 4608 + 16, 16)
 LM_RING = (480, 512, 64)
 LONG_SHAPE = (1, 32768, 8, 4, 128)      # B, S, K, G, h of one long row
+# The decoder-only families at full width and depth, one at a time: the
+# server's flags (capacity 2048 fits moonshot's 55.5 GB of weights too),
+# decode ≡ full forward's prompts, prefilled tokens and decode steps (a
+# MoE model at 8 of its layers: float32 at full depth does not fit), and
+# gemma3's served long paths: a prompt just under its 1,024 window whose
+# decode steps wrap the local rings, and one past prefill_chunk = 1,024
+LM_FAMILIES = ("gemma3-4b", "recurrentgemma-9b", "falcon-mamba-7b",
+               "moonshot-v1-16b-a3b")
+LM_FAMILY_SERVE = dict(slots=4, capacity=2048, requests=8, min_prompt=256,
+                       max_prompt=1536, max_new=32, seed=0, device="cuda")
+LM_FAMILY_EQUIV = (2, 32, 16)
+LM_MOE_EQUIV_LAYERS = 8
+LM_GEMMA_PATHS = (("local_ring_wrap", (1000, 2048, 64), False),
+                  ("chunked_prefill", (1536, 2048, 8), False))
+GROK_SHAPE = (8, 4096, 8, 6, 128)   # B, S, K, G, h of grok's decode step
+GROK_SOFTCAP = 30.0
+SCAN_SHAPE = (1, 1536, 8192, 16)    # falcon-mamba's scan, longest prompt
 
 # The H100 SXM's peak rates (NVIDIA data sheet), which the bounds assume:
 # device-memory bandwidth, and the scalar (non-tensor-core) float32 rate,
@@ -585,36 +637,54 @@ def _decode_agrees(got, want, bf16):
     return ok, _max_err(got, want), scale
 
 
+# kernel 5's soft-caps (grok's 30) and the query scale that makes the cap
+# bite: scores of ~8 sigma
+DECODE_SOFTCAPS = (0.0, 30.0)
+SOFTCAP_Q_SCALE = 8.0
+
+
+def _capped(args, softcap):
+    """Kernel 5's inputs with q scaled up where a soft-cap is checked."""
+    return ((args[0] * SOFTCAP_Q_SCALE,) + tuple(args[1:])) if softcap \
+        else args
+
+
 def _check_decode_kernel(torch):
-    """Kernel 5 against its plain version over dtype × h × G × K × S
-    (``_decode_case``'s rows); compared on rows with a valid slot."""
+    """Kernel 5 against its plain version over dtype × h × G × K × S ×
+    soft-cap (``_decode_case``'s rows); compared on rows with a valid
+    slot."""
     from repro_torch.kernels import decode_gqa as dg
     from repro_torch.kernels.ref import decode_gqa_ref
     gen = torch.Generator(device="cuda").manual_seed(5)
     checked, worst, worst_rel = 0, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for h in (16, 64, 128, 256):
-            for G in (1, 4, 8):
+            for G in (1, 4, 6, 8, 16):
                 for K in (1, 8):
                     for S in (1, 33, 100, 4097):
                         args, valid = _decode_case(torch, gen, 4, S, K, G, h,
                                                    dtype, checked % 2 == 1)
-                        got = dg.decode_gqa(*args)
-                        want = decode_gqa_ref(*args)
-                        torch.cuda.synchronize()
-                        rows = valid.any(1)
-                        ok, err, scale = _decode_agrees(
-                            got[rows].float(), want[rows].float(),
-                            dtype == torch.bfloat16)
-                        if not ok:
-                            raise AssertionError(
-                                f"decode_gqa {dtype} h={h} G={G} K={K} "
-                                f"S={S}: max err {err}, max |out| {scale}")
-                        worst = max(worst, err)
-                        worst_rel = max(worst_rel, err / max(scale, 1e-30))
-                        checked += 1
-    log(f"[kernels] decode_gqa: {checked} cases, max abs err {worst}, max "
-        f"err / max |out| of a case {worst_rel:.3e}")
+                        for cap in DECODE_SOFTCAPS:
+                            a = _capped(args, cap)
+                            got = dg.decode_gqa(*a, softcap=cap)
+                            want = decode_gqa_ref(*a, softcap=cap)
+                            torch.cuda.synchronize()
+                            rows = valid.any(1)
+                            ok, err, scale = _decode_agrees(
+                                got[rows].float(), want[rows].float(),
+                                dtype == torch.bfloat16)
+                            if not ok:
+                                raise AssertionError(
+                                    f"decode_gqa {dtype} h={h} G={G} K={K} "
+                                    f"S={S} softcap={cap}: max err {err}, "
+                                    f"max |out| {scale}")
+                            worst = max(worst, err)
+                            worst_rel = max(worst_rel,
+                                            err / max(scale, 1e-30))
+                            checked += 1
+    log(f"[kernels] decode_gqa: {checked} cases (soft-cap "
+        f"{DECODE_SOFTCAPS}), max abs err {worst}, max err / max |out| of "
+        f"a case {worst_rel:.3e}")
     return checked, worst
 
 
@@ -631,6 +701,11 @@ DECODE_SPLIT_CASES = (
     (3, 300, 2, 4, 24, (300, 150, 33)),      # h not a multiple of 16
     (2, 500, 3, 3, 8, (500, 250)),
     (2, 2048, 1, 8, 256, (2048, 1500)),      # h = 256
+    # the LM families' decode shapes (the local rings' 1,024 and 2,048)
+    (4, 2048, 4, 2, 256, (2048, 1024, 77, 1)),       # gemma3: G = 2
+    (4, 2048, 1, 16, 256, (2048, 1500, 3, 900)),     # recurrentgemma: G 16
+    (8, 4096, 8, 6, 128, (4096, 1, 65, 1000, 2049, 3000, 17, 4095)),  # grok
+    (4, 2048, 16, 1, 128, (2048, 300, 1, 1999)),     # moonshot: G = 1
 )
 
 
@@ -659,18 +734,20 @@ def _split_case(torch, gen, B, S, K, G, h, dtype, lengths):
 
 def _check_decode_splits(torch):
     """Kernel 5 against its plain version on ``DECODE_SPLIT_CASES`` in
-    float32 and bf16, each case's splits printed."""
+    float32 and bf16 at each soft-cap, each case's splits printed."""
     from repro_torch.kernels import decode_gqa as dg
     from repro_torch.kernels.ref import decode_gqa_ref
     gen = torch.Generator(device="cuda").manual_seed(6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     checked, worst, plans = 0, 0.0, []
     for B, S, K, G, h, lengths in DECODE_SPLIT_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, cap in ((d, c) for d in (torch.float32, torch.bfloat16)
+                           for c in DECODE_SOFTCAPS):
             args, valid = _split_case(torch, gen, B, S, K, G, h, dtype,
                                       lengths)
-            got = dg.decode_gqa(*args)
-            want = decode_gqa_ref(*args)
+            args = _capped(args, cap)
+            got = dg.decode_gqa(*args, softcap=cap)
+            want = decode_gqa_ref(*args, softcap=cap)
             torch.cuda.synchronize()
             rows = valid.any(1)
             ok, err, scale = _decode_agrees(got[rows].float(),
@@ -679,8 +756,8 @@ def _check_decode_splits(torch):
             if not ok:
                 raise AssertionError(
                     f"decode_gqa split case {dtype} B={B} S={S} K={K} G={G} "
-                    f"h={h} lengths={lengths}: max err {err}, max |out| "
-                    f"{scale}")
+                    f"h={h} lengths={lengths} softcap={cap}: max err {err}, "
+                    f"max |out| {scale}")
             worst = max(worst, err)
             checked += 1
         plans.append(((B, S, K, G, h), dg.split_plan(B, S, K, G, h, 2, sms)))
@@ -936,6 +1013,94 @@ def _check_lane_routes(torch, rng):
         f"(fold), {zeros['push'][0]} and {zeros['push'][1]} (push), each "
         "a tie settled as the plain version settles it")
     return checked["fold"], checked["push"], worst["fold"], worst["push"]
+
+
+TIE_GRAPH = (1 << 14, 1024, 1 << 18, 5000)   # V, targets, edges, a hub's
+
+
+def _check_tie_routes(torch, rng):
+    """The routes that reduce a float min/max through torch's own order
+    (the dense plane's sub-row fold and row combines in ``pull_bitmap``,
+    the sparse backend's scatter in ``push_scatter`` on pull and push,
+    the streamed general partial's push scatter in ``core/stream.py``),
+    one superstep each from every vertex active, on the card: messages
+    +0, -0 and ±1 into 1,024 targets (one a hub of 5,000 in-edges, split
+    into max-width rows), against a numpy table in which a tied zero is
+    -0 for a min and +0 for a max if any such message reached the
+    target.  Bit for bit; the -0 and +0 entries met are counted."""
+    from repro_torch.core import dsl
+    from repro_torch.core import graph as G
+    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
+    from repro_torch.core.translator import translate
+    V, T, E, hub = TIE_GRAPH
+    src = rng.integers(T, V, E).astype(np.int32)
+    dst = rng.integers(1, T, E).astype(np.int32)
+    dst[:hub] = 0
+    zeros = [0, 0]
+    checked = 0
+    for reduce in ("min", "max"):
+        win, lose, far = ((-0.0, 0.0, 1.0) if reduce == "min"
+                          else (0.0, -0.0, -1.0))
+        vals = np.full(V, far, np.float32)
+        r = rng.random(V)
+        vals[r < 0.4] = lose
+        vals[r < 0.02] = win
+        ident = np.inf if reduce == "min" else -np.inf
+        vals[:T] = ident
+        msg = vals[src]
+        want = np.full(V, ident, np.float32)
+        (np.minimum if reduce == "min" else np.maximum).at(want, dst, msg)
+        won = np.zeros(V, bool)
+        np.logical_or.at(won, dst, (msg == 0) & (np.signbit(msg)
+                                                 == (reduce == "min")))
+        want = np.where(want == 0, np.where(won, np.float32(win),
+                                            np.float32(lose)), want)
+        want[T:] = vals[T:]
+        want = want.astype(np.float32)
+        apply = torch.minimum if reduce == "min" else torch.maximum
+        for route, weight in (("dense/pull", 1.0), ("sparse/pull", 1.0),
+                              ("sparse/push", 1.0),
+                              ("stream general/push", -0.0)):
+            g = G.from_edge_list(src, dst, num_vertices=V,
+                                 weights=np.full(E, weight, np.float32))
+            general = route.startswith("stream")
+            prog = dsl.VertexProgram(
+                name=f"tie_{reduce}", reduce=reduce, apply=apply,
+                gather=(lambda v, w, d: v + 2 * w) if general
+                else (lambda v, w, d: v), init_value=float(ident),
+                frontier="changed", value_dtype=torch.float32)
+            backend, mode = route.split("/")
+            cfg = ScheduleConfig(
+                partitions=2 if general else 1,
+                backend="auto" if general else backend,
+                direction=DirectionPolicy(mode=mode))
+            tp = translate(prog, g, cfg, device="cuda")
+            v0, a0 = tp.init_state(values=vals)
+            if general:
+                v, a = v0[None], a0[None]
+                red, got, _, _ = tp._sweep(v, a, [0], list(range(
+                    tp.store.partitions)), "push", trip=False)
+                new = tp._finish(v, a, red, got, [0])[0][0]
+            elif mode == "pull":
+                new, _ = tp.superstep(v0, a0)
+            else:
+                new, _ = tp.superstep_push(v0, a0)
+            out = new.cpu().numpy()
+            if not _same_bits_np(out, want):
+                bad = int(np.sum(out.view(np.int32) != want.view(np.int32)))
+                raise AssertionError(f"tie route {route} {reduce}: {bad} "
+                                     "entries differ from the numpy table "
+                                     "in their bits")
+            z = out[:T] == 0
+            zeros[0] += int(np.sum(z & np.signbit(out[:T])))
+            zeros[1] += int(np.sum(z & ~np.signbit(out[:T])))
+            checked += 1
+    log(f"[kernels] tie routes: the dense pull's sub-row fold and row "
+        f"combines, the sparse pull and push scatter and the streamed "
+        f"general push, min and max, {checked} cases, equal a numpy table "
+        f"bit for bit; {zeros[0]} -0 and {zeros[1]} +0 entries, each a tie "
+        f"settled -0 < +0")
+    return checked
 
 
 def _row_pieces(rng, rows, n=3):
@@ -1310,8 +1475,9 @@ def phase_kernels(torch):
         _check_lane_routes(torch, live_rng)
     n_stream, worst["stream_routes"] = _check_stream_routes(torch, live_rng)
     n_shard, worst["shard_routes"] = _check_shard_routes(torch, live_rng)
+    n_tie = _check_tie_routes(torch, live_rng)
     checked += n_seg + n_push + n_lane + n_fold + n_lpush + n_stream \
-        + n_shard
+        + n_shard + n_tie
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
     n_split, split_err = _check_decode_splits(torch)
     worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
@@ -1339,6 +1505,11 @@ def _adversarial_programs(torch, dsl):
             return v + 1
         return v
 
+    def host_coincidence(v, w, d):
+        if bool((v < 100).all()):        # untraceable; plus_one on the
+            return v + 1                 # probe batch, v * 2 from 100 up
+        return torch.where(v < 100, v + 1, v * 2)
+
     return {
         # elementwise on every probe batch; a cross-lane flip once the
         # table's sum passes 1e6 (a (k, V) batch of lanes gets there)
@@ -1357,6 +1528,12 @@ def _adversarial_programs(torch, dsl):
             name="untraceable", gather=host_gather, reduce="min",
             apply=torch.minimum, init_value=2**20, frontier="changed",
             value_dtype=torch.int32),
+        # the coincidence again, where the tracer cannot follow it: its
+        # module fact is the probe's plus_one
+        "untraceable_coincidence": dsl.VertexProgram(
+            name="untraceable_coincidence", gather=host_coincidence,
+            reduce="min", apply=torch.minimum, init_value=2**20,
+            frontier="changed", value_dtype=torch.int32),
     }
 
 
@@ -1416,6 +1593,8 @@ def phase_analysis(torch, dev_info):
         "evader": ("elementwise", (False, "static"), "A002"),
         "coincidence": ("gather_module", (None, "static"), "A002"),
         "untraceable": ("gather_module", ("plus_one", "probed"), "A001"),
+        "untraceable_coincidence": ("gather_module", ("plus_one", "probed"),
+                                    "A001"),
     }
     for name, (prop, fact, code) in want.items():
         got = facts[name]
@@ -1431,16 +1610,19 @@ def phase_analysis(torch, dev_info):
         f"{max(c for c, _ in seconds.values()):.4f} s on the host of "
         f"{smi}")
 
-    # ---- the coincidence program on the card: no menu kernel may
-    # evaluate it (the kernels' plus_one would give vertex 101 the value
-    # 101); the sparse backend runs the user's gather
+    # ---- the coincidence program on the card, traced (module None) and
+    # untraceable (module fact probed): no menu kernel may evaluate it
+    # (the kernels' plus_one would give vertex 101 the value 101); the
+    # sparse backend runs the user's gather
     V = ANALYSIS_CHAIN
     src = np.arange(V - 1, dtype=np.int32)
     chain = G.from_edge_list(src, src + 1, num_vertices=V)
     want_v = _coincidence_replay(V)
     coinc = {}
-    for mode in ("pull", "push", "auto"):
-        prog = translate(progs["coincidence"], chain, ScheduleConfig(
+    for name, mode in ((n, m) for n in ("coincidence",
+                                        "untraceable_coincidence")
+                       for m in ("pull", "push", "auto")):
+        prog = translate(progs[name], chain, ScheduleConfig(
             direction=DirectionPolicy(mode=mode)), device="cuda")
         _zero_counts()
         v, it = prog.run(roots=0)
@@ -1451,18 +1633,19 @@ def phase_analysis(torch, dev_info):
                 or prog.report.gather_module is not None \
                 or any(launches.values()):
             raise AssertionError(
-                f"coincidence {mode}: vertex 101 = {int(got[101])} (want "
+                f"{name} {mode}: vertex 101 = {int(got[101])} (want "
                 f"200), equal to the numpy replay: "
                 f"{np.array_equal(got, want_v)}; module "
                 f"{prog.report.gather_module}; launches {launches}")
-        coinc[mode] = {"iters": it, "backend": prog.report.backend,
-                       "analysis_s": prog.report.translate_breakdown[
-                           "analysis_s"]}
-    log(f"[analysis] coincidence on a {V}-vertex chain under pull, push and "
-        f"auto on the card: = the numpy replay bit for bit (vertex 101 = "
-        f"200, vertex {V - 1} = {int(want_v[-1])}), gather module None, "
-        f"backend {coinc['auto']['backend']}, no menu kernel launched; "
-        f"{json.dumps(coinc)}")
+        coinc[f"{name}/{mode}"] = {
+            "iters": it, "backend": prog.report.backend,
+            "analysis_s": prog.report.translate_breakdown["analysis_s"]}
+    log(f"[analysis] coincidence, traced and untraceable (module fact "
+        f"probed), on a {V}-vertex chain under pull, push and auto on the "
+        f"card: = the numpy replay bit for bit (vertex 101 = 200, vertex "
+        f"{V - 1} = {int(want_v[-1])}), gather module None, backend "
+        f"{coinc['untraceable_coincidence/auto']['backend']}, no menu "
+        f"kernel launched; {json.dumps(coinc)}")
 
     # ---- the evader in a batch of lanes: its apply runs lane by lane
     Vg = 1 << ANALYSIS_SCALE
@@ -1623,7 +1806,8 @@ def _counters():
             "push_ell_fused": (pe.push_ell_fused_reduce, "launches"),
             "push_ell_lanes": (pe.push_ell_lanes_reduce, "launches"),
             "segment_reduce": (ss.segment_reduce, "launches"),
-            "decode_gqa": (dg.decode_gqa, "launches")}
+            "decode_gqa": (dg.decode_gqa, "launches"),
+            "decode_gqa_softcap": (dg.decode_gqa, "softcap_launches")}
 
 
 def _zero_counts():
@@ -4316,12 +4500,40 @@ def phase_others(torch):
         f"core after {rounds} rounds ({wall:.2f} s), = numpy peel")
 
 
-def _decode_timings(torch, args, label, smi):
-    """Kernel 5 on ``args`` (bf16, rows with a valid slot): held against
-    its plain version in bf16 and on the same inputs cast to float32
-    (``_decode_agrees``), then timed in bf16 beside its byte bound,
-    the plain version and ``scaled_dot_product_attention`` with a boolean
-    mask and ``enable_gqa`` (the library call, timed only)."""
+def _softcap_library(torch, args, softcap, compile=True):
+    """The library call that computes soft-capped kernel 5 on ``args``:
+    ``flex_attention`` with a ``score_mod`` that caps each score as
+    ``softcap * tanh(s / softcap)`` and gives ``-inf`` outside ``slot <
+    length & pos >= 0``, ``enable_gqa`` over the ``K * G`` query heads of
+    one query row, compiled once (``torch.compile``, the way the library
+    runs it fused; ``compile=False`` runs it eagerly).  Returns a
+    callable giving ``(B, K * G, 1, h)``; timed only, the port never
+    calls it."""
+    from torch.nn.attention.flex_attention import flex_attention
+    q, kc, vc, pos, length = args
+    B, S, K, h = kc.shape
+    length = length.long()
+
+    def score_mod(s, b, head, q_idx, kv_idx):
+        s = softcap * torch.tanh(s / softcap)
+        ok = (kv_idx < length[b]) & (pos[b, kv_idx] >= 0)
+        return torch.where(ok, s, -float("inf"))
+
+    fn = torch.compile(flex_attention, dynamic=False) if compile \
+        else flex_attention
+    qf = q.reshape(B, K * q.shape[2], 1, h)
+    kf, vf = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    return lambda: fn(qf, kf, vf, score_mod=score_mod, enable_gqa=True)
+
+
+def _decode_timings(torch, args, label, smi, softcap=0.0):
+    """Kernel 5 on ``args`` (bf16, rows with a valid slot) at ``softcap``:
+    held against its plain version in bf16 and on the same inputs cast to
+    float32 (``_decode_agrees``), then timed in bf16 beside its byte
+    bound, the plain version and the library call (timed, and its error
+    against the plain version recorded): uncapped,
+    ``scaled_dot_product_attention`` with a boolean mask and
+    ``enable_gqa``; capped, ``flex_attention`` (``_softcap_library``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_gqa as dg
     from repro_torch.kernels.ref import decode_gqa_ref
@@ -4330,58 +4542,72 @@ def _decode_timings(torch, args, label, smi):
     G = q.shape[2]
     slots = torch.arange(S, device=q.device)
     valid = (slots[None] < length[:, None].long()) & (pos >= 0)
-    got = dg.decode_gqa(*args)
-    want = decode_gqa_ref(*args)
+    got = dg.decode_gqa(*args, softcap=softcap)
+    want = decode_gqa_ref(*args, softcap=softcap)
     mask = valid[:, None, None, :]
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q.reshape(B, K * G, 1, h), kc.permute(0, 2, 1, 3),
-        vc.permute(0, 2, 1, 3), attn_mask=mask, enable_gqa=True)
-    lib_out = lib().reshape(B, K, G, h)
+    if softcap:
+        lib_name = "flex_attention (soft-cap score_mod)"
+        lib = _softcap_library(torch, args, softcap)
+    else:
+        lib_name = "scaled_dot_product_attention"
+        lib = (lambda: F.scaled_dot_product_attention(
+            q.reshape(B, K * G, 1, h), kc.permute(0, 2, 1, 3),
+            vc.permute(0, 2, 1, 3), attn_mask=mask, enable_gqa=True))
     torch.cuda.synchronize()
     rows = valid.any(1)
     ok, err, scale = _decode_agrees(got[rows].float(), want[rows].float(),
                                     True)
-    lib_err = _max_err(lib_out[rows].float(), want[rows].float())
+    lib_err = _max_err(lib().reshape(B, K, G, h)[rows].float(),
+                       want[rows].float())
     args32 = tuple(a.float() if a.is_floating_point() else a for a in args)
-    got32 = dg.decode_gqa(*args32)
-    want32 = decode_gqa_ref(*args32)
+    got32 = dg.decode_gqa(*args32, softcap=softcap)
+    want32 = decode_gqa_ref(*args32, softcap=softcap)
     ok32, err32, scale32 = _decode_agrees(got32[rows], want32[rows], False)
     del args32, got32, want32
     if not (ok and ok32):
         raise AssertionError(f"decode_gqa at the {label} shape: max err "
                              f"{err} in bf16, {err32} in float32 (max |out| "
                              f"{scale}, {scale32})")
-    ms = _time_ms(torch, lambda: dg.decode_gqa(*args), batch=20)
-    dev_ms = _device_ms(torch, lambda: dg.decode_gqa(*args), "decode_gqa")
-    plain_ms = _time_ms(torch, lambda: decode_gqa_ref(*args), batch=20)
+    ms = _time_ms(torch, lambda: dg.decode_gqa(*args, softcap=softcap),
+                  batch=20)
+    dev_ms = _device_ms(torch, lambda: dg.decode_gqa(*args, softcap=softcap),
+                        "decode_gqa")
+    plain_ms = _time_ms(torch, lambda: decode_gqa_ref(*args, softcap=softcap),
+                        batch=20)
     lib_ms = _time_ms(torch, lib, batch=20)
-    lib_dev = _device_ms(torch, lib, "")      # every kernel sdpa launches
+    # every kernel the library call launches
+    lib_dev = _device_ms(torch, lib, "")
     # each valid slot's k and v rows, its position, q and the output once
     n_valid = int(valid.sum())
     ends = torch.clamp(length.long(), 0, S)
     nbytes = (n_valid * K * h * 2 * kc.element_size()
               + int(ends.sum()) * 4 + 2 * q.numel() * q.element_size())
-    nops = 4 * n_valid * K * G * h
+    # a soft-capped score adds a division, a tanh and a product (counted
+    # as three operations) a score
+    nops = (4 * h + (3 if softcap else 0)) * n_valid * K * G
     bound = 1e3 * max(nbytes / _BANDWIDTH, nops / _SCALAR_OPS)
+    lib_text = (f"{lib_ms:.4f} ms (device time "
+                f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'})")
     log(f"[lm] decode_gqa at the {label} shape (B={B} S={S} K={K} G={G} "
-        f"h={h}, {n_valid} valid slots, {nbytes / 1e6:.1f} MB): {ms:.4f} ms "
-        f"a call in batches of 20 (device time "
+        f"h={h}, softcap {softcap}, {n_valid} valid slots, "
+        f"{nbytes / 1e6:.1f} MB): {ms:.4f} ms a call in batches of 20 "
+        f"(device time "
         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
         f"bound {bound:.4f} ms ({bound / ms:.3f} of it), plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
-        f"(device time "
-        f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'}); "
-        f"bf16 max abs err {err} (sdpa {lib_err}), max |out| {scale}; "
+        f"{plain_ms:.4f} ms, {lib_name} {lib_text}; "
+        f"bf16 max abs err {err} (library {lib_err}), max |out| {scale}; "
         f"float32 max abs err {err32}, max |out| {scale32} on {smi}")
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "library_ms": lib_ms, "library_device_ms": lib_dev,
-            "max_abs_err": err, "sdpa_err": lib_err,
+            "max_abs_err": err, "library": lib_name,
+            "library_err": lib_err,
             "max_abs_out": scale, "f32_max_abs_err": err32,
             "f32_max_abs_out": scale32,
             "bytes": nbytes, "bound_by": "bytes" if nbytes / _BANDWIDTH
             >= nops / _SCALAR_OPS else "operations",
-            "shape": [B, S, K, G, h], "valid_slots": n_valid}
+            "shape": [B, S, K, G, h], "valid_slots": n_valid,
+            "softcap": softcap}
 
 
 def _profile_decode_step(torch, sched, wall_s, label):
@@ -4445,62 +4671,67 @@ def _decode_equiv(torch, cfg):
             or launches != cfg.n_layers * steps:
         raise AssertionError("decode ≡ full forward failed")
     del full, cache
-    long_paths = _served_long_paths(torch, model)
+    # a prompt past prefill_chunk (two chunks), no wrap; a global ring
+    # that wraps mid-decode
+    long_paths = _served_long_paths(torch, model, (
+        ("chunked_prefill", LM_CHUNKED, False),
+        ("ring_wrap", LM_RING, True)))
     return {"max_abs": max(errs), "max_logit": scale, "ratio": rel,
             "errs": errs, "launches": launches, **long_paths}
 
 
-def _windowed_attention(torch, window):
-    """The full forward's attention with the ring's window: a query at
-    position p sees positions p - window < p' <= p, the causal mask of
+def _windowed_attention(torch, ring):
+    """The full forward's attention under a ring of ``ring`` slots: a
+    query at position p sees positions p - ring < p' <= p (and a local
+    layer's own window, if narrower), the causal mask of
     ``layers._attn_core`` with the window term a windowed layer adds (a
-    decode step after the ring wraps attends to the last ``capacity``
+    decode step after the ring wraps attends to the last ``ring``
     positions, each of whose k/v was computed under the same window)."""
     from repro_torch.models import layers as L
+    real = L._attn_core
 
-    def core(cfg, q, k, v, q_pos, k_pos):
-        scale = cfg.head_dim ** -0.5
-        s = torch.einsum("bqnh,bknh->bnqk", q, k) * scale
-        rel = q_pos[:, None, :, None] - k_pos[:, None, None, :]
-        mask = (k_pos >= 0)[:, None, None, :] & (rel >= 0) & (rel < window)
-        s = torch.where(mask, s.float(), L.NEG_INF)
-        p = torch.softmax(s, dim=-1).to(q.dtype)
-        return torch.einsum("bnqk,bknh->bqnh", p, v)
+    def core(cfg, q, k, v, q_pos, k_pos, *, window=0):
+        return real(cfg, q, k, v, q_pos, k_pos,
+                    window=min(window or ring, ring))
     return core
 
 
-def _served_long_paths(torch, model):
-    """The serving functions' two long paths, in float32 at full width,
+def _served_long_paths(torch, model, cases):
+    """The serving functions' long paths, in float32 at full width,
     through ``serve.decode.make_serve_fns`` (the server's prefill and
-    decode step): chunked prefill (one prompt of ``LM_CHUNKED[0]`` tokens,
-    past ``prefill_chunk``, prefilled in two chunks into a cache that
-    holds it and its decode steps) against ``logits_seq``; and ring wrap
-    (a prompt of ``LM_RING[0]`` tokens and ``LM_RING[2]`` decode steps in
-    a cache of ``LM_RING[1]``, so the ring wraps mid-decode) against the
-    full forward under the ring's window.  Each within 1e-3 of max
-    |logit|, the decode ≡ full forward bound."""
+    decode step): each case ``(label, (prompt, capacity, steps),
+    ring_window)`` prefills one prompt (in chunks of at most
+    ``prefill_chunk``) into a cache of ``capacity`` and takes ``steps``
+    decode steps, against ``logits_seq``; with ``ring_window`` the full
+    forward runs under the global ring's window (``_windowed_attention``),
+    as it must once a global ring wraps.  A local layer's ring of
+    ``min(window, capacity)`` slots needs no such change: the full
+    forward masks its window itself.  Each within 1e-3 of max |logit|,
+    the decode ≡ full forward bound."""
     from repro_torch.models import layers as L
+    from repro_torch.models.model import prefill_chunks
     from repro_torch.serve.decode import make_serve_fns
     cfg = model.cfg
     prefill_step, serve_step = make_serve_fns(model)
     rng = np.random.default_rng(2)
     out = {}
-    for label, (prompt, capacity, steps) in (
-            ("chunked_prefill", LM_CHUNKED), ("ring_wrap", LM_RING)):
+    for label, (prompt, capacity, steps), ring_window in cases:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                             (1, prompt + steps)),
                                device="cuda")
-        chunk = min(cfg.prefill_chunk, prompt)
-        while prompt % chunk:
-            chunk -= 1
-        wraps = prompt + steps > capacity
-        if label == "chunked_prefill" and (prompt // chunk < 2 or wraps):
-            raise AssertionError(f"{label}: {prompt} tokens in chunks of "
-                                 f"{chunk}, capacity {capacity}")
-        if label == "ring_wrap" and not wraps:
-            raise AssertionError(f"{label}: the ring never wraps")
+        kinds = [(kind, min(cfg.window, capacity) if kind == "local"
+                  and cfg.window else capacity)
+                 for kind in cfg.attn_pattern if kind in ("global", "local")]
+        chunks = [n for _, n in prefill_chunks(
+            cfg, prompt, min(cfg.prefill_chunk, prompt), rings=kinds)]
+        rings = sorted({n for _, n in kinds})
+        wraps = [r for r in rings if prompt + steps > r]
+        if ("chunked" in label and len(chunks) < 2) \
+                or ("wrap" in label and not wraps):
+            raise AssertionError(f"{label}: {prompt} tokens in chunks "
+                                 f"{chunks}, rings {rings}")
         real = L._attn_core
-        if wraps:
+        if ring_window:
             L._attn_core = _windowed_attention(torch, capacity)
         try:
             full = model.logits_seq(toks)
@@ -4517,20 +4748,27 @@ def _served_long_paths(torch, model):
         rel = max(errs) / scale
         del full, cache
         torch.cuda.empty_cache()
-        log(f"[lm] {label}: a prompt of {prompt} tokens (prefill chunks of "
-            f"{chunk}: {prompt // chunk}) and {steps} decode steps in a "
-            f"cache of {capacity} (ring wraps: {wraps}), float32, all "
-            f"{cfg.n_layers} layers, through the server's prefill and decode "
-            f"step, against the full forward"
-            f"{' under the ring window' if wraps else ''}: max |Δ| "
-            f"{max(errs):.3e} (prefill {errs[0]:.3e}), max |logit| "
-            f"{scale:.4f}, ratio {rel:.3e} (bound 1e-3)")
+        log(f"[lm] {cfg.name} {label}: a prompt of {prompt} tokens "
+            f"(prefill chunks {chunks}) and {steps} "
+            f"decode steps in a cache of {capacity} (rings {rings}; "
+            f"wrapping {wraps}), float32, all {cfg.n_layers} layers, "
+            f"through the server's prefill and decode step, against the "
+            f"full forward{' under the ring window' if ring_window else ''}"
+            f": max |Δ| {max(errs):.3e} (prefill {errs[0]:.3e}), max "
+            f"|logit| {scale:.4f}, ratio {rel:.3e} (bound 1e-3)")
         if not rel <= 1e-3:
             raise AssertionError(f"{label}: served logits != full forward")
         out[label] = {"prompt": prompt, "capacity": capacity,
-                      "steps": steps, "chunk": chunk, "max_abs": max(errs),
+                      "steps": steps, "chunks": chunks, "rings": rings,
+                      "wrapping": wraps, "max_abs": max(errs),
                       "max_logit": scale, "ratio": rel}
     return out
+
+
+def _serve_argv(conf):
+    """``launch.serve.main``'s flags from a dict (``True``: a bare flag)."""
+    return [a for k, v in conf.items() for a in (
+        [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)]))]
 
 
 def phase_lm(torch, dev_info):
@@ -4551,8 +4789,7 @@ def phase_lm(torch, dev_info):
     L = cfg.n_layers
     n_req, max_new = LM_SERVE["requests"], LM_SERVE["max_new"]
     slots, cap = LM_SERVE["slots"], LM_SERVE["capacity"]
-    argv = [a for k, v in LM_SERVE.items() for a in (
-        [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)]))]
+    argv = _serve_argv(LM_SERVE)
 
     # keep a copy of one layer's kernel 5 inputs at a mid-run decode step
     # (the cache is written in place later); the kernel's count is kept
@@ -4676,6 +4913,275 @@ def phase_lm(torch, dev_info):
             "library_ms": server["library_ms"], "shape": server["shape"]}
 
 
+def _attn_layers(cfg):
+    from repro_torch.models import transformer as T
+    return sum(kind in ("global", "local") for kind, _, _ in
+               T.layer_slots(cfg))
+
+
+def _step_bytes(torch, cfg, cache, routed=None):
+    """What one decode step must move at the cache's lengths: every
+    weight once (with ``routed``, the count of (layer, expert) pairs the
+    step's tokens routed to, only those experts), each attention layer's
+    valid KV slots (k, v and pos; a local ring holds at most its
+    capacity) and each mixer's state, read and written once."""
+    from repro_torch.models import param as P
+    from repro_torch.models import transformer as T
+    specs = T.model_specs(cfg)
+    weights = P.nbytes(specs)
+    if routed is not None:
+        expert = 3 * cfg.d_model * cfg.d_ff * 2          # bf16 up/gate/down
+        weights -= cfg.n_layers * cfg.n_experts * expert
+        weights += routed * expert
+    lengths = cache["length"].long()
+    kv_token = 2 * cfg.n_kv_heads * cfg.head_dim * 2 + 4
+    total = 0
+    for kind, key, g in T.layer_slots(cfg):
+        c = cache["blocks"][key] if g is not None else cache["rem"][key]
+        if "attn" in c:
+            cap = c["attn"]["pos"].shape[-1]
+            total += int(torch.clamp(lengths, max=cap).sum()) * kv_token
+        else:
+            per = sum(t[0].numel() * t.element_size() if g is not None
+                      else t.numel() * t.element_size() for t in c["mixer"])
+            total += 2 * per
+    return weights + total
+
+
+def _serve_family(torch, arch, smi):
+    """One full-width model through ``launch.serve.main``: its metrics,
+    host syncs and kernel 5 launches a step, peak memory, and one profiled
+    steady step; the model is freed before returning."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as M
+    from repro_torch.models import param as P
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    conf = dict(LM_FAMILY_SERVE, arch=arch)
+    argv = _serve_argv(conf)
+    n_attn = _attn_layers(cfg)
+    weight_bytes = P.nbytes(T.model_specs(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    sched = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps, done = sched.decode_steps, sched.done
+    n_req, max_new = conf["requests"], conf["max_new"]
+    if len(done) != n_req or any(len(r.out) != max_new for r in done) \
+            or any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+        raise AssertionError(f"{arch}: the server did not answer all "
+                             f"{n_req} requests")
+    syncs = sched.step_syncs
+    if len(syncs) != steps or set(syncs) != {1}:
+        raise AssertionError(f"{arch}: host syncs of the {steps} decode "
+                             f"steps: {syncs}")
+    if launches["decode_gqa"] != n_attn * steps:
+        raise AssertionError(f"{arch}: decode_gqa launched "
+                             f"{launches['decode_gqa']} times in {steps} "
+                             f"steps of {n_attn} attention layers")
+    step_ms = [1e3 * x for x in sched.step_walls_s]
+    med = float(np.median(step_ms))
+    tok_s = sum(len(r.out) - 1 for r in done) / sum(sched.step_walls_s)
+    prefill = sched.prefill_walls_s
+    prompts = [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)]
+    bound = 1e3 * _step_bytes(torch, cfg, sched.cache) / _BANDWIDTH
+    routed_text, routed_bound = "", None
+    if cfg.n_experts:
+        # one untimed step with the routing recorded: the experts the
+        # step's tokens reach, a layer
+        real, picked = M._routing_maps, []
+
+        def spy(idx, E, C):
+            picked.append(int(torch.unique(idx).numel()))
+            return real(idx, E, C)
+
+        M._routing_maps = spy
+        try:
+            nxt, _, sched.cache = sched.serve_step(sched.last, sched.cache)
+            nxt.tolist()
+        finally:
+            M._routing_maps = real
+        routed_bound = 1e3 * _step_bytes(torch, cfg, sched.cache,
+                                         routed=sum(picked)) / _BANDWIDTH
+        routed_text = (
+            f"; routed-expert bound {routed_bound:.3f} ms ({sum(picked)} of "
+            f"{cfg.n_layers * cfg.n_experts} (layer, expert) pairs reached "
+            f"by the step's {conf['slots']} tokens, top-{cfg.moe_topk}), "
+            f"against the served step, which is the reference's shape: "
+            f"every expert at capacity {M._capacity(cfg, 1)} a token "
+            f"({bound / med:.3f} of its every-expert bound, "
+            f"{routed_bound / med:.3f} of the routed one)")
+    log(f"[lm_families] {arch}: served {len(done)} requests at full width "
+        f"and depth ({cfg.n_layers} layers, {P.count(T.model_specs(cfg)) / 1e9:.3f} B "
+        f"parameters, {weight_bytes / 1e9:.2f} GB bf16; {conf['slots']} "
+        f"slots × {conf['capacity']}) in {wall:.2f} s with the model's "
+        f"build; prompts {prompts}; prefill {float(np.mean(prefill)):.4f} "
+        f"s a request (median {float(np.median(prefill)):.4f}, "
+        f"{sum(prompts) / sum(prefill):.0f} prompt tokens/s); decode "
+        f"{steps} steps, median {med:.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}), {tok_s:.1f} tokens/s; step bound (weights + "
+        f"valid KV and state at 3.35 TB/s, at the end) {bound:.3f} ms "
+        f"({bound / med:.3f} of the median step){routed_text}; host syncs "
+        f"a step {min(syncs)}–{max(syncs)}; decode_gqa launches "
+        f"{launches['decode_gqa']} = {n_attn} attention layers × {steps}; "
+        f"peak device memory {peak / 1e9:.2f} GB beside {weight_bytes / 1e9:.2f} "
+        f"GB of weights on {smi}")
+    nxt, _, sched.cache = sched.serve_step(sched.last, sched.cache)
+    sched.last = nxt
+    nxt.tolist()
+    profile = _profile_decode_step(torch, sched, med / 1e3,
+                                   f"lm_{arch}_decode_step")
+    del sched, done, nxt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "median_step_ms": med, "step_ms": step_ms,
+            "tokens_per_s": tok_s, "prefill_s": prefill, "prompts": prompts,
+            "step_bound_ms": bound, "routed_bound_ms": routed_bound,
+            "step_syncs": syncs, "launches": launches,
+            "attention_layers": n_attn, "peak_bytes": peak,
+            "weight_bytes": weight_bytes, "wall_s": wall,
+            "profile": profile}
+
+
+def _family_equiv(torch, arch, cfg):
+    """Decode ≡ full forward in float32 at full width: each decode step's
+    logits against ``logits_seq`` (which never reaches kernel 5), max
+    |Δ| / max |logit| <= 1e-3, with kernel 5 launched once an attention
+    layer and step (its soft-capped instantiation where the config caps);
+    then, for gemma3, the served long paths."""
+    import gc
+    from repro_torch.models.model import LModel
+    n, pre, steps = LM_FAMILY_EQUIV
+    model = LModel(cfg, device="cuda", dtype=torch.float32,
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (n, pre + steps)), device="cuda")
+    _zero_counts()
+    full = model.logits_seq(toks)
+    cache = model.init_cache(n, pre + steps, dtype=torch.float32)
+    lg, cache = model.prefill(toks[:, :pre], cache)
+    seq_launches = _read_counts()["decode_gqa"]
+    errs = [float((lg - full[:, pre - 1]).abs().max())]
+    for t in range(pre, pre + steps):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    counts = _read_counts()
+    scale = float(full.abs().max())
+    rel = max(errs) / scale
+    n_attn = _attn_layers(cfg)
+    capped = counts["decode_gqa_softcap"]
+    moe = ""
+    if cfg.n_experts:
+        least = cfg.n_experts / cfg.moe_topk
+        moe = (f", capacity factor {cfg.capacity_factor:.4f} on both sides "
+               f"(E / k = {cfg.n_experts} / {cfg.moe_topk} = {least:.4f})")
+        if not cfg.capacity_factor >= least:
+            raise AssertionError(f"{arch}: capacity factor "
+                                 f"{cfg.capacity_factor} < E / k = {least}: "
+                                 f"the full forward would drop tokens")
+    log(f"[lm_families] {cfg.name}: decode ≡ full forward, float32, "
+        f"{cfg.n_layers} of {arch}'s layers at d_model {cfg.d_model}{moe}, "
+        f"{n} prompts of {pre} tokens + {steps} decode steps: max |Δ| "
+        f"{max(errs):.3e} (prefill {errs[0]:.3e}), max |logit| {scale:.4f}, "
+        f"ratio {rel:.3e} (bound 1e-3); decode_gqa launches "
+        f"{counts['decode_gqa']} (soft-capped {capped}; logits_seq and "
+        f"prefill {seq_launches})")
+    want_capped = n_attn * steps if cfg.attn_softcap else 0
+    if not rel <= 1e-3 or seq_launches != 0 \
+            or counts["decode_gqa"] != n_attn * steps \
+            or capped != want_capped:
+        raise AssertionError(f"{arch}: decode ≡ full forward failed")
+    del full, cache
+    out = {"layers": cfg.n_layers, "max_abs": max(errs), "max_logit": scale,
+           "ratio": rel, "launches": counts["decode_gqa"],
+           "softcap_launches": capped}
+    if arch == "gemma3-4b":
+        out.update(_served_long_paths(torch, model, LM_GEMMA_PATHS))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _scan_timing(torch, smi):
+    """``ssm.linear_recurrence`` at falcon-mamba's longest served prompt
+    (one layer's decay and drive, float32): CUDA-event ms beside its
+    bound (a and b read once, h written once)."""
+    from repro_torch.models import ssm as S
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a = torch.rand(SCAN_SHAPE, generator=gen, device="cuda")
+    b = torch.randn(SCAN_SHAPE, generator=gen, device="cuda")
+    ms = _time_ms(torch, lambda: S.linear_recurrence(a, b), reps=10)
+    steps = int(np.ceil(np.log2(SCAN_SHAPE[1])))
+    bound = 1e3 * 3 * a.numel() * 4 / _BANDWIDTH
+    log(f"[lm_families] the SSM prefill scan (linear_recurrence, float32 "
+        f"{SCAN_SHAPE}, {a.numel() * 4 / 1e9:.3f} GB a tensor): {ms:.3f} ms "
+        f"in {steps} doubling steps, bound {bound:.3f} ms ({bound / ms:.3f} "
+        f"of it) on {smi}")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound, "steps": steps,
+            "shape": list(SCAN_SHAPE)}
+
+
+def phase_lm_families(torch, dev_info):
+    """The decoder-only families: see the module docstring (step 11)."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    smi = dev_info["smi"]
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    served, equiv = {}, {}
+    for arch in LM_FAMILIES:
+        served[arch] = _serve_family(torch, arch, smi)
+        cfg = get_config(arch)
+        if cfg.n_experts:
+            cfg = dataclasses.replace(
+                cfg, n_layers=LM_MOE_EQUIV_LAYERS,
+                capacity_factor=cfg.n_experts / cfg.moe_topk)
+        equiv[arch] = _family_equiv(torch, arch, cfg)
+    # grok at smoke size: the soft-cap through kernel 5 on the served path
+    grok = dataclasses.replace(smoke_config("grok-1-314b"), dtype="float32")
+    equiv["grok-1-314b (smoke)"] = _family_equiv(torch, "grok-1-314b", grok)
+    grok_launches = equiv["grok-1-314b (smoke)"]["softcap_launches"]
+    B, S, K, G, h = GROK_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+    slots = torch.arange(S, device="cuda")
+    args = (SOFTCAP_Q_SCALE * torch.randn((B, K, G, h), generator=gen,
+                                          device="cuda"),
+            torch.randn((B, S, K, h), generator=gen, device="cuda"),
+            torch.randn((B, S, K, h), generator=gen, device="cuda"),
+            torch.where(slots[None] < lengths[:, None], slots[None], -1)
+            .to(torch.int32).contiguous(),
+            lengths.to(torch.int32))
+    args = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a
+                 for a in args)
+    capped = _decode_timings(torch, args, "grok attention", smi,
+                             softcap=GROK_SOFTCAP)
+    plain = _decode_timings(torch, args, "grok attention, uncapped", smi)
+    del args
+    scan = _scan_timing(torch, smi)
+    summary = {"served": served, "equiv": equiv, "grok_kernel": capped,
+               "grok_kernel_uncapped": plain, "scan": scan, "card": smi}
+    with open(os.path.join(OUT_DIR, "chip_smoke_lm_families.json"), "w") as f:
+        json.dump(summary, f, indent=1, default=str)
+    return {"name": "decode_gqa_softcap", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_gqa.cu",
+            "replaces": "src/repro/kernels/decode_gqa.py:32",
+            "launches": grok_launches,
+            "max_abs_err": capped["max_abs_err"], "ms": capped["ms"],
+            "plain_ms": capped["plain_ms"], "bound_ms": capped["bound_ms"],
+            "bound_by": capped["bound_by"],
+            "library_ms": capped["library_ms"],
+            "shape": capped["shape"]}
+
+
 def main():
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py (no arguments)")
@@ -4694,6 +5200,7 @@ def main():
     del main_graph
     phase_others(torch)
     kernels.append(phase_lm(torch, dev_info))
+    kernels.append(phase_lm_families(torch, dev_info))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(f"{dev_info['smi']}")
     log(json.dumps({"kernels": [{k: v for k, v in kern.items()

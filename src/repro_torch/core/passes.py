@@ -295,10 +295,13 @@ class GatherClassificationPass(Pass):
 
     Records the paper's module-matching result on
     :attr:`~repro_torch.core.ir.GatherOp.module` — decided by the
-    gather graph's canonical signature against the menu's (a sampling
-    probe only for an untraceable gather); an unmatched gather stays
-    ``None`` and later takes the general sparse path (or the dense table
-    sweep when weight-free).
+    gather graph's canonical signature against the menu's.  Only a
+    ``static`` match reaches the op: the kernels evaluate the menu
+    module in place of the user's callable, which a sampling probe (the
+    fact of an untraceable gather, kept equal to the JAX package's) does
+    not prove equal beyond its 16 elements.  An unmatched or probed
+    gather stays ``None`` and later takes the general sparse path (or the
+    dense table sweep when weight-free).
     """
 
     name = "gather-classification"
@@ -309,10 +312,16 @@ class GatherClassificationPass(Pass):
         gop = ir.find(GatherOp)
         if gop is None or gop.module is not None:
             return ir
-        module = _facts(ir).gather_module.value
+        fact = _facts(ir).gather_module
+        module = fact.value if fact.provenance == "static" else None
         ir = ir.replace_op(gop, dataclasses.replace(gop, module=module))
-        note = (f"gather matched module {module!r}" if module is not None
-                else "gather unmatched -> general sparse path")
+        if module is not None:
+            note = f"gather matched module {module!r}"
+        elif fact.value is not None:
+            note = (f"gather matched {fact.value!r} only by the probe -> "
+                    "the callable on the general path")
+        else:
+            note = "gather unmatched -> general sparse path"
         return ir.with_note(note)
 
 

@@ -83,7 +83,8 @@ from ..errors import (CheckpointCorruptError, CheckpointMismatchError,
 from ..kernels import edge_block as edge_block_kernel
 from ..kernels import push_ell as push_ell_kernel
 from ..kernels import segment_sum as segment_sum_kernel
-from ..kernels.ref import _SCATTER_REDUCE, combine_settled, row_reduce
+from ..kernels.ref import (combine_settled, row_reduce_settled,
+                           scatter_settled)
 from . import checkpoint as ckpt
 from . import faults
 from . import graph as G
@@ -366,8 +367,8 @@ class PartitionedGraphProgram:
             msg = self._gather_fn(values[i][src], wgt, self._deg[src])
             msg = torch.where(live, msg.to(dtype), self._ident)
             if plane == "push":
-                red[i].scatter_reduce_(0, flat, msg.reshape(-1),
-                                       _SCATTER_REDUCE[op])
+                red[i] = scatter_settled(red[i], 0, flat, msg.reshape(-1),
+                                         op)
                 if got is not None:
                     got[i] |= torch.zeros(
                         (V,), dtype=torch.int32, device=slot.device
@@ -375,7 +376,7 @@ class PartitionedGraphProgram:
                         torch.int32), "amax") > 0
                 continue
             part = segment_sum_kernel.segment_reduce(
-                key, row_reduce(op, msg, 1), V, reduce=op)
+                key, row_reduce_settled(op, msg, 1), V, reduce=op)
             red[i] = combine_settled(red[i], part, op)
             if got is not None:
                 got[i] |= segment_sum_kernel.segment_reduce(

@@ -94,7 +94,7 @@ from ..kernels import edge_block as edge_block_kernel
 from ..kernels import pull_bitmap as pull_bitmap_kernel
 from ..kernels import push_ell as push_ell_kernel
 from ..kernels import push_scatter as push_scatter_kernel
-from ..kernels.ref import combine_settled, row_reduce
+from ..kernels.ref import combine_settled, row_reduce_settled
 from . import checkpoint as ckpt
 from . import comm as C
 from . import faults
@@ -1018,7 +1018,7 @@ def _emit_dense_pull_reduce(ir: SuperstepIR, fused: FusedGatherReduceOp,
             if program.mask_inactive:
                 live = live & active[safe0]
             msg = torch.where(live, msg.to(dtype), ident)
-            return row_reduce(op, msg, 1), torch.any(live, dim=1)
+            return row_reduce_settled(op, msg, 1), torch.any(live, dim=1)
         if mode == "table":
             msg_t = pull_bitmap_kernel.message_table(
                 values, out_deg, active, gather=gather_module,
@@ -1041,7 +1041,7 @@ def _emit_dense_pull_reduce(ir: SuperstepIR, fused: FusedGatherReduceOp,
                 sub_any = torch.any(live_t[dst_blk], dim=1)
             else:
                 sub_any = torch.any(dst_blk != V, dim=1)
-        return row_reduce(op, msg, 1), sub_any
+        return row_reduce_settled(op, msg, 1), sub_any
 
     def partial_reduce(values, active, need_got=True):
         if use_kernels:

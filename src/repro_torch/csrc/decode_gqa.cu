@@ -8,8 +8,11 @@
 // or both bfloat16; h is a multiple of 8 up to 256.  Output: (B, K, G, h)
 // in q's dtype,
 //
-//   out[b, k, g] = sum_s softmax_s(scale * q[b, k, g] . k[b, s, k]) v[b, s, k]
+//   out[b, k, g] = sum_s softmax_s(cap(scale * q[b, k, g] . k[b, s, k])) v[b, s, k]
 //
+// where cap(x) = softcap * tanhf(x / softcap) when softcap != 0 (grok's
+// attention logit soft-cap, applied before the mask and the running max,
+// as repro/models/layers.py::_attn_core does) and x otherwise,
 // over the slots s < min(length[b], S) with pos[b, s] >= 0, in float32
 // with an online (running max m, sum l, accumulator acc) softmax, and
 // acc / max(l, 1e-38) cast to the output dtype.  A masked slot takes no
@@ -62,6 +65,10 @@
 //   it writes the output, else (m, l, acc) to float32 scratch that a
 //   second small kernel merges, acc = sum e^{m_i - M} acc_i /
 //   sum e^{m_i - M} l_i, a split with m_i = -inf adding 0.
+// - The soft-cap is a template flag: softcap = 0 instantiates the kernel
+//   without it, so the uncapped path is the one it was.  tanhf, not
+//   tanh.approx.f32, whose ~2^-11 relative error would not hold the
+//   float32 check (rtol 1e-4, atol 1e-5).
 // - The host sets the shared-memory attribute once per instantiation,
 //   device and size, and switches device only when the current one is
 //   not the stream's.
@@ -282,15 +289,21 @@ struct Args {
   void* out;
   float* part;          // nullptr: one split, the block writes the output
   int S, K, G, h, splits;
-  float scale;
+  float scale, softcap;
 };
+
+// A score after the soft-cap (kCap) or as it is.
+template <bool kCap>
+__device__ __forceinline__ float capped(float s, float softcap) {
+  return kCap ? softcap * tanhf(s / softcap) : s;
+}
 
 // The float32 partial of one (row, split): m[8], l[8], acc[8][h].
 __host__ __device__ __forceinline__ long long part_stride(int h) {
   return 2 * kGroup + static_cast<long long>(kGroup) * h;
 }
 
-template <typename T, int kMT>
+template <typename T, int kMT, bool kCap>
 __global__ void __launch_bounds__(128)
     decode_gqa_split_kernel(const Args a) {
   constexpr int kVec = 16 / sizeof(T);           // elements in 16 bytes
@@ -415,10 +428,10 @@ __global__ void __launch_bounds__(128)
 
       float sc[4];
       tile.scores(kt, qs, row, nk, h, lane, sc);
-      sc[0] = v0 ? sc[0] * a.scale : -INFINITY;
-      sc[1] = v0 ? sc[1] * a.scale : -INFINITY;
-      sc[2] = v1 ? sc[2] * a.scale : -INFINITY;
-      sc[3] = v1 ? sc[3] * a.scale : -INFINITY;
+      sc[0] = v0 ? capped<kCap>(sc[0] * a.scale, a.softcap) : -INFINITY;
+      sc[1] = v0 ? capped<kCap>(sc[1] * a.scale, a.softcap) : -INFINITY;
+      sc[2] = v1 ? capped<kCap>(sc[2] * a.scale, a.softcap) : -INFINITY;
+      sc[3] = v1 ? capped<kCap>(sc[3] * a.scale, a.softcap) : -INFINITY;
 
       // online softmax per query head c0 + j over the warp's 16 slots:
       // the 8 lanes sharing c0 hold them
@@ -574,7 +587,7 @@ __global__ void __launch_bounds__(kCombineThreads)
       from_float<T>(((acc[0] + acc[1]) + (acc[2] + acc[3])) / sum[g]);
 }
 
-template <typename T, int kMT>
+template <typename T, int kMT, bool kCap>
 cudaError_t launch(const Args& a, int device, int B, int warps,
                    cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
@@ -588,14 +601,14 @@ cudaError_t launch(const Args& a, int device, int B, int warps,
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (bytes > attr_bytes[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_gqa_split_kernel<T, kMT>,
+        decode_gqa_split_kernel<T, kMT, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
     attr_bytes[device] = bytes;
   }
   const int gc = (a.G + kGroup - 1) / kGroup;
   const int rows = B * a.K * gc;
-  decode_gqa_split_kernel<T, kMT>
+  decode_gqa_split_kernel<T, kMT, kCap>
       <<<dim3(rows, a.splits), 32 * warps, bytes, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.part == nullptr) return err;
@@ -608,24 +621,32 @@ cudaError_t launch(const Args& a, int device, int B, int warps,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kCap>
 cudaError_t by_width(const Args& a, int device, int B, int warps,
                      cudaStream_t s) {
-  return a.h <= 128 ? launch<T, 8>(a, device, B, warps, s)
-                    : launch<T, 16>(a, device, B, warps, s);
+  return a.h <= 128 ? launch<T, 8, kCap>(a, device, B, warps, s)
+                    : launch<T, 16, kCap>(a, device, B, warps, s);
+}
+
+template <typename T>
+cudaError_t by_cap(const Args& a, int device, int B, int warps,
+                   cudaStream_t s) {
+  return a.softcap != 0.f ? by_width<T, true>(a, device, B, warps, s)
+                          : by_width<T, false>(a, device, B, warps, s);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // C entry point bound with ctypes.  dtype selects float32 (0) or
-// bfloat16 (1); strides are in elements.  `warps` (1..4) sets the tile
-// (16 slots a warp), `splits` the blocks a row; with splits > 1, `part`
-// is float32 scratch of B * K * ceil(G / 8) * splits * (16 + 8 h)
-// elements.  Returns the cudaError_t of the launches (0 = success).
+// bfloat16 (1); strides are in elements; softcap 0 means none.  `warps`
+// (1..4) sets the tile (16 slots a warp), `splits` the blocks a row;
+// with splits > 1, `part` is float32 scratch of
+// B * K * ceil(G / 8) * splits * (16 + 8 h) elements.  Returns the cudaError_t of the launches (0 = success).
 extern "C" int decode_gqa_launch(int device, int dtype, int B, int S, int K,
                                  int G, int h, int warps, int splits,
-                                 float scale, const void* q, const void* k,
+                                 float scale, float softcap, const void* q,
+                                 const void* k,
                                  const void* v, long long ksb, long long kss,
                                  long long ksk, long long vsb, long long vss,
                                  long long vsk, const void* pos,
@@ -646,11 +667,12 @@ extern "C" int decode_gqa_launch(int device, int dtype, int B, int S, int K,
   const Args a{q, k, v, ksb, kss, ksk, vsb, vss, vsk,
                static_cast<const int*>(pos), psb,
                static_cast<const int*>(length), out,
-               static_cast<float*>(part), S, K, G, h, splits, scale};
+               static_cast<float*>(part), S, K, G, h, splits, scale,
+               softcap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return by_width<float>(a, device, B, warps, s);
-    case 1: return by_width<__nv_bfloat16>(a, device, B, warps, s);
+    case 0: return by_cap<float>(a, device, B, warps, s);
+    case 1: return by_cap<__nv_bfloat16>(a, device, B, warps, s);
     default: return cudaErrorInvalidValue;
   }
 }

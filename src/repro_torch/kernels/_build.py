@@ -34,8 +34,8 @@ _IP = ctypes.POINTER(ctypes.c_int)       # a host int array (a lane map)
 # C signatures of each library's entry points: {symbol: argtypes}
 _ENTRY = {
     "decode_gqa": {"decode_gqa_launch":
-                   [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _L,
-                    _L, _L, _L, _L, _L, _P, _L, _P, _P, _P, _P]},
+                   [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+                    _L, _L, _L, _L, _L, _L, _P, _L, _P, _P, _P, _P]},
     "edge_block": {"edge_block_reduce_launch":
                    [_I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
                     _L, _P, _P, _L, _I, _I, _P],

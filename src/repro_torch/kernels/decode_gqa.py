@@ -16,7 +16,8 @@ device.
 :func:`decode_gqa` takes the plain version (``ref.decode_gqa_ref``) for
 tensors on the CPU and launches the kernel for tensors on a CUDA device;
 it never falls back from one to the other.  The decode step of every
-served ``global`` layer calls it once (``models.layers.attention_decode``).
+served attention layer calls it once (``models.layers.attention_decode``),
+``global`` and ``local`` alike, soft-capped where the config says.
 """
 from __future__ import annotations
 
@@ -71,11 +72,14 @@ def _sm_count(index: int) -> int:
 
 def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                pos: torch.Tensor, length: torch.Tensor, *,
-               scale: float | None = None) -> torch.Tensor:
+               scale: float | None = None,
+               softcap: float = 0.0) -> torch.Tensor:
     """``(B, K, G, h)`` attention of ``q`` over the slots ``s`` of
     ``k_cache``/``v_cache`` ``(B, S, K, h)`` with ``s < length[b]`` and
     ``pos[b, s] >= 0``, scaled by ``scale`` (default ``h ** -0.5``), in
-    q's dtype.
+    q's dtype.  A nonzero ``softcap`` ``c`` caps each scaled score ``s``
+    as ``c * tanh(s / c)`` before the mask and the softmax (the JAX
+    package's ``_attn_core`` with ``attn_softcap``).
 
     The kernel takes float32 or bfloat16 (q and caches of one dtype) and
     ``h`` a multiple of 8 up to 256; it reads the caches
@@ -88,8 +92,10 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     B, S, K, h = k_cache.shape
     G = q.shape[2]
     scale = float(scale) if scale is not None else h ** -0.5
+    softcap = float(softcap)
     if q.device.type == "cpu":
-        return decode_gqa_ref(q, k_cache, v_cache, pos, length, scale=scale)
+        return decode_gqa_ref(q, k_cache, v_cache, pos, length, scale=scale,
+                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_gqa runs on CPU or CUDA tensors, got "
                          f"{q.device}")
@@ -136,7 +142,7 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_gqa_launch(
         index, _DTYPES[q.dtype], B, S, K, G, h, warps, splits, scale,
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        softcap, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         pos.data_ptr(), pos.stride(0), length.data_ptr(),
@@ -145,8 +151,12 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise RuntimeError(f"decode_gqa kernel launch failed: cudaError_t "
                            f"{err}")
     decode_gqa.launches += 1
+    if softcap:
+        decode_gqa.softcap_launches += 1
     return out
 
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the counts were last set to 0: all,
+# and those of its soft-capped instantiation
 decode_gqa.launches = 0
+decode_gqa.softcap_launches = 0

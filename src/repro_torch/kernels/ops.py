@@ -79,11 +79,12 @@ def push_ell_reduce(row_src, ell_dst, ell_wgt, values, degrees, active, *,
         emit_touched=emit_touched)
 
 
-def decode_gqa(q, k_cache, v_cache, pos, length, *, scale=None):
+def decode_gqa(q, k_cache, v_cache, pos, length, *, scale=None,
+               softcap=0.0):
     """One-query flash-decode GQA attention (see ``decode_gqa.py``): q
     ``(B, K, G, h)``, caches ``(B, S, K, h)``, ``pos`` ``(B, S)`` int32
-    (−1 empty), ``length`` ``(B,)``; the CUDA kernel for CUDA tensors, its
-    plain version for CPU ones.  The TPU tile ``block_s`` has no
-    counterpart."""
+    (−1 empty), ``length`` ``(B,)``, a nonzero ``softcap`` capping the
+    scores; the CUDA kernel for CUDA tensors, its plain version for CPU
+    ones.  The TPU tile ``block_s`` has no counterpart."""
     return _decode_gqa.decode_gqa(q, k_cache, v_cache, pos, length,
-                                  scale=scale)
+                                  scale=scale, softcap=softcap)

@@ -27,7 +27,8 @@ from typing import Callable
 import torch
 
 from .push_ell import compact_rows
-from .ref import PAD, _identity, gather_msg, row_reduce
+from .ref import (PAD, _identity, gather_msg, row_reduce_settled,
+                  scatter_settled)
 
 
 def touched_table(row_src: torch.Tensor, ell_dst: torch.Tensor,
@@ -117,9 +118,8 @@ def combine_rows(row_red_cat: torch.Tensor, plan, identity, reduce: str,
         else:
             if red_v.dim() == 2:
                 idx = idx.expand(red_v.shape[0], -1)
-            red_v = red_v.scatter_reduce(
-                red_v.dim() - 1, idx, extra,
-                "amin" if reduce == "min" else "amax", include_self=True)
+            red_v = scatter_settled(red_v, red_v.dim() - 1, idx, extra,
+                                    reduce)
     return red_v
 
 
@@ -149,8 +149,8 @@ def subrow_combine(sub_red: torch.Tensor, plan, identity, reduce: str,
                                   plan.bucket_sub_offsets):
         seg = sub_red[..., off:off + rows_b * f_b]
         if f_b > 1:
-            parts.append(row_reduce(reduce, seg.reshape(*lead, rows_b, f_b),
-                                    -1))
+            parts.append(row_reduce_settled(
+                reduce, seg.reshape(*lead, rows_b, f_b), -1))
         else:
             parts.append(seg)
     parts.append(torch.full((*lead, 1), identity, dtype=sub_red.dtype,

@@ -23,7 +23,7 @@ from typing import Callable
 import torch
 
 from . import segment_sum
-from .ref import _SCATTER_REDUCE, PAD
+from .ref import _SCATTER_REDUCE, PAD, scatter_settled
 
 
 def push_scatter_reduce(
@@ -75,6 +75,9 @@ def push_scatter_reduce(
             # PAD (past every vertex) is dropped by the segment reduce
             red += segment_sum.segment_reduce(dst, msg, num_vertices,
                                               reduce="add")
+        elif reduce != "add" and dtype.is_floating_point:
+            # a +0/-0 tie settled as the kernels settle it
+            red = scatter_settled(red, 0, safe_dst, msg, reduce)
         else:
             red.scatter_reduce_(0, safe_dst, msg, _SCATTER_REDUCE[reduce],
                                 include_self=True)

@@ -94,10 +94,7 @@ def edge_block_reduce_ref(
     msg, live = edge_block_messages(nbr, wgt, values, degrees, active,
                                     gather=gather, reduce=reduce,
                                     mask_inactive=mask_inactive)
-    red = row_reduce(reduce, msg, 1)
-    if reduce != "add" and red.dtype.is_floating_point:
-        red = settle_zero_ties(red, zero_wins(msg, reduce).any(1), reduce)
-    return red, torch.any(live, dim=1)
+    return row_reduce_settled(reduce, msg, 1), torch.any(live, dim=1)
 
 
 def zero_wins(msg: torch.Tensor, reduce: str) -> torch.Tensor:
@@ -118,6 +115,32 @@ def settle_zero_ties(red: torch.Tensor, wins: torch.Tensor,
     win = torch.tensor(-0.0 if reduce == "min" else 0.0, dtype=red.dtype,
                        device=red.device)
     return torch.where(red == 0, torch.where(wins, win, -win), red)
+
+
+def row_reduce_settled(reduce: str, x: torch.Tensor,
+                       dim: int = 1) -> torch.Tensor:
+    """:func:`row_reduce` with a float min/max's +0/-0 tie settled as
+    :func:`settle_zero_ties` says."""
+    red = row_reduce(reduce, x, dim)
+    if reduce == "add" or not red.dtype.is_floating_point:
+        return red
+    return settle_zero_ties(red, zero_wins(x, reduce).any(dim), reduce)
+
+
+def scatter_settled(red: torch.Tensor, dim: int, index: torch.Tensor,
+                    src: torch.Tensor, reduce: str) -> torch.Tensor:
+    """``red.scatter_reduce(dim, index, src, ..., include_self=True)``
+    (add/min/max), a float min/max's +0/-0 tie settled as
+    :func:`settle_zero_ties` says: the scatter's own order (sequential on
+    the CPU, atomics on CUDA) leaves the sign of a tied zero to chance."""
+    out = red.scatter_reduce(dim, index, src, _SCATTER_REDUCE[reduce],
+                             include_self=True)
+    if reduce == "add" or not red.dtype.is_floating_point:
+        return out
+    wins = zero_wins(red, reduce).to(torch.uint8).scatter_reduce(
+        dim, index, zero_wins(src, reduce).to(torch.uint8), "amax",
+        include_self=True)
+    return settle_zero_ties(out, wins != 0, reduce)
 
 
 def combine_settled(a: torch.Tensor, b: torch.Tensor,
@@ -164,8 +187,7 @@ def push_scatter_reduce_ref(
     if reduce == "add":
         red = red.index_add(0, dst, torch.where(live, msg, 0))
     else:
-        red = red.scatter_reduce(0, dst, msg, "amin" if reduce == "min"
-                                 else "amax", include_self=True)
+        red = scatter_settled(red, 0, dst, msg, reduce)
     got = torch.zeros((V,), dtype=torch.uint8,
                       device=values.device).scatter_reduce(
         0, dst, live.to(torch.uint8), "amax", include_self=True) != 0
@@ -195,8 +217,7 @@ def segment_reduce_ref(
     idx = torch.where(valid, seg, num_segments)
     table = torch.full((num_segments + 1,), ident, dtype=val.dtype,
                        device=val.device)
-    return table.scatter_reduce_(0, idx, val, _SCATTER_REDUCE[reduce],
-                                 include_self=True)[:num_segments]
+    return scatter_settled(table, 0, idx, val, reduce)[:num_segments]
 
 
 def decode_gqa_ref(
@@ -207,9 +228,11 @@ def decode_gqa_ref(
     length: torch.Tensor,     # (B,) valid cache lengths
     *,
     scale: float | None = None,
+    softcap: float = 0.0,
 ) -> torch.Tensor:            # (B, K, G, h) in q's dtype
-    """One-query GQA attention over a cache, in float32: scores masked with
-    ``-inf`` outside ``slot < length & pos >= 0``, softmax, PV product,
+    """One-query GQA attention over a cache, in float32: scores (capped
+    as ``softcap * tanh(s / softcap)`` when ``softcap`` is nonzero) masked
+    with ``-inf`` outside ``slot < length & pos >= 0``, softmax, PV product,
     cast to ``q.dtype``.  A masked slot's value row is zeroed before the
     product, so a NaN there cannot reach the output (the JAX oracle lets
     ``0 * NaN`` through); elsewhere this is ``repro.kernels.ref.
@@ -217,6 +240,8 @@ def decode_gqa_ref(
     B, S, K, H = k_cache.shape
     scale = scale if scale is not None else H ** -0.5
     s = torch.einsum("bkgh,bskh->bkgs", q.float(), k_cache.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     mask = (torch.arange(S, device=q.device)[None, :] < length[:, None]) \
         & (pos >= 0)
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))

@@ -1,7 +1,8 @@
 """Weights and caches carried across from the JAX package's trees.
 
-The JAX package keeps parameters and caches as nested dicts of arrays
-whose ``blocks/pos{j}`` leaves carry the group axis first.  The tests hand
+The JAX package keeps parameters and caches as nested dicts (and, for
+the mixers' cache states, tuples) of arrays whose ``blocks/pos{j}``
+leaves carry the group axis first.  The tests hand
 those trees over as numpy arrays (``jax.tree.map(np.asarray, tree)``);
 nothing here imports JAX.  bfloat16 arrays arrive as numpy's ``bfloat16``
 extension dtype and are moved bit for bit.
@@ -41,24 +42,47 @@ def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
 @torch.no_grad()
 def load_jax_params(model, tree: dict) -> None:
     """Copy the JAX package's parameter tree into ``model`` (an
-    ``LModel``), unstacking ``blocks/pos0``'s layer axis into blocks.
-    Every leaf must match its port parameter in shape and dtype, and
-    every leaf on either side must be used."""
+    ``LModel``): block ``(g, j)`` takes index ``g`` of ``blocks/pos{j}``'s
+    leaves, remainder ``r`` the leaves of ``rem/rem{r}`` (the ``mixer``
+    and MoE ``ffn`` subtrees too).  Every leaf must match its port
+    parameter in shape and dtype, and every leaf on either side must be
+    used exactly once."""
     used = set()
     for part in ("embed", "final_norm"):
         for path, a in leaves(tree[part]):
             _copy(getattr(model, part)[path[0]], a, f"{part}/{path[0]}")
             used.add((part,) + path)
     for i, blk in enumerate(model.blocks):
-        for part in blk.parts:
-            for key, dst in blk[part].items():
-                path = ("blocks", "pos0", part, key)
-                _copy(dst, np.asarray(tree["blocks"]["pos0"][part][key])[i],
-                      f"layer {i} {'/'.join(path)}")
-                used.add(path)
-    unused = [p for p, _ in leaves(tree) if p not in used]
+        top = ("blocks", blk.key) if blk.group is not None \
+            else ("rem", blk.key)
+        for path, dst in _param_leaves(blk):
+            a = tree[top[0]][top[1]]
+            for k in path:
+                a = a[k]
+            a = np.asarray(a)
+            if blk.group is not None:       # the group axis comes first
+                a = a[blk.group]
+                path = path + (blk.group,)
+            _copy(dst, a, f"layer {i} {'/'.join(map(str, top + path))}")
+            used.add(top + path)
+    want = set()
+    for path, a in leaves(tree):
+        if path[0] == "blocks":
+            want.update(path + (g,) for g in range(np.shape(a)[0]))
+        else:
+            want.add(path)
+    unused = sorted(want - used, key=str)
     if unused:
         raise ValueError(f"JAX leaves with no port parameter: {unused}")
+
+
+def _param_leaves(mod, prefix: tuple = ()):
+    """``(path, parameter)`` of a ``transformer.ParamTree``."""
+    for name, v in mod.items():
+        if isinstance(v, torch.nn.Parameter):
+            yield prefix + (name,), v
+        else:
+            yield from _param_leaves(v, prefix + (name,))
 
 
 def cache_from_jax(tree: dict, device=None) -> dict:

@@ -1,7 +1,8 @@
 """Transformer building blocks of the serving path.
 
-Counterpart of ``repro.models.layers`` for causal ``global``
-self-attention, dense MLPs, norms, RoPE and the embedding.  Functions
+Counterpart of ``repro.models.layers`` for causal self-attention, both
+``global`` and windowed ``local`` (with ``_attn_local_chunked``), the
+attention soft-cap, dense MLPs, norms, RoPE and the embedding.  Functions
 take their parameters as a mapping of tensors with the JAX package's keys
 (an ``nn.ParameterDict`` or a plain dict), so the shapes and layouts are
 the JAX package's: q ``(B, S, H, h)``, k/v ``(B, S, K, h)``, caches
@@ -10,10 +11,9 @@ products are plain matrix products, as the JAX package leaves them to
 XLA; only the decode step's attention is a kernel
 (``kernels.ops.decode_gqa``, kernel 5).
 
-Not ported here (ROADMAP item 14): windowed ``local`` attention and
-``_attn_local_chunked`` (gemma3), the attention soft-cap (grok),
-cross-attention, bidirectional and query-chunked attention and learned
-positions (whisper); the ``ps.constrain*`` sharding hints have no
+Not ported here (ROADMAP item 14.4): cross-attention, bidirectional and
+query-chunked attention and learned positions (whisper); the
+``ps.constrain*`` sharding hints have no
 single-device meaning and are dropped.  Caches are updated in place (the
 ring writes), where the JAX package returns new arrays: a decode step at
 full width would otherwise copy the whole cache every layer.
@@ -117,18 +117,59 @@ def _kv_expand(cfg: ArchConfig, k: torch.Tensor) -> torch.Tensor:
     return k.index_select(2, kv_map)
 
 
-def _attn_core(cfg: ArchConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
+def _softcap(cfg: ArchConfig, s: torch.Tensor) -> torch.Tensor:
+    """grok's logit soft-cap ``tanh(s / c) · c`` (none when ``c`` is 0)."""
+    c = cfg.attn_softcap
+    return torch.tanh(s / c) * c if c else s
+
+
+def _attn_core(cfg: ArchConfig, q, k, v, q_pos, k_pos, *,
+               window: int = 0) -> torch.Tensor:
     """Causal attention. q (B,Sq,H,h); k,v (B,Sk,H,h); *_pos int32
-    (B,Sq)/(B,Sk); k_pos<0 ⇒ empty.  Scores in the input dtype, the masked
-    softmax in float32, ``p`` cast back to the input dtype before the PV
-    product."""
+    (B,Sq)/(B,Sk); k_pos<0 ⇒ empty; a nonzero ``window`` keeps the keys
+    with ``q_pos - k_pos < window`` (a ``local`` layer).  Scores in the
+    input dtype (soft-capped there), the masked softmax in float32, ``p``
+    cast back to the input dtype before the PV product."""
     scale = cfg.head_dim ** -0.5
-    s = torch.einsum("bqnh,bknh->bnqk", q, k) * scale
+    s = _softcap(cfg, torch.einsum("bqnh,bknh->bnqk", q, k) * scale)
     rel = q_pos[:, None, :, None] - k_pos[:, None, None, :]
     mask = (k_pos >= 0)[:, None, None, :] & (rel >= 0)
+    if window:
+        mask = mask & (rel < window)
     s = torch.where(mask, s.float(), NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknh->bqnh", p, v)
+
+
+def _attn_local_chunked(cfg: ArchConfig, q, k, v, positions) -> torch.Tensor:
+    """Block-local sliding-window attention, exact for window == chunk:
+    query chunk c attends [chunk c−1 ‖ chunk c] under the ``0 <= rel <
+    window`` mask, so the scores shrink from (S, S) to (S, 2W)."""
+    B, S, H, h = q.shape
+    W = cfg.window
+    nc = S // W
+    qc = q.reshape(B, nc, W, H, h)
+    kc = k.reshape(B, nc, W, H, h)
+    vc = v.reshape(B, nc, W, H, h)
+    pc = positions.reshape(B, nc, W)
+    k_prev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], 1)
+    v_prev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], 1)
+    p_prev = torch.cat([torch.full_like(pc[:, :1], -1), pc[:, :-1]], 1)
+    kk = torch.cat([k_prev, kc], 2)                 # (B,nc,2W,H,h)
+    vv = torch.cat([v_prev, vc], 2)
+    pp = torch.cat([p_prev, pc], 2)                 # (B,nc,2W)
+    s = torch.einsum("bcqnh,bcknh->bcnqk", qc, kk) * (cfg.head_dim ** -0.5)
+    s = _softcap(cfg, s)
+    rel = pc[:, :, None, :, None] - pp[:, :, None, None, :]
+    mask = (pp >= 0)[:, :, None, None, :] & (rel >= 0) & (rel < W)
+    s = torch.where(mask, s.float(), NEG_INF)
+    a = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bcnqk,bcknh->bcqnh", a, vv)
+    return o.reshape(B, S, H, h)
+
+
+def _window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.window if kind == "local" else 0
 
 
 def _project(cfg: ArchConfig, p, x, positions):
@@ -144,12 +185,20 @@ def _project(cfg: ArchConfig, p, x, positions):
     return q, k, v
 
 
-def attention_seq(cfg: ArchConfig, p, x, positions) -> torch.Tensor:
-    """Full-sequence causal self-attention (``logits_seq``).  It never
-    reaches kernel 5."""
+def attention_seq(cfg: ArchConfig, p, x, positions, *,
+                  kind: str = "global") -> torch.Tensor:
+    """Full-sequence causal self-attention (``logits_seq``); a ``local``
+    layer masks keys outside its window, block-locally when
+    ``cfg.local_attn_chunked`` and the sequence is whole windows past
+    one.  It never reaches kernel 5."""
     q, k, v = _project(cfg, p, x, positions)
-    o = _attn_core(cfg, q, _kv_expand(cfg, k), _kv_expand(cfg, v),
-                   positions, positions)
+    k, v = _kv_expand(cfg, k), _kv_expand(cfg, v)
+    window = _window(cfg, kind)
+    if (window and cfg.local_attn_chunked and x.shape[1] % window == 0
+            and x.shape[1] > window):
+        o = _attn_local_chunked(cfg, q, k, v, positions)
+    else:
+        o = _attn_core(cfg, q, k, v, positions, positions, window=window)
     return torch.einsum("bqnh,nhd->bqd", o, p["wo"])
 
 
@@ -183,13 +232,15 @@ def init_attn_cache(cfg, batch, capacity, dtype=torch.bfloat16, *,
 
 
 def attention_append(cfg: ArchConfig, p, x, positions, cache, *,
-                     start: int = 0):
+                     kind: str = "global", start: int = 0):
     """Prefill a chunk: attend to [pre-chunk cache ‖ in-chunk k/v], then
     ring-write the chunk into ``cache`` in place and return the output.
     Concat-before-write keeps the early queries of a chunk that wraps the
-    ring buffer from losing history a ring write of in-chunk duplicates
-    would clobber; slots never written have ``pos == -1``, which the mask
-    excludes.  ``start`` is the chunk's first position, a host int."""
+    ring buffer (a ``local`` layer's ring holds ``min(window, capacity)``
+    slots) from losing history a ring write of in-chunk duplicates would
+    clobber; slots never written have ``pos == -1``, and stale ones lie
+    outside a local layer's window: the mask excludes both.  ``start``
+    is the chunk's first position, a host int."""
     S = x.shape[1]
     cap = cache["k"].shape[1]
     q, k, v = _project(cfg, p, x, positions)
@@ -197,7 +248,7 @@ def attention_append(cfg: ArchConfig, p, x, positions, cache, *,
     v_all = torch.cat([cache["v"].to(q.dtype), v], dim=1)
     pos_all = torch.cat([cache["pos"], positions.to(torch.int32)], 1)
     o = _attn_core(cfg, q, _kv_expand(cfg, k_all), _kv_expand(cfg, v_all),
-                   positions, pos_all)
+                   positions, pos_all, window=_window(cfg, kind))
     y = torch.einsum("bqnh,nhd->bqd", o, p["wo"])
     # ring-write the chunk; keep only the last `cap` entries when the
     # chunk wraps, so that every slot is written once
@@ -209,7 +260,8 @@ def attention_append(cfg: ArchConfig, p, x, positions, cache, *,
     return y
 
 
-def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache):
+def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache, *,
+                     kind: str = "global"):
     """One-token decode. x_t (B,1,D); pos_t (B,1) int32 current position.
 
     The token's k/v are ring-written into ``cache`` in place first (slot
@@ -224,8 +276,18 @@ def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache):
     the latest ``cap``), so the causal term is true wherever
     ``k_pos >= 0``; and the slots ``>= min(pos_t + 1, cap)`` are exactly
     those never written, whose ``pos`` is ``-1``.  The kernel's mask
-    ``slot < length & pos >= 0`` therefore selects the same slots.  (A
-    windowed layer would need the window term as well.)  Returns the
+    ``slot < length & pos >= 0`` therefore selects the same slots.
+
+    A ``local`` layer adds ``pos_t - k_pos < window`` to that mask.  Its
+    ring holds ``cap = min(window, capacity)`` slots
+    (``transformer.init_cache``, the JAX package's ``_block_cache_init``),
+    and after the write the ring holds the latest ``cap`` positions, so
+    every valid slot has ``pos_t - k_pos <= cap - 1 < window``: the window
+    term is true wherever the kernel's mask is, and kernel 5 needs no
+    window term.  ``length`` comes from this layer's own capacity (gemma3's
+    global and local layers have different ones).  A soft-capped config
+    passes ``attn_softcap`` to the kernel, which caps the scores before
+    its mask and online softmax as ``_attn_core`` does.  Returns the
     output; the cache is written in place."""
     B = x_t.shape[0]
     cap = cache["k"].shape[1]
@@ -238,7 +300,8 @@ def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache):
     K, G, h = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     length = torch.clamp(pos_t[:, 0] + 1, max=cap).to(torch.int32)
     o = ops.decode_gqa(q.reshape(B, K, G, h), cache["k"].to(q.dtype),
-                       cache["v"].to(q.dtype), cache["pos"], length)
+                       cache["v"].to(q.dtype), cache["pos"], length,
+                       softcap=cfg.attn_softcap)
     return torch.einsum("bqnh,nhd->bqd", o.reshape(B, 1, K * G, h),
                         p["wo"])
 

@@ -1,7 +1,7 @@
 """Top-level per-arch model: full-sequence logits, prefill and decode.
 
 Counterpart of ``repro.models.model.LModel`` as an ``nn.Module``: the
-embedding and final norm are ``nn.ParameterDict``s and the layers an
+embedding and final norm are ``transformer.ParamTree``s and the layers an
 ``nn.ModuleList`` of :class:`transformer.Block`.  Parameters are drawn at
 construction from an explicit ``torch.Generator`` (seed 0 when none is
 given) on the model's device; ``device=None`` means the CUDA device and
@@ -9,11 +9,15 @@ raises without one.  Caches stay a dict of tensors with the JAX package's
 keys and layout (``transformer.init_cache``); prefill and decode fill
 them in place and return them.
 
-This slice serves stacks of ``global`` attention layers with a dense MLP
-and RoPE (qwen3-8b, mistral-nemo-12b, chatglm3-6b, chameleon-34b); any
-other config raises ``NotImplementedError`` naming ROADMAP item 14.
-``loss_fn``, the encoder and the cross-attention caches are not ported.
-The ``ps.constrain*`` sharding hints are dropped (one device).
+The port serves every decoder-only arch with RoPE: the dense
+``global``-attention stacks (qwen3-8b, mistral-nemo-12b, chatglm3-6b,
+chameleon-34b), windowed ``local`` attention (gemma3-4b), MoE FFNs
+(moonshot-v1-16b-a3b; grok-1-314b, with the attention soft-cap), Mamba
+(falcon-mamba-7b) and RG-LRU with local attention and remainder layers
+(recurrentgemma-9b).  An enc-dec config (whisper-large-v3) or one without
+RoPE raises ``NotImplementedError`` naming ROADMAP item 14.  ``loss_fn``,
+the encoder and the cross-attention caches are not ported.  The
+``ps.constrain*`` sharding hints are dropped (one device).
 """
 from __future__ import annotations
 
@@ -32,20 +36,40 @@ _LATER = "waits for ROADMAP item 14"
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not serve."""
     why = []
-    if cfg.n_experts:
-        why.append("MoE (soft-cap and MoE, item 14.2)")
-    if cfg.attn_pattern != ("global",):
-        why.append(f"layer pattern {cfg.attn_pattern} (local: item 14.1; "
-                   "SSM and RG-LRU: item 14.3)")
     if cfg.enc_dec:
         why.append("enc-dec (item 14.4)")
-    if cfg.attn_softcap:
-        why.append("attention soft-cap (item 14.2)")
     if cfg.pos_emb != "rope":
         why.append(f"pos_emb={cfg.pos_emb!r} (item 14.4)")
     if why:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(why)} {_LATER}")
+
+
+def prefill_chunks(cfg: ArchConfig, S: int, chunk: int = 0, *,
+                   rings=(), base: int = 0):
+    """A prefill's chunks of an ``S``-token prompt, ``(offset, length)``,
+    at most ``chunk`` tokens each (``S`` when 0), written after ``base``
+    cached tokens into attention rings ``rings``, ``(kind, slots)`` pairs.
+
+    The JAX package takes equal chunks, the largest divisor of ``S`` up to
+    ``chunk``; a prime-length prompt past ``chunk`` then runs one token a
+    chunk.  Where the chunks fall leaves the function unchanged only when
+    no ring drops a key that a later query of the prompt attends to: every
+    ``global`` ring holds ``base + S`` tokens, and every ``local`` ring
+    holds them or its whole window.  A ring that wraps otherwise (concat
+    before write lets a query see ``slots`` keys plus its chunk's earlier
+    ones), or a MoE stack (it routes each chunk's rows as its groups, so
+    its capacity and drops depend on the chunk), keeps the divisor rule.
+    Any other stack takes chunks of ``chunk`` and a shorter last one."""
+    chunk = min(chunk or S, S)
+    end = base + S
+    fixed = not cfg.n_experts and all(
+        end <= n or (kind == "local" and cfg.window and n >= cfg.window)
+        for kind, n in rings)
+    if not fixed:
+        while S % chunk:
+            chunk -= 1
+    return [(o, min(chunk, S - o)) for o in range(0, S, chunk)]
 
 
 class LModel(nn.Module):
@@ -64,12 +88,14 @@ class LModel(nn.Module):
         top = materialize({"embed": specs["embed"],
                            "final_norm": specs["final_norm"]}, generator,
                           device=device, dtype=dtype)
-        self.embed = T.params(top["embed"])
-        self.final_norm = T.params(top["final_norm"])
+        self.embed = T.ParamTree(top["embed"])
+        self.final_norm = T.ParamTree(top["final_norm"])
+        # one layer at a time, in execution order (group by group, then
+        # the remainder), so that no stacked leaf is drawn whole
         self.blocks = nn.ModuleList(
-            T.Block(materialize(T.block_specs(cfg), generator,
-                                device=device, dtype=dtype))
-            for _ in range(cfg.n_layers))
+            T.Block(materialize(T.block_specs(cfg, kind), generator,
+                                device=device, dtype=dtype), kind, key, g)
+            for kind, key, g in T.layer_slots(cfg))
 
     @property
     def device(self) -> torch.device:
@@ -98,21 +124,21 @@ class LModel(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens, cache, *, chunk: int = 0):
-        """Chunked prefill. Returns (last_token_logits, cache).
+        """Chunked prefill (chunks from :func:`prefill_chunks`). Returns
+        (last_token_logits, cache).
 
         ``base = max(length)``, where a continued prefill starts, is one
         device→host read per call."""
         cfg = self.cfg
         S = tokens.shape[1]
-        chunk = chunk or S
-        while S % chunk:
-            chunk -= 1
         base = int(cache["length"].max())
         last = None
-        for i in range(S // chunk):
-            local = i * chunk             # offset into `tokens`
+        rings = [(blk.kind, T.layer_cache(cache, blk)["attn"]["k"].shape[1])
+                 for blk in self.blocks if blk.kind in ("global", "local")]
+        for local, n in prefill_chunks(cfg, S, chunk, rings=rings,
+                                       base=base):
             start = base + local          # global position (RoPE, ring slots)
-            x, pos = self._embed_tokens(tokens[:, local:local + chunk],
+            x, pos = self._embed_tokens(tokens[:, local:local + n],
                                         start=start)
             x, cache = T.run_stack_append(cfg, self.blocks, cache, x, pos,
                                           start)

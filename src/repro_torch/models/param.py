@@ -36,19 +36,26 @@ def param(shape, axes, *, dtype=torch.bfloat16, init="normal", scale=None):
 
 
 def leaves(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
-    """``(path, leaf)`` pairs of a nested-dict tree in sorted key order
-    (the order ``jax.tree`` flattens a dict in)."""
+    """``(path, leaf)`` pairs of a tree of dicts and tuples in sorted key
+    order, a tuple's items by index (the order ``jax.tree`` flattens
+    them in)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from leaves(v, prefix + (i,))
     else:
         yield prefix, tree
 
 
 def map_tree(fn, tree: Any) -> Any:
-    """``fn`` applied to every leaf of a nested-dict tree."""
+    """``fn`` applied to every leaf of a tree of dicts and tuples (the
+    mixers' cache states are ``(conv_state, h)`` tuples)."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map_tree(fn, v) for v in tree)
     return fn(tree)
 
 

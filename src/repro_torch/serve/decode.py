@@ -51,16 +51,17 @@ class Request:
 
 
 # Cache leaves under 'blocks' are group-stacked: (n_groups, B, ...) — the
-# batch axis is 1 there and 0 everywhere else ('rem', 'length').
+# batch axis is 1 there and 0 everywhere else ('rem', 'length').  The
+# mixers' states are (conv_state, h) tuples.
 def _walk(cache, fn, other=None, under_blocks=False):
-    out = {}
-    for k, v in cache.items():
-        o = None if other is None else other[k]
-        if isinstance(v, dict):
-            out[k] = _walk(v, fn, o, under_blocks or k == "blocks")
-        else:
-            out[k] = fn(v, o, 1 if under_blocks else 0)
-    return out
+    if isinstance(cache, tuple):
+        return tuple(_walk(v, fn, None if other is None else other[i],
+                           under_blocks) for i, v in enumerate(cache))
+    if not isinstance(cache, dict):
+        return fn(cache, other, 1 if under_blocks else 0)
+    return {k: _walk(v, fn, None if other is None else other[k],
+                     under_blocks or k == "blocks")
+            for k, v in cache.items()}
 
 
 def slot_view(cache, slot: int):
@@ -138,7 +139,8 @@ class BatchScheduler:
             if occupant is None and self.queue:
                 req = self.queue.pop(0)
                 # per-slot prefill into a fresh batch-1 cache, then write the
-                # slot back (path-aware: 'blocks' leaves batch on axis 1)
+                # slot back, KV rings and SSM states alike (path-aware:
+                # 'blocks' leaves batch on axis 1, 'rem' leaves on axis 0)
                 t0 = time.perf_counter()
                 toks = torch.as_tensor(np.asarray(req.prompt),
                                        dtype=torch.int32,

@@ -197,6 +197,7 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.kernels.push_scatter',"
         " 'repro_torch.kernels.decode_gqa', 'repro_torch.configs.qwen3_8b',"
         " 'repro_torch.models.model', 'repro_torch.models.convert',"
+        " 'repro_torch.models.moe', 'repro_torch.models.ssm',"
         " 'repro_torch.serve.decode', 'repro_torch.launch.serve'}"
         " <= set(names), names\n"
         "print(len(names))\n")
