@@ -40,7 +40,8 @@ and the script exits non-zero):
    split, B·K of 1 and 64, S of 32,768, two groups of query heads, h not
    a multiple of 16) and hold the LM families' decode shapes (gemma3's G
    = 2 at h = 256, recurrentgemma's G = 16 at K = 1, grok's G = 6,
-   moonshot's G = 1 at K = 16); float32
+   moonshot's G = 1 at K = 16, whisper's G = 1 at K = 20 and h = 64 over
+   448 self slots and 1,500 cross slots); float32
    within ``rtol=1e-4, atol=1e-5`` (``tests/test_kernels.py``'s), bf16
    within ``rtol=1e-2`` (one bf16 rounding is at most 2**-8 of a value)
    plus ``1e-3 * max|out|``, a bound that follows the size of the outputs
@@ -254,6 +255,41 @@ and the script exits non-zero):
    version, the uncapped kernel and the library call (``flex_attention``
    with a capping, masking ``score_mod``; sdpa takes no soft-cap); the
    SSM prefill scan at falcon-mamba's longest prompt beside its bound.
+12. whisper — whisper-large-v3 at full width and depth (32 decoder + 32
+   encoder layers, d_model 1280, 20 heads, vocab 51,866, bf16, weights
+   from ``torch.Generator`` seed 0, learned position tables of 1,500
+   rows, which encoding 1,500 frames needs) through the model's
+   conditioned path: 4 slots of 448, ``build_cross_caches`` from 1,500
+   bf16 frame embeddings a slot (seed 1), one prompt of 4–16 tokens a
+   slot (numpy seed 0), 64 greedy decode steps.  Encoder + cross-cache
+   seconds a request, prefill seconds, ms a decode step, tokens/s, host
+   syncs a step (must be 1), kernel 5 launches a step (must be 64: 32
+   self, 32 cross, each half counted where it launches), peak memory,
+   the step's byte bound (the decoder weights a step reads, valid self
+   KV and the cross caches at 3.35 TB/s) and a
+   profiled step; kernel 5 at both of whisper's shapes on layer 17's
+   inputs of step 32, against its plain version and timed beside its
+   bound, the plain version and sdpa; decode ≡ full forward in float32
+   at full depth (``logits_seq`` with the encoder inputs, max |Δ| / max
+   |logit| <= 1e-3); and ``launch.serve.main --arch whisper-large-v3``
+   (the reference's scheduler, which builds no cross caches) serving 8
+   requests with one sync and 32 kernel 5 launches a step.
+13. train — whisper-large-v3 trained at full width and depth: bf16
+   parameters, float32 AdamW states, ``cfg.remat``, batch 8 × 448 tokens
+   with 448 float32 encoder frames (``synth_batch``), 4 sequences a
+   microbatch, 8 steps on one repeated batch: loss, grad norm and lr a
+   step (finite, the last loss below the first), seconds a step,
+   tokens/s, peak memory, dtypes and shapes kept, and the step's useful
+   operations against the dense bf16 peak; ``launch.train.main`` at full
+   width for 2 steps of the pipeline's batches; at full width over 2 + 2
+   layers, ``save`` then ``restore_latest`` of the parameters and AdamW
+   state bit for bit and a resumed model's next loss equal to the
+   uninterrupted one's (rtol 1e-6); one float32 step at smoke size equal
+   to the same step on the CPU (loss and grad norm rtol 1e-5; AdamW's m
+   and v, which hold the gradients, within 1e-4 and 2e-4 of each leaf's
+   largest; every parameter AdamW's step from the card's own m and v
+   within rtol 2e-5 + 1e-3 · lr, and the CPU's within rtol 2e-5 + 2e-2 ·
+   lr wherever the gradient is not within rounding of 0).
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Longer logs go to ``chiprun_out/``
@@ -706,6 +742,11 @@ DECODE_SPLIT_CASES = (
     (4, 2048, 1, 16, 256, (2048, 1500, 3, 900)),     # recurrentgemma: G 16
     (8, 4096, 8, 6, 128, (4096, 1, 65, 1000, 2049, 3000, 17, 4095)),  # grok
     (4, 2048, 16, 1, 128, (2048, 300, 1, 1999)),     # moonshot: G = 1
+    # whisper-large-v3's decode shapes, G = 1 at K = 20, h = 64: the self
+    # rings of 448 slots, and the cross caches of 1,500 encoder frames (a
+    # tile of 64 slots does not divide 1,500; served, every slot is valid)
+    (4, 448, 20, 1, 64, (448, 300, 17, 1)),
+    (4, 1500, 20, 1, 64, (1500, 1500, 1500, 1500)),
 )
 
 
@@ -4526,7 +4567,7 @@ def _softcap_library(torch, args, softcap, compile=True):
     return lambda: fn(qf, kf, vf, score_mod=score_mod, enable_gqa=True)
 
 
-def _decode_timings(torch, args, label, smi, softcap=0.0):
+def _decode_timings(torch, args, label, smi, softcap=0.0, tag="lm"):
     """Kernel 5 on ``args`` (bf16, rows with a valid slot) at ``softcap``:
     held against its plain version in bf16 and on the same inputs cast to
     float32 (``_decode_agrees``), then timed in bf16 beside its byte
@@ -4588,7 +4629,7 @@ def _decode_timings(torch, args, label, smi, softcap=0.0):
     bound = 1e3 * max(nbytes / _BANDWIDTH, nops / _SCALAR_OPS)
     lib_text = (f"{lib_ms:.4f} ms (device time "
                 f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'})")
-    log(f"[lm] decode_gqa at the {label} shape (B={B} S={S} K={K} G={G} "
+    log(f"[{tag}] decode_gqa at the {label} shape (B={B} S={S} K={K} G={G} "
         f"h={h}, softcap {softcap}, {n_valid} valid slots, "
         f"{nbytes / 1e6:.1f} MB): {ms:.4f} ms a call in batches of 20 "
         f"(device time "
@@ -4613,12 +4654,21 @@ def _decode_timings(torch, args, label, smi, softcap=0.0):
 def _profile_decode_step(torch, sched, wall_s, label):
     """Device time by kernel over one steady decode step of ``sched``
     (torch.profiler): kernel 5's share and the device's idle share."""
+    def step():
+        nxt, _, sched.cache = sched.serve_step(sched.last, sched.cache)
+        nxt.tolist()
+    return _profile_step(torch, step, wall_s, label)
+
+
+def _profile_step(torch, step, wall_s, label):
+    """Device time by kernel over one call of ``step`` (a decode step
+    ending in its host read; torch.profiler): kernel 5's share and the
+    device's idle share against a ``wall_s`` step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        nxt, _, sched.cache = sched.serve_step(sched.last, sched.cache)
-        nxt.tolist()
+        step()
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -4690,9 +4740,9 @@ def _windowed_attention(torch, ring):
     from repro_torch.models import layers as L
     real = L._attn_core
 
-    def core(cfg, q, k, v, q_pos, k_pos, *, window=0):
-        return real(cfg, q, k, v, q_pos, k_pos,
-                    window=min(window or ring, ring))
+    def core(cfg, q, k, v, q_pos, k_pos, *, causal=True, window=0):
+        return real(cfg, q, k, v, q_pos, k_pos, causal=causal,
+                    window=min(window or ring, ring) if causal else window)
     return core
 
 
@@ -5182,6 +5232,611 @@ def phase_lm_families(torch, dev_info):
             "shape": capped["shape"]}
 
 
+# whisper-large-v3 end to end (``phase_whisper``): the conditioned decode
+# (cross caches built from 1,500 encoder frames; learned position tables
+# of 1,500 rows, which the encoder needs), the decode step whose layer-17
+# kernel 5 inputs are kept, decode ≡ full forward's prompts, prefilled
+# tokens and decode steps, and the server's flags (the reference's
+# unconditioned scheduler)
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_RUN = dict(slots=4, capacity=448, frames=1500, min_prompt=4,
+                   max_prompt=16, steps=64)
+WHISPER_KEEP = (32, 17)
+WHISPER_EQUIV = (2, 32, 16)
+WHISPER_SERVE = dict(arch=WHISPER_ARCH, slots=4, capacity=448, requests=8,
+                     max_new=16, seed=0, device="cuda")
+# Training whisper-large-v3 at full width and depth (``phase_train``):
+# batch × seq (encoder frames = seq, as ``synth_batch`` makes them),
+# sequences a microbatch, steps, peak lr; the depth of the checkpoint
+# round trip (decoder and encoder layers); the smoke step's batch × seq
+TRAIN = dict(batch=8, seq=448, microbatch_seqs=4, steps=8, lr=1e-3)
+TRAIN_CKPT_LAYERS = 2
+TRAIN_SMOKE = (4, 32)
+_BF16_PEAK = 989e12        # dense bf16 tensor-core rate (data sheet)
+
+
+def _whisper_step_bytes(cfg, model, cache):
+    """What one conditioned decode step must move: every parameter
+    outside the encoder once, but for the cross-attention ``wk``/``wv``
+    (decode reads the cross caches ``build_cross_caches`` made from them)
+    and the learned position table, of which a slot reads its one row;
+    each layer's valid self-attention slots (k, v and pos) and its whole
+    cross cache."""
+    from repro_torch.models.param import leaves
+    B = cache["length"].shape[0]
+    weights = 0
+    for path, t in leaves(model.param_tree()):
+        if path[0] == "encoder" or path[-2:] in (("xattn", "wk"),
+                                                 ("xattn", "wv")):
+            continue
+        if path == ("pos_emb",):
+            t = t[:B]
+        weights += t.numel() * t.element_size()
+    slot = 2 * cfg.n_kv_heads * cfg.head_dim * 2 + 4      # bf16 k, v; pos
+    cap = cache["blocks"]["pos0"]["attn"]["pos"].shape[-1]
+    frames = cache["blocks"]["pos0"]["xattn"]["pos"].shape[-1]
+    valid = int(cache["length"].long().clamp(max=cap).sum())
+    return weights + cfg.n_layers * (valid + B * frames) * slot
+
+
+def phase_whisper(torch, dev_info):
+    """whisper-large-v3: see the module docstring (step 12)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_gqa as dg
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LModel
+    from repro_torch.models.param import leaves
+    from repro_torch.serve.decode import _counting_syncs
+    smi = dev_info["smi"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    cfg = get_config(WHISPER_ARCH)
+    run = WHISPER_RUN
+    B, cap, Se, steps = (run["slots"], run["capacity"], run["frames"],
+                         run["steps"])
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LModel(cfg, max_seq=Se, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.param_leaves())
+    rng = np.random.default_rng(0)
+    P = int(rng.integers(run["min_prompt"], run["max_prompt"] + 1))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
+                           dtype=torch.int32, device=dev)
+    enc = torch.randn((B, Se, cfg.d_model), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1)
+                      ).to(torch.bfloat16)
+    cache = model.init_cache(B, cap, cross_len=Se)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = model.build_cross_caches(cache, enc)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks, cache)
+    last = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    out = [last[:, 0].tolist()]
+    prefill_s = time.perf_counter() - t0
+    seq_launches = _read_counts()["decode_gqa"]
+    # the decode steps, keeping layer WHISPER_KEEP[1]'s self and cross
+    # kernel 5 inputs at step WHISPER_KEEP[0] (a step calls kernel 5 twice
+    # a layer: self-attention, then cross-attention), and adding the
+    # launches the wrapper counts in each call to the half it served (a
+    # cross call's caches hold the Se encoder frames)
+    real, calls, kept = ops.decode_gqa, [0], {}
+    halves = {"self": 0, "cross": 0}
+    first = WHISPER_KEEP[0] * 2 * cfg.n_layers + 2 * WHISPER_KEEP[1]
+
+    def keep(*args, **kw):
+        part = "cross" if args[1].shape[1] == Se else "self"
+        if calls[0] in (first, first + 1):
+            kept[part] = tuple(a.clone() for a in args)
+        calls[0] += 1
+        before = dg.decode_gqa.launches
+        out = real(*args, **kw)
+        halves[part] += dg.decode_gqa.launches - before
+        return out
+
+    syncs, walls, finite = [], [], True
+    ops.decode_gqa = keep
+    _zero_counts()
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            with _counting_syncs(dev, syncs):
+                logits, cache = model.decode_step(last, cache)
+                last = torch.argmax(logits, -1).to(torch.int32)[:, None]
+                out.append(last[:, 0].tolist())
+            walls.append(time.perf_counter() - t0)
+            finite = finite and bool(torch.isfinite(logits).all())
+    finally:
+        ops.decode_gqa = real
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if seq_launches != 0 or launches["decode_gqa"] != 2 * cfg.n_layers * steps \
+            or set(halves.values()) != {cfg.n_layers * steps} \
+            or set(kept) != {"self", "cross"}:
+        raise AssertionError(f"whisper: decode_gqa launched "
+                             f"{launches['decode_gqa']} times in {steps} "
+                             f"steps (self {halves['self']}, cross "
+                             f"{halves['cross']}; {seq_launches} in the "
+                             f"encoder and prefill)")
+    if len(syncs) != steps or set(syncs) != {1}:
+        raise AssertionError(f"whisper: host syncs of the decode steps "
+                             f"{syncs}")
+    if not finite or any(not 0 <= t < cfg.vocab_size
+                         for row in out for t in row):
+        raise AssertionError("whisper: decode gave non-finite logits or "
+                             "tokens out of the vocabulary")
+    step_ms = [1e3 * w for w in walls]
+    med = float(np.median(step_ms))
+    tok_s = B * steps / sum(walls)
+    bound = 1e3 * _whisper_step_bytes(cfg, model, cache) / _BANDWIDTH
+    enc_params = sum(t.numel() for p, t in leaves(model.param_tree())
+                     if p[0] == "encoder")
+    log(f"[whisper] {WHISPER_ARCH} at full width and depth ({cfg.n_layers} "
+        f"decoder + {cfg.n_enc_layers} encoder layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.4f} B parameters of which "
+        f"{(n_params - enc_params) / 1e6:.1f} M outside the encoder, bf16, "
+        f"max_seq {Se}) built in {build_s:.2f} s; {B} slots × {cap}, "
+        f"{Se} encoder frames a slot, a prompt of {P} tokens a slot")
+    log(f"[whisper] encoder + cross caches {enc_s:.4f} s for {B} requests "
+        f"({enc_s / B:.4f} s a request); prefill {prefill_s:.4f} s; decode "
+        f"{steps} steps, median {med:.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}), {tok_s:.1f} tokens/s; step bound (the "
+        f"decoder weights a step reads + valid self KV + the cross caches "
+        f"at 3.35 TB/s, at the end) {bound:.3f} ms ({bound / med:.3f} of the "
+        f"median step); host syncs a step {min(syncs)}–{max(syncs)}; "
+        f"decode_gqa launches {launches['decode_gqa']} = "
+        f"{2 * cfg.n_layers} a step × {steps}: self {halves['self']}, "
+        f"cross {halves['cross']} (encoder and prefill: {seq_launches}); "
+        f"peak device memory {peak / 1e9:.2f} GB "
+        f"on {smi}")
+
+    def one_step():
+        nonlocal last, cache
+        logits, cache = model.decode_step(last, cache)
+        last = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        last[:, 0].tolist()
+
+    one_step()
+    profile = _profile_step(torch, one_step, med / 1e3,
+                            "whisper_decode_step")
+    del model, cache, logits, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    k_self = _decode_timings(torch, kept["self"], f"whisper self-attention "
+                             f"(step {WHISPER_KEEP[0]}, layer "
+                             f"{WHISPER_KEEP[1]})", smi, tag="whisper")
+    k_cross = _decode_timings(torch, kept["cross"], f"whisper "
+                              f"cross-attention (step {WHISPER_KEEP[0]}, "
+                              f"layer {WHISPER_KEEP[1]})", smi,
+                              tag="whisper")
+    del kept
+    equiv = _whisper_equiv(torch, cfg)
+    # the reference's scheduler: no cross caches (a decoder that never
+    # sees an encoder), learned tables of --capacity rows
+    _zero_counts()
+    sched = serve.main(_serve_argv(WHISPER_SERVE))
+    torch.cuda.synchronize()
+    served = _read_counts()["decode_gqa"]
+    n_req, max_new = WHISPER_SERVE["requests"], WHISPER_SERVE["max_new"]
+    if len(sched.done) != n_req or any(len(r.out) != max_new
+                                       for r in sched.done):
+        raise AssertionError("whisper: the server did not answer all "
+                             f"{n_req} requests")
+    if set(sched.step_syncs) != {1} \
+            or served != cfg.n_layers * sched.decode_steps:
+        raise AssertionError(f"whisper server: syncs {sched.step_syncs}, "
+                             f"decode_gqa {served} in "
+                             f"{sched.decode_steps} steps")
+    srv_med = 1e3 * float(np.median(sched.step_walls_s))
+    log(f"[whisper] launch.serve.main --arch {WHISPER_ARCH} (the "
+        f"reference's scheduler, no cross caches): served {n_req} requests "
+        f"of {max_new} tokens, {sched.decode_steps} decode steps, median "
+        f"{srv_med:.3f} ms, one host sync a step, decode_gqa {served} = "
+        f"{cfg.n_layers} × {sched.decode_steps}")
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"build_s": build_s, "prompt": P, "encoder_cross_s": enc_s,
+               "prefill_s": prefill_s, "step_ms": step_ms,
+               "median_step_ms": med, "tokens_per_s": tok_s,
+               "step_bound_ms": bound, "step_syncs": syncs,
+               "launches": launches, "launches_by_half": halves,
+               "peak_bytes": peak,
+               "profile": profile, "kernel_self": k_self,
+               "kernel_cross": k_cross, "equiv": equiv,
+               "server_median_step_ms": srv_med, "card": smi}
+    with open(os.path.join(OUT_DIR, "chip_smoke_whisper.json"), "w") as f:
+        json.dump(summary, f, indent=1, default=str)
+    return [{"name": f"decode_gqa_whisper_{part}", "route": "cuda",
+             "source": "src/repro_torch/csrc/decode_gqa.cu",
+             "replaces": "src/repro/kernels/decode_gqa.py:32",
+             "launches": halves[part],
+             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+             "shape": k["shape"]}
+            for part, k in (("self", k_self), ("cross", k_cross))]
+
+
+def _whisper_equiv(torch, cfg):
+    """Decode ≡ full forward in float32 at full width and depth: each
+    decode step's logits (kernel 5 over the self and cross caches)
+    against ``logits_seq`` with the same encoder inputs (which never
+    reaches kernel 5), max |Δ| / max |logit| <= 1e-3."""
+    import gc
+    from repro_torch.models.model import LModel
+    n, pre, steps = WHISPER_EQUIV
+    Se = WHISPER_RUN["frames"]
+    dev = torch.device("cuda")
+    model = LModel(cfg, max_seq=Se, device=dev, dtype=torch.float32,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (n, pre + steps)), device=dev)
+    enc = torch.randn((n, Se, cfg.d_model), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(2))
+    _zero_counts()
+    full = model.logits_seq(toks, enc)
+    cache = model.build_cross_caches(
+        model.init_cache(n, pre + steps, dtype=torch.float32, cross_len=Se),
+        enc)
+    lg, cache = model.prefill(toks[:, :pre], cache)
+    seq_launches = _read_counts()["decode_gqa"]
+    errs = [float((lg - full[:, pre - 1]).abs().max())]
+    for t in range(pre, pre + steps):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    launches = _read_counts()["decode_gqa"]
+    scale = float(full.abs().max())
+    rel = max(errs) / scale
+    log(f"[whisper] decode ≡ full forward, float32, all {cfg.n_layers} + "
+        f"{cfg.n_enc_layers} layers at full width, {n} prompts of {pre} "
+        f"tokens over {Se} encoder frames + {steps} decode steps: max |Δ| "
+        f"{max(errs):.3e} (prefill {errs[0]:.3e}), max |logit| {scale:.4f}, "
+        f"ratio {rel:.3e} (bound 1e-3); decode_gqa launches {launches} "
+        f"(logits_seq, cross caches and prefill: {seq_launches})")
+    if not rel <= 1e-3 or seq_launches != 0 \
+            or launches != 2 * cfg.n_layers * steps:
+        raise AssertionError("whisper: decode ≡ full forward failed")
+    del model, full, cache, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs": max(errs), "max_logit": scale, "ratio": rel,
+            "errs": errs, "launches": launches}
+
+
+def _same_tree_bits(torch, a, b):
+    """Every leaf of two trees of tensors equal bit for bit (dtype and
+    shape too); returns the leaves compared."""
+    from repro_torch.models.param import leaves
+    la, lb = list(leaves(a)), list(leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        raise AssertionError("checkpoint: the trees' leaves differ")
+    for (path, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.detach().view(torch.uint8) if x.dim() else x.detach(),
+                y.detach().view(torch.uint8) if y.dim() else y.detach()):
+            raise AssertionError(f"checkpoint: leaf {path} changed")
+    return len(la)
+
+
+def _train_flops(cfg, n_params, batch, seq):
+    """Useful operations of one step: ``6 · parameters · tokens`` (each
+    stack's parameters once a token of its own: the decoder's tokens and
+    as many encoder frames), plus the attention products (q·k and p·v,
+    forward and backward) of every layer: self and cross in the decoder,
+    bidirectional in the encoder, causal counted whole."""
+    tokens = batch * seq
+    attn = 3 * 4 * seq * seq * cfg.n_heads * cfg.head_dim * batch * (
+        2 * cfg.n_layers + cfg.n_enc_layers)
+    return 6 * n_params * tokens + attn
+
+
+def phase_train(torch, dev_info):
+    """Training whisper-large-v3: see the module docstring (step 13)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import device_put, synth_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import LModel
+    from repro_torch.models.param import leaves
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+    smi = dev_info["smi"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    dev = torch.device("cuda")
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH),
+                              microbatch_seqs=TRAIN["microbatch_seqs"])
+    shape = ShapeConfig("train", S, B, "train")
+    ocfg = O.OptConfig(peak_lr=TRAIN["lr"], warmup_steps=1,
+                       decay_steps=steps, algorithm=cfg.optimizer,
+                       state_dtype=cfg.opt_state_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LModel(cfg, max_seq=S, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    params = model.param_tree()
+    state = O.init_state(ocfg, params)
+    step_fn = make_train_step(model, ocfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kinds = [(t.dtype, tuple(t.shape)) for t in model.param_leaves()]
+    n_params = sum(t.numel() for t in model.param_leaves())
+    # one batch of the pipeline, repeated: the loss must fall as the
+    # model fits it (fresh random tokens have nothing to learn)
+    batch = device_put(synth_batch(cfg, shape, 0, seed=0), dev)
+    torch.cuda.synchronize()
+    rows, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        rows.append((float(m["loss"]), float(m["grad_norm"]),
+                     float(m["lr"])))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r[0] for r in rows]
+    if not all(np.isfinite(v) for r in rows for v in r[:2]):
+        raise AssertionError(f"train: non-finite loss or grad norm {rows}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if [(t.dtype, tuple(t.shape)) for t in model.param_leaves()] != kinds \
+            or any(t.dtype != torch.float32 for path, t in leaves(state)
+                   if path[0] in ("m", "v")) or int(state["step"]) != steps:
+        raise AssertionError("train: dtypes, shapes or the step changed")
+    step_s = float(np.median(walls[1:]))
+    flops = _train_flops(cfg, n_params, B, S)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in leaves(state))
+    log(f"[train] {WHISPER_ARCH} at full width and depth ({cfg.n_layers} + "
+        f"{cfg.n_enc_layers} layers, {n_params / 1e9:.4f} B parameters in "
+        f"bf16, AdamW states {state_bytes / 1e9:.2f} GB in "
+        f"{cfg.opt_state_dtype}, remat {cfg.remat} ({cfg.remat_policy}), "
+        f"gradient accumulators in {cfg.grad_accum_dtype}) built in "
+        f"{build_s:.2f} s; batch {B} × {S} tokens and {S} encoder frames "
+        f"(float32, as synth_batch makes them), {TRAIN['microbatch_seqs']} "
+        f"sequences a microbatch ({B // TRAIN['microbatch_seqs']} "
+        f"microbatches), {steps} steps on one repeated batch")
+    log(f"[train] (loss, grad norm, lr) per step: "
+        f"{[tuple(round(v, 6) for v in r) for r in rows]}")
+    log(f"[train] {step_s:.4f} s a step (median of steps 2–{steps}; first "
+        f"{walls[0]:.4f} s), {B * S / step_s:.0f} tokens/s; peak device "
+        f"memory {peak / 1e9:.2f} GB; {flops:.4e} useful operations a step "
+        f"(6 · params · tokens {6 * n_params * B * S:.4e} + attention): "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, {flops / step_s / _BF16_PEAK:.4f} "
+        f"of the dense bf16 peak (989 TFLOP/s), "
+        f"{flops / step_s / _SCALAR_OPS:.4f} of the float32 peak (67 "
+        f"TFLOP/s; float32 frame embeddings promote the products to "
+        f"float32, as in the JAX package) on {smi}")
+    del model, params, state, step_fn, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trainer's entry point at full width: the pipeline's batches
+    # through the prefetcher's pinned copies
+    t0 = time.perf_counter()
+    entry = launch_train.main(["--arch", WHISPER_ARCH, "--steps", "2",
+                               "--seq", str(S), "--batch", str(B),
+                               "--lr", str(TRAIN["lr"]), "--device", "cuda",
+                               "--log-every", "1"])
+    entry_s = time.perf_counter() - t0
+    if entry["steps"] != 2 or not all(np.isfinite(
+            [entry["first_loss"], entry["last_loss"]])):
+        raise AssertionError(f"train: launch.train.main gave {entry}")
+    log(f"[train] launch.train.main --arch {WHISPER_ARCH} --steps 2 --seq "
+        f"{S} --batch {B}: {entry} in {entry_s:.2f} s with the model's "
+        f"build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_out = _train_checkpoint(torch, cfg, shape, ocfg, dev, smi)
+    smoke = _train_smoke_on_cpu(torch, dev, smi)
+    summary = {"rows": rows, "walls_s": walls, "step_s": step_s,
+               "tokens_per_s": B * S / step_s, "peak_bytes": peak,
+               "flops": flops, "params": n_params,
+               "bf16_share": flops / step_s / _BF16_PEAK,
+               "f32_share": flops / step_s / _SCALAR_OPS,
+               "entry": entry, "checkpoint": ckpt_out, "smoke": smoke,
+               "card": smi}
+    with open(os.path.join(OUT_DIR, "chip_smoke_train.json"), "w") as f:
+        json.dump(summary, f, indent=1, default=str)
+
+
+def _train_checkpoint(torch, cfg, shape, ocfg, dev, smi):
+    """Save then ``restore_latest`` at full width over 2 decoder + 2
+    encoder layers (bit for bit, params and AdamW state), and a resumed
+    model's next loss against the uninterrupted one's: both run the same
+    step on the same batch from the same bits, so they must agree within
+    ``rtol=1e-6`` (equal unless the card's products vary from run to
+    run)."""
+    import dataclasses
+    import gc
+    import shutil
+    from repro_torch.data.pipeline import device_put, synth_batch
+    from repro_torch.models.model import LModel
+    from repro_torch.models.param import leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+    n = TRAIN_CKPT_LAYERS
+    cfg = dataclasses.replace(cfg, n_layers=n, n_enc_layers=n)
+    d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    model = LModel(cfg, max_seq=shape.seq_len, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    state = O.init_state(ocfg, model.param_tree())
+    step_fn = make_train_step(model, ocfg)
+    batches = [device_put(synth_batch(cfg, shape, s, seed=0), dev)
+               for s in range(3)]
+    for s in range(2):
+        state, _ = step_fn(state, batches[s])
+    tree = {"params": model.param_tree(), "opt": state}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(d, 2, tree, asynchronous=True).join()
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, "step_2", f))
+                 for f in os.listdir(os.path.join(d, "step_2")))
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore_latest(d, tree, device=dev)
+    restore_s = time.perf_counter() - t0
+    n_leaves = _same_tree_bits(torch, restored, tree)
+    if at != 2:
+        raise AssertionError(f"checkpoint: latest step {at}")
+    state, m = step_fn(state, batches[2])
+    uninterrupted = float(m["loss"])
+    del model, state, step_fn, tree, m
+    gc.collect()
+    resumed_model = LModel(cfg, max_seq=shape.seq_len, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+    with torch.no_grad():
+        for (_, dst), (_, src) in zip(leaves(resumed_model.param_tree()),
+                                      leaves(restored["params"])):
+            dst.copy_(src)
+    _, m = make_train_step(resumed_model, ocfg)(restored["opt"], batches[2])
+    resumed = float(m["loss"])
+    diff = abs(resumed - uninterrupted)
+    log(f"[train] checkpoint at full width over {n} + {n} layers: "
+        f"{nbytes / 1e9:.3f} GB, {n_leaves} leaves (params bf16, AdamW "
+        f"float32, step) saved (async writer, joined) in {save_s:.2f} s, "
+        f"restore_latest in {restore_s:.2f} s, bit for bit; the next "
+        f"step's loss resumed {resumed!r} against uninterrupted "
+        f"{uninterrupted!r} (|Δ| {diff:.3e}, bound rtol 1e-6) on {smi}")
+    shutil.rmtree(d, ignore_errors=True)
+    if not diff <= 1e-6 * abs(uninterrupted):
+        raise AssertionError("checkpoint: the resumed loss differs")
+    del resumed_model, restored, batches, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bytes": nbytes, "leaves": n_leaves, "save_s": save_s,
+            "restore_s": restore_s, "resumed_loss": resumed,
+            "uninterrupted_loss": uninterrupted, "abs_diff": diff}
+
+
+def _train_smoke_on_cpu(torch, dev, smi):
+    """One float32 train step of whisper at smoke size on the card and on
+    the CPU from the same parameters and batch (TF32 off: both sides in
+    float32, summing in other orders, the card's embedding gradient with
+    atomics).  The loss and grad norm within ``rtol=1e-5``.  After one
+    step AdamW's states hold the gradients, ``m = 0.1 g`` and ``v = 0.05
+    g²`` (clipped): each ``m`` leaf within ``1e-4`` of its largest
+    magnitude and each ``v`` leaf within ``2e-4`` of its (the bound of
+    the CPU parity of every gradient leaf against ``jax.grad``, and of
+    its square), plus ``rtol=2e-5``.  The parameters are held twice:
+
+    * every one to AdamW's first step recomputed in float64 from the
+      starting parameters, the CPU's lr and the card's own ``m`` and
+      ``v``, within ``rtol=2e-5`` plus ``1e-3 · lr`` (the bias
+      correction, lr, weight decay, sign and in-place write on the card);
+    * to the CPU's within ``rtol=2e-5`` plus ``2e-2 · lr`` wherever the
+      move ``u = g / (|g| + eps)`` cannot shift by more than ``1e-2``
+      when ``g`` moves within the ``m`` bound (``|g| > tol`` and ``eps ·
+      tol <= 1e-2 (|g| - tol + eps)²``).  Near ``g = 0`` a rounding of the
+      gradient turns the move by up to ``2 · lr``; those parameters are
+      left to the first check and counted."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import device_put, synth_batch
+    from repro_torch.models.model import LModel
+    from repro_torch.models.param import leaves
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+    cfg = dataclasses.replace(smoke_config(WHISPER_ARCH), dtype="float32")
+    B, S = TRAIN_SMOKE
+    batch = synth_batch(cfg, ShapeConfig("t", S, B, "train"), 0, seed=0)
+    ocfg = O.OptConfig(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
+    cpu = LModel(cfg, max_seq=S, device="cpu", dtype=torch.float32,
+                 generator=torch.Generator().manual_seed(3))
+    card = LModel(cfg, max_seq=S, device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        for dst, src in zip(card.param_leaves(), cpu.param_leaves()):
+            dst.copy_(src)
+    start = {path: t.detach().double().clone()
+             for path, t in leaves(cpu.param_tree())}
+    out = []
+    for model in (cpu, card):
+        state = O.init_state(ocfg, model.param_tree())
+        state, m = make_train_step(model, ocfg)(
+            state, device_put(batch, model.device))
+        out.append((m, {"params": model.param_tree(), "opt": state}))
+    (mc, tc), (mg, tg) = out
+    for key in ("loss", "grad_norm"):
+        a, b = float(mc[key]), float(mg[key])
+        if not abs(a - b) <= 1e-5 * abs(a):
+            raise AssertionError(f"smoke step: {key} {b} on the card, {a} "
+                                 "on the CPU")
+    want = {path: t.detach().double() for path, t in leaves(tc)}
+    got = {path: t.detach().double().cpu() for path, t in leaves(tg)}
+    worst, m_tol = {}, {}
+    for path, a in want.items():
+        b = got[path]
+        kind = path[0] if path[0] == "params" else path[1]
+        worst[kind] = max(worst.get(kind, 0.0), float((b - a).abs().max()))
+        if kind == "params":
+            continue
+        atol = 0.0 if kind == "step" else \
+            (1e-4 if kind == "m" else 2e-4) * float(a.abs().max())
+        if kind == "m":
+            m_tol[path[2:]] = atol + 2e-5 * a.abs()
+        if not torch.allclose(b, a, rtol=2e-5, atol=atol):
+            raise AssertionError(f"smoke step: leaf {path} differs by "
+                                 f"{float((b - a).abs().max())}")
+    if int(got[("opt", "step")]) != 1:
+        raise AssertionError("smoke step: the step count is not 1")
+    lr = float(mc["lr"])
+    b1, b2, eps, wd = ocfg.b1, ocfg.b2, ocfg.eps, ocfg.weight_decay
+    held = left = 0
+    worst_move = 0.0
+    for path, p0 in start.items():
+        pc, pg = want[("params",) + path], got[("params",) + path]
+        mh = got[("opt", "m") + path] / (1 - b1)
+        vh = got[("opt", "v") + path] / (1 - b2)
+        p1 = p0 - lr * (mh / (vh.sqrt() + eps) + wd * p0)
+        if not torch.allclose(pg, p1, rtol=2e-5, atol=1e-3 * lr):
+            raise AssertionError(f"smoke step: parameter {path} is not "
+                                 f"AdamW's step from the card's states "
+                                 f"(max |Δ| {float((pg - p1).abs().max())})")
+        g = want[("opt", "m") + path].abs() / (1 - b1)
+        tol = m_tol[path] / (1 - b1)
+        safe = (g > tol) & (eps * tol <= 1e-2 * (g - tol + eps) ** 2)
+        d = (pg - pc).abs()
+        if (d > 2e-5 * pc.abs() + 2e-2 * lr)[safe].any():
+            raise AssertionError(f"smoke step: parameter {path} moved "
+                                 f"apart from the CPU's by "
+                                 f"{float(d[safe].max())}")
+        worst_move = max(worst_move, float(d[safe].max()) if safe.any()
+                         else 0.0)
+        held += int(safe.sum())
+        left += int((~safe).sum())
+    log(f"[train] one float32 step of {WHISPER_ARCH} at smoke size (batch "
+        f"{B} × {S}) on the card equals the CPU's: loss "
+        f"{float(mg['loss'])!r} / {float(mc['loss'])!r}, grad norm "
+        f"{float(mg['grad_norm'])!r} / {float(mc['grad_norm'])!r}; max |Δ| "
+        f"by leaf kind {worst} (bounds: m 1e-4 and v 2e-4 of each leaf's "
+        f"largest, plus rtol 2e-5); every parameter AdamW's step from the "
+        f"card's m and v (rtol 2e-5 + {1e-3 * lr:g}); {held} of "
+        f"{held + left} parameters within rtol 2e-5 + {2e-2 * lr:g} of the "
+        f"CPU's (max |Δ| {worst_move:.3e}), {left} with a gradient within "
+        f"rounding of 0 left to the first check, on {smi}")
+    return {"loss_card": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
+            "max_abs_diff": worst, "held_to_cpu": held,
+            "near_zero_gradient": left, "max_param_diff_held": worst_move}
+
+
 def main():
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py (no arguments)")
@@ -5201,6 +5856,8 @@ def main():
     phase_others(torch)
     kernels.append(phase_lm(torch, dev_info))
     kernels.append(phase_lm_families(torch, dev_info))
+    kernels.extend(phase_whisper(torch, dev_info))
+    phase_train(torch, dev_info)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(f"{dev_info['smi']}")
     log(json.dumps({"kernels": [{k: v for k, v in kern.items()

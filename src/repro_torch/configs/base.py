@@ -1,9 +1,10 @@
-"""Architecture configuration (``--arch <id>`` selectable).
+"""Architecture and shape configuration (``--arch <id>`` selectable).
 
-Counterpart of ``repro.configs.base``'s ``ArchConfig`` with the same
-fields and properties; ``params_dtype`` returns a ``torch.dtype``.  The
-shape set (``ShapeConfig``, ``SHAPES``, ``cell_is_runnable``) belongs to
-the dry run and its cells, which wait for ROADMAP item 14.
+Counterpart of ``repro.configs.base``'s ``ArchConfig`` and
+``ShapeConfig`` with the same fields and properties; ``params_dtype``
+returns a ``torch.dtype``.  The assigned shape set (``SHAPES``,
+``cell_is_runnable``) belongs to the dry run and its cells, which wait
+for ROADMAP item 14.6.
 """
 from __future__ import annotations
 
@@ -90,6 +91,14 @@ class ArchConfig:
     @property
     def n_remainder_layers(self) -> int:
         return self.n_layers % len(self.attn_pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # 'train' | 'prefill' | 'decode'
 
 
 def params_dtype(cfg: ArchConfig) -> torch.dtype:

@@ -9,7 +9,9 @@ The flags are the JAX driver's plus ``--device`` (default: the CUDA
 device, raising without one), ``--dtype`` (the parameters' dtype; default
 each spec's own, bf16 weights and float32 norms) and the prompt length
 range (default 2–7 tokens, the JAX driver's); the cache is bf16, as
-there.
+there.  Learned positions (whisper) get ``--capacity`` rows, as there;
+whisper is served as the JAX scheduler serves it, with no cross caches
+(``serve.decode``).
 Weights are drawn from a ``torch.Generator`` seeded with ``--seed``,
 prompts from numpy's generator with the same seed.  ``main`` returns the
 scheduler; its ``done`` list is what the JAX ``main`` returns.
@@ -50,7 +52,8 @@ def main(argv=None) -> BatchScheduler:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
     t0 = time.perf_counter()
-    model = LModel(cfg, device=device,
+    model = LModel(cfg, max_seq=args.capacity
+                   if cfg.pos_emb == "learned" else 0, device=device,
                    generator=torch.Generator(device=device).manual_seed(
                        args.seed),
                    dtype=_DTYPES[args.dtype] if args.dtype else None)

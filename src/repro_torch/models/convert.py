@@ -1,4 +1,5 @@
-"""Weights and caches carried across from the JAX package's trees.
+"""Weights and caches carried across from the JAX package's trees, and
+the port's trees carried back.
 
 The JAX package keeps parameters and caches as nested dicts (and, for
 the mixers' cache states, tuples) of arrays whose ``blocks/pos{j}``
@@ -42,47 +43,29 @@ def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
 @torch.no_grad()
 def load_jax_params(model, tree: dict) -> None:
     """Copy the JAX package's parameter tree into ``model`` (an
-    ``LModel``): block ``(g, j)`` takes index ``g`` of ``blocks/pos{j}``'s
-    leaves, remainder ``r`` the leaves of ``rem/rem{r}`` (the ``mixer``
-    and MoE ``ffn`` subtrees too).  Every leaf must match its port
+    ``LModel``, whose parameters are that tree: ``blocks/pos{j}`` stacked
+    over groups, ``rem/rem{r}``, whisper's ``encoder``, ``pos_emb`` and
+    ``xattn`` leaves), leaf for leaf.  Every leaf must match its port
     parameter in shape and dtype, and every leaf on either side must be
-    used exactly once."""
-    used = set()
-    for part in ("embed", "final_norm"):
-        for path, a in leaves(tree[part]):
-            _copy(getattr(model, part)[path[0]], a, f"{part}/{path[0]}")
-            used.add((part,) + path)
-    for i, blk in enumerate(model.blocks):
-        top = ("blocks", blk.key) if blk.group is not None \
-            else ("rem", blk.key)
-        for path, dst in _param_leaves(blk):
-            a = tree[top[0]][top[1]]
-            for k in path:
-                a = a[k]
-            a = np.asarray(a)
-            if blk.group is not None:       # the group axis comes first
-                a = a[blk.group]
-                path = path + (blk.group,)
-            _copy(dst, a, f"layer {i} {'/'.join(map(str, top + path))}")
-            used.add(top + path)
-    want = set()
-    for path, a in leaves(tree):
-        if path[0] == "blocks":
-            want.update(path + (g,) for g in range(np.shape(a)[0]))
-        else:
-            want.add(path)
-    unused = sorted(want - used, key=str)
+    used exactly once: a port parameter missing from ``tree`` raises
+    ``KeyError``, a JAX leaf with no port parameter ``ValueError``."""
+    port = dict(leaves(model.param_tree()))
+    for path, dst in port.items():
+        a = tree
+        for k in path:
+            a = a[k]
+        _copy(dst, a, "/".join(map(str, path)))
+    unused = sorted(set(p for p, _ in leaves(tree)) - set(port), key=str)
     if unused:
         raise ValueError(f"JAX leaves with no port parameter: {unused}")
 
 
-def _param_leaves(mod, prefix: tuple = ()):
-    """``(path, parameter)`` of a ``transformer.ParamTree``."""
-    for name, v in mod.items():
-        if isinstance(v, torch.nn.Parameter):
-            yield prefix + (name,), v
-        else:
-            yield from _param_leaves(v, prefix + (name,))
+def params_to_jax(tree: dict) -> dict:
+    """A tree of the port's tensors (``LModel.param_tree()``, an
+    optimizer state, or both) as the JAX tree of numpy arrays, with the
+    same leaf paths (bfloat16 → float32, exact): what
+    ``jax.tree.map(jnp.asarray, ...)`` takes back."""
+    return map_tree(to_numpy, tree)
 
 
 def cache_from_jax(tree: dict, device=None) -> dict:

@@ -1,22 +1,26 @@
-"""Transformer building blocks of the serving path.
+"""Transformer building blocks: attention (self, cross, bidirectional),
+MLPs, norms, RoPE, learned positions and the embedding.
 
-Counterpart of ``repro.models.layers`` for causal self-attention, both
+Counterpart of ``repro.models.layers``: causal self-attention, both
 ``global`` and windowed ``local`` (with ``_attn_local_chunked``), the
-attention soft-cap, dense MLPs, norms, RoPE and the embedding.  Functions
-take their parameters as a mapping of tensors with the JAX package's keys
-(an ``nn.ParameterDict`` or a plain dict), so the shapes and layouts are
-the JAX package's: q ``(B, S, H, h)``, k/v ``(B, S, K, h)``, caches
-``(B, capacity, K, h)``.  The projections, the MLP and ``_attn_core``'s
-products are plain matrix products, as the JAX package leaves them to
-XLA; only the decode step's attention is a kernel
-(``kernels.ops.decode_gqa``, kernel 5).
+attention soft-cap, bidirectional (whisper's encoder) and cross-attention
+with the query-chunked path under ``cfg.attn_q_chunk``, learned position
+tables, dense MLPs, norms, RoPE and the embedding.  Functions take their
+parameters as a mapping of tensors with the JAX package's keys, so the
+shapes and layouts are the JAX package's: q ``(B, S, H, h)``, k/v ``(B,
+S, K, h)``, caches ``(B, capacity, K, h)``.  The projections, the MLP and
+``_attn_core``'s products are plain matrix products, as the JAX package
+leaves them to XLA; only the decode step's attention, self and cross, is
+a kernel (``kernels.ops.decode_gqa``, kernel 5).
 
-Not ported here (ROADMAP item 14.4): cross-attention, bidirectional and
-query-chunked attention and learned positions (whisper); the
-``ps.constrain*`` sharding hints have no
-single-device meaning and are dropped.  Caches are updated in place (the
-ring writes), where the JAX package returns new arrays: a decode step at
-full width would otherwise copy the whole cache every layer.
+Products of two dtypes compute in the promoted one, as ``jnp.einsum``
+does (``_mm``): whisper's float32 frame embeddings through bf16 weights
+give a float32 encoder, and the decoder's residual turns float32 at its
+first cross-attention, in both packages.  The ``ps.constrain*`` sharding
+hints have no single-device meaning and are dropped.  Caches are updated
+in place (the ring writes), where the JAX package returns new arrays: a
+decode step at full width would otherwise copy the whole cache every
+layer.
 """
 from __future__ import annotations
 
@@ -28,6 +32,23 @@ from ..kernels import ops
 from .param import param
 
 NEG_INF = -2.0e38  # large-negative fill that survives bf16
+
+
+def _promoted(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` in their promoted dtype: a product of two dtypes
+    computes in it, as ``jnp.einsum`` and ``jnp.matmul`` compute it."""
+    if a.dtype == b.dtype:
+        return a, b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _mm(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *_promoted(a, b))
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(*_promoted(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -82,12 +103,43 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
     return torch.cat([out.to(x.dtype), xp], -1)
 
 
+def learned_pos_specs(cfg: ArchConfig, max_len: int):
+    return param((max_len, cfg.d_model), ("seq", "embed"), scale=0.02)
+
+
+def learned_pos_take(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, pos, axis=0)`` with its default ``fill`` mode:
+    rows of ``table`` at ``pos``, a negative index counted from the end,
+    and NaN rows where an index lies outside the table (the decode step's
+    learned positions past ``max_seq``).  No host read."""
+    n = table.shape[0]
+    idx = torch.where(pos < 0, pos + n, pos)
+    ok = (idx >= 0) & (idx < n)
+    rows = table[idx.clamp(0, n - 1).long()]
+    return torch.where(ok[..., None], rows,
+                       torch.full((), float("nan"), dtype=table.dtype,
+                                  device=table.device))
+
+
+def learned_pos_slice(table: torch.Tensor, start: int, S: int):
+    """``jax.lax.dynamic_slice_in_dim(table, start, S, 0)``: ``S`` rows
+    from ``start``, the start clamped into ``[0, len - S]`` as XLA clamps
+    it (a prefill past ``max_seq`` reads the last ``S`` rows).  More
+    rows than the table holds raise, as there."""
+    n = table.shape[0]
+    if S > n:
+        raise ValueError(f"a slice of {S} rows from a table of {n}")
+    start = min(max(int(start), 0), n - S)
+    return table[start:start + S]
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
 
-def attention_specs(cfg: ArchConfig):
+def attention_specs(cfg: ArchConfig, *, cross: bool = False):
+    """Self- or cross-attention projections (the same leaves)."""
     D, H, K, h = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": param((D, H, h), ("embed", "heads", "head_dim")),
@@ -124,21 +176,25 @@ def _softcap(cfg: ArchConfig, s: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_core(cfg: ArchConfig, q, k, v, q_pos, k_pos, *,
-               window: int = 0) -> torch.Tensor:
-    """Causal attention. q (B,Sq,H,h); k,v (B,Sk,H,h); *_pos int32
-    (B,Sq)/(B,Sk); k_pos<0 ⇒ empty; a nonzero ``window`` keeps the keys
-    with ``q_pos - k_pos < window`` (a ``local`` layer).  Scores in the
-    input dtype (soft-capped there), the masked softmax in float32, ``p``
-    cast back to the input dtype before the PV product."""
+               causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B,Sq,H,h); k,v (B,Sk,H,h); *_pos int32 (B,Sq)/(B,Sk); k_pos<0
+    ⇒ empty.  ``causal`` keeps the keys with ``q_pos - k_pos >= 0``, and
+    then a nonzero ``window`` those with ``q_pos - k_pos < window`` (a
+    ``local`` layer); bidirectional and cross-attention mask empty keys
+    only.  Scores in the inputs' promoted dtype (soft-capped there), the
+    masked softmax in float32, ``p`` cast back to q's dtype before the PV
+    product."""
     scale = cfg.head_dim ** -0.5
-    s = _softcap(cfg, torch.einsum("bqnh,bknh->bnqk", q, k) * scale)
-    rel = q_pos[:, None, :, None] - k_pos[:, None, None, :]
-    mask = (k_pos >= 0)[:, None, None, :] & (rel >= 0)
-    if window:
-        mask = mask & (rel < window)
+    s = _softcap(cfg, _mm("bqnh,bknh->bnqk", q, k) * scale)
+    mask = (k_pos >= 0)[:, None, None, :]
+    if causal:
+        rel = q_pos[:, None, :, None] - k_pos[:, None, None, :]
+        mask = mask & (rel >= 0)
+        if window:
+            mask = mask & (rel < window)
     s = torch.where(mask, s.float(), NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bnqk,bknh->bqnh", p, v)
+    return _mm("bnqk,bknh->bqnh", p, v)
 
 
 def _attn_local_chunked(cfg: ArchConfig, q, k, v, positions) -> torch.Tensor:
@@ -174,32 +230,56 @@ def _window(cfg: ArchConfig, kind: str) -> int:
 
 def _project(cfg: ArchConfig, p, x, positions):
     """q, k, v of ``x`` (B,S,D) with qk-norm and RoPE at ``positions``."""
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
-    v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+    return _project_kv(cfg, p, x, x, positions, positions)
+
+
+def _project_kv(cfg: ArchConfig, p, x, kv_in, positions, k_pos, *,
+                rope_k: bool = True):
+    """q of ``x`` and k, v of ``kv_in``, with qk-norm, and RoPE at
+    ``positions`` / ``k_pos`` (none on cross-attention: ``rope_k`` false
+    skips RoPE on both, as the JAX package's ``attention_seq`` does)."""
+    q = _mm("bsd,dnh->bsnh", x, p["wq"])
+    k = _mm("bsd,dkh->bskh", kv_in, p["wk"])
+    v = _mm("bsd,dkh->bskh", kv_in, p["wv"])
     if cfg.qk_norm:
         q, k = _qk_normalize(p, q, k)
-    if cfg.pos_emb == "rope":
+    if cfg.pos_emb == "rope" and rope_k:
         q = rope(q, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
-        k = rope(k, positions, theta=cfg.rope_theta, pct=cfg.rotary_pct)
+        k = rope(k, k_pos, theta=cfg.rope_theta, pct=cfg.rotary_pct)
     return q, k, v
 
 
-def attention_seq(cfg: ArchConfig, p, x, positions, *,
-                  kind: str = "global") -> torch.Tensor:
-    """Full-sequence causal self-attention (``logits_seq``); a ``local``
-    layer masks keys outside its window, block-locally when
-    ``cfg.local_attn_chunked`` and the sequence is whole windows past
-    one.  It never reaches kernel 5."""
-    q, k, v = _project(cfg, p, x, positions)
+def attention_seq(cfg: ArchConfig, p, x, positions, *, kind: str = "global",
+                  causal: bool = True, kv_x: torch.Tensor | None = None,
+                  kv_positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention (``logits_seq``, the loss, the encoder and
+    cross-attention over ``kv_x``): causal self-attention unless
+    ``causal`` is false or ``kv_x`` is given.  A ``local`` layer masks
+    keys outside its window, block-locally when ``cfg.local_attn_chunked``
+    and the sequence is whole windows past one.  Bidirectional and cross
+    attention take query chunks of ``cfg.attn_q_chunk`` when the sequence
+    is whole chunks past one (each chunk sees every key: the function is
+    the unchunked one).  It never reaches kernel 5."""
+    kv_in = x if kv_x is None else kv_x
+    k_pos = positions if kv_positions is None else kv_positions
+    q, k, v = _project_kv(cfg, p, x, kv_in, positions, k_pos,
+                          rope_k=kv_x is None)
     k, v = _kv_expand(cfg, k), _kv_expand(cfg, v)
     window = _window(cfg, kind)
-    if (window and cfg.local_attn_chunked and x.shape[1] % window == 0
-            and x.shape[1] > window):
+    is_causal = causal and kv_x is None
+    S, chunk = x.shape[1], cfg.attn_q_chunk
+    if (window and cfg.local_attn_chunked and is_causal
+            and S % window == 0 and S > window):
         o = _attn_local_chunked(cfg, q, k, v, positions)
+    elif not is_causal and chunk and S % chunk == 0 and S > chunk:
+        o = torch.cat([_attn_core(cfg, q[:, i:i + chunk], k, v,
+                                  positions[:, i:i + chunk], k_pos,
+                                  causal=False)
+                       for i in range(0, S, chunk)], 1)
     else:
-        o = _attn_core(cfg, q, k, v, positions, positions, window=window)
-    return torch.einsum("bqnh,nhd->bqd", o, p["wo"])
+        o = _attn_core(cfg, q, k, v, positions, k_pos, causal=is_causal,
+                       window=window)
+    return _mm("bqnh,nhd->bqd", o, p["wo"])
 
 
 # -- cached (serving) path ---------------------------------------------------
@@ -249,7 +329,7 @@ def attention_append(cfg: ArchConfig, p, x, positions, cache, *,
     pos_all = torch.cat([cache["pos"], positions.to(torch.int32)], 1)
     o = _attn_core(cfg, q, _kv_expand(cfg, k_all), _kv_expand(cfg, v_all),
                    positions, pos_all, window=_window(cfg, kind))
-    y = torch.einsum("bqnh,nhd->bqd", o, p["wo"])
+    y = _mm("bqnh,nhd->bqd", o, p["wo"])
     # ring-write the chunk; keep only the last `cap` entries when the
     # chunk wraps, so that every slot is written once
     keep = min(S, cap)
@@ -260,8 +340,30 @@ def attention_append(cfg: ArchConfig, p, x, positions, cache, *,
     return y
 
 
+def _cross_q(cfg: ArchConfig, p, x):
+    """Cross-attention's queries: q of ``x``, q-norm only, no RoPE."""
+    q = _mm("bsd,dnh->bsnh", x, p["wq"])
+    if cfg.qk_norm:
+        q = (_rms(q.float()) * p["q_norm"]).to(q.dtype)
+    return q
+
+
+def attention_cross(cfg: ArchConfig, p, x, positions, cross_cache):
+    """Cross-attention of a prefill chunk ``x`` (B,S,D) over a cross cache
+    (``build_cross_caches``'s encoder k/v): the JAX package's
+    ``attention_decode(cross_cache=)`` on several queries, through
+    ``_attn_core(causal=False)`` as plain products (XLA there, not a
+    kernel)."""
+    q = _cross_q(cfg, p, x)
+    k = _kv_expand(cfg, cross_cache["k"].to(q.dtype))
+    v = _kv_expand(cfg, cross_cache["v"].to(q.dtype))
+    o = _attn_core(cfg, q, k, v, positions, cross_cache["pos"],
+                   causal=False)
+    return _mm("bqnh,nhd->bqd", o, p["wo"])
+
+
 def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache, *,
-                     kind: str = "global"):
+                     kind: str = "global", cross_cache: dict | None = None):
     """One-token decode. x_t (B,1,D); pos_t (B,1) int32 current position.
 
     The token's k/v are ring-written into ``cache`` in place first (slot
@@ -288,8 +390,29 @@ def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache, *,
     global and local layers have different ones).  A soft-capped config
     passes ``attn_softcap`` to the kernel, which caps the scores before
     its mask and online softmax as ``_attn_core`` does.  Returns the
-    output; the cache is written in place."""
+    output; the cache is written in place.
+
+    With ``cross_cache`` (the encoder's k/v, ``build_cross_caches``) this
+    is the decode step's cross-attention, and ``cache`` is not touched:
+    kernel 5 over the cross cache with ``length`` its capacity.  The JAX
+    package's mask there is ``_attn_core``'s with ``causal=False``,
+    ``k_pos >= 0`` alone; every slot lies below the capacity, so the
+    kernel's ``slot < length & pos >= 0`` selects the same slots.  No
+    ring write: a cross cache is written once, by ``build_cross_caches``
+    (a cache never built holds ``pos = -1``: no valid slot, where the
+    kernel gives zeros, as the reference's uniform softmax over zero
+    values does, and the CPU's plain version NaN)."""
     B = x_t.shape[0]
+    K, G, h = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    if cross_cache is not None:
+        q = _cross_q(cfg, p, x_t)
+        cap = cross_cache["k"].shape[1]
+        length = torch.full((B,), cap, dtype=torch.int32, device=x_t.device)
+        o = ops.decode_gqa(q.reshape(B, K, G, h),
+                           cross_cache["k"].to(q.dtype),
+                           cross_cache["v"].to(q.dtype), cross_cache["pos"],
+                           length, softcap=cfg.attn_softcap)
+        return _mm("bqnh,nhd->bqd", o.reshape(B, 1, K * G, h), p["wo"])
     cap = cache["k"].shape[1]
     q, k, v = _project(cfg, p, x_t, pos_t)
     slot = (pos_t[:, 0] % cap).long()                  # (B,) ring slot
@@ -297,13 +420,11 @@ def attention_decode(cfg: ArchConfig, p, x_t, pos_t, cache, *,
     cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][bidx, slot] = pos_t[:, 0].to(torch.int32)
-    K, G, h = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     length = torch.clamp(pos_t[:, 0] + 1, max=cap).to(torch.int32)
     o = ops.decode_gqa(q.reshape(B, K, G, h), cache["k"].to(q.dtype),
                        cache["v"].to(q.dtype), cache["pos"], length,
                        softcap=cfg.attn_softcap)
-    return torch.einsum("bqnh,nhd->bqd", o.reshape(B, 1, K * G, h),
-                        p["wo"])
+    return _mm("bqnh,nhd->bqd", o.reshape(B, 1, K * G, h), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -328,12 +449,12 @@ def _act(cfg: ArchConfig, x):
 
 
 def apply_mlp(cfg: ArchConfig, p, x):
-    u = x @ p["w_up"]
+    u = _matmul(x, p["w_up"])
     if cfg.mlp_gated:
-        u = _act(cfg, x @ p["w_gate"]) * u
+        u = _act(cfg, _matmul(x, p["w_gate"])) * u
     else:
         u = _act(cfg, u)
-    return u @ p["w_down"]
+    return _matmul(u, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -356,4 +477,4 @@ def embed(cfg: ArchConfig, p, tokens):
 
 def unembed(cfg: ArchConfig, p, x):
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
-    return x @ w
+    return _matmul(x, w)

@@ -4,8 +4,8 @@ Counterpart of ``repro.models.param``.  One tree (nested dicts) of
 ``Annotated`` leaves describes every parameter; :func:`materialize` turns
 it into tensors with the JAX package's init rules.  The abstract init and
 the sharding specs (``abstract``/``specs``) belong to the dry run and to
-sharding (ROADMAP item 14) and are not ported; the logical axes are kept
-so that the specs stay the JAX package's, leaf for leaf.
+sharding (ROADMAP item 14.6) and are not ported; the logical axes are
+kept so that the specs stay the JAX package's, leaf for leaf.
 """
 from __future__ import annotations
 
@@ -49,6 +49,18 @@ def leaves(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
         yield prefix, tree
 
 
+def unflatten(pairs) -> dict:
+    """The nested dict of ``(path, leaf)`` pairs (``leaves``' inverse for
+    trees of dicts)."""
+    out: dict = {}
+    for path, v in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
 def map_tree(fn, tree: Any) -> Any:
     """``fn`` applied to every leaf of a tree of dicts and tuples (the
     mixers' cache states are ``(conv_state, h)`` tuples)."""
@@ -65,8 +77,15 @@ def materialize(tree: Any, generator: torch.Generator, *, device,
     ``std = scale or fan_in ** -0.5`` (fan_in is ``shape[0]`` for
     ``embed``, else the product of all but the last dim), drawn in
     float32 on ``device`` from ``generator`` and cast to ``dtype`` or the
-    leaf's own.  Leaves are drawn in sorted path order, so one seed gives
-    one tree; the numbers differ from ``jax.random``'s."""
+    leaf's own.  Leaves are drawn in sorted path order, a leaf stacked
+    over layers (logical axis ``layers`` first) one layer at a time, so
+    that no float32 copy of a whole stack exists; one seed gives one
+    tree; the numbers differ from ``jax.random``'s."""
+    def draw(shape, std, dt) -> torch.Tensor:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(dt)
+
     def one(ann: Annotated) -> torch.Tensor:
         dt = dtype or ann.dtype
         if ann.init == "zeros":
@@ -76,17 +95,14 @@ def materialize(tree: Any, generator: torch.Generator, *, device,
         fan_in = ann.shape[0] if ann.init == "embed" else (
             math.prod(ann.shape[:-1]) or 1)
         std = ann.scale if ann.scale is not None else fan_in ** -0.5
-        x = torch.randn(ann.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return x.mul_(std).to(dt)
+        if ann.logical_axes[0] != "layers":
+            return draw(ann.shape, std, dt)
+        out = torch.empty(ann.shape, dtype=dt, device=device)
+        for g in range(ann.shape[0]):
+            out[g] = draw(ann.shape[1:], std, dt)
+        return out
 
-    out: dict = {}
-    for path, ann in leaves(tree):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = one(ann)
-    return out
+    return unflatten((path, one(ann)) for path, ann in leaves(tree))
 
 
 def nbytes(tree: Any) -> int:

@@ -3,33 +3,44 @@ JAX package's trees.
 
 Counterpart of ``repro.models.transformer``.  The archs cycle their layer
 kinds (gemma3 = 5×local + 1×global, recurrentgemma = 2×rglru + 1×local,
-falcon-mamba = all mamba).  The JAX package stacks each pattern
-position's parameters over ``n_groups = L // len(pattern)`` and scans one
-pattern cycle over the groups; the ``L % len(pattern)`` remainder layers
-run unrolled after the scan.  Here every layer is its own :class:`Block`
-in an ``nn.ModuleList`` in that order (group ``g``, position ``j`` is
-layer ``g·P + j``; the remainder layers come after every group) and the
-stack is a Python loop.  The specs keep the JAX package's tree
-(``blocks/pos{j}`` with the group axis first, ``rem/rem{r}`` unstacked),
-so that ``count``/``nbytes`` and the weight converter line up leaf for
-leaf: block ``(g, j)`` holds ``blocks/pos{j}[g]``, remainder ``r`` holds
-``rem/rem{r}``.
+falcon-mamba = all mamba, whisper = an encoder and a decoder of
+``global`` layers).  The JAX package stacks each pattern position's
+parameters over ``n_groups = L // len(pattern)`` and scans one pattern
+cycle over the groups; the ``L % len(pattern)`` remainder layers run
+unrolled after the scan.  The port keeps that tree as its parameters: a
+:class:`ParamTree` of the JAX leaves (``blocks/pos{j}`` with the group
+axis first, ``rem/rem{r}`` unstacked, whisper's ``encoder/stack`` the
+same), so that ``count``/``nbytes``, the weight converter, the optimizer
+and the checkpoints line up leaf for leaf.  Each layer is a
+:class:`Block`, a view of its slice of that tree (layer ``(g, j)`` reads
+index ``g`` of ``blocks/pos{j}``'s leaves), and the stack is a Python
+loop over the blocks in execution order (group ``g``, position ``j`` is
+layer ``g·P + j``; the remainder layers come after every group).  A
+block's leaves are views made on each read, so under autograd the
+gradients land in the stacked leaves, as ``jax.grad`` of the scan gives
+them.
 
 The cache keeps the JAX package's layout too: ``blocks/pos{j}/attn/
-{k,v,pos}`` or ``blocks/pos{j}/mixer`` (a ``(conv_state, h)`` tuple)
-with the group axis first, ``rem/rem{r}`` the same without it, and
-``length``.  A ``local`` layer's ring holds ``min(window, capacity)``
-slots.  Layer ``(g, j)`` works on views of index ``g``, and its writes
-land in the stacked tensors in place.  Remat, scan segments and the
+{k,v,pos}``, ``blocks/pos{j}/xattn/{k,v,pos}`` (the decoder's cross
+caches, ``cross_len`` slots) or ``blocks/pos{j}/mixer`` (a ``(conv_state,
+h)`` tuple) with the group axis first, ``rem/rem{r}`` the same without
+it, and ``length``.  A ``local`` layer's ring holds ``min(window,
+capacity)`` slots.  Layer ``(g, j)`` works on views of index ``g``, and
+its writes land in the stacked tensors in place.  ``cfg.remat``
+recomputes a pattern cycle in the backward pass as ``jax.checkpoint``
+does (``remat_policy="dots"`` keeps the products); scan segments and the
 ``ps.constrain*`` sharding hints have no single-device meaning and are
-dropped; cross-attention (enc-dec) waits for ROADMAP item 14.4.
+dropped.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
 from . import layers as L
@@ -52,7 +63,7 @@ def _stack(tree: Any, n: int) -> Any:
                                         scale=a.scale), tree)
 
 
-def block_specs(cfg: ArchConfig, kind: str) -> dict:
+def block_specs(cfg: ArchConfig, kind: str, *, cross: bool = False) -> dict:
     d: dict[str, Any] = {"ln1": L.norm_specs(cfg)}
     if kind in _ATTN:
         d["attn"] = L.attention_specs(cfg)
@@ -62,42 +73,71 @@ def block_specs(cfg: ArchConfig, kind: str) -> dict:
         d["mixer"] = S.mamba_specs(cfg)
     else:
         raise ValueError(kind)
+    if cross:
+        d["ln_x"] = L.norm_specs(cfg)
+        d["xattn"] = L.attention_specs(cfg, cross=True)
     if cfg.d_ff > 0 and kind != "mamba":
         d["ln2"] = L.norm_specs(cfg)
         d["ffn"] = M.moe_specs(cfg) if cfg.n_experts else L.mlp_specs(cfg)
     return d
 
 
-def layer_slots(cfg: ArchConfig) -> list[tuple[str, str, int | None]]:
-    """Each layer's ``(kind, tree key, group)`` in execution order:
-    ``("local", "pos1", 3)`` is ``blocks/pos1[3]``, ``("rglru", "rem0",
-    None)`` is ``rem/rem0``."""
-    pattern = cfg.attn_pattern
-    out = [(kind, f"pos{j}", g) for g in range(cfg.n_pattern_groups)
-           for j, kind in enumerate(pattern)]
-    out += [(pattern[r % len(pattern)], f"rem{r}", None)
-            for r in range(cfg.n_remainder_layers)]
-    return out
-
-
-def model_specs(cfg: ArchConfig) -> dict:
-    pattern = cfg.attn_pattern
-    d: dict[str, Any] = {"embed": L.embed_specs(cfg),
-                         "final_norm": L.norm_specs(cfg)}
-    if cfg.n_pattern_groups:
-        d["blocks"] = {f"pos{j}": _stack(block_specs(cfg, kind),
-                                         cfg.n_pattern_groups)
-                       for j, kind in enumerate(pattern)}
-    if cfg.n_remainder_layers:
-        d["rem"] = {f"rem{r}": block_specs(cfg, pattern[r % len(pattern)])
-                    for r in range(cfg.n_remainder_layers)}
+def stack_specs(cfg: ArchConfig, *, cross: bool = False,
+                n_layers: int | None = None,
+                pattern: tuple[str, ...] | None = None) -> dict:
+    n_layers = n_layers if n_layers is not None else cfg.n_layers
+    pattern = pattern or cfg.attn_pattern
+    n_groups = n_layers // len(pattern)
+    rem = n_layers % len(pattern)
+    d: dict[str, Any] = {}
+    if n_groups:
+        d["blocks"] = {
+            f"pos{j}": _stack(block_specs(cfg, kind, cross=cross), n_groups)
+            for j, kind in enumerate(pattern)}
+    if rem:
+        d["rem"] = {f"rem{r}": block_specs(cfg, pattern[r % len(pattern)],
+                                           cross=cross)
+                    for r in range(rem)}
     return d
 
 
+def model_specs(cfg: ArchConfig, *, max_seq: int = 0) -> dict:
+    d: dict[str, Any] = {"embed": L.embed_specs(cfg),
+                         "final_norm": L.norm_specs(cfg)}
+    d.update(stack_specs(cfg, cross=cfg.enc_dec))
+    if cfg.pos_emb == "learned":
+        d["pos_emb"] = L.learned_pos_specs(cfg, max(max_seq, 1))
+    if cfg.enc_dec:
+        enc = stack_specs(cfg, cross=False, n_layers=cfg.n_enc_layers,
+                          pattern=("global",))
+        d["encoder"] = {"stack": enc, "final_norm": L.norm_specs(cfg)}
+        if cfg.pos_emb == "learned":
+            d["encoder"]["pos_emb"] = L.learned_pos_specs(cfg,
+                                                          max(max_seq, 1))
+    return d
+
+
+def layer_slots(cfg: ArchConfig, n_layers: int | None = None,
+                pattern: tuple[str, ...] | None = None
+                ) -> list[tuple[str, str, int | None]]:
+    """Each layer's ``(kind, tree key, group)`` in execution order:
+    ``("local", "pos1", 3)`` is ``blocks/pos1[3]``, ``("rglru", "rem0",
+    None)`` is ``rem/rem0``.  The decoder's by default; whisper's encoder
+    is ``layer_slots(cfg, cfg.n_enc_layers, ("global",))``."""
+    n_layers = n_layers if n_layers is not None else cfg.n_layers
+    pattern = pattern or cfg.attn_pattern
+    out = [(kind, f"pos{j}", g) for g in range(n_layers // len(pattern))
+           for j, kind in enumerate(pattern)]
+    out += [(pattern[r % len(pattern)], f"rem{r}", None)
+            for r in range(n_layers % len(pattern))]
+    return out
+
+
 class ParamTree(nn.Module):
-    """A nested dict of tensors as parameters (serving only: no gradients
-    until training is ported), read like the JAX tree:
-    ``block["mixer"]["conv"]["w"]``."""
+    """A nested dict of tensors as parameters, read like the JAX tree:
+    ``tree["blocks"]["pos0"]["mixer"]["conv"]["w"]``.  Every parameter is
+    registered with ``requires_grad=False``: serving needs no gradients,
+    and training turns them on (``train.train_loop.make_train_step``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -118,47 +158,134 @@ class ParamTree(nn.Module):
     def items(self):
         return ((name, self[name]) for name in self.parts)
 
+    def tree(self) -> dict:
+        """The parameters as a nested dict (the JAX tree's keys)."""
+        return {name: v.tree() if isinstance(v, ParamTree) else v
+                for name, v in self.items()}
 
-class Block(ParamTree):
-    """One layer's parameters (``ln1``, ``attn`` or ``mixer``, and with an
-    FFN ``ln2`` and ``ffn``, the JAX package's keys), its kind and where
-    its leaves and cache live in the JAX trees (``key``, ``group``)."""
 
-    def __init__(self, tree: dict, kind: str, key: str, group: int | None):
-        super().__init__(tree)
+class _Slice:
+    """One layer's view of a stacked subtree: index ``group`` of each leaf
+    (the leaf itself where ``group`` is None), made anew on each read, so
+    that autograd reaches the stacked leaf."""
+
+    def __init__(self, node: ParamTree, group: int | None):
+        self._node, self._group = node, group
+
+    def __getitem__(self, name: str):
+        v = self._node[name]
+        if isinstance(v, ParamTree):
+            return _Slice(v, self._group)
+        return v if self._group is None else v[self._group]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._node
+
+    def items(self):
+        return ((name, self[name]) for name in self._node.parts)
+
+
+class Block(_Slice):
+    """One layer of a stack (``stack`` the ParamTree holding ``blocks``
+    and ``rem``): its parameters (``ln1``, ``attn`` or ``mixer``, with
+    cross-attention ``ln_x`` and ``xattn``, with an FFN ``ln2`` and
+    ``ffn``, the JAX package's keys), its kind and where its leaves and
+    cache live in the JAX trees (``key``, ``group``)."""
+
+    def __init__(self, stack: ParamTree, kind: str, key: str,
+                 group: int | None):
+        super().__init__(stack["blocks" if group is not None else "rem"][key],
+                         group)
         self.kind, self.key, self.group = kind, key, group
 
 
+def stack_blocks(cfg: ArchConfig, stack: ParamTree,
+                 n_layers: int | None = None,
+                 pattern: tuple[str, ...] | None = None) -> list[Block]:
+    """The blocks of ``stack`` in execution order (``layer_slots``)."""
+    return [Block(stack, kind, key, g)
+            for kind, key, g in layer_slots(cfg, n_layers, pattern)]
+
+
 # ---------------------------------------------------------------------------
-# Block application — full sequence (logits_seq)
+# Block application — full sequence (logits_seq, the loss, the encoder)
 # ---------------------------------------------------------------------------
 
 
 def _ffn(cfg: ArchConfig, p, x):
+    """The FFN's output and its aux loss (MoE; 0 for a dense MLP)."""
     h = L.apply_norm(cfg, p["ln2"], x)
     if cfg.n_experts:
-        y, _ = M.apply_moe_auto(cfg, p["ffn"], h)
-        return y
-    return L.apply_mlp(cfg, p["ffn"], h)
+        return M.apply_moe_auto(cfg, p["ffn"], h)
+    return L.apply_mlp(cfg, p["ffn"], h), None
 
 
-def block_seq(cfg: ArchConfig, p, x, positions, kind: str):
+def block_seq(cfg: ArchConfig, p, x, positions, kind: str, *,
+              causal: bool = True, enc_out=None, enc_pos=None):
+    """Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(cfg, p["ln1"], x)
     if kind in _ATTN:
-        mix = L.attention_seq(cfg, p["attn"], h, positions, kind=kind)
+        mix = L.attention_seq(cfg, p["attn"], h, positions, kind=kind,
+                              causal=causal)
     else:
         fn = S.rglru_seq if kind == "rglru" else S.mamba_seq
         mix, _ = fn(cfg, p["mixer"], h)
     x = x + mix
+    if enc_out is not None:
+        h = L.apply_norm(cfg, p["ln_x"], x)
+        x = x + L.attention_seq(cfg, p["xattn"], h, positions, kv_x=enc_out,
+                                kv_positions=enc_pos)
     if "ffn" in p:
-        x = x + _ffn(cfg, p, x)
-    return x
+        y, a = _ffn(cfg, p, x)
+        x = x + y
+        if a is not None:
+            aux = a
+    return x, aux
 
 
-def run_stack_seq(cfg: ArchConfig, blocks, x, positions):
-    for blk in blocks:
-        x = block_seq(cfg, blk, x, positions, blk.kind)
-    return x
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the products' outputs, recompute the
+    rest (``jax.checkpoint_policies.dots_saveable``)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn, x):
+    """``fn(x)`` recomputed in the backward pass (``jax.checkpoint``):
+    nothing of it kept, or with ``remat_policy="dots"`` its products."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
+
+
+def run_stack_seq(cfg: ArchConfig, blocks, x, positions, *,
+                  causal: bool = True, enc_out=None, enc_pos=None):
+    """Every block in order; returns (x, total_aux).  Under autograd with
+    ``cfg.remat`` each pattern cycle (the blocks of one group) is
+    recomputed as a unit in the backward pass, as the JAX package's
+    scan body; the remainder layers (group None) are not, as there."""
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g, cycle in itertools.groupby(blocks, key=lambda b: b.group):
+        def run(x, cycle=tuple(cycle)):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for blk in cycle:
+                x, a = block_seq(cfg, blk, x, positions, blk.kind,
+                                 causal=causal, enc_out=enc_out,
+                                 enc_pos=enc_pos)
+                aux = aux + a
+            return x, aux
+
+        x, a = _remat(cfg, run, x) if remat and g is not None else run(x)
+        total_aux = total_aux + a
+    return x, total_aux
 
 
 # ---------------------------------------------------------------------------
@@ -172,51 +299,65 @@ def _cap(cfg: ArchConfig, kind: str, capacity: int) -> int:
 
 
 def _block_cache_init(cfg: ArchConfig, kind: str, batch: int, capacity: int,
-                      dtype, device) -> dict:
+                      dtype, device, cross_len: int = 0) -> dict:
     if kind in _ATTN:
-        return {"attn": L.init_attn_cache(cfg, batch, _cap(cfg, kind,
-                                                            capacity),
-                                          dtype, device=device)}
-    init = S.rglru_state_init if kind == "rglru" else S.mamba_state_init
-    return {"mixer": init(cfg, batch, dtype, device=device)}
+        c = {"attn": L.init_attn_cache(cfg, batch, _cap(cfg, kind, capacity),
+                                       dtype, device=device)}
+    else:
+        init = S.rglru_state_init if kind == "rglru" else S.mamba_state_init
+        c = {"mixer": init(cfg, batch, dtype, device=device)}
+    if cross_len:
+        c["xattn"] = L.init_attn_cache(cfg, batch, cross_len, dtype,
+                                       device=device)
+    return c
 
 
 def init_cache(cfg: ArchConfig, batch: int, capacity: int,
-               dtype=torch.bfloat16, *, device=None) -> dict:
+               dtype=torch.bfloat16, *, device=None,
+               cross_len: int = 0) -> dict:
+    """The decoder's cache; ``cross_len`` adds each layer's cross cache
+    (``xattn``, filled by ``LModel.build_cross_caches``)."""
     pattern = cfg.attn_pattern
     n = cfg.n_pattern_groups
     d: dict[str, Any] = {}
     if n:
         d["blocks"] = {f"pos{j}": map_tree(
             lambda a: a.expand((n,) + a.shape).contiguous(),
-            _block_cache_init(cfg, kind, batch, capacity, dtype, device))
+            _block_cache_init(cfg, kind, batch, capacity, dtype, device,
+                              cross_len))
             for j, kind in enumerate(pattern)}
     if cfg.n_remainder_layers:
         d["rem"] = {f"rem{r}": _block_cache_init(
-            cfg, pattern[r % len(pattern)], batch, capacity, dtype, device)
+            cfg, pattern[r % len(pattern)], batch, capacity, dtype, device,
+            cross_len)
             for r in range(cfg.n_remainder_layers)}
     d["length"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return d
 
 
 def cache_specs(cfg: ArchConfig, batch: int, capacity: int,
-                dtype=torch.bfloat16) -> dict:
+                dtype=torch.bfloat16, cross_len: int = 0) -> dict:
     """Annotated tree of the cache (shapes and dtypes)."""
     def annotate(kind):
         if kind in _ATTN:
-            return {"attn": L.attn_cache_specs(cfg, batch,
-                                               _cap(cfg, kind, capacity),
-                                               dtype)}
-        conv = param((batch, cfg.d_conv - 1, cfg.d_inner),
-                     ("batch", "state", "ffn"), dtype=dtype, init="zeros")
-        if kind == "rglru":
-            h = param((batch, cfg.d_inner), ("batch", "ffn"),
-                      dtype=torch.float32, init="zeros")
+            c = {"attn": L.attn_cache_specs(cfg, batch,
+                                            _cap(cfg, kind, capacity),
+                                            dtype)}
         else:
-            h = param((batch, cfg.d_inner, cfg.ssm_state),
-                      ("batch", "ffn", "state"), dtype=torch.float32,
-                      init="zeros")
-        return {"mixer": (conv, h)}
+            conv = param((batch, cfg.d_conv - 1, cfg.d_inner),
+                         ("batch", "state", "ffn"), dtype=dtype,
+                         init="zeros")
+            if kind == "rglru":
+                h = param((batch, cfg.d_inner), ("batch", "ffn"),
+                          dtype=torch.float32, init="zeros")
+            else:
+                h = param((batch, cfg.d_inner, cfg.ssm_state),
+                          ("batch", "ffn", "state"), dtype=torch.float32,
+                          init="zeros")
+            c = {"mixer": (conv, h)}
+        if cross_len:
+            c["xattn"] = L.attn_cache_specs(cfg, batch, cross_len, dtype)
+        return c
 
     pattern = cfg.attn_pattern
     d: dict[str, Any] = {}
@@ -264,8 +405,11 @@ def block_append(cfg: ArchConfig, p, c, x, positions, start: int,
         mix, state = fn(cfg, p["mixer"], h, conv_state=conv_state, h0=h0)
         _write_state(c, state)
     x = x + mix
+    if "xattn" in c:
+        h = L.apply_norm(cfg, p["ln_x"], x)
+        x = x + L.attention_cross(cfg, p["xattn"], h, positions, c["xattn"])
     if "ffn" in p:
-        x = x + _ffn(cfg, p, x)
+        x = x + _ffn(cfg, p, x)[0]
     return x
 
 
@@ -279,8 +423,12 @@ def block_decode(cfg: ArchConfig, p, c, x_t, pos_t, kind: str):
         mix, state = fn(cfg, p["mixer"], h, c["mixer"])
         _write_state(c, state)
     x_t = x_t + mix
+    if "xattn" in c:
+        h = L.apply_norm(cfg, p["ln_x"], x_t)
+        x_t = x_t + L.attention_decode(cfg, p["xattn"], h, pos_t, None,
+                                       cross_cache=c["xattn"])
     if "ffn" in p:
-        x_t = x_t + _ffn(cfg, p, x_t)
+        x_t = x_t + _ffn(cfg, p, x_t)[0]
     return x_t
 
 

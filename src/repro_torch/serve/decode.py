@@ -10,6 +10,12 @@ the device (``step_syncs``), through CUDA's sync debug mode, so that a
 hidden read in the step (an ``.item()``, an ``int()``, a boolean index)
 shows as a count above one.  PyTorch calls that mode a prototype that
 does not see every synchronizing operation, so the count is a floor.
+
+Like the JAX scheduler, this one builds no cross caches (its caches come
+from ``init_cache(slots, capacity)`` without ``cross_len``): an enc-dec
+model (whisper) is served as a decoder that never sees an encoder.  The
+conditioned path is the model's own: ``init_cache(cross_len=)``,
+``build_cross_caches``, ``prefill``, ``decode_step``.
 """
 from __future__ import annotations
 

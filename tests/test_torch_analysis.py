@@ -50,6 +50,7 @@ from repro_torch.core.translator import translate
 from repro_torch.errors import (DiagnosticError, GraphValidationError,
                                 IRVerificationError)
 from repro_torch.kernels.ref import GATHER_OPS, WEIGHT_FREE_GATHERS
+from torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 TEMPLATES = sorted(dsl.PROGRAM_TEMPLATES)

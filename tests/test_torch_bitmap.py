@@ -35,6 +35,7 @@ from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pull_bitmap as tpb
+from torch_threads import one_thread  # noqa: F401
 
 V, E = 1500, 12000
 INT_MAX = 2**30

@@ -38,6 +38,7 @@ from repro_torch.core.translator import CompiledGraphProgram, translate
 from repro_torch.errors import (CheckpointCorruptError, CheckpointError,
                                 CheckpointMismatchError, InjectedFault)
 from repro_torch.serve.graph_serve import GraphServer
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.chaos
 

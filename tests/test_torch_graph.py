@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import graph as G
 from repro_torch.core import preprocess as P
 from repro_torch.kernels import push_ell as tpush
+from torch_threads import one_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 

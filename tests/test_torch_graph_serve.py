@@ -31,6 +31,7 @@ from repro_torch.core.translator import translate
 from repro_torch.errors import InvalidQuery, QueueFull
 from repro_torch.serve.graph_serve import (GraphServer, build_landmark_table,
                                            choose_landmarks)
+from torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 

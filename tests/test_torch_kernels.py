@@ -26,6 +26,7 @@ from repro_torch.kernels import pull_bitmap as tpb
 from repro_torch.kernels import push_ell as tpe
 from repro_torch.kernels import push_scatter as tpsc
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 PAD = 2**31 - 1
 GATHERS = tref.GATHER_OPS

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core import graph as G
 from repro_torch.kernels import edge_block as teb
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 
 def _hub_plan_pair():

@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import lanes as tlanes
 from repro_torch.kernels import push_ell as tpe
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 PAD = 2**31 - 1
 STATE_LANES = 35

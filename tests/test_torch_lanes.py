@@ -31,6 +31,7 @@ from repro_torch.kernels import edge_block as teb
 from repro_torch.kernels import lanes as tlanes
 from repro_torch.kernels import pull_bitmap as tpb
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 PAD = 2**31 - 1
 TEMPLATES = {"bfs": ("bfs_program", ()), "sssp": ("sssp_program", ()),

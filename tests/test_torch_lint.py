@@ -16,6 +16,7 @@ from repro import lint as RL
 
 from repro_torch import lint
 from repro_torch.core import dsl
+from torch_threads import one_thread  # noqa: F401
 
 BAD_PROGRAM = textwrap.dedent('''
     """Known-bad vertex programs in the port's DSL."""

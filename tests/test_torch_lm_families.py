@@ -31,6 +31,7 @@ from repro_torch.models import convert
 from repro_torch.models import param as tparam
 from repro_torch.models import transformer as T
 from repro_torch.models.model import LModel
+from torch_threads import one_thread  # noqa: F401
 
 RTOL, ATOL = 2e-3, 3e-4
 FAMILIES = ["gemma3-4b", "grok-1-314b", "moonshot-v1-16b-a3b",

@@ -25,6 +25,7 @@ from repro_torch.models.model import LModel
 from repro_torch.serve.decode import BatchScheduler, Request, slot_view
 
 from test_torch_lm_families import FAMILIES, _check_cache, _models
+from torch_threads import one_thread  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)

@@ -42,6 +42,7 @@ from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
 from repro_torch.errors import CheckpointMismatchError, InjectedFault
 from repro_torch.serve.graph_serve import GraphServer
+from torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 TEMPLATES = ("bfs", "sssp", "wcc")

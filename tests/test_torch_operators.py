@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import graph as G
 from repro_torch.core import operators as TO
 from repro_torch.core import preprocess as TP
+from torch_threads import one_thread  # noqa: F401
 
 PAD = G.PAD
 V, E = 300, 2400

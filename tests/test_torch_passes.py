@@ -24,6 +24,7 @@ from repro_torch.core import ir as TI
 from repro_torch.core import passes as TPS
 from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
+from torch_threads import one_thread  # noqa: F401
 
 TEMPLATES = sorted(TD.PROGRAM_TEMPLATES)
 FLAVOR = {"dense_pallas": "dense_cuda", "dense_xla": "dense_torch",

@@ -31,6 +31,7 @@ from repro_torch.core import graph as G
 from repro_torch.core.analysis import analyze_program
 from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
 from repro_torch.core.translator import translate
+from torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 CHAIN = 120

@@ -21,6 +21,7 @@ from repro_torch.core import graph as G
 from repro_torch.core import preprocess as TP
 from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
+from torch_threads import one_thread  # noqa: F401
 
 FLAVOR = {"sparse_xla": "sparse_torch"}
 

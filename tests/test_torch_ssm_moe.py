@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.param import map_tree
+from torch_threads import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -40,6 +40,7 @@ from repro_torch.core.stream import PartitionedGraphProgram
 from repro_torch.core.translator import translate
 from repro_torch.data import graphs as D
 from repro_torch.serve.graph_serve import GraphServer
+from torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 # run_stats keys that are measured times, not counters

@@ -39,6 +39,7 @@ from repro_torch.core.preprocess import PartitionStore
 from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
 from repro_torch.core.translator import translate
 from repro_torch.data import graphs as D
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.chaos
 

@@ -38,6 +38,7 @@ from repro_torch.kernels import edge_block as teb
 from repro_torch.kernels import lanes as tlanes
 from repro_torch.kernels import push_ell as tpe
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 
 class _View:

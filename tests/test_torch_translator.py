@@ -22,6 +22,7 @@ from repro_torch.core import dsl as TD
 from repro_torch.core import graph as G
 from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
+from torch_threads import one_thread  # noqa: F401
 
 FLAVOR = {"dense_pallas": "dense_cuda", "dense_xla": "dense_torch"}
 STATS = ("push_supersteps", "push_compacted_supersteps",
