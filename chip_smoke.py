@@ -291,6 +291,29 @@ and the script exits non-zero):
    within rtol 2e-5 + 1e-3 · lr, and the CPU's within rtol 2e-5 + 2e-2 ·
    lr wherever the gradient is not within rounding of 0).
 
+14. plan  — the planning layer (``launch/dryrun.py``): the dry run of
+   the 10 archs × 4 shapes on the (16, 16) production mesh with the
+   roofline and on (2, 16, 16) without, in process on ``meta`` tensors
+   (each cell's status, live GB a device, ``fits_80gb``, the three
+   roofline terms and the dominant one; no error, and
+   ``torch.cuda.memory_allocated`` the same before and after); the
+   planner on a (1, 1) mesh of the card at the [lm] and [train] shapes
+   (qwen3-8b decode, 8 slots of 4,096; whisper-large-v3 training, 8 ×
+   448, 4 sequences a microbatch): its argument bytes equal, part by part
+   and byte for byte, to the parameters, caches or optimizer state and
+   batch those phases held, its live bytes beside their measured peaks
+   and its roofline beside their measured steps (and qwen3's hand bound
+   of 4.934 ms); the expert-parallel MoE at moonshot-v1-16b-a3b's full
+   width (E 64, D 2048, top-6) on 4 × 256 tokens over a (1, 4) mesh of
+   the card repeated, through ``apply_moe_auto``, against ``apply_moe``:
+   in float32 within 1e-5 of max |out|, in bf16 no farther from the
+   float32 result than twice the gather path's own bf16 distance, aux
+   within 1e-6, both timed in bf16 and the psum's bytes read from the
+   mesh's ``CommManager``; the 2 + 2-layer whisper tree (parameters and AdamW
+   state after a step) sharded over a (4, 2) mesh of the card repeated,
+   saved, restored onto (2, 2) with ``shardings=`` and joined by
+   ``unshard``, bit for bit.
+
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Longer logs go to ``chiprun_out/``
 (``chip_smoke.log`` keeps every line the phases print).
@@ -298,6 +321,7 @@ The line before the last is the per-kernel JSON summary; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4855,6 +4879,7 @@ def phase_lm(torch, dev_info):
         return real(*args, **kw)
 
     ops.decode_gqa = keep
+    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     try:
         t0 = time.perf_counter()
@@ -4864,6 +4889,7 @@ def phase_lm(torch, dev_info):
         launches = _read_counts()
     finally:
         ops.decode_gqa = real
+    serve_peak = torch.cuda.max_memory_allocated()
     steps = sched.decode_steps
     done = sched.done
     if len(done) != n_req or any(len(r.out) != max_new for r in done) \
@@ -4907,6 +4933,12 @@ def phase_lm(torch, dev_info):
         f"of the median step); host syncs a step (CUDA sync debug mode) "
         f"{min(syncs)}–{max(syncs)} over {len(syncs)} steps; decode_gqa launches {launches['decode_gqa']} = {L} × "
         f"{steps}; all launches {launches} on {smi}")
+    # what the server held, for the planner (phase_plan): the parameters,
+    # the caches and the decode step's tokens
+    held = {"params": _tensor_bytes(sched.model.param_leaves()),
+            "cache": _tensor_bytes(P.leaves(sched.cache)),
+            "tokens_t": _tensor_bytes([sched.last]), "peak": serve_peak,
+            "step_ms": med, "bound_ms": bound_mid}
     # one warm step, then one profiled, on the finished slots' caches
     nxt, _, sched.cache = sched.serve_step(sched.last, sched.cache)
     sched.last = nxt
@@ -4960,7 +4992,14 @@ def phase_lm(torch, dev_info):
             "max_abs_err": server["max_abs_err"], "ms": server["ms"],
             "plain_ms": server["plain_ms"], "bound_ms": server["bound_ms"],
             "bound_by": server["bound_by"],
-            "library_ms": server["library_ms"], "shape": server["shape"]}
+            "library_ms": server["library_ms"], "shape": server["shape"]}, held
+
+
+def _tensor_bytes(items):
+    """Bytes of the tensors in ``items`` (tensors or ``(path, tensor)``
+    pairs)."""
+    return sum(t.numel() * t.element_size() for t in (
+        x[1] if isinstance(x, tuple) else x for x in items))
 
 
 def _attn_layers(cfg):
@@ -5598,6 +5637,10 @@ def phase_train(torch, dev_info):
                    if path[0] in ("m", "v")) or int(state["step"]) != steps:
         raise AssertionError("train: dtypes, shapes or the step changed")
     step_s = float(np.median(walls[1:]))
+    held = {"params": _tensor_bytes(model.param_leaves()),
+            "opt_state": _tensor_bytes(leaves(state)),
+            "batch": _tensor_bytes(batch.values()), "peak": peak,
+            "step_s": step_s}
     flops = _train_flops(cfg, n_params, B, S)
     state_bytes = sum(t.numel() * t.element_size()
                       for _, t in leaves(state))
@@ -5651,6 +5694,7 @@ def phase_train(torch, dev_info):
                "card": smi}
     with open(os.path.join(OUT_DIR, "chip_smoke_train.json"), "w") as f:
         json.dump(summary, f, indent=1, default=str)
+    return held
 
 
 def _train_checkpoint(torch, cfg, shape, ocfg, dev, smi):
@@ -5837,6 +5881,275 @@ def _train_smoke_on_cpu(torch, dev, smi):
             "near_zero_gradient": left, "max_param_diff_held": worst_move}
 
 
+# The planner against the card (``phase_plan``): the [lm] and [train]
+# shapes on a (1, 1) mesh of the card; moonshot-v1-16b-a3b's MoE layer on
+# 4 × 256 tokens over a (1, 4) mesh of the card repeated; the reshard
+# meshes of the 2 + 2-layer whisper checkpoint
+PLAN_DECODE = ("qwen3-8b", ("decode_card", 4096, 8, "decode"))
+PLAN_TRAIN = (WHISPER_ARCH, ("train_card", 448, 8, "train"), 4)
+PLAN_HAND_BOUND_MS = 4.934      # PERF.md §5: qwen3-8b's decode step bound
+PLAN_MOE = ("moonshot-v1-16b-a3b", (4, 256), (1, 4))
+PLAN_RESHARD = ((4, 2), (2, 2))
+
+
+def _plan_sweep(torch):
+    """The production meshes' dry run in process: the 10 archs × 4 shapes
+    on (16, 16) with the roofline and on (2, 16, 16) without; no error,
+    and no CUDA memory allocated."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun
+    before = torch.cuda.memory_allocated()
+    cells = [(a, s, m) for m in (False, True) for a in sorted(ARCHS)
+             for s in SHAPES]
+    t0 = time.perf_counter()
+    recs = dryrun.sweep(cells, cost=True, echo=lambda line: log(
+        f"[plan] {line}"))
+    sweep_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    n = {k: sum(r["status"] == k for r in recs)
+         for k in ("ok", "skip", "error")}
+    log(f"[plan] sweep: {n['ok']} ok, {n['skip']} skip, {n['error']} "
+        f"error in {sweep_s:.1f} s; CUDA memory allocated {before} bytes "
+        f"before, {after} after")
+    with open(os.path.join(OUT_DIR, "chip_smoke_plan_sweep.json"), "w") as f:
+        json.dump(recs, f, indent=1, default=str)
+    if n["error"]:
+        bad = [r for r in recs if r["status"] == "error"]
+        raise AssertionError(f"plan: {len(bad)} cells failed, first "
+                             f"{bad[0]['arch']} × {bad[0]['shape']}: "
+                             f"{bad[0]['error']}\n{bad[0]['traceback']}")
+    if after != before:
+        raise AssertionError("plan: the dry run allocated CUDA memory")
+    return {"counts": n, "seconds": sweep_s}
+
+
+def _plan_card_cell(torch, arch, shape, held, measured_s, hand_ms, smi,
+                    cfg=None):
+    """One card cell planned on a (1, 1) mesh of the card: argument bytes
+    equal to what the phase held, byte for byte, part by part; live
+    bytes beside the measured peak; the roofline beside the measured
+    step (and the hand bound)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"), [torch.device("cuda", 0)])
+    rec = dryrun.run_cell(arch, ShapeConfig(*shape), mesh=mesh, cost=True,
+                          cfg_override=cfg)
+    if rec["status"] != "ok":
+        raise AssertionError(f"plan: {arch} {shape}: {rec.get('error')}\n"
+                             f"{rec.get('traceback')}")
+    parts = dict(rec["memory"]["argument_parts"])
+    if "cache" in held:                     # decode: params, tokens, cache
+        card = {"params": held["params"], "tokens_t": held["tokens_t"],
+                "cache": held["cache"]}
+    else:
+        card = {"params": held["params"], "opt_state": held["opt_state"],
+                "batch": held["batch"]}
+    if parts != card:
+        raise AssertionError(f"plan: {arch} argument bytes {parts} planned, "
+                             f"{card} held on the card")
+    live = rec["live_bytes_per_device"]
+    roof = rec["roofline"]
+    step_ms = 1e3 * measured_s
+    log(f"[plan] {arch} {shape[0]} ({shape[2]} × {shape[1]}) on a (1, 1) "
+        f"mesh of the card: argument bytes {sum(parts.values())} = held "
+        f"on the card byte for byte {card}; live {live / 1e9:.3f} GB "
+        f"planned (temp {rec['memory']['temp_bytes'] / 1e9:.3f} GB) "
+        f"against a measured peak of {held['peak'] / 1e9:.3f} GB (ratio "
+        f"{live / held['peak']:.3f}); roofline compute "
+        f"{1e3 * roof['compute_s']:.3f} ms, memory (unfused bytes) "
+        f"{1e3 * roof['memory_s']:.3f} ms, collective "
+        f"{1e3 * roof['collective_s']:.3f} ms, dominant {roof['dominant']}, "
+        f"against the measured step {step_ms:.3f} ms"
+        + (f" and the hand bound {hand_ms:.3f} ms" if hand_ms else "")
+        + f"; planned in {rec['plan_s']} s on {smi}")
+    return {"arch": arch, "shape": list(shape), "argument_parts": parts,
+            "live_bytes": live, "temp_bytes": rec["memory"]["temp_bytes"],
+            "measured_peak": held["peak"],
+            "live_ratio": live / held["peak"], "roofline": roof,
+            "measured_step_ms": step_ms, "hand_bound_ms": hand_ms}
+
+
+def _plan_moe(torch, smi):
+    """The expert-parallel MoE at moonshot-v1-16b-a3b's full width against
+    the gather path on the same inputs, through ``apply_moe_auto`` under
+    the mesh.  In float32 (the same bf16-valued inputs, upcast) the two
+    are one function: within 1e-5 of max |out|.  In bf16 each column's
+    partial is rounded before the psum adds them, so the paths round
+    differently: the EP's distance from the float32 result must stay
+    within twice the gather path's own (the gather path in bf16 is
+    2.30e-5 from float32 where 1e-3 · max |out| is 2.99e-6 on these
+    inputs, so that bound cannot tell rounding from a fault).  Aux within
+    1e-6; the ms of each in bf16 and the psum's bytes from the mesh's
+    ``CommManager``."""
+    from repro_torch.configs.registry import optimized_config
+    from repro_torch.core.comm import CommManager
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.param import materialize
+    from repro_torch.sharding import partition as ps
+    arch, (G, N), grid = PLAN_MOE
+    cfg = optimized_config(arch)         # moe_impl="shardmap"
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = materialize(M.moe_specs(cfg), gen, device=dev)
+    x = torch.randn((G, N, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    p32 = {k: v.float() for k, v in p.items()}
+    mesh = make_mesh(grid, ("data", "model"), [dev] * math.prod(grid))
+    comm = CommManager(devices=mesh.device_list())
+
+    def dist(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    with torch.no_grad():
+        want, aux_want = M.apply_moe(cfg, p, x)
+        ref, aux_ref = M.apply_moe(cfg, p32, x.float())
+        with ps.set_mesh(mesh, comm=comm):
+            got, aux_got = M.apply_moe_auto(cfg, p, x)
+        bytes_one = comm.stats.collective_bytes_total
+        with ps.set_mesh(mesh):
+            got32, aux_got32 = M.apply_moe_auto(cfg, p32, x.float())
+    if not bytes_one:
+        raise AssertionError("plan: apply_moe_auto did not take the EP path")
+    scale = float(ref.abs().max())
+    err32 = dist(got32, ref)
+    err = dist(got, want)
+    ep_off, gather_off = dist(got, ref), dist(want, ref)
+    aux_err = max(abs(float(aux_got) - float(aux_want)),
+                  abs(float(aux_got32) - float(aux_ref)))
+
+    def ep():
+        with ps.set_mesh(mesh):
+            M.apply_moe_shardmap(cfg, p, x)
+
+    with torch.no_grad():
+        gather_ms = _time_ms(torch, lambda: M.apply_moe(cfg, p, x), reps=10)
+        ep_ms = _time_ms(torch, ep, reps=10)
+    n_model = grid[1]
+    log(f"[plan] EP MoE ({arch}: E {cfg.n_experts}, D {cfg.d_model}, F "
+        f"{cfg.d_ff}, top-{cfg.moe_topk}) on {G} × {N} tokens over a "
+        f"{grid} mesh of the card repeated ({cfg.n_experts // n_model} "
+        f"experts a column): float32 max |Δ| {err32:.4e} against apply_moe "
+        f"(bound {1e-5 * scale:.4e} = 1e-5 · max |out|); bf16 max |Δ| "
+        f"{err:.4e} against apply_moe (1e-3 · max |out| = "
+        f"{1e-3 * scale:.4e}), {ep_off:.4e} from float32 against the "
+        f"gather path's own {gather_off:.4e} (bound twice it); aux |Δ| "
+        f"{aux_err:.3e} (bound 1e-6); bf16 apply_moe {gather_ms:.3f} ms, "
+        f"apply_moe_shardmap {ep_ms:.3f} ms (CUDA events, median of 10); "
+        f"the psum carried {bytes_one} bytes "
+        f"({comm.stats.collective_supersteps} exchange, "
+        f"{math.prod(grid)} partials of {G}×{N}×{cfg.d_model} bf16) on {smi}")
+    if not err32 <= 1e-5 * scale or not ep_off <= 2 * gather_off \
+            or not aux_err <= 1e-6:
+        raise AssertionError("plan: the EP MoE disagrees with apply_moe")
+    return {"max_abs_err_f32": err32, "max_abs_err_bf16": err,
+            "bf16_from_f32": ep_off, "gather_bf16_from_f32": gather_off,
+            "aux_err": aux_err, "gather_ms": gather_ms, "ep_ms": ep_ms,
+            "psum_bytes": bytes_one}
+
+
+def _plan_reshard(torch, smi):
+    """The 2 + 2-layer whisper tree of [train]'s checkpoint (parameters
+    and AdamW state after one step) sharded over a (4, 2) mesh of the card
+    repeated, saved, restored onto (2, 2) with ``shardings=`` and joined
+    by ``unshard``: bit for bit."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import device_put, synth_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import LModel
+    from repro_torch.models.param import leaves, map_tree, specs, unflatten
+    from repro_torch.sharding import partition as ps
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_train_step
+    dev = torch.device("cuda", 0)
+    n = TRAIN_CKPT_LAYERS
+    S = TRAIN["seq"]
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH), n_layers=n,
+                              n_enc_layers=n, microbatch_seqs=4)
+    model = LModel(cfg, max_seq=S, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    ocfg = O.OptConfig(peak_lr=TRAIN["lr"], warmup_steps=1)
+    state = O.init_state(ocfg, model.param_tree())
+    batch = device_put(synth_batch(cfg, ShapeConfig("t", S, 4, "train"), 0,
+                                   seed=0), dev)
+    state, _ = make_train_step(model, ocfg)(state, batch)
+    tree = {"params": map_tree(lambda t: t.detach(), model.param_tree()),
+            "opt": state}
+
+    def shardings(grid):
+        mesh = make_mesh(grid, ("data", "model"), [dev] * math.prod(grid))
+        pspec = specs(model.param_specs(), mesh, ps.TRAIN_RULES, fsdp=True)
+        rep = ps.PartitionSpec()
+        return ps.named_shardings({"params": pspec, "opt": {
+            "m": pspec, "v": pspec, "step": rep}}, mesh)
+
+    src, dst = (shardings(g) for g in PLAN_RESHARD)
+    src_flat = dict(leaves(src))
+    held = {path: src_flat[path].split(t) for path, t in leaves(tree)}
+    sharded = sum(1 for path, _ in leaves(tree)
+                  if any(src_flat[path].spec))
+    d = os.path.join(ROOT, "build", "chip_smoke_reshard")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    ckpt.save(d, 1, unflatten(
+        (path, ps.unshard(parts, src_flat[path]))
+        for path, parts in held.items()))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = ckpt.restore(d, 1, tree, shardings=dst)
+    restore_s = time.perf_counter() - t0
+    dst_flat = dict(leaves(dst))
+    joined = unflatten((path, ps.unshard(parts, dst_flat[path]))
+                       for path, parts in leaves(restored))
+    n_leaves = _same_tree_bits(torch, joined, tree)
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[plan] reshard: the {n} + {n}-layer whisper tree ({n_leaves} "
+        f"leaves, {sharded} of them sharded on {PLAN_RESHARD[0]}) saved "
+        f"from a {PLAN_RESHARD[0]} mesh of the card in {save_s:.2f} s, "
+        f"restored onto {PLAN_RESHARD[1]} with shardings= in "
+        f"{restore_s:.2f} s, unshard bit for bit on {smi}")
+    return {"leaves": n_leaves, "sharded": sharded, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def phase_plan(torch, dev_info, lm_held, train_held):
+    """The planning layer: see the module docstring (step 14)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    smi = dev_info["smi"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = {"sweep": _plan_sweep(torch)}
+    arch, shape = PLAN_DECODE
+    out["decode"] = _plan_card_cell(torch, arch, shape, lm_held,
+                                    lm_held["step_ms"] / 1e3,
+                                    PLAN_HAND_BOUND_MS, smi)
+    arch, shape, mb = PLAN_TRAIN
+    out["train"] = _plan_card_cell(
+        torch, arch, shape, train_held, train_held["step_s"], None, smi,
+        cfg=dataclasses.replace(get_config(arch), microbatch_seqs=mb))
+    out["moe"] = _plan_moe(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reshard"] = _plan_reshard(torch, smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    log(f"[plan] phase {out['seconds']:.1f} s on {smi}")
+    with open(os.path.join(OUT_DIR, "chip_smoke_plan.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py (no arguments)")
@@ -5854,10 +6167,12 @@ def main():
     kernels.extend(phase_multi_pe(torch, dev_info, main_graph))
     del main_graph
     phase_others(torch)
-    kernels.append(phase_lm(torch, dev_info))
+    lm_kernel, lm_held = phase_lm(torch, dev_info)
+    kernels.append(lm_kernel)
     kernels.append(phase_lm_families(torch, dev_info))
     kernels.extend(phase_whisper(torch, dev_info))
-    phase_train(torch, dev_info)
+    train_held = phase_train(torch, dev_info)
+    phase_plan(torch, dev_info, lm_held, train_held)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(f"{dev_info['smi']}")
     log(json.dumps({"kernels": [{k: v for k, v in kern.items()

@@ -1,10 +1,9 @@
 """Architecture and shape configuration (``--arch <id>`` selectable).
 
 Counterpart of ``repro.configs.base``'s ``ArchConfig`` and
-``ShapeConfig`` with the same fields and properties; ``params_dtype``
-returns a ``torch.dtype``.  The assigned shape set (``SHAPES``,
-``cell_is_runnable``) belongs to the dry run and its cells, which wait
-for ROADMAP item 14.6.
+``ShapeConfig`` with the same fields and properties, the assigned shape
+set (``SHAPES``) and ``cell_is_runnable``; ``params_dtype`` returns a
+``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -104,3 +103,18 @@ class ShapeConfig:
 def params_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
+
+# The assigned shape set (identical for all 10 LM archs).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_is_runnable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k only runs for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch — long_500k skipped per assignment"
+    return True, ""

@@ -15,7 +15,10 @@ device.
 
 :func:`decode_gqa` takes the plain version (``ref.decode_gqa_ref``) for
 tensors on the CPU and launches the kernel for tensors on a CUDA device;
-it never falls back from one to the other.  The decode step of every
+it never falls back from one to the other.  A ``meta`` tensor (the dry
+run's trace, ``launch/costing.py``) goes through the plain version for
+its result's shape and dtype; nothing runs and the kernel's loader is
+never reached.  The decode step of every
 served attention layer calls it once (``models.layers.attention_decode``),
 ``global`` and ``local`` alike, soft-capped where the config says.
 """
@@ -93,7 +96,9 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     G = q.shape[2]
     scale = float(scale) if scale is not None else h ** -0.5
     softcap = float(softcap)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
+        # meta: the result's shape and dtype only (the dry run's trace);
+        # nothing executes, so nothing falls back
         return decode_gqa_ref(q, k_cache, v_cache, pos, length, scale=scale,
                               softcap=softcap)
     if q.device.type != "cuda":

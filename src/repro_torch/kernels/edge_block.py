@@ -138,7 +138,8 @@ def edge_block_reduce(
                          f"reduce={reduce!r}")
     if gather == "div_deg" and not values.dtype.is_floating_point:
         raise ValueError("div_deg is a true division: it needs float values")
-    if values.device.type == "cpu":
+    if values.device.type in ("cpu", "meta"):
+        # meta: the result's shape and dtype only; nothing runs
         return edge_block_reduce_plain(nbr, wgt, values, degrees, active,
                                        gather=gather, reduce=reduce,
                                        mask_inactive=mask_inactive,

@@ -105,7 +105,8 @@ def push_ell_message_block(dst_blk, wgt_blk, src_blk, values, degrees, *,
         raise ValueError(f"not a menu gather: {gather!r}")
     if gather == "div_deg" and not values.dtype.is_floating_point:
         raise ValueError("div_deg is a true division: it needs float values")
-    if values.device.type == "cpu":
+    if values.device.type in ("cpu", "meta"):
+        # meta: the result's shape and dtype only; nothing runs
         return push_ell_message_block_plain(dst_blk, wgt_blk, src_blk, values,
                                             degrees, gather=gather)
     if values.device.type != "cuda":

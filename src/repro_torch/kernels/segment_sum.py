@@ -48,7 +48,8 @@ def segment_reduce(seg: torch.Tensor, val: torch.Tensor, num_segments: int,
     """
     if reduce not in REDUCE_OPS:
         raise ValueError(f"not a menu reduce: {reduce!r}")
-    if val.device.type == "cpu":
+    if val.device.type in ("cpu", "meta"):
+        # meta: the result's shape and dtype only; nothing runs
         return segment_reduce_ref(seg, val, num_segments, reduce=reduce)
     if val.device.type != "cuda":
         raise ValueError(f"segment_reduce runs on CPU or CUDA tensors, "

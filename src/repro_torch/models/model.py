@@ -8,6 +8,11 @@ tree (``params``; ``param_tree()`` gives it as a dict), and the layers
 encoder's ``enc_blocks``).  Parameters are drawn at construction from an
 explicit ``torch.Generator`` (seed 0 when none is given) on the model's
 device; ``device=None`` means the CUDA device and raises without one.
+On ``device="meta"`` the model draws nothing and allocates nothing (its
+leaves are empty ``meta`` tensors): the dry run traces its steps there
+(``launch/cells.py``).  ``param_specs``, ``abstract_params`` and
+``cache_specs`` give the annotated and abstract trees of the JAX
+``LModel``.
 Caches stay a dict of tensors with the JAX package's keys and layout
 (``transformer.init_cache``); prefill, decode and ``build_cross_caches``
 fill them in place and return them.
@@ -34,7 +39,7 @@ from ..configs.base import ArchConfig
 from ..core.comm import resolve_device
 from . import layers as L
 from . import transformer as T
-from .param import leaves, materialize
+from .param import abstract, leaves, materialize
 
 
 def prefill_chunks(cfg: ArchConfig, S: int, chunk: int = 0, *,
@@ -79,7 +84,7 @@ class LModel(nn.Module):
         self.cfg = cfg
         self.max_seq = max_seq
         device = resolve_device(device)
-        if generator is None:
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         self.params = T.ParamTree(materialize(
             T.model_specs(cfg, max_seq=max_seq), generator, device=device,
@@ -88,6 +93,22 @@ class LModel(nn.Module):
         self.enc_blocks = T.stack_blocks(
             cfg, self.params["encoder"]["stack"], cfg.n_enc_layers,
             ("global",)) if cfg.enc_dec else []
+
+    # -- specs ----------------------------------------------------------------
+    def param_specs(self) -> dict:
+        """The parameters' annotated tree (``param.Annotated`` leaves)."""
+        return T.model_specs(self.cfg, max_seq=self.max_seq)
+
+    def abstract_params(self, mesh, rules, *, fsdp: bool = True) -> dict:
+        """The parameters as ``param.AbstractLeaf``s with resolved
+        shardings on ``mesh``."""
+        return abstract(self.param_specs(), mesh, rules, fsdp=fsdp)
+
+    def cache_specs(self, batch, capacity, dtype=torch.bfloat16,
+                    cross_len: int = 0) -> dict:
+        """The cache's annotated tree (``init_cache``'s layout)."""
+        return T.cache_specs(self.cfg, batch, capacity, dtype,
+                             cross_len=cross_len)
 
     @property
     def embed(self) -> T.ParamTree:
@@ -221,10 +242,13 @@ class LModel(nn.Module):
         (last_token_logits, cache).
 
         ``base = max(length)``, where a continued prefill starts, is one
-        device→host read per call."""
+        device→host read per call; a ``meta`` cache holds no values and
+        is read as empty (the dry run's prefill starts from an empty
+        cache, as the JAX cell's does)."""
         cfg = self.cfg
         S = tokens.shape[1]
-        base = int(cache["length"].max())
+        length = cache["length"]
+        base = 0 if length.device.type == "meta" else int(length.max())
         last = None
         rings = [(blk.kind, T.layer_cache(cache, blk)["attn"]["k"].shape[1])
                  for blk in self.blocks if blk.kind in ("global", "local")]

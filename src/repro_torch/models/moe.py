@@ -1,6 +1,6 @@
 """Mixture-of-Experts with gather-only dispatch and combine.
 
-Counterpart of ``repro.models.moe`` on one device.  Routing runs inside
+Counterpart of ``repro.models.moe``.  Routing runs inside
 *routing groups*, the batch rows, and two integer index maps are built
 once a routing decision:
 
@@ -9,24 +9,38 @@ once a routing decision:
 
 Dispatch and combine are gathers through them; autograd gives the
 transpose of each gather (the JAX package writes those transposes as
-``custom_vjp``s, which its SPMD partitioner needs; gradients wait for
-ROADMAP item 14.5).  Capacity-overflow tokens are dropped (GShard), so
-``_capacity`` and the group size ``N`` decide the function: a prefill
-chunk's rows are the groups, as in the JAX package.
+``custom_vjp``s, which its SPMD partitioner needs).  Capacity-overflow
+tokens are dropped (GShard), so ``_capacity`` and the group size ``N``
+decide the function: a prefill chunk's rows are the groups, as in the
+JAX package.
 
 Every routing step stays on the device (sorts, ``searchsorted``, a small
 integer scatter): no ``.item()``, no ``nonzero``, no host-side shape, so
 the decode step keeps its one host sync.  Like the reference, every
-expert runs on its ``C`` slots, filled or not.  ``apply_moe_shardmap``
-(expert-parallel psum) waits for ROADMAP item 14.6; on one device
-``apply_moe_auto`` takes the gather path, as the JAX package's does.
+expert runs on its ``C`` slots, filled or not.
+
+:func:`apply_moe_shardmap` is the JAX package's expert-parallel variant
+over the ambient mesh (``sharding.partition.set_mesh``) as a single
+controller: each (batch row, ``model`` column) cell of the mesh runs
+:func:`_moe_local` on its device, on its rows of the batch and its
+``E / n_model`` experts, and each row's partial outputs are summed in
+column order by ``core.comm.psum`` on the input's device (an N·D combine
+where the gather path moves E·C·D).  :func:`apply_moe_auto` takes it
+under the JAX package's conditions (:func:`ep_applies`), else the gather
+path; the model code calls ``apply_moe_auto``.  Gradients reach the
+parameters by autograd through the cells' copies and the sums.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..core import comm as comm_lib
+from ..sharding import partition as ps
 from .param import param
 
 
@@ -130,8 +144,119 @@ def apply_moe(cfg: ArchConfig, p, x):
     return y, aux
 
 
+# ---------------------------------------------------------------------------
+# Expert parallelism: the combine as a partial sum + psum instead of
+# gathering the (G,E,C,D) expert outputs over the model axis. Per layer per
+# microbatch the combine volume drops from E·C·D (gather) to N·D (psum).
+# Requires E % mesh_model == 0 (true EP); otherwise falls back.
+# ---------------------------------------------------------------------------
+
+
+def _moe_local(cfg: ArchConfig, p, x, n_model: int, col: int):
+    """One cell's body: ``x`` (G,N,D) its batch rows, ``p`` its
+    ``E / n_model`` experts' weights (``col``'s slice) and the whole
+    router.  Returns (its partial output (G,N,D), its routing means
+    ``me``, ``fe``), the means taken before the aux loss's product."""
+    G, N, D = x.shape
+    E, k = cfg.n_experts, cfg.moe_topk
+    C = _capacity(cfg, N)
+    e_loc = E // n_model
+
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)
+    w = (w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)).to(x.dtype)
+    me = probs.mean(dim=(0, 1))
+    fe = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+
+    # keep only this column's experts: local ids, everything else to a
+    # drop bucket (expert id e_loc), then the single-device maps
+    mine = torch.div(idx, e_loc, rounding_mode="floor") == col
+    local_idx = torch.where(mine, idx - col * e_loc, e_loc)
+    slot_tok, e_tok, rank_tok, keep_tok = _routing_maps(local_idx,
+                                                        e_loc + 1, C)
+    slot_tok = slot_tok[:, :e_loc]                # drop the overflow bucket
+    keep_tok = keep_tok & (e_tok < e_loc)
+    e_tok = torch.where(e_tok < e_loc, e_tok, 0)
+
+    buf = dispatch(x, slot_tok)                                 # (G,e,C,D)
+    g = torch.einsum("gecd,edf->gecf", buf, p["w_gate"])
+    u = torch.einsum("gecd,edf->gecf", buf, p["w_up"])
+    out = torch.einsum("gecf,efd->gecd", _act(cfg, g) * u, p["w_down"])
+    o_tok = undispatch(out, e_tok, rank_tok, keep_tok)          # (G,N,k,D)
+    return torch.sum(o_tok * w[..., None], dim=2), me, fe
+
+
+def _batch_axes(mesh) -> list[str]:
+    return [a for a in ("pod", "data") if a in mesh.axis_names]
+
+
+def ep_applies(cfg: ArchConfig, mesh, batch: int) -> bool:
+    """Whether ``apply_moe_auto`` takes the expert-parallel path for a
+    batch of ``batch`` rows on ``mesh``: the JAX package's conditions
+    (``moe_impl == "shardmap"``, a ``model`` axis over 1 that divides
+    the experts, batch rows that split over the batch axes)."""
+    if cfg.moe_impl != "shardmap" or mesh is None or not mesh.axis_names:
+        return False
+    sizes = mesh.shape
+    n_model = sizes.get("model", 1)
+    rows = math.prod(sizes[a] for a in _batch_axes(mesh))
+    return (n_model > 1 and cfg.n_experts % n_model == 0
+            and batch % max(rows, 1) == 0)
+
+
+def apply_moe_shardmap(cfg: ArchConfig, p, x):
+    """The expert-parallel MoE over the ambient mesh (module docstring).
+    Returns (y, aux_loss) on ``x``'s device; the ambient ``CommManager``,
+    if any, records the psum (one exchange a call: every cell's partial
+    output)."""
+    mesh = ps.get_mesh()
+    sizes = mesh.shape
+    n_model = sizes.get("model", 1)
+    baxes = _batch_axes(mesh)
+    if set(mesh.axis_names) - set(baxes) - {"model"}:
+        raise ValueError(f"mesh axes {mesh.axis_names}: the expert-parallel "
+                         "MoE takes batch axes and 'model' only")
+    n_rows = math.prod(sizes[a] for a in baxes)
+    order = [mesh.axis_names.index(a) for a in baxes]
+    order += [mesh.axis_names.index("model")] if "model" in sizes else []
+    devs = np.transpose(mesh.devices, order).reshape(n_rows, n_model)
+    E = cfg.n_experts
+    e_loc = E // n_model
+    B = x.shape[0]
+    rows = B // n_rows
+    home = x.device
+    ys, mes, fes = [], [], []
+    for r in range(n_rows):
+        xr = x[r * rows:(r + 1) * rows]
+        parts = []
+        for c in range(n_model):
+            dev = devs[r, c]
+            pc = {"router": p["router"].to(dev)}
+            for name in ("w_up", "w_gate", "w_down"):
+                pc[name] = p[name][c * e_loc:(c + 1) * e_loc].to(dev)
+            y_part, me, fe = _moe_local(cfg, pc, xr.to(dev), n_model, c)
+            parts.append(y_part)
+            mes.append(me)
+            fes.append(fe)
+        ys.append(comm_lib.psum(parts, device=home))       # N·D combine
+    # the aux loss from global means (a per-cell aux averaged afterwards
+    # is a different loss)
+    me = comm_lib.psum(mes, device=home) / len(mes)
+    fe = comm_lib.psum(fes, device=home) / len(fes)
+    aux = cfg.moe_aux_coef * E * torch.sum(fe * me)
+    comm = ps.get_comm()
+    if comm is not None:
+        comm.stats.record_collective(
+            parts[0].numel() * parts[0].element_size(), 1,
+            tables=n_rows * n_model)
+    return torch.cat(ys, dim=0), aux
+
+
 def apply_moe_auto(cfg: ArchConfig, p, x):
-    """Module selection: the expert-parallel shard_map implementation
-    needs a device mesh (ROADMAP item 14.6); on one device this is the
-    gather path whatever ``cfg.moe_impl`` says, as in the JAX package."""
+    """Module selection (the paper's translator idea): the expert-parallel
+    psum when the ambient mesh allows it (:func:`ep_applies`), else the
+    gather path (always on one device)."""
+    if ep_applies(cfg, ps.get_mesh(), x.shape[0]):
+        return apply_moe_shardmap(cfg, p, x)
     return apply_moe(cfg, p, x)

@@ -13,8 +13,11 @@ checkpoint.  A bfloat16 leaf is written as the JAX package writes an
 ``ml_dtypes``.  The JAX ``restore`` cannot read such a leaf back (it
 hands a ``|V2`` array to ``jnp.asarray``); this one can.  Trees are
 nested dicts and tuples of tensors (``{"params": model.param_tree(),
-"opt": opt_state}``); ``restore`` places every leaf on one ``device``
-(the JAX ``shardings=`` reshard waits for ROADMAP item 14.6).
+"opt": opt_state}``); ``restore`` places every leaf on one ``device``,
+or reshards it: a leaf given a ``sharding.partition.NamedSharding`` in
+``shardings=`` comes back as its shards on that sharding's mesh (which
+may differ from the mesh that wrote the checkpoint: elastic restart),
+and ``partition.unshard`` joins them again.
 """
 from __future__ import annotations
 
@@ -137,14 +140,18 @@ def _rebuild(like: Any, out: dict, prefix: tuple = ()) -> Any:
     return out["/".join(str(k) for k in prefix)]
 
 
-def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
-            verify: bool = True) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, *, shardings: Any = None,
+            device=None, verify: bool = True) -> Any:
     """Restore into the structure of ``like`` (its leaves give only the
     shapes), every leaf a tensor of the dtype written, on ``device`` (the
-    CPU when None).  ``verify`` checks each leaf's CRC32."""
+    CPU when None).  ``shardings``: a tree like ``like``'s (or part of
+    it) of ``NamedSharding``s; each leaf it names comes back as the list
+    of its shards in its mesh's device order, each on its device.
+    ``verify`` checks each leaf's CRC32."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    shard_named = dict(_flatten_with_paths(shardings)) if shardings else {}
     out = {}
     for name, ref in _flatten_with_paths(like):
         ent = manifest["leaves"][name]
@@ -154,7 +161,11 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
         if tuple(arr.shape) != tuple(np.shape(ref)):
             raise ValueError(f"shape mismatch for {name}: ckpt {arr.shape} "
                              f"vs {tuple(np.shape(ref))}")
-        out[name] = _to_tensor(arr, ent["dtype"], device)
+        if name in shard_named:
+            out[name] = shard_named[name].split(
+                _to_tensor(arr, ent["dtype"], "cpu"))
+        else:
+            out[name] = _to_tensor(arr, ent["dtype"], device)
     return _rebuild(like, out)
 
 

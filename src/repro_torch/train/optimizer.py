@@ -14,7 +14,8 @@ The JAX functions return new trees (its train step donates the old
 ones); these update ``params`` and the state's tensors in place, its
 ``step`` too, and return the same trees with the metrics.  Every scalar
 stays a 0-d tensor on the parameters' device: an update reads nothing
-back to the host.
+back to the host.  :func:`abstract_state` gives the dry run's
+never-allocated state (``models.param.AbstractLeaf``s).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from typing import Any
 
 import torch
 
-from ..models.param import leaves, map_tree
+from ..models.param import AbstractLeaf, leaves, map_tree
+from ..sharding.partition import NamedSharding, PartitionSpec
 
 CHUNK_ELEMS = 1 << 24
 
@@ -86,6 +88,35 @@ def init_state(cfg: OptConfig, params: Any) -> dict:
 
     return {"m": map_tree(zeros, params), "v": map_tree(zeros, params),
             "step": step}
+
+
+def abstract_state(cfg: OptConfig, abstract_params: Any) -> dict:
+    """The state as ``AbstractLeaf``s matching the parameters'
+    shardings: AdamW's ``m``/``v`` in ``state_dtype`` follow them;
+    Adafactor's factored states (tiny) and the step are replicated."""
+    mesh = next(a for _, a in leaves(abstract_params)).sharding.mesh
+    rep = NamedSharding(mesh, PartitionSpec())
+    step = AbstractLeaf((), torch.int32, rep)
+    if cfg.algorithm == "adafactor":
+        def vr(p):
+            return AbstractLeaf(_factored_shapes(p.shape)[0]
+                                if len(p.shape) >= 2 else p.shape,
+                                torch.float32, rep)
+
+        def vc(p):
+            return AbstractLeaf(_factored_shapes(p.shape)[1]
+                                if len(p.shape) >= 2 else (),
+                                torch.float32, rep)
+
+        return {"vr": map_tree(vr, abstract_params),
+                "vc": map_tree(vc, abstract_params), "step": step}
+    dt = getattr(torch, cfg.state_dtype)
+
+    def like(p):
+        return AbstractLeaf(p.shape, dt, p.sharding)
+
+    return {"m": map_tree(like, abstract_params),
+            "v": map_tree(like, abstract_params), "step": step}
 
 
 def _big(p: torch.Tensor) -> bool:

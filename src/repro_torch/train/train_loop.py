@@ -29,13 +29,21 @@ def microbatches(cfg: ArchConfig, batch: dict) -> tuple[dict, int]:
     return {k: v.reshape(M, mb, *v.shape[1:]) for k, v in batch.items()}, M
 
 
-def make_train_step(model: LModel, opt_cfg: O.OptConfig):
+def make_train_step(model: LModel, opt_cfg: O.OptConfig, grad_specs=None):
     """``train_step(opt_state, batch) -> (opt_state, metrics)``: one
     optimizer step of ``model`` on ``batch`` (a dict of tensors on the
     model's device), its parameters and ``opt_state`` updated in place;
     ``metrics`` holds 0-d tensors ``loss`` (the microbatches' mean),
     ``grad_norm`` and ``lr``.  Turns on gradients for every parameter of
-    ``model`` (serving, under ``torch.no_grad``, is not affected)."""
+    ``model`` (serving, under ``torch.no_grad``, is not affected).
+
+    ``grad_specs`` (a PartitionSpec tree matching the parameters) is the
+    JAX package's pin of the gradient accumulators to the parameters'
+    shardings.  The step runs on one device, where the pin changes no
+    value (as ``with_sharding_constraint`` changes none); it is kept on
+    the step as ``train_step.grad_specs`` for the planner
+    (``launch/costing.py`` counts the accumulators at the parameters'
+    shard sizes and reduce-scatters them every microbatch)."""
     cfg = model.cfg
     accum_dt = getattr(torch, cfg.grad_accum_dtype)
     params = model.param_tree()
@@ -62,6 +70,7 @@ def make_train_step(model: LModel, opt_cfg: O.OptConfig):
                                          opt_state, grad_scale=1.0 / M)
         return opt_state, dict(metrics, loss=loss_sum / M)
 
+    train_step.grad_specs = grad_specs
     return train_step
 
 

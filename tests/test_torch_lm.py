@@ -14,6 +14,8 @@ against the plain version on the card by ``chip_smoke.py``.
 """
 import dataclasses
 
+import types
+
 import numpy as np
 import pytest
 
@@ -112,11 +114,16 @@ def test_decode_gqa_plain_masks_nan_slots():
 
 def test_decode_gqa_wrapper_refuses_other_devices():
     """A tensor neither on the CPU nor on CUDA never reaches a plain
-    version."""
+    version, but for ``meta`` (the dry run's trace), where the plain
+    version gives only the result's shape and dtype and nothing runs."""
     _, tt = _decode_inputs(1, 8, 1, 1, 8, jnp.float32, 0)
     before = tdg.decode_gqa.launches
+    out = tdg.decode_gqa(*(t.to("meta") for t in tt))
+    assert out.device.type == "meta" and out.shape == tt[0].shape
+    other = types.SimpleNamespace(shape=tt[0].shape,
+                                  device=torch.device("xpu"))
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        tdg.decode_gqa(*(t.to("meta") for t in tt))
+        tdg.decode_gqa(other, *tt[1:])
     assert tdg.decode_gqa.launches == before
 
 
