@@ -143,7 +143,8 @@ and the script exits non-zero):
    device time) beside 1L alone, k launches of kernel 1 and its bound;
    the lane push at k = 1, 8 and 32 on root 0's BFS frontiers and a
    random 1% frontier against k compactions + fused pushes (and its plain
-   version), exactly, timed beside them and its bound.
+   version), exactly, timed beside them, its bound and the first design's
+   one 32-byte sector a message.
 7. stream  — out-of-core streaming on the main phase's scale-22 graph
    with ``ScheduleConfig(partitions=8)`` (the plan's partition count and
    the store's rows and entry bytes printed): BFS from root 0 under pull,
@@ -167,7 +168,11 @@ and the script exits non-zero):
    bfs (numpy seed 0) = sequential resident runs bitwise with bytes
    streamed; each streamed route timed per partition (CUDA events)
    against its plain version and byte bound: the fold in accumulate mode,
-   the lane push with got, their pre-passes, and (scale 20, pagerank)
+   the lane push with got (table and got against the plain version; timed
+   from a refilled table and cleared got, as a superstep finds them, with
+   the profiler's device time, with got and with got null, and the most
+   messages one destination receives), their pre-passes, and (scale 20,
+   pagerank)
    kernel 1 on prepared tables + kernel 4 beside a CSR product.  Weighted
    gathers outside the menu on the scale-22 graph with uniform(0.5, 2)
    weights (numpy seed 4) through the general partial: ``v + 2 * w``
@@ -2628,10 +2633,14 @@ def _push_lane_timing(torch, g, oracle, smi):
             nbytes = (fe.num_rows * 4 + k * V + 2 * V * K // 8 + k * V * 4
                       + n_rows * W * 4 + n_pairs * 4)
             bound = 1e3 * max(nbytes / _BANDWIDTH, n_slots / _SCALAR_OPS)
+            # the first design's reckoning: one 32-byte DRAM sector a
+            # message, its table out of L2
+            sector_ms = 1e3 * n_slots * 32 / _BANDWIDTH
             del live_rows
             rows[(k, label)] = {
                 "ms": ms, "device_ms": dev_ms, "pack_device_ms": pack_ms,
                 "singles_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "sector_ms": sector_ms,
                 "bytes": nbytes, "max_abs_err": err,
                 "shape": [k, R, W, V], "live_rows": n_rows,
                 "live_lane_rows": n_pairs, "messages": n_slots,
@@ -2644,7 +2653,8 @@ def _push_lane_timing(torch, g, oracle, smi):
                 f"ms) against {k} x (compaction + fused push) {k_ms:.4f} ms "
                 f"({k_ms / ms:.2f}x; capacities {sorted(set(caps))}); bound "
                 f"{bound:.4f} ms ({bound / ms:.3f} of it, "
-                f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; = the "
+                f"{nbytes / 1e6:.1f} MB), one sector a message "
+                f"{sector_ms:.4f} ms, plain {plain_ms:.4f} ms; = the "
                 f"compacted pushes and = plain, exactly, on {smi}")
             del args, active
         del values
@@ -3232,16 +3242,29 @@ def _stream_route_timing(torch, g, oracle, store, push_level, smi):
     pkw = dict(num_rows=rows, gather="plus_one", reduce="min",
                identity=2**31 - 1)
     args = (key, slot, wgt, vals, degd, act, [0])
-    want_t = pe.push_ell_lanes_reduce_plain(*args, **pkw,
+    want_g = torch.zeros_like(gotp)
+    want_t = pe.push_ell_lanes_reduce_plain(*args, **pkw, got=want_g,
                                             table=table.clone())
     got_t = pe.push_ell_lanes_reduce(*args, **pkw, table=table.clone(),
                                      got=gotp, prepared=pprep)
     torch.cuda.synchronize()
-    if not _same(got_t, want_t):
+    if not _same(got_t, want_t) or not torch.equal(gotp, want_g):
         raise AssertionError("streamed push on the scale-22 partition != "
-                             "plain")
-    pms = _time_ms(torch, lambda: pe.push_ell_lanes_reduce(
-        *args, **pkw, table=table, got=gotp, prepared=pprep), reps=20)
+                             "plain (table or got)")
+
+    def streamed_push(g=gotp):
+        # as a superstep finds them: the running table at the identity
+        # (this is the level's first partition), got cleared
+        table.fill_(2**31 - 1)
+        if g is not None:
+            g.zero_()
+        return pe.push_ell_lanes_reduce(*args, **pkw, table=table, got=g,
+                                        prepared=pprep)
+
+    pms = _time_ms(torch, streamed_push, reps=20)
+    pdev = _device_ms(torch, streamed_push, "push_ell_lanes")
+    pdev_nogot = _device_ms(torch, lambda: streamed_push(None),
+                            "push_ell_lanes")
     pplain = _time_ms(torch, lambda: pe.push_ell_lanes_reduce_plain(
         *args, **pkw, table=table), reps=5, warmup=1)
     live_rows = act[0][key.long()]
@@ -3249,7 +3272,10 @@ def _stream_route_timing(torch, g, oracle, store, push_level, smi):
     dst = slot[live_rows]
     dst = dst[dst != PAD].long()
     valid = int(dst.numel())
-    n_dst = int(torch.unique(dst).numel())
+    in_count = torch.bincount(dst, minlength=V)
+    n_dst = int((in_count > 0).sum())
+    max_in = int(in_count.max())
+    del in_count
     n_src = int(torch.unique(key[live_rows]).numel())
     lo, hi = int(store.cuts[p]), int(store.cuts[p + 1])
     # what this partition's launch must move: row_src and its source
@@ -3260,16 +3286,25 @@ def _stream_route_timing(torch, g, oracle, store, push_level, smi):
     pbound = 1e3 * pbytes / _BANDWIDTH
     pprep_ms = _time_ms(torch, lambda: pe.push_lanes_prepare(act, [0]),
                         reps=20)
-    out["push"] = {"ms": pms, "plain_ms": pplain, "bound_ms": pbound,
+    out["push"] = {"ms": pms, "device_ms": pdev,
+                   "device_ms_got_null": pdev_nogot, "plain_ms": pplain,
+                   "bound_ms": pbound,
                    "max_abs_err": _max_err(got_t, want_t), "rows": rows,
                    "partition": p, "level": push_level,
                    "live_rows": n_live, "valid_slots": valid,
-                   "destinations": n_dst, "shape": [rows, 8, V, 1, n_live]}
+                   "destinations": n_dst, "max_in_messages": max_in,
+                   "shape": [rows, 8, V, 1, n_live]}
     out["push_prepare"] = {"ms": pprep_ms,
                            "bound_ms": 1e3 * (V + V // 8) / _BANDWIDTH}
+
+    def opt(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
     log(f"[stream] lane push with got on push partition {p} ({rows} rows, "
         f"{n_live} live at BFS level {push_level}, {valid} messages to "
-        f"{n_dst} vertices): {pms:.4f} ms, plain "
+        f"{n_dst} vertices, at most {max_in} to one): {pms:.4f} ms with "
+        f"the table's refill and got's clearing (device: kernel "
+        f"{opt(pdev)}, {opt(pdev_nogot)} with got null), plain "
         f"{pplain:.4f} ms, bound {pbound:.4f} ms ({pbound / pms:.3f} of "
         f"it); its pre-pass {pprep_ms:.4f} ms, on {smi}")
     return out

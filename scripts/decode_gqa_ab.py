@@ -7,11 +7,11 @@
 Times kernel 5 at every shape ``chip_smoke.py`` times it, in bf16:
 qwen3-8b's served decode step (B 8, S 4096, K 8, G 4, h 128), one long
 row (``chip_smoke.LONG_SHAPE``) and grok-1-314b's step
-(``chip_smoke.GROK_SHAPE``).  Runs a timing process on the parent's
-``src``, then this tree's twice, then the parent's again (each tree
-builds its kernels once, into its own ``build/``), and prints one JSON
-line a run: for each shape, CUDA-event ms of one call in batches of 20
-and the profiler's device ms.  The calls pass only the arguments every
+(``chip_smoke.GROK_SHAPE``).  The trees run in turns as
+``scripts/_ab.py`` sets out (each builds its kernels once, into its own
+``build/``), and each run prints one JSON line: for each shape,
+CUDA-event ms of one call in batches of 20 and the profiler's device
+ms.  The calls pass only the arguments every
 tree of kernel 5 takes (no ``softcap``: ``chip_smoke.py`` times the
 capped kernel beside the uncapped one).  The card's name and power limit
 come first.  Needs a CUDA card; compare two trees only within one run.
@@ -20,53 +20,18 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.append(ROOT)
-from chip_smoke import GROK_SHAPE, LONG_SHAPE  # noqa: E402
+import _ab
+
+sys.path.append(_ab.ROOT)
+from chip_smoke import (GROK_SHAPE, LONG_SHAPE, _device_ms,  # noqa: E402
+                        _time_ms)
 
 # name: (B, S, K, G, h)
 SHAPES = {"qwen_served": (8, 4096, 8, 4, 128),
           "long_row": LONG_SHAPE,
           "grok": GROK_SHAPE}
-
-
-def _event_ms(torch, fn, reps=30, batch=20):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / batch)
-    return sorted(times)[len(times) // 2]
-
-
-def _device_ms(torch, fn, calls=50):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kept = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "decode_gqa" in e.key
-            and e.count]
-    return (sum(e.self_device_time_total / e.count
-                * max(1, round(e.count / calls)) for e in kept) / 1e3
-            if kept else None)
 
 
 def _inputs(torch, B, S, K, G, h, seed):
@@ -93,7 +58,8 @@ def time_tree(label: str) -> dict:
     for seed, (name, shape) in enumerate(SHAPES.items()):
         args = _inputs(torch, *shape, seed=seed)
         fn = lambda: dg.decode_gqa(*args)  # noqa: E731
-        out[name] = [_event_ms(torch, fn), _device_ms(torch, fn)]
+        out[name] = [_time_ms(torch, fn, reps=30, batch=20),
+                     _device_ms(torch, fn, "decode_gqa", calls=50)]
     return out
 
 
@@ -107,16 +73,8 @@ def main(argv=None):
         return
     if not args.parent:
         p.error("--parent is required")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
-    trees = {"parent": os.path.abspath(args.parent),
-             "change": os.path.join(ROOT, "src")}
-    for label in ("parent", "change", "change", "parent"):
-        env = dict(os.environ, PYTHONPATH=trees[label])
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--time",
-                        label], env=env, check=True, timeout=900)
+    _ab.card()
+    _ab.run_in_turns(__file__, _ab.trees(args.parent))
 
 
 if __name__ == "__main__":

@@ -11,21 +11,17 @@ falcon-mamba-7b (4 slots of 2,048, as ``chip_smoke.LM_FAMILY_SERVE``) at
 full width through ``launch.serve.main`` with random bf16 weights, and
 reads the scheduler's decode-step walls (each ends with the step's one
 host read, so a host-bound step's wall is its host time).  The trees run
-one process each, in the order parent, extras, this tree, then the same
-backwards (each tree builds its kernels once, into its own ``build/``),
-and each prints one JSON line: for each model the median, min and max ms
-of its decode steps and their count.  The card's name and power limit
+in turns as ``scripts/_ab.py`` sets out (each builds its kernels once,
+into its own ``build/``), and each prints one JSON line: for each model
+the median, min and max ms of its decode steps and their count.  The card's name and power limit
 come first.  Needs a CUDA card; compare trees only within one run.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
-import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import _ab
 
 # model: launch.serve flags (prompts shorter and fewer requests than
 # chip_smoke.py's, one wave of slots: the decode step is what is timed)
@@ -74,20 +70,8 @@ def main(argv=None):
         return
     if not args.parent:
         p.error("--parent is required")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
-    trees = {"parent": os.path.abspath(args.parent)}
-    for e in args.extra:
-        label, path = e.split("=", 1)
-        trees[label] = os.path.abspath(path)
-    trees["change"] = os.path.join(ROOT, "src")
-    order = list(trees) + list(reversed(trees))
-    for label in order:
-        env = dict(os.environ, PYTHONPATH=trees[label])
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--time",
-                        label], env=env, check=True, timeout=900)
+    _ab.card()
+    _ab.run_in_turns(__file__, _ab.trees(args.parent, args.extra))
 
 
 if __name__ == "__main__":

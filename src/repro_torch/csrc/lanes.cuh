@@ -62,6 +62,15 @@ __device__ __forceinline__ unsigned load_table(const void* p, uint64_t pol) {
                : "l"(p), "l"(pol));
   return r;
 }
+// 4 bytes of a table this very kernel writes (the test read before an
+// atomic): from L2, never a stale copy in L1, with an L2 policy
+__device__ __forceinline__ unsigned load_kept(const void* p, uint64_t pol) {
+  unsigned r;
+  asm volatile("ld.global.cg.L2::cache_hint.u32 %0, [%1], %2;"
+               : "=r"(r)
+               : "l"(p), "l"(pol));
+  return r;
+}
 template <typename T>
 __device__ __forceinline__ T from_bits(unsigned x) {
   if constexpr (std::is_floating_point<T>::value) {

@@ -63,31 +63,43 @@
 // integer add, so its combine is exact in any order and rows need not be
 // visited in storage order.  A pre-pass (lanes.cuh, lanes_pack_kernel
 // without messages) packs the pushing lanes' frontier bits vertex-major,
-// K bits a vertex.  Then one thread takes each forward-ELL row: it reads
-// row_src and that source's K lane bits, and stops when none is set;
-// otherwise it reads the row's ids once (two 16-byte loads at W = 8) and,
-// for each live lane in turn, the source's value in that lane (through the
-// lane map, in place in the (k', V) state), the menu gather, and for each
-// slot whose id is a vertex a plain test read and an atomic combine into
-// the lane's row of the (k', V) identity-filled table, as the fused kernel
-// does.  Each lane's messages are those the fused kernel computes for that
-// lane alone, with the same arithmetic, so each lane's table equals its
-// compacted push's bit for bit (both settle a float +0/-0 tie in
-// atomic_combine, a min keeping -0 and a max +0, in any order).  The
-// streamed engine's push partitions (repro/core/stream.py's push partial,
-// jax.ops.segment_* over each partition's forward ELL) run 3L over each
-// partition's rows into the running (k', V) table, whose atomics combine
-// any partials already there, and a got table that takes a plain store of
-// 1 for each message that lands (the JAX package's segment_max(live) > 0);
-// the pre-pass runs once a superstep (Stage in lanes.cuh).
+// K bits a vertex.  Each lane's messages are those the fused kernel
+// computes for that lane alone, with the same arithmetic, so each lane's
+// table equals its compacted push's bit for bit (both settle a float
+// +0/-0 tie in atomic_combine, a min keeping -0 and a max +0, in any
+// order).  The streamed engine's push partitions (repro/core/stream.py's
+// push partial, jax.ops.segment_* over each partition's forward ELL) run
+// 3L over each partition's rows into the running (k', V) table, whose
+// atomics combine any partials already there, and a got table that takes
+// a 1 where a message lands (the JAX package's segment_max(live) > 0); the
+// pre-pass runs once a superstep (Stage in lanes.cuh).
 //
 // What bounds 3L: bytes.  It must read row_src (R x 4 B, 50 MB at scale
 // 22), each pushing lane's frontier (k x V B, in the pre-pass) and the
 // bits it packs, then for each live row its W ids, and for each live
 // (row, lane) the source's value, and write one word a valid slot and live
-// lane, besides the table's fill.  On a narrow frontier the row_src scan
-// and the pre-pass are nearly all of it; that scan replaces k compactions
-// (an int64 cumsum and a searchsorted over R a lane).
+// lane, besides the table's fill.  Its messages land at random in a
+// (k', V) table of 16.8 MB a lane at scale 22, far beyond the card's 50 MB
+// of L2 from k = 8 on: each message's test read and atomic is a random
+// 32-byte sector request for 4 useful bytes, which the byte bound does not
+// count.  Pushing the lanes in groups whose planes fit L2 (a later pass a
+// group) was measured slower at every shape that needs more than one:
+// on an H100 a random request costs about as much in L2 as out of it.
+//
+// Design:
+// - A scan with a queue.  push_ell_lanes_kernel reads 8 rows a thread (a
+//   warp's loads coalesced, 8 in flight a thread: a scan of row_src one
+//   load deep ran at a quarter of the card's bandwidth) and queues the
+//   live rows in shared memory, which the warp's 32 threads push one a
+//   thread in turn (a thread a row left most threads idle on a narrow
+//   frontier).  The streamed reads (row_src, the bits, a live row's ids
+//   and weights, its source's values) carry an evict-first L2 policy, the
+//   table's test reads and int atomics evict-last.
+// - A got byte is set by a red.or on its aligned word: one request, no
+//   read, nothing to wait for.  The first design stored the byte once a
+//   message, which tripled the streamed partition's kernel time (7.2 M
+//   messages, a hub taking 15,351 of them); a test read before a
+//   conditional store cost a request and a wait of its own.
 #include "lanes.cuh"
 
 namespace repro_torch {
@@ -286,19 +298,62 @@ cudaError_t fused_by_gather(int gather, int reduce, const void* sel,
 
 #undef FUSED_ARGS
 
-template <typename T, int G, int R, int K>
-__global__ void push_ell_lanes_kernel(
-    const int* __restrict__ row_src, const int* __restrict__ ell_dst,
+// Set the byte at p to 1 (a bool table's byte, 0 or 1) with a red.or on
+// the aligned word that holds it: one request, no read.
+__device__ __forceinline__ void set_byte(uint8_t* p, uint64_t pol) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  unsigned* word = reinterpret_cast<unsigned*>(a & ~uintptr_t{3});
+  const unsigned bit = 1u << (8u * static_cast<unsigned>(a & 3u));
+  asm volatile("red.global.or.L2::cache_hint.b32 [%0], %1, %2;"
+               :
+               : "l"(word), "r"(bit), "l"(pol)
+               : "memory");
+}
+
+constexpr int kLaneThreads = 256;
+constexpr int kLaneWarps = kLaneThreads / 32;
+constexpr int kScanRows = 8;    // rows a thread in the scan, 32 rows apart
+constexpr int kWarpRows = 32 * kScanRows;
+
+// Combine message m into *addr as atomic_combine does, with the table's
+// L2 policy: int32 min/max/add as a red with that policy (min/max after
+// the test read); float min/max as atomic_combine's compare-and-swap loop.
+template <typename T, int R>
+__device__ __forceinline__ void atomic_combine_kept(T* addr, T m, T cur,
+                                                    uint64_t pol) {
+  if constexpr (std::is_floating_point<T>::value) {
+    atomic_combine<T, R>(addr, m, cur);
+  } else if constexpr (R == kAdd) {
+    asm volatile("red.global.add.L2::cache_hint.u32 [%0], %1, %2;"
+                 :
+                 : "l"(addr), "r"(m), "l"(pol)
+                 : "memory");
+  } else if (improves<T, R>(cur, m)) {
+    if constexpr (R == kMin) {
+      asm volatile("red.global.min.L2::cache_hint.s32 [%0], %1, %2;"
+                   :
+                   : "l"(addr), "r"(m), "l"(pol)
+                   : "memory");
+    } else {
+      asm volatile("red.global.max.L2::cache_hint.s32 [%0], %1, %2;"
+                   :
+                   : "l"(addr), "r"(m), "l"(pol)
+                   : "memory");
+    }
+  }
+}
+
+// Push forward-ELL row r (source s) in the lanes of mask m: its ids (and
+// weights) once, then for each lane in turn its source value and, for each
+// slot whose id is a vertex, the table's test read, all in flight
+// together, then the atomics, each with its got byte set by a red.or.
+template <typename T, int G, int R>
+__device__ __forceinline__ void push_lane_row(
+    long long r, int s, unsigned m, const int* __restrict__ ell_dst,
     const float* __restrict__ ell_wgt, const T* __restrict__ values,
-    const int* __restrict__ degrees, const unsigned* __restrict__ bits,
-    LaneMap map, T* table, uint8_t* got, long long rows, int width,
-    long long V, bool vec8) {
-  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (r >= rows) return;
-  const int s = __ldg(row_src + r);
-  const unsigned live = lane_bits<K>(bits, s, l2_policy_evict_last());
-  if (live == 0u) return;
+    const int* __restrict__ degrees, const LaneMap& map, T* table,
+    uint8_t* got, int width, long long V, bool vec8, uint64_t stream,
+    uint64_t keep) {
   const int d = G == kDivDeg ? __ldg(degrees + s) : 0;
   constexpr bool kWeighted = G == kAddW || G == kMulW;
   const int* ids = ell_dst + r * width;
@@ -307,15 +362,17 @@ __global__ void push_ell_lanes_kernel(
     int u[kSlotBatch];
     float w[kSlotBatch];
     if (vec8) {                      // width 8, 16-byte aligned rows
-      const int4 a = __ldg(reinterpret_cast<const int4*>(ids));
-      const int4 b = __ldg(reinterpret_cast<const int4*>(ids) + 1);
+      const int4 a = load_stream(ids, stream);
+      const int4 b = load_stream(ids + 4, stream);
       u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
       u[4] = b.x; u[5] = b.y; u[6] = b.z; u[7] = b.w;
       if constexpr (kWeighted) {
-        const float4 p = __ldg(reinterpret_cast<const float4*>(wts));
-        const float4 q = __ldg(reinterpret_cast<const float4*>(wts) + 1);
-        w[0] = p.x; w[1] = p.y; w[2] = p.z; w[3] = p.w;
-        w[4] = q.x; w[5] = q.y; w[6] = q.z; w[7] = q.w;
+        const int4 p = load_stream(wts, stream);
+        const int4 q = load_stream(wts + 4, stream);
+        w[0] = __int_as_float(p.x); w[1] = __int_as_float(p.y);
+        w[2] = __int_as_float(p.z); w[3] = __int_as_float(p.w);
+        w[4] = __int_as_float(q.x); w[5] = __int_as_float(q.y);
+        w[6] = __int_as_float(q.z); w[7] = __int_as_float(q.w);
       } else {
 #pragma unroll
         for (int i = 0; i < kSlotBatch; ++i) w[i] = 0.0f;
@@ -328,30 +385,100 @@ __global__ void push_ell_lanes_kernel(
         w[i] = (kWeighted && in) ? __ldg(wts + j0 + i) : 0.0f;
       }
     }
-    // each live lane in turn: its source value, then the slots' test
-    // reads in flight together before their atomics
 #pragma unroll 1
-    for (unsigned left = live; left != 0u; left &= left - 1u) {
+    for (unsigned left = m; left != 0u; left &= left - 1u) {
       const long long base =
           static_cast<long long>(map.row[__ffs(left) - 1]) * V;
-      const T v = __ldg(values + base + s);
+      const T v = from_bits<T>(load_table(values + base + s, stream));
       T* lane_table = table + base;
       uint8_t* lane_got = got == nullptr ? nullptr : got + base;
       T cur[kSlotBatch];
 #pragma unroll
       for (int i = 0; i < kSlotBatch; ++i) {
         cur[i] = (R != kAdd && static_cast<unsigned>(u[i]) < V)
-                     ? __ldcg(lane_table + u[i])
+                     ? from_bits<T>(load_kept(lane_table + u[i], keep))
                      : T(0);
       }
 #pragma unroll
       for (int i = 0; i < kSlotBatch; ++i) {
         if (static_cast<unsigned>(u[i]) >= V) continue;
-        atomic_combine<T, R>(lane_table + u[i], gather_op<T, G>(v, w[i], d),
-                             cur[i]);
-        if (lane_got != nullptr) lane_got[u[i]] = 1;
+        atomic_combine_kept<T, R>(lane_table + u[i],
+                                  gather_op<T, G>(v, w[i], d), cur[i], keep);
+        if (lane_got != nullptr) set_byte(lane_got + u[i], keep);
       }
     }
+  }
+}
+
+// A warp's queue of rows to push: row, source, lanes.
+struct RowQueue {
+  unsigned row[kWarpRows];
+  int src[kWarpRows];
+  unsigned lanes[kWarpRows];
+};
+
+// Append each thread's kScanRows (row, source, lanes) with lanes != 0 to
+// the warp's queue, in order; returns the queue's length (the same in
+// every thread).
+__device__ __forceinline__ unsigned queue_rows(RowQueue& q,
+                                               const unsigned (&row)[kScanRows],
+                                               const int (&src)[kScanRows],
+                                               const unsigned (&m)[kScanRows]) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  unsigned n = 0;
+#pragma unroll
+  for (int j = 0; j < kScanRows; ++j) {
+    const unsigned b = __ballot_sync(~0u, m[j] != 0u);
+    if (m[j] != 0u) {
+      const unsigned at = n + __popc(b & below);
+      q.row[at] = row[j];
+      q.src[at] = src[j];
+      q.lanes[at] = m[j];
+    }
+    n += __popc(b);
+  }
+  __syncwarp();
+  return n;
+}
+
+// The scan: a warp's 256 rows, thread t's 8 of them 32 apart (each load
+// of the warp coalesced, 8 in flight a thread).  A row's source's K lane
+// bits; each live row goes to the warp's queue, whose rows the warp's 32
+// threads then push in their live lanes, one a thread in turn.
+template <typename T, int G, int R, int K>
+__global__ void __launch_bounds__(kLaneThreads) push_ell_lanes_kernel(
+    const int* __restrict__ row_src, const int* __restrict__ ell_dst,
+    const float* __restrict__ ell_wgt, const T* __restrict__ values,
+    const int* __restrict__ degrees, const unsigned* __restrict__ bits,
+    LaneMap map, T* table, uint8_t* got, long long rows, int width,
+    long long V, bool vec8) {
+  __shared__ RowQueue queues[kLaneWarps];
+  RowQueue& q = queues[threadIdx.x >> 5];
+  const uint64_t stream = l2_policy_evict_first();
+  const uint64_t keep = l2_policy_evict_last();
+  const int t = threadIdx.x & 31;
+  const long long r0 =
+      (blockIdx.x * static_cast<long long>(kLaneThreads) + threadIdx.x - t) *
+          kScanRows + t;
+  unsigned row[kScanRows];
+  int s[kScanRows];
+  unsigned live[kScanRows];
+#pragma unroll
+  for (int j = 0; j < kScanRows; ++j) {
+    row[j] = static_cast<unsigned>(r0 + 32 * j);
+    s[j] = r0 + 32 * j < rows
+               ? static_cast<int>(load_table(row_src + r0 + 32 * j, stream))
+               : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kScanRows; ++j) {
+    live[j] = r0 + 32 * j < rows ? lane_bits<K>(bits, s[j], stream) : 0u;
+  }
+  const unsigned n = queue_rows(q, row, s, live);
+  for (unsigned i = t; i < n; i += 32) {
+    push_lane_row<T, G, R>(q.row[i], q.src[i], q.lanes[i], ell_dst, ell_wgt,
+                           values, degrees, map, table, got, width, V, vec8,
+                           stream, keep);
   }
 }
 
@@ -376,7 +503,6 @@ struct PushLaneArgs {
 
 template <typename T, int G, int R, int K>
 cudaError_t launch_push_lanes(const PushLaneArgs& a) {
-  constexpr int kThreads = 256;
   if (a.stage == kPackOnly) {
     return launch_lanes_pack<int, kCopy, K, false>(
         nullptr, nullptr, static_cast<const uint8_t*>(a.active), a.map,
@@ -386,8 +512,9 @@ cudaError_t launch_push_lanes(const PushLaneArgs& a) {
   const bool vec8 = a.width == kSlotBatch &&
                     reinterpret_cast<uintptr_t>(a.ell_dst) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(a.ell_wgt) % 16 == 0;
-  const long long blocks = (a.rows + kThreads - 1) / kThreads;
-  push_ell_lanes_kernel<T, G, R, K><<<blocks, kThreads, 0, a.stream>>>(
+  constexpr long long kPerBlock = kLaneThreads * kScanRows;
+  const long long blocks = (a.rows + kPerBlock - 1) / kPerBlock;
+  push_ell_lanes_kernel<T, G, R, K><<<blocks, kLaneThreads, 0, a.stream>>>(
       static_cast<const int*>(a.row_src), static_cast<const int*>(a.ell_dst),
       static_cast<const float*>(a.ell_wgt), static_cast<const T*>(a.values),
       static_cast<const int*>(a.degrees),

@@ -26,11 +26,12 @@ alone; the translator's push path no longer calls it.
 :func:`push_ell_lanes_reduce` is the push over k lanes of a ``(k', V)``
 state at once (``csrc/push_ell.cu``'s lane kernel), the counterpart of
 the same call under ``jax.vmap`` in the JAX package's batched runs.  It
-needs no compaction: the combine is exact in any order, so one thread
-takes each forward-ELL row, reads its source's lane bits (packed by a
-pre-pass) and stops when no lane is live there.  The lanes are rows of
-the state named by a lane map passed by value; each lane's table row
-equals its compacted push's bit for bit.  The streamed engine
+needs no compaction: the combine is exact in any order, so a scan reads
+8 forward-ELL rows a thread and their sources' lane bits (packed by a
+pre-pass), queues the rows live in some lane, and a warp's threads push
+the queued rows one a thread, setting ``got`` by an OR.  The lanes are
+rows of the state named by a lane map passed by value; each lane's table
+row equals its compacted push's bit for bit.  The streamed engine
 (``core/stream.py``) runs it over each push partition's forward ELL into
 one running ``(k', V)`` table (its atomics combine into the earlier
 partitions' partials) with ``got=`` (where a live message landed), after

@@ -21,7 +21,9 @@ order; in value, since JAX leaves the sign of a tied zero to its order):
   back as the main kernels read them, equal to the plain gather; every
   route called with a pre-pass's tables equal to its call without;
 * the lane push's ``got`` over push partitions against the JAX package's
-  ``segment_max(live) > 0``.
+  ``segment_max(live) > 0``, and the push as the kernel runs it (the
+  scan's per-warp queues of live rows, stale test reads, got set by OR)
+  into the running table and got across partitions.
 """
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ from repro_torch.kernels import edge_block as teb
 from repro_torch.kernels import lanes as tlanes
 from repro_torch.kernels import push_ell as tpe
 from repro_torch.kernels import ref as tref
+from test_torch_lane_push import _lane_push_queued
 from torch_threads import one_thread  # noqa: F401
 
 
@@ -503,3 +506,57 @@ def test_push_partitions_got_matches_jax(gather, reduce, dtype):
             jgot = pg if jgot is None else jgot | pg
         _same_value(table[i].numpy(), jred)
         np.testing.assert_array_equal(got[i].numpy(), jgot)
+
+
+@pytest.mark.parametrize("gather,reduce,dtype", _CASES)
+def test_push_partitions_queued_decomposition(gather, reduce, dtype):
+    """The lane push as the kernel runs it (warps of 1, 4 and 32 threads
+    queueing their live rows, the pushes in a shuffled order with stale
+    test reads, got set by OR) over a store's push partitions into one
+    running table and got, partials and got bits carried across
+    partitions: equal to the wrapper's plain version bit for
+    bit and, in value, to the JAX package's per-partition segment reduce
+    combined in partition order, its got ``segment_max(live) > 0``."""
+    g, store = _hub_store(3)
+    V = g.num_vertices
+    deg = g.out_degrees.to(torch.int32)
+    rng = np.random.default_rng(len(gather) + 5 * len(reduce))
+    kk, lanes = 9, [3, 1, 4, 8, 0, 6]
+    vals, act = _state(rng, kk, V, dtype, live=0.2)
+    ident = tref._identity(reduce, vals.dtype)
+    kw = dict(gather=gather, reduce=reduce)
+    parts = [(store.push_arrays(p), store.rows_per_partition["push"][p])
+             for p in range(3)]
+    want = torch.full((kk, V), ident, dtype=vals.dtype)
+    want_got = torch.zeros((kk, V), dtype=torch.bool)
+    for e, rows in parts:
+        tpe.push_ell_lanes_reduce_plain(
+            e["key"][:rows], e["slot"][:rows], e["wgt"][:rows], vals, deg,
+            act, lanes, num_rows=rows, identity=ident, table=want,
+            got=want_got, **kw)
+    for threads in (1, 4, 32):
+        table = torch.full((kk, V), ident, dtype=vals.dtype)
+        got = torch.zeros((kk, V), dtype=torch.bool)
+        for p, (e, rows) in enumerate(parts):
+            stats = _lane_push_queued(
+                e["key"][:rows], e["slot"][:rows], e["wgt"][:rows], vals,
+                deg, act, lanes, num_rows=rows, threads=threads, table=table,
+                got=got, order_seed=10 * threads + p, **kw)
+            assert stats["queued"] == int(
+                act[lanes][:, e["key"][:rows].long()].any(0).sum())
+        np.testing.assert_array_equal(_bits(table), _bits(want))
+        np.testing.assert_array_equal(got.numpy(), want_got.numpy())
+    for i in lanes:
+        jred = jgot = None
+        for p, (e, rows) in enumerate(parts):
+            pr, pg = _jax_partial(e, rows, vals, deg, act, i, gather=gather,
+                                  reduce=reduce, mask_inactive=True,
+                                  plane="push")
+            jred = pr if jred is None else np.asarray(
+                {"add": jnp.add, "min": jnp.minimum,
+                 "max": jnp.maximum}[reduce](jred, pr))
+            jgot = pg if jgot is None else jgot | pg
+        _same_value(want[i].numpy(), jred)
+        np.testing.assert_array_equal(want_got[i].numpy(), jgot)
+    rest = [i for i in range(kk) if i not in lanes]
+    assert bool((want[rest] == ident).all()) and not want_got[rest].any()
