@@ -62,7 +62,17 @@ and the script exits non-zero):
    unsplit sweep and the plain accumulate, the lane push over the pieces
    with ``got`` equal to the unsplit push and the plain got, and kernel 1
    and the lane kernel on prepared tables equal to their unprepared
-   launches, bit for bit.  The multi-PE push's shard routes: 3f and 3L
+   launches, bit for bit.  The streamed float-add fold
+   (``edge_block_add_fold_lanes``, ``csrc/stream_fold.cu``) over
+   ``ADD_FOLD_CASES``: a run across a tile edge, a hub over 12 tiles,
+   one tile, an empty partition, owners absent from the partition, pad
+   owners, a view off the 16-byte grid and width 3, at k of 1, 3, 8, 32
+   and 33 lanes (K = 1, 4, 8, 32, and two launches) listed out of order,
+   every gather x mask_inactive, got on (and for ``copy`` off), NaN and
+   +0/-0 values, running tables with +0 and NaN: equal to the route it
+   replaced (kernel 1 or the lane kernel on a pre-pass, kernel 4, the
+   add) bit for bit, and to its plain version within 1e-5 of each entry's
+   sum of |terms| and |red|.  The multi-PE push's shard routes: 3f and 3L
    on each PE's interval of a sharded forward ELL (intervals that start
    mid-graph, empty intervals, vertex 0 on the frontier while padding
    rows exist) against their plain versions, and the PEs' partials
@@ -167,13 +177,17 @@ and the script exits non-zero):
    resumed = uncut; ``GraphServer`` on the streamed schedule serving 16
    bfs (numpy seed 0) = sequential resident runs bitwise with bytes
    streamed; each streamed route timed per partition (CUDA events)
-   against its plain version and byte bound: the fold in accumulate mode,
-   the lane push with got (table and got against the plain version; timed
-   from a refilled table and cleared got, as a superstep finds them, with
-   the profiler's device time, with got and with got null, and the most
-   messages one destination receives), their pre-passes, and (scale 20,
-   pagerank)
-   kernel 1 on prepared tables + kernel 4 beside a CSR product.  Weighted
+   against its plain version and byte bound: the fold in accumulate mode
+   and its pre-pass (each also by the profiler's device time), the lane
+   push with got (table and got against the plain version; timed from a
+   refilled table and cleared got, as a superstep finds them, with the
+   profiler's device time, with got and with got null, and the most
+   messages one destination receives) and its pre-pass, and (scale 20,
+   pagerank) the fused float-add fold against its plain version (rtol
+   1e-5) and the route it replaced (kernel 1 on prepared tables, kernel 4,
+   the add; bit for bit), both timed with the wrappers' host time and by
+   the profiler's device time, beside a CSR product and the byte bound
+   (and the old reckoning, which wrote a (V,) partial).  Weighted
    gathers outside the menu on the scale-22 graph with uniform(0.5, 2)
    weights (numpy seed 4) through the general partial: ``v + 2 * w``
    under min (pull, push, auto) bitwise equal to the resident run of the
@@ -186,11 +200,11 @@ and the script exits non-zero):
    and its byte bound.  At scale
    20: SSSP streamed = resident bitwise, PageRank (20 iterations) within
    ``rtol=1e-5`` of the resident run and bitwise equal across two
-   streamed runs with one kernel 1 and one kernel 4 launch a swept
-   partition, and a container from ``data.graphs.container_from_graph``
-   under a ``partition_budget_bytes`` that forces evictions = the
-   resident BFS.  The float-add route's time also by the profiler's
-   device time of its kernels.
+   streamed runs with one fused float-add fold launch a swept partition,
+   one lane pre-pass a superstep and no kernel 1, lane kernel, kernel 1
+   pre-pass, kernel 4 or fused lane sweep launch, and a container from
+   ``data.graphs.container_from_graph`` under a
+   ``partition_budget_bytes`` that forces evictions = the resident BFS.
 8. multi_pe — a PE group of repeated devices (``devices=[cuda:0] * p``)
    on the main phase's scale-22 graph: dense BFS from root 0 under push
    and auto at p = 1, 2 and 4 (the sharded push: kernel 3f a PE on its
@@ -1329,6 +1343,174 @@ def _check_stream_routes(torch, rng):
     return checked, worst
 
 
+def _add_fold_parent(torch, view, vals, deg, act, lanes, *, gather,
+                     mask_inactive, red, got, prepared=None):
+    """The streamed float-add route that ``edge_block_add_fold_lanes``
+    replaced, as the parent tree's ``PartitionedGraphProgram._partial``
+    ran it: a pre-pass, kernel 1 (one lane) or the lane kernel for the
+    row sums and any-live flags, then a lane at a time kernel 4 by owner,
+    ``red += partial`` and ``got |= segment max > 0``.  Its A/B
+    yardstick, bit for bit.  ``prepared``: the superstep's pre-pass
+    (``edge_block_prepare`` for one lane, else ``lanes_prepare``), made
+    here when None."""
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import segment_sum as ss
+    V = vals.shape[1]
+    kw = dict(gather=gather, reduce="add", mask_inactive=mask_inactive)
+    slot, wgt, key = view.flat_dst, view.flat_wgt, view.owner8
+    if len(lanes) == 1:
+        i = lanes[0]
+        prep = prepared or eb.edge_block_prepare(
+            vals[i], deg, act[i], gather=gather, mask_inactive=mask_inactive)
+        sums, anys = eb.edge_block_reduce(slot, wgt, vals[i], deg, act[i],
+                                          prepared=prep, **kw)
+        sums, anys = sums[None], anys[None]
+    else:
+        prep = prepared or eb.lanes_prepare(
+            vals, deg, act, lanes, gather=gather, mask_inactive=mask_inactive)
+        sums, anys = eb.edge_block_reduce_lanes(
+            slot, wgt, vals, deg, act, lanes, need_any=got is not None,
+            prepared=prep, **kw)
+    for j, i in enumerate(lanes):
+        red[i] += ss.segment_reduce(key, sums[j], V, reduce="add")
+        if got is not None:
+            got[i] |= ss.segment_reduce(key, anys[j].to(torch.int32), V,
+                                        reduce="max") > 0
+    return red, got
+
+
+# the streamed float-add fold's ragged cases: (name, rows, width, V); the
+# owners' runs are laid out by _add_fold_view
+ADD_FOLD_CASES = (("tile_crossing", 9001, 8, 3001),
+                  ("hub", 40000, 8, 2000),
+                  ("one_tile", 777, 8, 500),
+                  ("empty", 0, 8, 300),
+                  ("absent_owners", 5000, 8, 4000),
+                  ("off_grid", 3001, 8, 1500),
+                  ("width_3", 2500, 3, 900))
+ADD_FOLD_LANES = (1, 3, 8, 32, 33)
+
+
+def _add_fold_view(torch, rng, name, R, W, V):
+    """A pull partition's rows: owners ascending in runs (a run across
+    each tile edge of 2,048 rows; a hub of 25,000 rows over 12 tiles; only
+    even owners, so the odd ones are absent; the last rows owned by V, a
+    pad), ids with a third PAD, weights; ``off_grid`` is one word off the
+    16-byte grid, ``width_3`` three slots a row."""
+    import types
+    from repro_torch.kernels.ref import PAD
+    lengths = []
+    while sum(lengths) < R:
+        lengths.append(int(rng.integers(1, 40)))
+    if name == "hub":
+        lengths = [3, 2040, 25000 + 7] + lengths
+    elif name == "tile_crossing":
+        lengths = [2040, 16, 4090, 12] + lengths
+    owner = np.repeat(np.arange(len(lengths)), lengths)[:R]
+    owner = np.sort(rng.choice(V, len(lengths), replace=False))[owner] \
+        if len(lengths) <= V else owner % V
+    if name == "absent_owners":
+        owner = np.sort(owner // 2 * 2)
+    owner = owner.astype(np.int32)
+    owner[R - R // 50:] = V                 # pad rows, dropped
+    nbr = rng.integers(0, V, (R, W)).astype(np.int32)
+    nbr[rng.random((R, W)) < 0.3] = PAD
+    wgt = rng.uniform(0.25, 4, (R, W)).astype(np.float32)
+    off = 1 if name == "off_grid" else 0
+
+    def card(a):
+        flat = np.concatenate([np.zeros(off, a.dtype), a.reshape(-1)])
+        return torch.as_tensor(flat).to("cuda")[off:].view(a.shape)
+
+    return types.SimpleNamespace(flat_dst=card(nbr), flat_wgt=card(wgt),
+                                 owner8=card(owner))
+
+
+def _check_add_fold(torch, rng):
+    """The streamed float-add fold (``edge_block_add_fold_lanes``) over
+    ``ADD_FOLD_CASES`` (runs across tile edges, a hub over 12 tiles, one
+    tile, an empty partition, absent owners, pad owners, a view off the
+    16-byte grid, width 3) x k in ``ADD_FOLD_LANES`` (K = 1, 4, 8, 32 and
+    two launches for 33) listed out of order in a state of k + 2 lanes x
+    every gather x mask_inactive, got on (and for ``copy`` off), values
+    with NaN and a fifth of +0 and -0, running tables of random values,
+    +0 and NaN (no -0: a running sum from +0 never holds one): equal to
+    the route it replaced (``_add_fold_parent``) bit for bit, got and the
+    lanes left out too, and to its plain version within 1e-5 of each
+    entry's sum of |terms| and |red| plus 1e-6.  Returns (cases, max
+    |kernel - plain|)."""
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels.ref import GATHER_OPS, segment_reduce_ref
+    checked, worst = 0, 0.0
+    for name, R, W, V in ADD_FOLD_CASES:
+        view = _add_fold_view(torch, rng, name, R, W, V)
+        deg = torch.as_tensor(rng.integers(0, 9, V).astype(np.int32)) \
+            .to("cuda")
+        for k in ADD_FOLD_LANES:
+            kk = k + 2
+            lanes = [int(i) for i in rng.permutation(kk)[:k]]
+            vals = rng.uniform(-5, 5, (kk, V)).astype(np.float32)
+            zero = rng.random((kk, V)) < 0.2
+            vals[zero] = np.where(rng.random(int(zero.sum())) < 0.5, 0.0,
+                                  -0.0)
+            vals[rng.random((kk, V)) < 0.02] = np.nan
+            vals = torch.as_tensor(vals).to("cuda")
+            act = torch.as_tensor(rng.random((kk, V)) < 0.5).to("cuda")
+            red0 = rng.uniform(-3, 3, (kk, V)).astype(np.float32)
+            red0[rng.random((kk, V)) < 0.2] = 0.0
+            red0[rng.random((kk, V)) < 0.01] = np.nan
+            red0 = torch.as_tensor(red0).to("cuda")
+            got0 = torch.as_tensor(rng.random((kk, V)) < 0.1).to("cuda")
+            for gather in GATHER_OPS:
+                for mask in (True, False):
+                    for with_got in ((True, False) if gather == "copy"
+                                     else (True,)):
+                        kw = dict(gather=gather, mask_inactive=mask)
+                        red, got = red0.clone(), got0.clone() \
+                            if with_got else None
+                        eb.edge_block_add_fold_lanes(
+                            view, vals, deg, act, lanes, red=red, got=got,
+                            **kw)
+                        pred, pgot = _add_fold_parent(
+                            torch, view, vals, deg, act, lanes,
+                            red=red0.clone(),
+                            got=got0.clone() if with_got else None, **kw)
+                        wred, wgot = eb.edge_block_add_fold_lanes_plain(
+                            view, vals, deg, act, lanes, red=red0.clone(),
+                            got=got0.clone() if with_got else None, **kw)
+                        torch.cuda.synchronize()
+                        scale = red0.abs().nan_to_num()
+                        if R:
+                            terms = _abs_sum(torch, view.flat_dst,
+                                             view.flat_wgt, vals, deg, act,
+                                             reduce="add", **kw)
+                            scale = scale + torch.stack([segment_reduce_ref(
+                                view.owner8, t, V) for t in terms])
+                        tag = (f"{name} k={k} {gather} mask={mask} "
+                               f"got={with_got}")
+                        if not (_same_bits(red, pred)
+                                and (not with_got or _same(got, pgot))):
+                            raise AssertionError(
+                                f"edge_block_add_fold {tag}: differs from "
+                                "the route it replaced (max err "
+                                f"{_max_err(red, pred)}), or got does")
+                        if not (_close_sum(red, wred, scale)
+                                and (not with_got or _same(got, wgot))):
+                            raise AssertionError(
+                                f"edge_block_add_fold {tag}: max err "
+                                f"{_max_err(red, wred)} against plain, or "
+                                "got differs")
+                        worst = max(worst, _max_err(red, wred))
+                        checked += 1
+    log(f"[kernels] streamed float-add fold: {checked} cases "
+        f"({', '.join(c[0] for c in ADD_FOLD_CASES)}; k in "
+        f"{list(ADD_FOLD_LANES)}; every gather, mask_inactive, got on and "
+        "off; NaN and +-0) equal to the route it replaced (kernel 1 or the "
+        "lane kernel, kernel 4, the add) bit for bit and to the plain "
+        f"version within 1e-5 of the sum of |terms|; max |err| {worst}")
+    return checked, worst
+
+
 def _check_shard_routes(torch, rng):
     """Kernels 3f and 3L on the per-PE intervals of a sharded forward ELL
     (``graph.shard_forward_ell``, launched as the multi-PE push launches
@@ -1544,10 +1726,11 @@ def phase_kernels(torch):
     n_fold, n_lpush, worst["edge_block_fold"], worst["push_ell_lanes"] = \
         _check_lane_routes(torch, live_rng)
     n_stream, worst["stream_routes"] = _check_stream_routes(torch, live_rng)
+    n_add, worst["stream_add_fold"] = _check_add_fold(torch, live_rng)
     n_shard, worst["shard_routes"] = _check_shard_routes(torch, live_rng)
     n_tie = _check_tie_routes(torch, live_rng)
     checked += n_seg + n_push + n_lane + n_fold + n_lpush + n_stream \
-        + n_shard + n_tie
+        + n_add + n_shard + n_tie
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
     n_split, split_err = _check_decode_splits(torch)
     worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
@@ -1869,6 +2052,8 @@ def _counters():
             "edge_block_fold": (eb.edge_block_fold_lanes, "launches"),
             "edge_block_fold_acc": (eb.edge_block_fold_lanes,
                                     "accumulate_launches"),
+            "edge_block_add_fold": (eb.edge_block_add_fold_lanes,
+                                    "launches"),
             "edge_block_prepare": (eb.edge_block_prepare, "launches"),
             "lanes_prepare": (eb.lanes_prepare, "launches"),
             "push_lanes_prepare": (pe.push_lanes_prepare, "launches"),
@@ -3194,8 +3379,13 @@ def _stream_route_timing(torch, g, oracle, store, push_level, smi):
     if not _same(got, want):
         raise AssertionError("streamed fold on the scale-22 partition != "
                              "plain accumulate")
-    ms = _time_ms(torch, lambda: eb.edge_block_fold_lanes(
-        view, vals, degd, act, [0], red=red, prepared=prep, **kw), reps=20)
+
+    def fold():
+        return eb.edge_block_fold_lanes(view, vals, degd, act, [0], red=red,
+                                        prepared=prep, **kw)
+
+    ms = _time_ms(torch, fold, reps=20)
+    dev = _device_ms(torch, fold, "edge_block_fold")
     plain = _time_ms(torch, lambda: eb.edge_block_fold_lanes_plain(
         view, vals, degd, act, [0], red=red, **kw), reps=5, warmup=1)
     # what this partition's launch must move: its ids and owners once, the
@@ -3210,20 +3400,29 @@ def _stream_route_timing(torch, g, oracle, store, push_level, smi):
     bound = 1e3 * nbytes / _BANDWIDTH
     prep_ms = _time_ms(torch, lambda: eb.lanes_prepare(
         vals, degd, act, [0], gather="plus_one"), reps=20)
+    prep_dev = _device_ms(torch, lambda: eb.lanes_prepare(
+        vals, degd, act, [0], gather="plus_one"), "lanes_pack")
     prep_bound = 1e3 * (V * 5 + V * 4 + V // 8) / _BANDWIDTH
-    out["fold"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+    out["fold"] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                   "bound_ms": bound,
                    "max_abs_err": _max_err(got, want), "rows": rows,
                    "partition": p, "level": wide,
                    "frontier": int(sizes[wide]), "interval": hi - lo,
                    "messages": n_msg, "owners": n_own,
                    "shape": [rows, 8, V, 1]}
-    out["prepare"] = {"ms": prep_ms, "bound_ms": prep_bound}
-    log(f"[stream] fused lane sweep, accumulate mode, on pull partition {p} "
-        f"({rows} rows, source interval of {hi - lo}, {n_own} owners, "
+    out["prepare"] = {"ms": prep_ms, "device_ms": prep_dev,
+                      "bound_ms": prep_bound}
+
+    def opt(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    log(f"[stream] fused lane sweep, accumulate mode, on pull partition "
+        f"{p} ({rows} rows, source interval of {hi - lo}, {n_own} owners, "
         f"{n_msg} frontier sources named) at BFS level {wide} "
-        f"({int(sizes[wide])} frontier vertices): {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bound:.4f} ms ({bound / ms:.3f} of it); its pre-pass "
-        f"(lanes_prepare, once a superstep) {prep_ms:.4f} ms against "
+        f"({int(sizes[wide])} frontier vertices): {ms:.4f} ms (device "
+        f"{opt(dev)}), plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({bound / ms:.3f} of it); its pre-pass (lanes_prepare, once a "
+        f"superstep) {prep_ms:.4f} ms (device {opt(prep_dev)}) against "
         f"{prep_bound:.4f} ms, on {smi}")
 
     # push: the lane push with got over the partition holding most of the
@@ -3296,10 +3495,6 @@ def _stream_route_timing(torch, g, oracle, store, push_level, smi):
                    "shape": [rows, 8, V, 1, n_live]}
     out["push_prepare"] = {"ms": pprep_ms,
                            "bound_ms": 1e3 * (V + V // 8) / _BANDWIDTH}
-
-    def opt(x):
-        return "not measured" if x is None else f"{x:.4f} ms"
-
     log(f"[stream] lane push with got on push partition {p} ({rows} rows, "
         f"{n_live} live at BFS level {push_level}, {valid} messages to "
         f"{n_dst} vertices, at most {max_in} to one): {pms:.4f} ms with "
@@ -3312,44 +3507,68 @@ def _stream_route_timing(torch, g, oracle, store, push_level, smi):
 
 def _pagerank_route_timing(torch, g2, prog, smi):
     """The float-add route on the largest pull partition of the scale-20
-    streamed pagerank: kernel 1 on prepared tables, then kernel 4 by the
-    partition's keys, against the plain versions, the byte bound and one
-    library call (a CSR matrix-vector product of the partition's
-    adjacency with the message table)."""
+    streamed pagerank, as a superstep finds it (one lane, every vertex
+    live, the running table at +0): the fused fold
+    (``edge_block_add_fold_lanes`` on the superstep's pre-pass) against
+    its plain version (rtol 1e-5) and the route it replaced (kernel 1 on
+    prepared tables, kernel 4 by the keys, the add; bit for bit), both
+    timed with the wrappers' host time and by the profiler's device time,
+    beside the byte bound (and the old reckoning, which wrote a (V,)
+    partial), the plain version and one library call (a CSR
+    matrix-vector product of the partition's adjacency with the message
+    table)."""
+    import types
     from repro_torch.kernels import edge_block as eb
-    from repro_torch.kernels import segment_sum as ss
     from repro_torch.kernels.ref import PAD
     store = prog.store
     V = g2.num_vertices
     degd = g2.out_degrees.to(device="cuda", dtype=torch.int32)
     p = int(np.argmax(store.rows_per_partition["pull"]))
     key, slot, wgt, rows = _partition_on_card(torch, store, "pull", p)
-    vals = torch.full((V,), 1.0, device="cuda")
-    act = torch.ones(V, dtype=torch.bool, device="cuda")
-    kw = dict(gather="div_deg", reduce="add", mask_inactive=False)
-    prep = eb.edge_block_prepare(vals, degd, act, gather="div_deg",
-                                 mask_inactive=False)
+    view = types.SimpleNamespace(flat_dst=slot, flat_wgt=wgt, owner8=key)
+    vals = torch.full((1, V), 1.0, device="cuda")
+    act = torch.ones((1, V), dtype=torch.bool, device="cuda")
+    kw = dict(gather="div_deg", mask_inactive=False)
+    prep = eb.lanes_prepare(vals, degd, act, [0], **kw)
+    prep1 = eb.edge_block_prepare(vals[0], degd, act[0], **kw)
+    red0 = torch.zeros((1, V), device="cuda")
+    red = red0.clone()
 
-    def kernels():
-        sums, _ = eb.edge_block_reduce(slot, wgt, vals, degd, act,
-                                       prepared=prep, **kw)
-        return ss.segment_reduce(key, sums, V, reduce="add")
+    def fused():
+        return eb.edge_block_add_fold_lanes(view, vals, degd, act, [0],
+                                            red=red, prepared=prep, **kw)
+
+    def parent():
+        return _add_fold_parent(torch, view, vals, degd, act, [0], red=red,
+                                got=None, prepared=prep1, **kw)
 
     def plain():
-        sums, _ = eb.edge_block_reduce_plain(slot, wgt, vals, degd, act,
-                                             **kw)
-        return ss.segment_reduce_ref(key, sums, V, reduce="add")
+        return eb.edge_block_add_fold_lanes_plain(view, vals, degd, act, [0],
+                                                  red=red, **kw)
 
-    got, want = kernels(), plain()
+    got = eb.edge_block_add_fold_lanes(view, vals, degd, act, [0],
+                                       red=red0.clone(), prepared=prep,
+                                       **kw)[0]
+    old = _add_fold_parent(torch, view, vals, degd, act, [0],
+                           red=red0.clone(), got=None, prepared=prep1,
+                           **kw)[0]
+    want = eb.edge_block_add_fold_lanes_plain(view, vals, degd, act, [0],
+                                              red=red0.clone(), **kw)[0]
     torch.cuda.synchronize()
+    if not _same_bits(got, old):
+        raise AssertionError("streamed float-add fold != the route it "
+                             f"replaced (max err {_max_err(got, old)})")
     if not _close(got, want, rtol=1e-5, atol=1e-6):
-        raise AssertionError("streamed float-add route != plain")
-    ms = _time_ms(torch, kernels, reps=20)
-    # the kernels' own device time: kernel 1's launches, kernel 4's fill,
-    # tiles and fold
-    dev = {k: _device_ms(torch, kernels, k)
-           for k in ("edge_block", "segment_")}
-    dev_ms = (None if None in dev.values() else sum(dev.values()))
+        raise AssertionError("streamed float-add fold != plain (max err "
+                             f"{_max_err(got, want)})")
+    ms = _time_ms(torch, fused, reps=20)
+    parent_ms = _time_ms(torch, parent, reps=20)
+    dev_ms = _device_ms(torch, fused, "stream_fold")
+    # the replaced route's own device time: kernel 1, kernel 4's fill,
+    # tiles and fold, the add
+    pdev = {k: _device_ms(torch, parent, k)
+            for k in ("edge_block", "segment_", "CUDAFunctor_add")}
+    pdev_ms = (None if None in pdev.values() else sum(pdev.values()))
     plain_ms = _time_ms(torch, plain, reps=5, warmup=1)
     valid = slot != PAD
     n_valid = int(valid.sum())
@@ -3362,29 +3581,39 @@ def _pagerank_route_timing(torch, g2, prog, smi):
     A = torch.sparse_csr_tensor(crow, cols[order],
                                 torch.ones(n_valid, device="cuda"),
                                 size=(V, V))
-    msg = vals / torch.clamp_min(degd, 1).to(torch.float32)
+    msg = vals[0] / torch.clamp_min(degd, 1).to(torch.float32)
     lib = A @ msg
     torch.cuda.synchronize()
-    if not _close(lib, want, rtol=1e-5, atol=1e-6):
+    if not _close(lib, want[0], rtol=1e-5, atol=1e-6):
         raise AssertionError("the CSR product != the float-add route")
     lib_ms = _time_ms(torch, lambda: A @ msg, reps=20)
     # ids and keys once, the message of each source the slots name once,
-    # the (V,) partial written
+    # each owner's running entry read and written; the old reckoning
+    # wrote a (V,) partial instead
     n_src = int(torch.unique(slot[valid].long()).numel())
-    nbytes = rows * 36 + n_src * 4 + V * 4
-    bound = 1e3 * nbytes / _BANDWIDTH
-    dev_txt = ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f}'}"
-                        for k, v in dev.items())
-    log(f"[stream] float-add route (kernel 1 on prepared tables + kernel "
-        f"4) on pagerank's pull partition {p} ({rows} rows) at scale "
-        f"{OTHERS_SCALE}: {ms:.4f} ms (device time: {dev_txt} ms), plain "
-        f"{plain_ms:.4f} ms, CSR product {lib_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({bound / ms:.3f} of it), on {smi}")
-    return {"ms": ms, "device_ms": dev_ms, "device_ms_by_kernel": dev,
+    n_own = int(torch.unique(key[key < V]).numel())
+    bound = 1e3 * (rows * 36 + n_src * 4 + n_own * 8) / _BANDWIDTH
+    bound_old = 1e3 * (rows * 36 + n_src * 4 + V * 4) / _BANDWIDTH
+
+    def opt(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    log(f"[stream] float-add fold (edge_block_add_fold_lanes on the "
+        f"superstep's pre-pass) on pagerank's pull partition {p} ({rows} "
+        f"rows, {n_own} owners, {n_src} sources) at scale {OTHERS_SCALE}: "
+        f"{ms:.4f} ms (device {opt(dev_ms)}); the route it replaced "
+        f"(kernel 1 + kernel 4 + the add) {parent_ms:.4f} ms (device "
+        f"{', '.join(f'{k} {opt(v)}' for k, v in pdev.items())}), equal "
+        f"bit for bit; plain {plain_ms:.4f} ms, CSR product {lib_ms:.4f} "
+        f"ms, bound {bound:.4f} ms ({bound / ms:.3f} of it; the old "
+        f"reckoning with a (V,) partial {bound_old:.4f} ms), on {smi}")
+    return {"ms": ms, "device_ms": dev_ms, "parent_ms": parent_ms,
+            "parent_device_ms": pdev_ms, "parent_device_ms_by_kernel": pdev,
             "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound, "max_abs_err": _max_err(got, want),
-            "rows": rows, "partition": p, "sources": n_src,
-            "shape": [rows, 8, V]}
+            "bound_ms": bound, "bound_ms_old": bound_old,
+            "max_abs_err": _max_err(got, want), "rows": rows,
+            "partition": p, "sources": n_src, "owners": n_own,
+            "shape": [rows, 8, V, 1]}
 
 
 def _general_programs(torch, dsl):
@@ -3696,7 +3925,8 @@ def phase_stream(torch, dev_info, main):
                   "push_lanes_prepare": prepasses["push"],
                   "edge_block": 0, "edge_block_skip": 0,
                   "edge_block_lanes": 0, "edge_block_prepare": 0,
-                  "push_ell": 0, "push_ell_fused": 0, "segment_reduce": 0}
+                  "edge_block_add_fold": 0, "push_ell": 0,
+                  "push_ell_fused": 0, "segment_reduce": 0}
         wrong = {k: (launches[k], n) for k, n in expect.items()
                  if launches[k] != n}
         if wrong or reads != it:
@@ -3915,10 +4145,14 @@ def phase_stream(torch, dev_info, main):
         raise AssertionError(f"streamed pagerank: max err "
                              f"{_max_err(r1, ref_r)} against resident, or "
                              "two streamed runs differ")
-    if pr_launches["edge_block"] != pst["partitions_swept"] \
-            or pr_launches["segment_reduce"] != pst["partitions_swept"] \
-            or pr_launches["edge_block_prepare"] != pit \
-            or pr_launches["edge_block_fold"] != 0:
+    # one fused float-add fold a swept partition (its carry fold
+    # included), one pre-pass a superstep, and nothing of the route it
+    # replaced (kernel 1, the lane kernel, kernel 4)
+    if pr_launches["edge_block_add_fold"] != pst["partitions_swept"] \
+            or pr_launches["lanes_prepare"] != pit \
+            or any(pr_launches[k] for k in (
+                "edge_block", "edge_block_lanes", "edge_block_prepare",
+                "segment_reduce", "edge_block_fold")):
         raise AssertionError(f"streamed pagerank launches {pr_launches}")
     pr_timing = _pagerank_route_timing(torch, g2, pr, smi)
     log(f"[stream] scale {OTHERS_SCALE}: streamed sssp = resident bitwise; "
@@ -3974,10 +4208,10 @@ def phase_stream(torch, dev_info, main):
          "max_abs_err": push["max_abs_err"], "ms": push["ms"],
          "plain_ms": push["plain_ms"], "bound_ms": push["bound_ms"],
          "bound_by": "bytes", "library_ms": None, "shape": push["shape"]},
-        {"name": "edge_block_reduce + segment_reduce (streamed float add)",
-         "route": "cuda", "source": "src/repro_torch/csrc/edge_block.cu",
+        {"name": "edge_block_add_fold_lanes (streamed float add)",
+         "route": "cuda", "source": "src/repro_torch/csrc/stream_fold.cu",
          "replaces": "src/repro/kernels/edge_block.py:33",
-         "launches": pr_launches["edge_block"],
+         "launches": pr_launches["edge_block_add_fold"],
          "max_abs_err": pr_timing["max_abs_err"], "ms": pr_timing["ms"],
          "plain_ms": pr_timing["plain_ms"],
          "bound_ms": pr_timing["bound_ms"], "bound_by": "bytes",

@@ -35,11 +35,16 @@ partition's launch:
 * push (min/max/int add only): the lane push
   (``push_ell.push_ell_lanes_reduce``) over the partition's forward ELL,
   ``key`` as ``row_src``, with its ``got`` output;
-* pull, float add: kernel 1 (``edge_block.edge_block_reduce``; the lane
-  kernel ``edge_block_reduce_lanes`` for several lanes) for per-row sums,
-  kernel 4 (``segment_sum.segment_reduce``) to fold them by ``key``, then
-  ``acc + partial``: no atomics, so a streamed pagerank is the same from
-  run to run.
+* pull, float add: the fused float-add fold
+  (``edge_block.edge_block_add_fold_lanes``, ``csrc/stream_fold.cu``)
+  over the same flat view, every lane in one launch and a carry fold:
+  tiles of 256 threads x 8 rows, each row gathered and summed in slot
+  order, runs of equal owners summed by a block-wide segmented scan and
+  per-tile carries folded in tile order, each owner's total added into
+  its running entry with a plain read and store.  The sums keep the order
+  of the route it replaced (kernel 1's row sums, kernel 4's fold by
+  ``key``, then ``acc + partial``) bit for bit, and there are no atomics,
+  so a streamed pagerank is the same from run to run.
 
 On the CPU the wrappers take their plain versions.  A weight-free gather
 outside the menu runs on those kernels: its message table is computed
@@ -340,11 +345,6 @@ class PartitionedGraphProgram:
         """The kernels' pre-pass for this superstep's state, once."""
         if plane == "push":
             return push_ell_kernel.push_lanes_prepare(active, lanes)
-        if self._float_add and len(lanes) == 1:
-            i = lanes[0]
-            return edge_block_kernel.edge_block_prepare(
-                vals[i], self._deg, active[i], gather=self._gather,
-                mask_inactive=self._mask_inactive)
         return edge_block_kernel.lanes_prepare(
             vals, self._deg, active, lanes, gather=self._gather,
             mask_inactive=self._mask_inactive)
@@ -390,7 +390,6 @@ class PartitionedGraphProgram:
         key = f.buf["key"][:rows]
         slot = f.buf["slot"][:rows]
         wgt = f.buf["wgt"][:rows]
-        V = self._num_vertices
         if self._general:
             self._general_partial(plane, key, slot, wgt, vals, active,
                                   lanes, red, got)
@@ -401,34 +400,18 @@ class PartitionedGraphProgram:
                 num_rows=rows, gather=self._gather, reduce=self._op,
                 identity=self._ident, table=red, got=got, prepared=prep)
             return
-        if not self._float_add:
-            edge_block_kernel.edge_block_fold_lanes(
-                _FlatView(slot, wgt, key), vals, self._deg, active, lanes,
-                gather=self._gather, reduce=self._op,
-                mask_inactive=self._mask_inactive, need_got=got is not None,
-                red=red, got=got, accumulate=True, prepared=prep)
+        view = _FlatView(slot, wgt, key)
+        if self._float_add:
+            edge_block_kernel.edge_block_add_fold_lanes(
+                view, vals, self._deg, active, lanes, gather=self._gather,
+                mask_inactive=self._mask_inactive, red=red, got=got,
+                prepared=prep)
             return
-        # float add: per-row sums in slot order, folded by owner in row
-        # order, added to the running table: no atomics anywhere
-        if len(lanes) == 1:
-            i = lanes[0]
-            sums, anys = edge_block_kernel.edge_block_reduce(
-                slot, wgt, vals[i], self._deg, active[i],
-                gather=self._gather, reduce="add",
-                mask_inactive=self._mask_inactive, prepared=prep)
-            sums, anys = sums[None], anys[None]
-        else:
-            sums, anys = edge_block_kernel.edge_block_reduce_lanes(
-                slot, wgt, vals, self._deg, active, lanes,
-                gather=self._gather, reduce="add",
-                mask_inactive=self._mask_inactive,
-                need_any=got is not None, prepared=prep)
-        for j, i in enumerate(lanes):
-            red[i] += segment_sum_kernel.segment_reduce(key, sums[j], V,
-                                                        reduce="add")
-            if got is not None:
-                got[i] |= segment_sum_kernel.segment_reduce(
-                    key, anys[j].to(torch.int32), V, reduce="max") > 0
+        edge_block_kernel.edge_block_fold_lanes(
+            view, vals, self._deg, active, lanes, gather=self._gather,
+            reduce=self._op, mask_inactive=self._mask_inactive,
+            need_got=got is not None, red=red, got=got, accumulate=True,
+            prepared=prep)
 
     def _sweep(self, values, active, lanes, parts, plane, *, trip: bool):
         """Stream ``parts`` of ``plane`` past the lanes ``lanes``; returns

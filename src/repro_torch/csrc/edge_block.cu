@@ -57,15 +57,6 @@
 namespace repro_torch {
 namespace {
 
-// Gathers that apply a slot's weight, and those whose message is not the
-// value itself (these get a message table from the pre-pass).
-__host__ __device__ constexpr bool weighted(int g) {
-  return g == kAddW || g == kMulW;
-}
-__host__ __device__ constexpr bool needs_msg(int g) {
-  return g == kPlusOne || g == kDivDeg;
-}
-
 // The pre-pass: frontier bits (with kMask) and messages (with kMsg) of
 // vertices [32 w, 32 w + 32) in warp w.
 template <typename T, int G, bool kMask, bool kMsg>
@@ -328,111 +319,6 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 // row a live slot: 134 MB at k = 8, past the 50 MB L2) and the table's
 // fill.
 // ---------------------------------------------------------------------------
-
-// One slot into the K lanes' accumulators: lanes whose bit is set in
-// `live` take the message (weighted by w for add_w and mul_w), the others
-// the identity, in lane order.
-template <typename T, int GW, int R, int K>
-__device__ __forceinline__ void lanes_combine(T (&acc)[K], unsigned live,
-                                              const unsigned (&m)[K],
-                                              float w) {
-  const T ident = reduce_identity<T, R>();
-#pragma unroll
-  for (int l = 0; l < K; ++l) {
-    T x = ident;
-    if ((live >> l) & 1u) {
-      x = from_bits<T>(m[l]);
-      if constexpr (weighted(GW)) x = gather_op<T, GW>(x, w, 0);
-    }
-    acc[l] = combine<T, R>(acc[l], x);
-  }
-}
-
-// One sub-row's partials: acc[l] is lane l's reduce over the row's slots,
-// bit l of any whether lane l had a live slot.
-template <typename T, int GW, int R, int K>
-__device__ __forceinline__ void lanes_row(const int* __restrict__ nbr,
-                                          const float* __restrict__ wgt,
-                                          const unsigned* __restrict__ bits,
-                                          const T* __restrict__ msg,
-                                          long long r, int width, bool mask,
-                                          bool w8, T (&acc)[K],
-                                          unsigned& any) {
-  constexpr bool kW = weighted(GW);
-  constexpr unsigned kAll = K == 32 ? ~0u : (1u << K) - 1u;
-  const uint64_t first = l2_policy_evict_first();
-  const uint64_t last = l2_policy_evict_last();
-  if (w8) {
-    const int4 lo = load_stream(nbr + r * 8, first);
-    const int4 hi = load_stream(nbr + r * 8 + 4, first);
-    const int ids[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    unsigned live[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {        // the row's frontier bits in flight
-      live[j] = ids[j] == kPad ? 0u
-                : mask          ? lane_bits<K>(bits, ids[j], last)
-                                : kAll;
-    }
-    float w[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if constexpr (kW) {
-      const int4 wl = load_stream(wgt + r * 8, first);
-      const int4 wh = load_stream(wgt + r * 8 + 4, first);
-      const int wb[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) w[j] = __int_as_float(wb[j]);
-    }
-    if constexpr (K <= 8) {              // then all live rows of messages
-      unsigned m[8][K];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (live[j]) {
-          load_lanes<K>(msg + static_cast<long long>(ids[j]) * K, last,
-                        m[j]);
-        } else {
-#pragma unroll
-          for (int l = 0; l < K; ++l) m[j][l] = 0u;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        lanes_combine<T, GW, R, K>(acc, live[j], m[j], w[j]);
-        any |= live[j];
-      }
-    } else {                             // wide rows: a slot at a time
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        unsigned m[K];
-        if (live[j]) {
-          load_lanes<K>(msg + static_cast<long long>(ids[j]) * K, last, m);
-        } else {
-#pragma unroll
-          for (int l = 0; l < K; ++l) m[l] = 0u;
-        }
-        lanes_combine<T, GW, R, K>(acc, live[j], m, w[j]);
-        any |= live[j];
-      }
-    }
-  } else {
-    const int* row = nbr + r * width;
-    const float* wrow = wgt + r * width;
-    for (int j = 0; j < width; ++j) {
-      const int u = __ldg(row + j);
-      const unsigned live = u == kPad ? 0u
-                            : mask    ? lane_bits<K>(bits, u, last)
-                                      : kAll;
-      unsigned m[K];
-      if (live) {
-        load_lanes<K>(msg + static_cast<long long>(u) * K, last, m);
-      } else {
-#pragma unroll
-        for (int l = 0; l < K; ++l) m[l] = 0u;
-      }
-      lanes_combine<T, GW, R, K>(acc, live, m,
-                                 kW ? __ldg(wrow + j) : 0.0f);
-      any |= live;
-    }
-  }
-}
 
 template <typename T, int GW, int R, int K>
 __global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,

@@ -1,7 +1,8 @@
 // Device helpers shared by kernel 1 and the lane-axis kernels (the lane
-// sweeps in edge_block.cu, the lane push in push_ell.cu): cache-hinted
-// loads, the lane map, and the pre-pass that lays k lanes of a (k', V)
-// state out vertex-major.
+// sweeps in edge_block.cu, the lane push in push_ell.cu, the streamed
+// fold in stream_fold.cu): cache-hinted loads, the lane map, the pre-pass
+// that lays k lanes of a (k', V) state out vertex-major, and the lane
+// sweeps' read of one row's slots into k lanes' partials (lanes_row).
 //
 // A lane map names the rows of a lane-major (k', V) state that one launch
 // takes, in lane order: lane l of the launch is row map.row[l].  It goes
@@ -183,6 +184,58 @@ __global__ void lanes_pack_kernel(const T* __restrict__ values,
   }
 }
 
+// The pre-pass at K = 1 on 16-byte vectors: one thread four vertices
+// 4 q .. 4 q + 3 (their values, degrees and messages as one vector each,
+// their frontier bytes as one word), and a frontier word built from 8
+// threads' 4 bits by three shuffles; the same tables as lanes_pack_kernel.
+// Needs V a multiple of 4 and the lane's rows on the vectors' grid.
+template <typename T, int G, bool kMsg>
+__global__ void lanes_pack4_kernel(const T* __restrict__ values,
+                                   const int* __restrict__ degrees,
+                                   const uint8_t* __restrict__ active,
+                                   LaneMap map, unsigned* __restrict__ bits,
+                                   T* __restrict__ msg, long long V,
+                                   bool mask) {
+  constexpr bool kNeedsMsg = G == kPlusOne || G == kDivDeg;
+  const long long u0 = 4 * (blockIdx.x * static_cast<long long>(blockDim.x) +
+                            threadIdx.x);
+  const bool in = u0 < V;
+  const long long at = map.row[0] * V + u0;
+  if (mask) {
+    unsigned live = 0u;
+    if (in) {
+      const unsigned a = *reinterpret_cast<const unsigned*>(active + at);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        live |= (((a >> (8 * i)) & 0xffu) != 0u ? 1u : 0u) << i;
+      }
+    }
+    const int t = threadIdx.x & 31;
+    unsigned word = live << ((t & 7) * 4);
+    word |= __shfl_xor_sync(~0u, word, 1);
+    word |= __shfl_xor_sync(~0u, word, 2);
+    word |= __shfl_xor_sync(~0u, word, 4);
+    if ((t & 7) == 0 && in) bits[u0 >> 5] = word;
+  }
+  if constexpr (kMsg) {
+    if (!in) return;
+    const uint4 v = *reinterpret_cast<const uint4*>(values + at);
+    unsigned r[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (kNeedsMsg) {
+      int d[4] = {0, 0, 0, 0};
+      if constexpr (G == kDivDeg) {
+        const int4 dv = *reinterpret_cast<const int4*>(degrees + u0);
+        d[0] = dv.x; d[1] = dv.y; d[2] = dv.z; d[3] = dv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        r[i] = to_bits<T>(gather_op<T, G>(from_bits<T>(r[i]), 0.0f, d[i]));
+      }
+    }
+    *reinterpret_cast<uint4*>(msg + u0) = make_uint4(r[0], r[1], r[2], r[3]);
+  }
+}
+
 template <typename T, int G, int K, bool kMsg>
 cudaError_t launch_lanes_pack(const T* values, const int* degrees,
                               const uint8_t* active, const LaneMap& map,
@@ -190,6 +243,18 @@ cudaError_t launch_lanes_pack(const T* values, const int* degrees,
                               bool mask, cudaStream_t stream) {
   constexpr int kThreads = 256;
   if (V == 0 || (!mask && !kMsg)) return cudaSuccess;
+  auto on16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (K == 1 && V % 4 == 0 &&
+      (!mask || reinterpret_cast<uintptr_t>(active) % 4 == 0) &&
+      (!kMsg || (on16(values) && on16(msg) &&
+                 (G != kDivDeg || on16(degrees))))) {
+    const long long blocks = (V / 4 + kThreads - 1) / kThreads;
+    lanes_pack4_kernel<T, G, kMsg><<<blocks, kThreads, 0, stream>>>(
+        values, degrees, active, map, bits, msg, V, mask);
+    return cudaGetLastError();
+  }
   const long long blocks = (V + kThreads - 1) / kThreads;
   lanes_pack_kernel<T, G, K, kMsg><<<blocks, kThreads, 0, stream>>>(
       values, degrees, active, map, bits, msg, V, k, mask);
@@ -207,6 +272,120 @@ inline bool make_lane_map(const int* lanes, int k, int K, long long rows_total,
     map->row[l] = row;
   }
   return true;
+}
+
+// Gathers that apply a slot's weight, and those whose message is not the
+// value itself (these get a message table from the pre-pass).
+__host__ __device__ constexpr bool weighted(int g) {
+  return g == kAddW || g == kMulW;
+}
+__host__ __device__ constexpr bool needs_msg(int g) {
+  return g == kPlusOne || g == kDivDeg;
+}
+
+// One slot into the K lanes' accumulators: lanes whose bit is set in
+// `live` take the message (weighted by w for add_w and mul_w), the others
+// the identity, in lane order.
+template <typename T, int GW, int R, int K>
+__device__ __forceinline__ void lanes_combine(T (&acc)[K], unsigned live,
+                                              const unsigned (&m)[K],
+                                              float w) {
+  const T ident = reduce_identity<T, R>();
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    T x = ident;
+    if ((live >> l) & 1u) {
+      x = from_bits<T>(m[l]);
+      if constexpr (weighted(GW)) x = gather_op<T, GW>(x, w, 0);
+    }
+    acc[l] = combine<T, R>(acc[l], x);
+  }
+}
+
+// One sub-row's partials: acc[l] is lane l's reduce over the row's slots,
+// bit l of any whether lane l had a live slot.
+template <typename T, int GW, int R, int K>
+__device__ __forceinline__ void lanes_row(const int* __restrict__ nbr,
+                                          const float* __restrict__ wgt,
+                                          const unsigned* __restrict__ bits,
+                                          const T* __restrict__ msg,
+                                          long long r, int width, bool mask,
+                                          bool w8, T (&acc)[K],
+                                          unsigned& any) {
+  constexpr bool kW = weighted(GW);
+  constexpr unsigned kAll = K == 32 ? ~0u : (1u << K) - 1u;
+  const uint64_t first = l2_policy_evict_first();
+  const uint64_t last = l2_policy_evict_last();
+  if (w8) {
+    const int4 lo = load_stream(nbr + r * 8, first);
+    const int4 hi = load_stream(nbr + r * 8 + 4, first);
+    const int ids[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    unsigned live[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {        // the row's frontier bits in flight
+      live[j] = ids[j] == kPad ? 0u
+                : mask          ? lane_bits<K>(bits, ids[j], last)
+                                : kAll;
+    }
+    float w[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if constexpr (kW) {
+      const int4 wl = load_stream(wgt + r * 8, first);
+      const int4 wh = load_stream(wgt + r * 8 + 4, first);
+      const int wb[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[j] = __int_as_float(wb[j]);
+    }
+    if constexpr (K <= 8) {              // then all live rows of messages
+      unsigned m[8][K];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (live[j]) {
+          load_lanes<K>(msg + static_cast<long long>(ids[j]) * K, last,
+                        m[j]);
+        } else {
+#pragma unroll
+          for (int l = 0; l < K; ++l) m[j][l] = 0u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        lanes_combine<T, GW, R, K>(acc, live[j], m[j], w[j]);
+        any |= live[j];
+      }
+    } else {                             // wide rows: a slot at a time
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        unsigned m[K];
+        if (live[j]) {
+          load_lanes<K>(msg + static_cast<long long>(ids[j]) * K, last, m);
+        } else {
+#pragma unroll
+          for (int l = 0; l < K; ++l) m[l] = 0u;
+        }
+        lanes_combine<T, GW, R, K>(acc, live[j], m, w[j]);
+        any |= live[j];
+      }
+    }
+  } else {
+    const int* row = nbr + r * width;
+    const float* wrow = wgt + r * width;
+    for (int j = 0; j < width; ++j) {
+      const int u = __ldg(row + j);
+      const unsigned live = u == kPad ? 0u
+                            : mask    ? lane_bits<K>(bits, u, last)
+                                      : kAll;
+      unsigned m[K];
+      if (live) {
+        load_lanes<K>(msg + static_cast<long long>(u) * K, last, m);
+      } else {
+#pragma unroll
+        for (int l = 0; l < K; ++l) m[l] = 0u;
+      }
+      lanes_combine<T, GW, R, K>(acc, live, m,
+                                 kW ? __ldg(wrow + j) : 0.0f);
+      any |= live;
+    }
+  }
 }
 
 }  // namespace

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("decode_gqa", "edge_block", "push_ell", "segment_sum")
+SOURCES = ("decode_gqa", "edge_block", "push_ell", "segment_sum",
+           "stream_fold")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -55,6 +56,9 @@ _ENTRY = {
                   _P, _P, _P, _L, _I, _L, _I, _P]},
     "segment_sum": {"segment_reduce_launch":
                     [_I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P]},
+    "stream_fold": {"stream_fold_launch":
+                    [_I, _I, _I, _I, _P, _P, _P, _IP, _I, _L, _P, _P, _L, _P,
+                     _P, _P, _L, _L, _I, _P]},
 }
 
 # Loaded libraries, one per source: a shared library is process-wide

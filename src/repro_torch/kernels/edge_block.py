@@ -38,15 +38,19 @@ The streamed engine (``core/stream.py``) sweeps one state over many
 partitions.  Its pull partitions go through the fused lane sweep in
 accumulate mode (``accumulate=True``): the ``(k', V)`` tables hold the
 earlier partitions' partials, a whole run of owners combines into its
-entry instead of overwriting it, and ``got`` is OR-ed; a float add's
-partitions take kernel 1 (one lane) or the lane kernel, whose per-row
-sums ``segment_sum`` folds by owner.  Every kernel's pre-pass runs apart
-from its main kernel: :func:`lanes_prepare` (the lane kernels') and
-:func:`edge_block_prepare` (kernel 1's) launch it, and the main kernel
-reads its tables.  A wrapper given no tables (``prepared=None``) calls
-the prepare function itself; the streamed engine calls it once a
-superstep and hands the tables to each partition's launch.  The
-pre-pass launches count apart (``launches`` of each prepare function).
+entry instead of overwriting it, and ``got`` is OR-ed.  A float add's
+partitions go through :func:`edge_block_add_fold_lanes`
+(``csrc/stream_fold.cu``): one launch and a carry fold gather a
+partition's rows and fold them by owner in tiles of 256 threads x 8 rows
+(kernel 4's tiles, kernel 1's row body) into the running table, in the
+order of the route it replaced (kernel 1's row sums, kernel 4's fold,
+then the add).  Every kernel's pre-pass runs apart from its main kernel:
+:func:`lanes_prepare` (the lane kernels') and :func:`edge_block_prepare`
+(kernel 1's) launch it, and the main kernel reads its tables.  A wrapper
+given no tables (``prepared=None``) calls the prepare function itself;
+the streamed engine calls it once a superstep and hands the tables to
+each partition's launch.  The pre-pass launches count apart
+(``launches`` of each prepare function).
 
 The wrappers take the plain version for tensors on the CPU and launch the
 kernel for tensors on a CUDA device; they never fall back from one to the
@@ -61,7 +65,7 @@ from .lanes import Prepared, check_prepared, lane_chunks, lane_list
 from .pull_bitmap import subrow_combine
 from .ref import (GATHER_OPS, REDUCE_OPS, _identity, combine_settled,
                   edge_block_messages, edge_block_reduce_ref, row_reduce,
-                  settle_zero_ties, zero_wins)
+                  segment_reduce_ref, settle_zero_ties, zero_wins)
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
 _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
@@ -69,6 +73,9 @@ _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
 _MESSAGE_TABLE = ("plus_one", "div_deg")
 # the C entries' stage argument (csrc/lanes.cuh, Stage)
 _PACK_ONLY, _MAIN_ONLY = 0, 1
+# rows a tile of the streamed fold (csrc/stream_fold.cu's kTile): its carry
+# scratch holds (2 k + 1) words a tile
+FOLD_TILE = 256 * 8
 
 
 def edge_block_reduce_plain(nbr, wgt, values, degrees, active, *, gather: str,
@@ -603,3 +610,131 @@ def edge_block_fold_lanes(
 # of them and those in accumulate mode
 edge_block_fold_lanes.launches = 0
 edge_block_fold_lanes.accumulate_launches = 0
+
+
+def edge_block_add_fold_lanes_plain(view, values, degrees, active, lanes, *,
+                                    gather: str, mask_inactive: bool = True,
+                                    red: torch.Tensor,
+                                    got: torch.Tensor | None = None,
+                                    prepared: Prepared | None = None):
+    """Plain version of the streamed float-add fold, and the route the
+    kernel replaced: for each listed lane, the row sums of
+    :func:`edge_block_reduce_plain`, folded by owner
+    (``ref.segment_reduce_ref``) into a ``(V,)`` partial added to
+    ``red``'s row, and the rows' any-live flags folded by max and OR-ed
+    into ``got``'s.  ``prepared`` is only checked."""
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, gather, mask_inactive)
+    for i in lanes:
+        sums, anys = edge_block_reduce_plain(
+            view.flat_dst, view.flat_wgt, values[i], degrees, active[i],
+            gather=gather, reduce="add", mask_inactive=mask_inactive)
+        red[i] += segment_reduce_ref(view.owner8, sums, V, reduce="add")
+        if got is not None:
+            got[i] |= segment_reduce_ref(view.owner8, anys.to(torch.int32),
+                                         V, reduce="max") > 0
+    return red, got
+
+
+def edge_block_add_fold_lanes(
+    view,                     # flat_dst (R, W), flat_wgt (R, W), owner8 (R,)
+    values: torch.Tensor,     # (k', V) float32 state, one row a lane
+    degrees: torch.Tensor,    # (V,) int32 out-degrees
+    active: torch.Tensor,     # (k', V) bool frontiers
+    lanes,                    # the rows to sweep, distinct, in [0, k')
+    *,
+    gather: str,
+    mask_inactive: bool = True,
+    red: torch.Tensor,
+    got: torch.Tensor | None = None,
+    prepared: Prepared | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One streamed pull partition's float-add partial, added into the
+    running tables (``csrc/stream_fold.cu``).
+
+    ``view`` is a partition's rows: ``flat_dst`` PAD-padded source ids,
+    ``flat_wgt`` their weights, ``owner8`` each row's owner vertex, equal
+    owners in consecutive rows (owners outside ``[0, V)`` dropped).  For
+    each listed lane ``i`` and each owner ``o`` with rows here,
+    ``red[i, o] += `` the sum of the menu gather over those rows' live
+    slots, and ``got[i, o]`` (a ``(k', V)`` bool table, or None) is set
+    where one of them has a live slot.  The sum keeps the order of the
+    route it replaced, bit for bit: each row in slot order from +0
+    (kernel 1), the rows in tiles of 2,048 (kernel 4's association), then
+    the add; entries of owners with no rows here are left as they are,
+    which equals that route's ``+ 0`` wherever ``red`` holds no -0 (a
+    running sum that starts at +0 never does).  The plain version sums in
+    PyTorch's order: they agree within rtol 1e-5.  ``prepared``
+    (:func:`lanes_prepare`'s tables of this very state and lanes) spares
+    the call its own pre-pass.  Count: ``launches`` (one a launch of at
+    most 32 lanes, its carry fold included).
+    """
+    if gather not in GATHER_OPS:
+        raise ValueError(f"not a menu gather: {gather!r}")
+    if not values.dtype.is_floating_point or values.dim() != 2 \
+            or tuple(active.shape) != tuple(values.shape):
+        raise ValueError(f"values and active: want a float (k', V) state "
+                         f"each, got {values.dtype} {tuple(values.shape)} "
+                         f"and {tuple(active.shape)}")
+    if values.device.type == "cpu":
+        return edge_block_add_fold_lanes_plain(
+            view, values, degrees, active, lanes, gather=gather,
+            mask_inactive=mask_inactive, red=red, got=got,
+            prepared=prepared)
+    if values.device.type != "cuda":
+        raise ValueError(f"edge_block_add_fold_lanes runs on CPU or CUDA "
+                         f"tensors, got {values.device}")
+    if values.dtype != torch.float32:
+        raise TypeError(f"the kernel takes float32 values, got "
+                        f"{values.dtype}")
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, gather, mask_inactive)
+    nbr, wgt, owner8 = view.flat_dst, view.flat_wgt, view.owner8
+    R, W = nbr.shape
+    want = {"flat_dst": (nbr, torch.int32, (R, W)),
+            "flat_wgt": (wgt, torch.float32, (R, W)),
+            "owner8": (owner8, torch.int32, (R,)),
+            "degrees": (degrees, torch.int32, (V,)),
+            "active": (active, torch.bool, (kk, V)),
+            "red": (red, values.dtype, (kk, V))}
+    if got is not None:
+        want["got"] = (got, torch.bool, (kk, V))
+    for name, (t, dtype, shape) in want.items():
+        if t.device != values.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape {shape} "
+                f"on {values.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    if not lanes or R == 0 or V == 0:
+        return red, got
+    if prepared is None:
+        prepared = lanes_prepare(values, degrees, active, lanes,
+                                 gather=gather, mask_inactive=mask_inactive)
+    # per tile and lane the first and last run's partials, per tile flags:
+    # one scratch for all launches, which run in stream order
+    tiles = -(-R // FOLD_TILE)
+    widest = max(c[2] for c in prepared.chunks)
+    carries = torch.empty(((2 * widest + 1) * tiles,), dtype=torch.int32,
+                          device=values.device)
+    lib = _build.library("stream_fold")
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    for _, lane_map, k, K, bits, msg in prepared.chunks:
+        err = lib.stream_fold_launch(
+            values.device.index or 0, GATHER_OPS.index(gather),
+            int(mask_inactive), K, nbr.data_ptr(), wgt.data_ptr(),
+            owner8.data_ptr(), lane_map, k, kk,
+            None if bits is None else bits.data_ptr(), msg.data_ptr(), V,
+            red.data_ptr(), None if got is None else got.data_ptr(),
+            carries.data_ptr(), tiles, R, W, stream)
+        if err != 0:
+            raise RuntimeError(f"stream_fold kernel launch failed: "
+                               f"cudaError_t {err}")
+        edge_block_add_fold_lanes.launches += 1
+    return red, got
+
+
+# launches of the streamed float-add fold since the count was last set to 0
+edge_block_add_fold_lanes.launches = 0
