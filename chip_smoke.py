@@ -49,7 +49,13 @@ and the script exits non-zero):
    reduce × dtype × mask_inactive, NaN values, k of 1 to 37 lanes (one
    launch per 32) and ids off the 16-byte grid: each lane exactly kernel
    1 alone, and the plain version (float add within 1e-5 of the sum of
-   its terms' magnitudes).  The fused lane sweep (1L with the sub-row fold
+   its terms' magnitudes).  2L, both lane kernels with per-lane block
+   flags (the counterpart of kernel 2 under ``jax.vmap``), on the fused
+   lane sweep's graphs at grids of 128 and 5 rows: on random flags, the
+   sub-row kernel = kernel 2 a lane bit for bit and = plain, the fused
+   fold = plain bit for bit; on the lanes' touched-derived flags (the
+   touched pass, 3L with a one-byte message, = plain) = 1L bit for bit.
+   The fused lane sweep (1L with the sub-row fold
    fused in) and the lane push (3L) over every gather x order-free reduce
    (min, max; add on int32) x dtype (x mask_inactive for the sweep) on
    three graphs with hubs whose runs of sub-rows cross block edges, k of
@@ -155,7 +161,34 @@ and the script exits non-zero):
    random 1% frontier against k compactions + fused pushes (and its plain
    version), exactly, timed beside them, its bound and the first design's
    one 32-byte sector a message.
-7. stream  — out-of-core streaming on the main phase's scale-22 graph
+7. serve_bitmap — the graph server on the bitmap plane's lane axis (2L),
+   on the main phase's scale-22 graph and pull plan, with [serve]'s
+   landmark table (the same exact SSSP distances from the same 4
+   landmarks): ``GraphServer(slots=8, slice_supersteps=4)`` under
+   ``ScheduleConfig(pull_sweep='bitmap')`` and again under
+   ``direction=pull`` (auto pushes every frontier narrow enough for the
+   plane's narrow tiers at this scale, so 2L runs on the pull server),
+   each serving 34 queries (16 bfs and 4 repeats, 6 sssp, 6 dist of which
+   3 rooted at a landmark, 2 ppr; numpy seed 5), launch counts set to 0
+   before the stream and read after: every answer = a sequential run on
+   the same schedule bitwise (values, iters and every ``run_stats``
+   counter, the swept and skipped blocks included), the bfs from root 0
+   = the main phase's numpy_bfs;
+   single-lane kernel 2, kernel 1 alone and the single-lane fused push
+   never; one touched pass a 2L launch, 2L on the pull server at least
+   once, the fused fold for every other masked sweep, 1L for ppr's, 3L
+   for every batched push; one host read a batched superstep (+ one a
+   harvest); queries/s and ms a batched superstep beside [serve]'s dense
+   ones.  Then at k = 1, 8 and 32 on root 0's BFS frontiers, random
+   narrow frontiers and a random 1% frontier a lane: 2L on touched flags
+   = its plain version and 1L bit for bit, the touched pass = its plain
+   version; the batched bitmap superstep = k single-lane bitmap
+   supersteps (values, frontiers, counters) = the dense batched
+   superstep; 2L, 1L and the touched pass timed (CUDA events, the
+   profiler's device time) beside 2L's plain version and bound, and the
+   three routes on the BFS and narrow sets (on the 1% sets every lane is
+   past the tiers: the route is 1L's).
+8. stream  — out-of-core streaming on the main phase's scale-22 graph
    with ``ScheduleConfig(partitions=8)`` (the plan's partition count and
    the store's rows and entry bytes printed): BFS from root 0 under pull,
    push and auto equal to the resident dense run on the card (values,
@@ -205,7 +238,7 @@ and the script exits non-zero):
    pre-pass, kernel 4 or fused lane sweep launch, and a container from
    ``data.graphs.container_from_graph`` under a
    ``partition_budget_bytes`` that forces evictions = the resident BFS.
-8. multi_pe — a PE group of repeated devices (``devices=[cuda:0] * p``)
+9. multi_pe — a PE group of repeated devices (``devices=[cuda:0] * p``)
    on the main phase's scale-22 graph: dense BFS from root 0 under push
    and auto at p = 1, 2 and 4 (the sharded push: kernel 3f a PE on its
    forward-ELL interval, the collective, kernel 1 on the replicated
@@ -226,11 +259,11 @@ and the script exits non-zero):
    scale 20: SSSP and WCC at p = 2 = p = 1 bitwise, sparse PageRank at p
    = 2 within ``rtol=1e-5`` of p = 1 and with the int8 exchange within
    the JAX package's bound ``d/(1-d) · p · max|r|/127 + 1e-6``.
-9. others  — at scale 20: SSSP on both pull planes (push == pull exactly,
+10. others — at scale 20: SSSP on both pull planes (push == pull exactly,
    ≈ scipy Dijkstra), WCC on both (push == pull, = min vertex id per weak
    component, scipy), PageRank (20 iterations, rtol 1e-4 of a scipy power
    iteration), ``k_core(k=4)`` (= a numpy peel).
-10. lm     — the LM serving path at full width: ``launch.serve.main``
+11. lm     — the LM serving path at full width: ``launch.serve.main``
    through qwen3-8b (all 36 layers and widths, bf16, weights from
    ``torch.Generator`` seed 0), 8 slots at capacity 4096, 16 requests
    with prompts of 256–2048 tokens (numpy seed 0), 64 new tokens each;
@@ -250,7 +283,7 @@ and the script exits non-zero):
    32,768-slot sequence (CUDA events, and the profiler's device time of
    its split and combine kernels), beside its bound, its plain version
    and ``scaled_dot_product_attention``.
-11. lm_families — the decoder-only families at full width and depth, one
+12. lm_families — the decoder-only families at full width and depth, one
    model at a time (freed before the next), bf16, weights from
    ``torch.Generator`` seed 0: gemma3-4b, recurrentgemma-9b,
    falcon-mamba-7b and moonshot-v1-16b-a3b through ``launch.serve.main``
@@ -274,7 +307,7 @@ and the script exits non-zero):
    version, the uncapped kernel and the library call (``flex_attention``
    with a capping, masking ``score_mod``; sdpa takes no soft-cap); the
    SSM prefill scan at falcon-mamba's longest prompt beside its bound.
-12. whisper — whisper-large-v3 at full width and depth (32 decoder + 32
+13. whisper — whisper-large-v3 at full width and depth (32 decoder + 32
    encoder layers, d_model 1280, 20 heads, vocab 51,866, bf16, weights
    from ``torch.Generator`` seed 0, learned position tables of 1,500
    rows, which encoding 1,500 frames needs) through the model's
@@ -293,7 +326,7 @@ and the script exits non-zero):
    |logit| <= 1e-3); and ``launch.serve.main --arch whisper-large-v3``
    (the reference's scheduler, which builds no cross caches) serving 8
    requests with one sync and 32 kernel 5 launches a step.
-13. train — whisper-large-v3 trained at full width and depth: bf16
+14. train — whisper-large-v3 trained at full width and depth: bf16
    parameters, float32 AdamW states, ``cfg.remat``, batch 8 × 448 tokens
    with 448 float32 encoder frames (``synth_batch``), 4 sequences a
    microbatch, 8 steps on one repeated batch: loss, grad norm and lr a
@@ -310,11 +343,12 @@ and the script exits non-zero):
    within rtol 2e-5 + 1e-3 · lr, and the CPU's within rtol 2e-5 + 2e-2 ·
    lr wherever the gradient is not within rounding of 0).
 
-14. plan  — the planning layer (``launch/dryrun.py``): the dry run of
+15. plan  — the planning layer (``launch/dryrun.py``): the dry run of
    the 10 archs × 4 shapes on the (16, 16) production mesh with the
-   roofline and on (2, 16, 16) without, in process on ``meta`` tensors
-   (each cell's status, live GB a device, ``fits_80gb``, the three
-   roofline terms and the dominant one; no error, and
+   roofline and on (2, 16, 16) without, on ``meta`` tensors in 6 worker
+   processes, the archs shared out (each cell's status, live GB a
+   device, ``fits_80gb``, the three roofline terms and the dominant one;
+   no error, no worker that initialized CUDA, and
    ``torch.cuda.memory_allocated`` the same before and after); the
    planner on a (1, 1) mesh of the card at the [lm] and [train] shapes
    (qwen3-8b decode, 8 slots of 4,096; whisper-large-v3 training, 8 ×
@@ -1187,6 +1221,141 @@ def _check_tie_routes(torch, rng):
     return checked
 
 
+# 2L's ragged cases: (LANE_GRAPHS entry, grid block rows, lane counts); a
+# grid of 5 rows puts a block edge inside every warp
+LANE_SKIP_CASES = ((0, 128, (1, 8, 33)), (1, 128, (4, 32)), (2, 5, (3, 17)))
+
+
+def _check_lane_skip(torch, rng):
+    """2L, the lane sweep with a per-lane early-out (both lane kernels with
+    ``block_live=``), on ``LANE_GRAPHS``: every gather x reduce x dtype x
+    mask_inactive, k lanes listed out of order in a state with two left
+    out, NaN, +0 and -0.  On random flags (a ragged last grid block, and
+    grids of 5 rows, whose block edges fall inside warps) the sub-row
+    kernel equals k single-lane kernel-2 launches bit for bit (the same
+    slot order: float add too) and its plain version (float add within
+    1e-5 of the sum of |terms|), and the fused fold (min, max, int add)
+    its plain version bit for bit.  On flags from the lanes' touched
+    tables (``push_lanes_touched``, held against its plain version) 2L
+    equals 1L bit for bit.  Returns the count of cases and the largest
+    ``|kernel - plain|``."""
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import pull_bitmap as pb
+    from repro_torch.kernels import push_ell as pe
+    from repro_torch.kernels.ref import GATHER_OPS, REDUCE_OPS
+    checked, worst, dead = 0, 0.0, 0
+    for gi, br, ks in LANE_SKIP_CASES:
+        V, E, hub, max_width, _ = LANE_GRAPHS[gi]
+        plan, fe, deg = _lane_graph(torch, V, E, hub, max_width, rng)
+        R = plan.flat_dst.shape[0]
+        for k in ks:
+            kk = k + 2
+            lanes = [int(i) for i in rng.permutation(kk)[:k]]
+            flags = torch.as_tensor(
+                rng.random((kk, -(-R // br))) < 0.5).to("cuda")
+            dead += int((~flags[lanes]).sum())
+            for dtype in (np.int32, np.float32):
+                vals, act = _lane_state(torch, rng, kk, V, dtype, 0.3)
+                for gather in GATHER_OPS:
+                    if gather == "div_deg" and dtype == np.int32:
+                        continue
+                    for reduce in REDUCE_OPS:
+                        exact = not (reduce == "add" and dtype == np.float32)
+                        for mask in (True, False):
+                            kw = dict(gather=gather, reduce=reduce,
+                                      mask_inactive=mask)
+                            fl = dict(block_live=flags, block_rows=br)
+                            tag = (f"{gather}/{reduce}/{dtype.__name__}/"
+                                   f"mask={mask} V={V} br={br} k={k}")
+                            got = eb.edge_block_reduce_lanes(
+                                plan.flat_dst, plan.flat_wgt, vals, deg, act,
+                                lanes, **kw, **fl)
+                            want = eb.edge_block_reduce_lanes_plain(
+                                plan.flat_dst, plan.flat_wgt, vals, deg, act,
+                                lanes, **kw, **fl)
+                            one = [eb.edge_block_reduce(
+                                plan.flat_dst, plan.flat_wgt, vals[i], deg,
+                                act[i], block_live=flags[i], block_rows=br,
+                                **kw) for i in lanes]
+                            torch.cuda.synchronize()
+                            k2 = (torch.stack([o[0] for o in one]),
+                                  torch.stack([o[1] for o in one]))
+                            near = _same(got[0], want[0]) if exact else \
+                                _close_sum(got[0], want[0], _abs_sum(
+                                    torch, plan.flat_dst, plan.flat_wgt,
+                                    vals[lanes], deg, act[lanes], **kw))
+                            if not (_same_bits(got[0], k2[0])
+                                    and _same(got[1], k2[1])
+                                    and _same(got[1], want[1]) and near):
+                                raise AssertionError(
+                                    f"edge_block_lanes 2L {tag}: max err "
+                                    f"{_max_err(got[0], want[0])} against "
+                                    f"plain, {_max_err(got[0], k2[0])} "
+                                    "against kernel 2 a lane")
+                            worst = max(worst, _max_err(got[0], want[0]))
+                            checked += 1
+                            if not exact:
+                                continue
+                            got = eb.edge_block_fold_lanes(
+                                plan, vals, deg, act, lanes, **kw, **fl)
+                            want = eb.edge_block_fold_lanes_plain(
+                                plan, vals, deg, act, lanes, **kw, **fl)
+                            torch.cuda.synchronize()
+                            if not (_same_bits(got[0], want[0])
+                                    and _same(got[1], want[1])):
+                                raise AssertionError(
+                                    f"edge_block_fold 2L {tag}: max err "
+                                    f"{_max_err(got[0], want[0])}, or the "
+                                    "bits of a zero or the flags differ")
+                            worst = max(worst, _max_err(got[0], want[0]))
+                            checked += 1
+                # the bitmap plane's flags: each lane's touched table, a
+                # flag a grid block; 2L on them = 1L
+                touched = pe.push_lanes_touched(fe.row_src, fe.dst, act,
+                                                lanes, num_rows=fe.num_rows)
+                t_want = pe.push_lanes_touched_plain(
+                    fe.row_src, fe.dst, act, lanes, num_rows=fe.num_rows)
+                tflags = pb.grid_block_live(touched, plan.owner8, br)
+                torch.cuda.synchronize()
+                if not _same(touched, t_want):
+                    raise AssertionError(f"push_lanes_touched V={V} k={k} "
+                                         "!= its plain version")
+                checked += 1
+                for gather in ("copy", "plus_one", "add_w", "mul_w"):
+                    for reduce in REDUCE_OPS:
+                        tf = dict(block_live=tflags, block_rows=br)
+                        kw = dict(gather=gather, reduce=reduce)
+                        a = eb.edge_block_reduce_lanes(
+                            plan.flat_dst, plan.flat_wgt, vals, deg, act,
+                            lanes, **kw, **tf)
+                        b = eb.edge_block_reduce_lanes(
+                            plan.flat_dst, plan.flat_wgt, vals, deg, act,
+                            lanes, **kw)
+                        same = _same_bits(a[0], b[0]) and _same(a[1], b[1])
+                        if reduce != "add" or dtype == np.int32:
+                            a = eb.edge_block_fold_lanes(plan, vals, deg,
+                                                         act, lanes, **kw,
+                                                         **tf)
+                            b = eb.edge_block_fold_lanes(plan, vals, deg,
+                                                         act, lanes, **kw)
+                            same = same and _same_bits(a[0], b[0]) \
+                                and _same(a[1], b[1])
+                        torch.cuda.synchronize()
+                        if not same:
+                            raise AssertionError(
+                                f"2L on touched flags != 1L: {gather}/"
+                                f"{reduce}/{dtype.__name__} V={V} br={br} "
+                                f"k={k}")
+                        checked += 1
+    log(f"[kernels] 2L (the lane kernels with block flags): {checked} cases "
+        f"({dead} dead lane-blocks in the random flags): the sub-row "
+        "kernel = kernel 2 a lane bit for bit and = plain (float add within "
+        "1e-5 of the sum of |terms|), the fused fold = plain bit for bit, "
+        "push_lanes_touched = plain, and 2L on touched-derived flags = 1L "
+        f"bit for bit; max |err| against plain {worst}")
+    return checked, worst
+
+
 def _row_pieces(rng, rows, n=3):
     """``n`` consecutive row ranges covering ``[0, rows)``, cut at random
     rows (so a hub's run of sub-rows falls into several pieces)."""
@@ -1725,12 +1894,14 @@ def phase_kernels(torch):
     n_lane, worst["edge_block_lanes"] = _check_lane_kernel(torch, live_rng)
     n_fold, n_lpush, worst["edge_block_fold"], worst["push_ell_lanes"] = \
         _check_lane_routes(torch, live_rng)
+    n_skip, worst["edge_block_lanes_skip"] = _check_lane_skip(torch,
+                                                               live_rng)
     n_stream, worst["stream_routes"] = _check_stream_routes(torch, live_rng)
     n_add, worst["stream_add_fold"] = _check_add_fold(torch, live_rng)
     n_shard, worst["shard_routes"] = _check_shard_routes(torch, live_rng)
     n_tie = _check_tie_routes(torch, live_rng)
-    checked += n_seg + n_push + n_lane + n_fold + n_lpush + n_stream \
-        + n_add + n_shard + n_tie
+    checked += n_seg + n_push + n_lane + n_fold + n_lpush + n_skip \
+        + n_stream + n_add + n_shard + n_tie
     n_dec, worst["decode_gqa"] = _check_decode_kernel(torch)
     n_split, split_err = _check_decode_splits(torch)
     worst["decode_gqa"] = max(worst["decode_gqa"], split_err)
@@ -2052,6 +2223,11 @@ def _counters():
             "edge_block_fold": (eb.edge_block_fold_lanes, "launches"),
             "edge_block_fold_acc": (eb.edge_block_fold_lanes,
                                     "accumulate_launches"),
+            "edge_block_fold_skip": (eb.edge_block_fold_lanes,
+                                     "skip_launches"),
+            "edge_block_lanes_skip": (eb.edge_block_reduce_lanes,
+                                      "skip_launches"),
+            "push_lanes_touched": (pe.push_lanes_touched, "launches"),
             "edge_block_add_fold": (eb.edge_block_add_fold_lanes,
                                     "launches"),
             "edge_block_prepare": (eb.edge_block_prepare, "launches"),
@@ -3107,6 +3283,9 @@ def phase_serve(torch, dev_info, main):
     p50b, p99b = lat(second)
     prof = _profile_serve(torch, srv, rng.choice(cand, 16, replace=False),
                           1e3 * wall / cnt["batched_supersteps"], smi)
+    main["landmark_table"] = srv.table       # [serve_bitmap] serves with it
+    main["serve_dense"] = {"qps": len(first) / wall1,
+                           "ms_step": 1e3 * wall / cnt["batched_supersteps"]}
     log(f"[serve] first stream {len(first)} queries in {wall1:.3f} s "
         f"({len(first) / wall1:.1f} queries/s; latency p50 {p50:.1f} ms, "
         f"p99 {p99:.1f} ms); second stream {len(second)} bfs in "
@@ -3228,6 +3407,388 @@ def phase_serve(torch, dev_info, main):
          "max_abs_err": prow["max_abs_err"], "ms": prow["ms"],
          "plain_ms": prow["plain_ms"], "bound_ms": prow["bound_ms"],
          "bound_by": "bytes", "library_ms": None, "shape": prow["shape"]}]
+
+
+BITMAP_LANE_SETS = ("bfs", "narrow", "1%")   # the 2L timing's frontiers
+
+
+def _bitmap_lane_timing(torch, g, oracle, smi):
+    """2L and the bitmap plane's batched superstep at the main shape
+    (bfs's plus_one/min over the flat pull view, grid blocks of 128
+    sub-rows), at k = 1, 8 and 32 lanes on three frontier sets: root 0's
+    BFS frontiers (lane i at level i mod the levels, with the BFS's state
+    then), a random narrow frontier a lane (1,000 vertices, inside the
+    plane's narrow tiers) and a random 1% frontier a lane (past them).
+    2L on each lane's touched-derived flags is held bit for bit against
+    its plain version and 1L (the same fold without flags); the batched
+    superstep (``lane_step``: touched tables, flags, 2L, apply) against
+    the route it replaces (k single-lane bitmap supersteps,
+    ``_pull_step``: k touched tables, kernel 2, ``subrow_combine``) and
+    the dense plane's batched superstep (1L), values, frontiers and each
+    lane's counters.  Each is timed (CUDA-event medians, and the
+    profiler's device time) beside 2L's plain version and byte bound;
+    the routes on the BFS and narrow sets only."""
+    from repro_torch.core import dsl, preprocess
+    from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
+    from repro_torch.core.translator import translate
+    from repro_torch.kernels import edge_block as eb
+    from repro_torch.kernels import pull_bitmap as pb
+    from repro_torch.kernels import push_ell as pe
+    lay = preprocess.layouts_for(g)
+    pplan = lay.on(lay.pull_plan(64), "cuda")
+    fe = lay.on(lay.forward_ell(8), "cuda")
+    out_deg = g.out_degrees.to(device="cuda", dtype=torch.int32)
+    V = g.num_vertices
+    R8, W = pplan.flat_dst.shape
+    grid_br = 128
+    nblk = -(-R8 // grid_br)
+    pull = DirectionPolicy(mode="pull")
+    bitmap = translate(dsl.bfs_program(), g, ScheduleConfig(
+        pull_sweep="bitmap", direction=pull), device="cuda")
+    dense = translate(dsl.bfs_program(), g, ScheduleConfig(
+        pull_sweep="dense", direction=pull), device="cuda")
+    caps = bitmap.report.pull_block_tiers
+    top = int(oracle[oracle < INT_MAX].max())
+    lv_all = torch.as_tensor(np.minimum(oracle, INT_MAX).astype(np.int32))
+    rng = np.random.default_rng(7)
+    kw = dict(gather="plus_one", reduce="min", mask_inactive=True)
+    rows = {}
+    for k in SERVE_LANES:
+        lanes = list(range(k))
+        for label in BITMAP_LANE_SETS:
+            if label == "bfs":
+                lvls = [i % (top + 1) for i in range(k)]
+                values = torch.stack([torch.where(lv_all <= lv, lv_all,
+                                                  INT_MAX) for lv in lvls])
+                active = torch.stack([lv_all == lv for lv in lvls])
+            else:
+                n = 1000 if label == "narrow" else V // 100
+                active = torch.zeros((k, V), dtype=torch.bool)
+                for i in range(k):
+                    active[i, torch.as_tensor(rng.choice(V, n,
+                                                         replace=False))] = 1
+                values = torch.where(active, 0, INT_MAX).to(torch.int32)
+            values, active = values.to("cuda"), active.to("cuda")
+            m_f = [int(x) for x in torch.where(active, out_deg, 0).sum(
+                1, dtype=torch.int64).tolist()]
+            narrow = sum(m <= caps[1] for m in m_f)
+            touched = pe.push_lanes_touched(fe.row_src, fe.dst, active,
+                                            lanes, num_rows=fe.num_rows)
+            flags = pb.grid_block_live(touched, pplan.owner8, grid_br)
+            fl = dict(block_live=flags, block_rows=grid_br)
+
+            def skip(values=values, active=active, fl=fl):
+                return eb.edge_block_fold_lanes(pplan, values, out_deg,
+                                                active, lanes, **kw, **fl)
+
+            def full(values=values, active=active):
+                return eb.edge_block_fold_lanes(pplan, values, out_deg,
+                                                active, lanes, **kw)
+
+            got, l1 = skip(), full()
+            want = eb.edge_block_fold_lanes_plain(pplan, values, out_deg,
+                                                  active, lanes, **kw, **fl)
+            t_want = pe.push_lanes_touched_plain(
+                fe.row_src, fe.dst, active, lanes, num_rows=fe.num_rows)
+            torch.cuda.synchronize()
+            if not (_same_bits(got[0], want[0]) and _same(got[1], want[1])
+                    and _same_bits(got[0], l1[0]) and _same(got[1], l1[1])
+                    and _same(touched, t_want)):
+                raise AssertionError(f"2L disagrees at the main shape, k={k},"
+                                     f" {label} frontiers")
+            err = _max_err(got[0], want[0])
+            del got, l1, want, t_want
+            # the batched superstep against k single-lane supersteps and
+            # the dense plane's batched superstep, lane by lane (on the
+            # 1% sets every lane is wide: the route is 1L's there)
+            args = (values, active, lanes, [True] * k, [], m_f)
+
+            def batched(args=args):
+                return bitmap._lane_step(*args)
+
+            def singles(values=values, active=active, m_f=m_f):
+                return [bitmap._pull_step(values[i], active[i], m_f[i])
+                        for i in lanes]
+
+            def dense_step(args=args):
+                return dense._lane_step(*args)
+
+            route = label != "1%"
+            b_new, b_nxt, b_cnt = batched()
+            d_new, d_nxt, _ = dense_step()
+            s_out = singles()
+            s_cnt = [[int(x) for x in c] for _, _, c in s_out]
+            b_cnt = [[int(x) for x in b_cnt[i]] for i in lanes]
+            torch.cuda.synchronize()
+            if b_cnt != s_cnt or not all(
+                    _same(b_new[i], n) and _same(b_nxt[i], x)
+                    for i, (n, x, _) in enumerate(s_out)) or not (
+                    _same(b_new, d_new) and _same(b_nxt, d_nxt)):
+                raise AssertionError(f"the batched bitmap superstep != k "
+                                     f"single-lane supersteps or the dense "
+                                     f"batched one, k={k}, {label}")
+            del b_new, b_nxt, d_new, d_nxt, s_out
+            swept = sum(c[1] for c in s_cnt)
+            reps = 10
+            ms = _time_ms(torch, skip, reps=reps)
+            dev_ms = _device_ms(torch, skip, "edge_block_fold")
+            l1_ms = _time_ms(torch, full, reps=reps)
+            touched_ms = _time_ms(torch, lambda active=active: (
+                pe.push_lanes_touched(fe.row_src, fe.dst, active, lanes,
+                                      num_rows=fe.num_rows)), reps=reps)
+            touched_dev = _device_ms(torch, lambda active=active: (
+                pe.push_lanes_touched(fe.row_src, fe.dst, active, lanes,
+                                      num_rows=fe.num_rows)),
+                "push_ell_lanes")
+            step_ms = step_dev = single_ms = single_dev = dense_ms = \
+                dense_dev = None
+            if route:
+                step_ms = _time_ms(torch, batched, reps=5, warmup=1)
+                step_dev = _device_ms(torch, batched, "", calls=5)
+                single_ms = _time_ms(torch, singles, reps=5, warmup=1)
+                single_dev = _device_ms(torch, singles, "", calls=5)
+                dense_ms = _time_ms(torch, dense_step, reps=5, warmup=1)
+                dense_dev = _device_ms(torch, dense_step, "", calls=5)
+            plain_ms = _time_ms(
+                torch, lambda values=values, active=active, fl=fl:
+                eb.edge_block_fold_lanes_plain(pplan, values, out_deg,
+                                               active, lanes, **kw, **fl),
+                reps=3, warmup=1)
+            t_plain_ms = _time_ms(torch, lambda active=active: (
+                pe.push_lanes_touched_plain(fe.row_src, fe.dst, active,
+                                            lanes, num_rows=fe.num_rows)),
+                reps=3, warmup=1)
+            # 2L's bytes: the ids and owners of the rows in a grid block
+            # live in some lane, the flags, each lane's values and frontier
+            # in and (V,) table out; its operations: a slot a live
+            # (lane, row)
+            block_rows = torch.full((nblk,), grid_br, device="cuda")
+            block_rows[-1] = R8 - (nblk - 1) * grid_br
+            rows_live = int(block_rows[flags.any(0)].sum())
+            lane_rows = int((flags * block_rows).sum())
+            nbytes = rows_live * (W * 4 + 4) + k * nblk + k * V * 5 \
+                + k * V * 4
+            bound = 1e3 * max(nbytes / _BANDWIDTH,
+                              lane_rows * W / _SCALAR_OPS)
+            # the touched pass's bytes: row_src, each lane's frontier, the
+            # live rows' ids, each lane's (V,) table out
+            live_rows = int(torch.where(active, fe.rows_per_vertex, 0).sum())
+            t_bytes = fe.num_rows * 4 + k * V + live_rows * 8 * 4 + k * V
+            t_bound = 1e3 * t_bytes / _BANDWIDTH
+            rows[(k, label)] = {
+                "ms": ms, "device_ms": dev_ms, "l1_ms": l1_ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes,
+                "max_abs_err": err, "live_blocks": int(flags.sum()),
+                "blocks": k * nblk, "narrow_lanes": narrow,
+                "touched_ms": touched_ms, "touched_device_ms": touched_dev,
+                "touched_plain_ms": t_plain_ms, "touched_bound_ms": t_bound,
+                "superstep_ms": step_ms, "superstep_device_ms": step_dev,
+                "singles_ms": single_ms, "singles_device_ms": single_dev,
+                "dense_superstep_ms": dense_ms,
+                "dense_superstep_device_ms": dense_dev,
+                "plan_blocks_swept": swept, "shape": [k, R8, W, V]}
+
+            def fmt(x):
+                return "not measured" if x is None else f"{x:.4f}"
+            log(f"[serve_bitmap] 2L (plus_one/min, touched flags) k={k} "
+                f"{label} frontiers ({narrow} of {k} lanes narrow, "
+                f"{int(flags.sum())}/{k * nblk} lane-blocks live): "
+                f"{ms:.4f} ms (device {fmt(dev_ms)}) against 1L "
+                f"{l1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+                f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB); touched pass "
+                f"{touched_ms:.4f} ms (device {fmt(touched_dev)}, plain "
+                f"{t_plain_ms:.4f}, bound {t_bound:.4f}); = plain and = 1L "
+                f"bit for bit, on {smi}")
+            if route:
+                log(f"[serve_bitmap] route A/B k={k} {label}: batched bitmap"
+                    f" superstep {step_ms:.4f} ms (device {fmt(step_dev)}) "
+                    f"against {k} x single-lane _pull_step {single_ms:.4f} "
+                    f"ms (device {fmt(single_dev)}) and the dense batched "
+                    f"superstep (1L) {dense_ms:.4f} ms (device "
+                    f"{fmt(dense_dev)}); values, frontiers and counters "
+                    f"equal, on {smi}")
+            del values, active, touched, flags
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve_bitmap(torch, dev_info, main):
+    """The graph server on the bitmap plane: see the module docstring
+    (step 7)."""
+    from repro_torch.core import dsl
+    from repro_torch.core.scheduler import (AdmissionPolicy, DirectionPolicy,
+                                            ScheduleConfig)
+    from repro_torch.core.translator import translate
+    from repro_torch.serve.graph_serve import GraphServer
+
+    t_phase = time.perf_counter()
+    g, oracle, smi = main["g"], main["oracle"], dev_info["smi"]
+    deg = g.out_degrees.numpy()
+    rng = np.random.default_rng(5)
+    cand = np.flatnonzero(deg > 0)
+    table = main["landmark_table"]
+    lms = table.landmarks
+    bfs_roots = np.concatenate([[0], rng.choice(cand[cand != 0], 15,
+                                                replace=False)])
+    stream = [("bfs", int(r), None) for r in bfs_roots]
+    stream += [("bfs", int(r), None)
+               for r in rng.choice(bfs_roots, 4, replace=False)]
+    stream += [("sssp", int(r), None)
+               for r in rng.choice(cand, 6, replace=False)]
+    stream += [("dist", int(lms[i % len(lms)]), int(rng.choice(cand)))
+               for i in range(3)]
+    stream += [("dist", int(rng.choice(cand)), int(rng.choice(cand)))
+               for _ in range(3)]
+    stream += [("ppr", int(r), None)
+               for r in rng.choice(cand, 2, replace=False)]
+    stream = [stream[i] for i in rng.permutation(len(stream))]
+    admission = AdmissionPolicy(slots=8, slice_supersteps=4)
+    stat_keys = ("push_supersteps", "pull_supersteps", "direction_switches",
+                 "edges_traversed", "push_compacted_supersteps",
+                 "pull_blocks_swept", "pull_blocks_skipped")
+    results = {}
+    for label, direction in (("auto", DirectionPolicy()),
+                             ("pull", DirectionPolicy(mode="pull"))):
+        cfg = ScheduleConfig(pull_sweep="bitmap", direction=direction)
+        # landmarks=4: [serve]'s table (exact SSSP distances from the same
+        # 4 landmarks, equal on every plane), so it is not rebuilt
+        srv = GraphServer(g, schedule=cfg, admission=admission,
+                          device="cuda")
+        srv.table = table
+        _zero_counts()
+        c0 = srv.counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        handles = [srv.submit(kind, root, target=target)
+                   for kind, root, target in stream]
+        srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = _read_counts()
+        cnt = {key: v - c0[key] for key, v in srv.counters().items()}
+        if any(not q.done or q.answer_quality != "exact" for q in handles):
+            raise AssertionError(f"[serve_bitmap] {label}: queries "
+                                 "unanswered or inexact")
+        skip_2l = launches["edge_block_fold_skip"] \
+            + launches["edge_block_lanes_skip"]
+        ppr_sweeps = sum(grp.masked_sweeps
+                         for prog, grp in srv._groups.items()
+                         if getattr(prog, "name", "") == "ppr")
+        # the batched route: 2L a batched superstep with narrow pull lanes
+        # (one touched pass each), 1L (fused) for the other sweeps, ppr's
+        # float add (frontier 'all': the dense plane) 1L, the lane push;
+        # no single-lane kernel 1 or 2 and no single-lane fused push
+        if launches["edge_block_skip"] != 0 or launches["edge_block"] != 0 \
+                or launches["push_ell_fused"] != 0 \
+                or launches["push_lanes_touched"] != skip_2l \
+                or launches["edge_block_lanes"] != ppr_sweeps \
+                or launches["edge_block_fold"] != cnt["masked_sweeps"] \
+                - ppr_sweeps \
+                or launches["push_ell_lanes"] != cnt["lane_pushes"] \
+                or (label == "pull" and skip_2l <= 0) \
+                or (label == "auto" and launches["push_ell_lanes"] <= 0):
+            raise AssertionError(f"[serve_bitmap] {label}: launches "
+                                 f"{launches} against the server's counters "
+                                 f"{cnt} (ppr sweeps {ppr_sweeps})")
+        if cnt["host_reads"] != cnt["batched_supersteps"] + cnt["harvests"]:
+            raise AssertionError(f"[serve_bitmap] {label}: host reads "
+                                 f"{cnt['host_reads']} != batched supersteps "
+                                 f"{cnt['batched_supersteps']} + harvests "
+                                 f"{cnt['harvests']}")
+        # every answer against a sequential run on the same schedule
+        progs = {"bfs": translate(dsl.bfs_program(), g, cfg, device="cuda"),
+                 "sssp": translate(dsl.sssp_program(), g, cfg,
+                                   device="cuda")}
+        seq = {}
+
+        def sequential(kind, root, progs=progs, seq=seq, cfg=cfg):
+            if (kind, root) not in seq:
+                prog = progs.get(kind) or translate(
+                    dsl.ppr_program(root), g, cfg, device="cuda")
+                v, it = prog.run(roots=root)
+                seq[(kind, root)] = (v.cpu().numpy(), it,
+                                     dict(prog.last_run_stats))
+            return seq[(kind, root)]
+
+        for q in handles:
+            if q.kind == "dist":
+                v, _, _ = sequential("sssp", q.root)
+                if not _same_bits_np(np.float64(q.result),
+                                     np.float64(v[q.target])):
+                    raise AssertionError(f"[serve_bitmap] dist {q.root}->"
+                                         f"{q.target}: {q.result} != "
+                                         f"{v[q.target]}")
+                continue
+            v, it, st = sequential(q.kind, q.root)
+            if not _same_bits_np(q.result, v) or q.iters != it or any(
+                    q.stats[key] != st[key] for key in stat_keys):
+                raise AssertionError(f"[serve_bitmap] {label}: {q.kind} root "
+                                     f"{q.root} != its sequential run")
+        if not np.array_equal(sequential("bfs", 0)[0].astype(np.int64),
+                              oracle):
+            raise AssertionError("[serve_bitmap] bfs from root 0 != the "
+                                 "main phase's numpy_bfs")
+        check_s = time.perf_counter() - t1 - wall
+        steps = cnt["batched_supersteps"]
+        results[label] = {
+            "queries": len(handles), "wall_s": wall,
+            "queries_per_s": len(handles) / wall,
+            "ms_per_batched_superstep": 1e3 * wall / steps,
+            "launches": launches, "counters": cnt,
+            "skip_2l_launches": skip_2l,
+            "host_reads_per_batched_superstep":
+                (cnt["host_reads"] - cnt["harvests"]) / steps,
+            "check_s": check_s}
+        log(f"[serve_bitmap] {label}: {len(handles)} queries (16 bfs + 4 "
+            f"repeats, 6 sssp, 6 dist, 2 ppr) under ScheduleConfig("
+            f"pull_sweep='bitmap', direction={direction.mode!r}) = their "
+            f"sequential runs bitwise (values, iters, {', '.join(stat_keys)})"
+            f"; launches: 2L {skip_2l} (fused fold "
+            f"{launches['edge_block_fold_skip']}, sub-row "
+            f"{launches['edge_block_lanes_skip']}), touched passes "
+            f"{launches['push_lanes_touched']}, single-lane kernel 2 "
+            f"{launches['edge_block_skip']}, 1L fold "
+            f"{launches['edge_block_fold'] - launches['edge_block_fold_skip']}"
+            f", 1L sub-row (ppr) {launches['edge_block_lanes']}, 3L "
+            f"{launches['push_ell_lanes']}, kernel 1 alone "
+            f"{launches['edge_block']}; host reads {cnt['host_reads']} = "
+            f"{steps} batched supersteps x 1 + {cnt['harvests']} harvests; "
+            f"{len(handles) / wall:.1f} queries/s, "
+            f"{1e3 * wall / steps:.3f} ms a batched superstep ({wall:.3f} s)"
+            f" against [serve]'s dense plane {main['serve_dense']['qps']:.1f}"
+            f" queries/s, {main['serve_dense']['ms_step']:.3f} ms a batched "
+            f"superstep, on {smi}; the sequential checks {check_s:.1f} s")
+        del srv, progs, seq
+    t_timing = time.perf_counter()
+    timing = _bitmap_lane_timing(torch, g, oracle, smi)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[serve_bitmap] phase wall {phase_s:.1f} s (the 2L and route "
+        f"timings {time.perf_counter() - t_timing:.1f} s)")
+    with open(os.path.join(OUT_DIR, "chip_smoke_serve_bitmap.json"),
+              "w") as f:
+        json.dump({"servers": results, "phase_s": phase_s,
+                   "timing": {f"k={k} {lbl}": v
+                              for (k, lbl), v in timing.items()},
+                   "card": smi}, f, indent=1, default=str)
+    row = timing[(8, "bfs")]
+    return [
+        {"name": "edge_block_fold_lanes (2L, block flags)", "route": "cuda",
+         "source": "src/repro_torch/csrc/edge_block.cu",
+         "replaces": "src/repro/kernels/edge_block.py:58",
+         "launches": results["pull"]["skip_2l_launches"]
+         + results["auto"]["skip_2l_launches"],
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "shape": row["shape"]},
+        {"name": "push_lanes_touched (3L, touched only)", "route": "cuda",
+         "source": "src/repro_torch/csrc/push_ell.cu",
+         "replaces": "src/repro/kernels/push_ell.py:134",
+         "launches": results["pull"]["launches"]["push_lanes_touched"]
+         + results["auto"]["launches"]["push_lanes_touched"],
+         "max_abs_err": 0.0, "ms": row["touched_ms"],
+         "plain_ms": row["touched_plain_ms"],
+         "bound_ms": row["touched_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": row["shape"]}]
 
 
 def phase_sparse(torch, g, oracle, traversed, smi):
@@ -3813,7 +4374,7 @@ def _stream_general(torch, g, smi):
 
 def phase_stream(torch, dev_info, main):
     """Out-of-core streaming on the main phase's scale-22 graph: see the
-    module docstring (step 7)."""
+    module docstring (step 8)."""
     import gc
     import shutil
     from repro_torch.core import algorithms as alg
@@ -4357,7 +4918,7 @@ def _multi_pe_kernel_timing(torch, lay, g, oracle, pes, smi):
 def phase_multi_pe(torch, dev_info, main):
     """Multi-PE execution on one card: a PE group of repeated devices
     (``devices=[cuda:0] * p``) on the main phase's scale-22 graph; see the
-    module docstring (step 8)."""
+    module docstring (step 9)."""
     import gc
     from repro_torch.core import algorithms as alg
     from repro_torch.core import comm as C
@@ -5489,7 +6050,7 @@ def _scan_timing(torch, smi):
 
 
 def phase_lm_families(torch, dev_info):
-    """The decoder-only families: see the module docstring (step 11)."""
+    """The decoder-only families: see the module docstring (step 12)."""
     import dataclasses
     from repro_torch.configs import get_config, smoke_config
     smi = dev_info["smi"]
@@ -5588,7 +6149,7 @@ def _whisper_step_bytes(cfg, model, cache):
 
 
 def phase_whisper(torch, dev_info):
-    """whisper-large-v3: see the module docstring (step 12)."""
+    """whisper-large-v3: see the module docstring (step 13)."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_gqa as dg
@@ -5850,7 +6411,7 @@ def _train_flops(cfg, n_params, batch, seq):
 
 
 def phase_train(torch, dev_info):
-    """Training whisper-large-v3: see the module docstring (step 13)."""
+    """Training whisper-large-v3: see the module docstring (step 14)."""
     import dataclasses
     import gc
     from repro_torch.configs import get_config
@@ -6161,26 +6722,57 @@ PLAN_MOE = ("moonshot-v1-16b-a3b", (4, 256), (1, 4))
 PLAN_RESHARD = ((4, 2), (2, 2))
 
 
+PLAN_WORKERS = 6    # processes the dry run's cells are shared out to
+
+
+def _plan_worker(cells):
+    """A share of the dry run in a fresh process: its records, its log
+    lines, and whether anything in it initialized CUDA."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.launch import dryrun
+    lines = []
+    recs = dryrun.sweep(cells, cost=True, echo=lines.append)
+    return recs, lines, torch.cuda.is_initialized()
+
+
 def _plan_sweep(torch):
-    """The production meshes' dry run in process: the 10 archs × 4 shapes
-    on (16, 16) with the roofline and on (2, 16, 16) without; no error,
-    and no CUDA memory allocated."""
+    """The production meshes' dry run: the 10 archs × 4 shapes on (16,
+    16) with the roofline and on (2, 16, 16) without, the archs shared
+    out to ``PLAN_WORKERS`` processes (each its own op memo; the host's
+    cores run them side by side); no error, no CUDA context in any
+    worker and no CUDA memory allocated here."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     from repro_torch.configs.base import SHAPES
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.launch import dryrun
     before = torch.cuda.memory_allocated()
-    cells = [(a, s, m) for m in (False, True) for a in sorted(ARCHS)
+    archs = sorted(ARCHS)
+    cells = [(a, s, m) for m in (False, True) for a in archs
              for s in SHAPES]
+    workers = max(1, min(PLAN_WORKERS, len(archs), os.cpu_count() or 1))
+    shares = [[c for c in cells if archs.index(c[0]) % workers == w]
+              for w in range(workers)]
     t0 = time.perf_counter()
-    recs = dryrun.sweep(cells, cost=True, echo=lambda line: log(
-        f"[plan] {line}"))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        outs = list(pool.map(_plan_worker, shares))
     sweep_s = time.perf_counter() - t0
+    by_cell = {}
+    for share, (recs, lines, cuda) in zip(shares, outs):
+        for line in lines:
+            log(f"[plan] {line}")
+        if cuda:
+            raise AssertionError("plan: a dry-run worker initialized CUDA")
+        by_cell.update(zip(share, recs))
+    recs = [by_cell[c] for c in cells]
     after = torch.cuda.memory_allocated()
     n = {k: sum(r["status"] == k for r in recs)
          for k in ("ok", "skip", "error")}
     log(f"[plan] sweep: {n['ok']} ok, {n['skip']} skip, {n['error']} "
-        f"error in {sweep_s:.1f} s; CUDA memory allocated {before} bytes "
-        f"before, {after} after")
+        f"error in {sweep_s:.1f} s ({workers} processes); CUDA memory "
+        f"allocated {before} bytes before, {after} after; no worker "
+        "initialized CUDA")
     with open(os.path.join(OUT_DIR, "chip_smoke_plan_sweep.json"), "w") as f:
         json.dump(recs, f, indent=1, default=str)
     if n["error"]:
@@ -6190,7 +6782,7 @@ def _plan_sweep(torch):
                              f"{bad[0]['error']}\n{bad[0]['traceback']}")
     if after != before:
         raise AssertionError("plan: the dry run allocated CUDA memory")
-    return {"counts": n, "seconds": sweep_s}
+    return {"counts": n, "seconds": sweep_s, "workers": workers}
 
 
 def _plan_card_cell(torch, arch, shape, held, measured_s, hand_ms, smi,
@@ -6389,7 +6981,7 @@ def _plan_reshard(torch, smi):
 
 
 def phase_plan(torch, dev_info, lm_held, train_held):
-    """The planning layer: see the module docstring (step 14)."""
+    """The planning layer: see the module docstring (step 15)."""
     import dataclasses
     import gc
     from repro_torch.configs import get_config
@@ -6432,6 +7024,7 @@ def main():
     phase_analysis(torch, dev_info)
     kernels, main_graph = phase_main(torch, dev_info)
     kernels.extend(phase_serve(torch, dev_info, main_graph))
+    kernels.extend(phase_serve_bitmap(torch, dev_info, main_graph))
     kernels.extend(phase_stream(torch, dev_info, main_graph))
     kernels.extend(phase_multi_pe(torch, dev_info, main_graph))
     del main_graph

@@ -46,15 +46,20 @@ device→host read per batched superstep for all lanes.  Each lane decides
 its own direction and tier as a sequential run would, so its values and
 counters equal ``run(roots=r)``'s; frozen and idle lanes launch nothing.
 Lanes are grouped by route, since every route computes the same
-superstep: on the dense plane, the lanes whose superstep is the masked
-sweep (pull lanes, and push lanes past the largest tier) go through one
-launch of the fused lane sweep (``edge_block.edge_block_fold_lanes``; a
-float add, whose fold has an order, takes
-``edge_block.edge_block_reduce_lanes`` and ``subrow_combine``), and the
-push lanes within a tier through one launch of the lane push
-(``push_ell.push_ell_lanes_reduce``, no compaction), both reading and
-writing the lanes' rows in place; the bitmap and sparse planes step each
-lane through their single-lane superstep.  Checkpointed runs
+superstep: on the dense and bitmap planes, the lanes whose superstep is
+the masked sweep (pull lanes, and push lanes past the largest tier) go
+through one launch of the fused lane sweep
+(``edge_block.edge_block_fold_lanes``; a float add, whose fold has an
+order, takes ``edge_block.edge_block_reduce_lanes`` and
+``subrow_combine``), and the push lanes within a tier through one launch
+of the lane push (``push_ell.push_ell_lanes_reduce``, no compaction), both
+reading and writing the lanes' rows in place.  On the bitmap plane the
+sweep is 2L, the lane sweep with a per-lane early-out: the pull lanes in
+a narrow tier take their touched tables in one pass
+(``push_ell.push_lanes_touched``) and one flag a grid block each, the
+other sweep lanes read every block, and each pull lane's block counters
+stay on the device until the superstep's read.  The sparse plane steps
+each lane through its single-lane superstep.  Checkpointed runs
 (``run(checkpoint_dir=...)``) are one-lane slice loops that commit a
 :mod:`~repro_torch.core.checkpoint` snapshot after every slice.
 
@@ -257,9 +262,10 @@ class CompiledGraphProgram:
         self._num_vertices = num_vertices
         self._num_edges = num_edges
         self._probe = bool(probe_divergence)
-        # the batched superstep of the dense plane ((k', V) values, active,
-        # sweep rows, their pull flags, push rows → (new, nxt)), and whether
-        # it takes push rows; None and False elsewhere
+        # the batched superstep of the dense and bitmap planes ((k', V)
+        # values, active, sweep rows, their pull flags, push rows, the sweep
+        # rows' m_f → (new, nxt, pending pull counters)), and whether it
+        # takes push rows; None and False elsewhere
         self._lane_step = lane_step
         self._lane_push = lane_push
         self._base_values = base_values      # (V,) initial table, on device
@@ -797,7 +803,14 @@ class CompiledGraphProgram:
         """Step every live lane until it converges, hits ``max_iters`` or
         has taken ``budget`` supersteps (``None``: no budget).
 
-        One read per batched superstep brings back each stepped lane's
+        Each batched superstep groups the stepped lanes by route: on the
+        dense and bitmap planes the sweep lanes (pull, and push past the
+        largest tier) and the push lanes within a tier (when the plane
+        has the lane push) go through one ``lane_step`` (on the bitmap
+        plane the sweep is 2L, and the narrow pull lanes' block counters
+        come back pending); every other lane (all of them on the sparse
+        plane) takes its single-lane superstep.  One read per batched
+        superstep brings back each stepped lane's
         occupancy and pending pull counters; the last one is remembered
         for this state, so ``lane_done``/``lane_stats`` and the next
         slice read nothing.  Under a multi-PE plan the comm manager
@@ -840,15 +853,14 @@ class CompiledGraphProgram:
             tables = 0
             if sweep or pushes:
                 # one batched superstep over those lanes, read and written
-                # in place: fresh tensors, other rows as they were
-                values, active = self._lane_step(
+                # in place: fresh tensors, other rows as they were; the
+                # pull lanes' counters stay pending until the read below
+                values, active, pending = self._lane_step(
                     values, active, sweep, [dirs[i] == 0 for i in sweep],
-                    pushes)
+                    pushes, [int(occ.m_f[i]) for i in sweep])
                 owned = True
             if sweep:
                 self.lane_sweeps += 1
-                pending.update({i: (self._num_edges, 0, 0) for i in sweep
-                                if dirs[i] == 0})
             if pushes:
                 self.lane_pushes += 1
                 tables += values.shape[0] * (self._exchange_plane == "push")
@@ -1081,33 +1093,55 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
                     pplan: G.PullBitmapPlan, out_deg, sub_sweep, apply_fn,
                     frontier_op: FrontierUpdateOp, touched_free: bool,
                     use_kernels: bool, push_op: PushScatterOp | None,
-                    pe_push: tuple | None):
-    """The batched superstep of the lane API's dense plane.
+                    pe_push: tuple | None, num_edges: int,
+                    bitmap: tuple | None = None):
+    """The batched superstep of the lane API's dense and bitmap planes.
 
     Returns ``(lane_step, lane_push)``.  ``lane_step(values, active,
-    sweep, pull_rows, pushes)`` maps the ``(k', V)`` state to the next
-    ``(values, active)``: the rows listed in ``sweep`` take the masked
-    sweep, a pull superstep where their ``pull_rows`` entry is true and a
-    push fallback superstep (the masked sweep, then the apply everywhere)
-    otherwise; the rows in ``pushes`` take the compacted push's
-    superstep; every other row is returned as it was.  All compute the
-    superstep a sequential run would.  ``lane_push`` says whether
-    ``pushes`` may be given (a forward-ELL push twin with a menu gather).
+    sweep, pull_rows, pushes, m_f)`` maps the ``(k', V)`` state to the
+    next ``(values, active, pending)``: the rows listed in ``sweep`` take
+    the masked sweep, a pull superstep where their ``pull_rows`` entry is
+    true and a push fallback superstep (the masked sweep, then the apply
+    everywhere) otherwise; the rows in ``pushes`` take the compacted
+    push's superstep; every other row is returned as it was.  All compute
+    the superstep a sequential run would.  ``m_f`` lists the sweep rows'
+    frontier out-edges (the occupancy read's), and ``pending`` maps each
+    pull row to its ``(swept_edges, blocks_swept, blocks_skipped)``, as a
+    sequential run's pull superstep counts them (0-d tensors where they
+    stay on the device until the next read).  ``lane_push`` says
+    whether ``pushes`` may be given (a forward-ELL push twin with a menu
+    gather).
 
     Min, max and integer add (the order-free reduces) with a menu gather
     go through ``edge_block.edge_block_fold_lanes`` for the sweep rows and
     ``push_ell.push_ell_lanes_reduce`` for the push rows, one launch each
     for all their lanes, both combining into one ``(k', V)`` reduced
     table; the apply then runs once on the state.  A float add (and, on
-    the CPU, a gather outside the menu) sweeps the listed rows with, with
-    the kernels on, one launch of ``edge_block.edge_block_reduce_lanes``,
-    else each lane's single-lane plain sweep, then a ``subrow_combine`` a
-    lane that folds it in the order a sequential run folds it.  All read
-    the lanes in place, through lane maps.  The apply
-    runs once on a batch when the analyzer found it elementwise and
-    :func:`~repro_torch.core.analysis.apply_batches_over_lanes` finds that
-    a ``(2, V)`` batch of lanes gives each lane its own result; any other
-    apply runs lane by lane.
+    the CPU, a gather outside the menu) sweeps the listed rows with one
+    launch of ``edge_block.edge_block_reduce_lanes`` (on the CPU its plain
+    version for 2L's flags, else each lane's single-lane plain sweep),
+    then a ``subrow_combine`` a lane that folds it in the order a
+    sequential run folds it.  All read the lanes in place, through lane
+    maps.  The apply runs once on a batch when the analyzer found it
+    elementwise and :func:`~repro_torch.core.analysis.
+    apply_batches_over_lanes` finds that a ``(2, V)`` batch of lanes gives
+    each lane its own result; any other apply runs lane by lane.
+
+    ``bitmap``, ``(fe, grid_rows)`` on the block-skipping plane (``None``
+    on the dense one), gives the sweep a per-lane early-out (2L): the pull
+    rows whose ``m_f`` falls in a narrow tier of
+    :func:`~repro_torch.core.scheduler.pull_block_capacities` take their
+    touched tables in one pass (``push_ell.push_lanes_touched``, the lane
+    push's scan with a one-byte message), one flag a grid block of
+    ``grid_rows`` sub-rows (``pull_bitmap.grid_block_live``), and the
+    same sweep launch as the other sweep rows, which read every block; a
+    superstep with no narrow row launches 1L.  Skipping a block whose
+    owners no active source reaches changes no value, so each lane's
+    table is its single-lane superstep's bit for bit, and its counters
+    are those :func:`_emit_pull_bitmap` counts: grid-granular on the
+    kernel path, exact blocks with the ``4 · cap`` overflow on the plain
+    path, ``E`` edges and every block in the wide tier.  The touched
+    table doubles as ``got`` when every pull row is narrow.
 
     ``pe_push`` is the forward-ELL push's PE group (see
     :func:`_emit_push_ell`; ``None``: no forward-ELL push twin): each
@@ -1127,11 +1161,25 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
         apply_fn, dtype, V)
     changed = frontier_op.mode == "changed"
     masked_got = changed and not touched_free
-    fold = fused.gather.module is not None \
-        and dtype in (torch.int32, torch.float32) \
+    menu = fused.gather.module is not None
+    fold = menu and dtype in (torch.int32, torch.float32) \
         and not (op == "add" and dtype.is_floating_point)
     lane_push = fold and pe_push is not None and push_op is not None \
         and push_op.gather.module is not None
+    if bitmap is not None:
+        fe, grid_br = bitmap
+        caps = pull_block_capacities(pplan.num_blocks)
+        b_total, br = pplan.num_blocks, pplan.block_rows
+        if use_kernels and grid_br % br == 0:
+            # each grid block's plan blocks and edges: the single-lane
+            # kernel path counts its grid flags repeated to the plan blocks
+            per = grid_br // br
+            pad = -(-pplan.num_subrows // grid_br) * per - b_total
+            grid_blocks = torch.nn.functional.pad(torch.ones_like(
+                pplan.block_edges, dtype=torch.int64), (0, pad)).view(
+                    -1, per).sum(1)
+            grid_edges = torch.nn.functional.pad(
+                pplan.block_edges.long(), (0, pad)).view(-1, per).sum(1)
 
     def apply_lanes(values, red, rows):
         if elementwise:
@@ -1141,16 +1189,65 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
             new[i] = apply_fn(values[i], red[i])
         return new
 
-    def sweep_lanes(values, active, sweep, pulls):
+    def narrow_counters(touched, flags, narrow):
+        """Each narrow pull row's ``(swept_edges, blocks_swept,
+        blocks_skipped)``, as the single-lane plane counts them."""
+        if use_kernels and grid_br % br == 0:
+            live = flags.to(torch.int64)
+            swept_b = (live * grid_blocks).sum(1)
+            swept_e = (live * grid_edges).sum(1)
+        else:    # exact (plain path), or the odd grid's fine count
+            table = torch.cat([touched, touched.new_zeros(
+                (touched.shape[0], 1))], 1)       # pad owners read slot V
+            live = pull_bitmap_kernel.block_liveness(table, pplan.owner8,
+                                                     br)
+            swept_b = live.sum(1)
+            swept_e = torch.where(live, pplan.block_edges, 0).sum(1)
+        if use_kernels:     # on the device until the superstep's read
+            skipped = b_total - swept_b
+            return {i: (swept_e[i], swept_b[i], skipped[i]) for i in narrow}
+        # plain path: past the gathered sweep's 4 · cap block buffer, the
+        # dense sweep's counters (a host read, on the CPU)
+        cnt, edges = swept_b.tolist(), swept_e.tolist()
+        out = {}
+        for i, m in narrow.items():
+            if cnt[i] <= min(4 * caps[int(m > caps[0])], b_total):
+                out[i] = (int(edges[i]), cnt[i], b_total - cnt[i])
+            else:
+                out[i] = (num_edges, b_total, 0)
+        return out
+
+    def skip_flags(active, sweep, pull_rows, m_f):
+        """The narrow pull rows (row → m_f), 2L's flags over the state's
+        rows (``None``: no narrow pull row, 1L), their touched tables and
+        each pull row's counters."""
+        narrow = {i: m for i, pull, m in zip(sweep, pull_rows, m_f)
+                  if pull and m <= caps[1]}
+        pending = {i: (num_edges, b_total, 0)
+                   for i, pull in zip(sweep, pull_rows)
+                   if pull and i not in narrow}
+        if not narrow:
+            return narrow, None, None, pending
+        touched = push_ell_kernel.push_lanes_touched(
+            fe.row_src, fe.dst, active, list(narrow), num_rows=fe.num_rows)
+        flags = pull_bitmap_kernel.grid_block_live(touched, pplan.owner8,
+                                                   grid_br)
+        for i in sweep:
+            if i not in narrow:
+                flags[i] = True       # the dense sweep: every block read
+        pending.update(narrow_counters(touched, flags, narrow))
+        return narrow, flags, touched, pending
+
+    def sweep_lanes(values, active, sweep, pulls, need_got, flags):
         """The listed rows' masked sweep (float add, unmatched gathers):
         ``(red, got)``, each lane folded alone, rows not listed the
         identity."""
-        need_got = masked_got and bool(pulls)
-        if use_kernels:
+        if use_kernels or (menu and flags is not None):
             sub_red, sub_any = edge_block_kernel.edge_block_reduce_lanes(
                 pplan.flat_dst, pplan.flat_wgt, values, out_deg, active,
                 sweep, gather=fused.gather.module, reduce=op,
-                mask_inactive=program.mask_inactive, need_any=need_got)
+                mask_inactive=program.mask_inactive, need_any=need_got,
+                block_live=flags, block_rows=bitmap and bitmap[1])
         else:
             parts = [sub_sweep(values[i], active[i], pplan.flat_dst_safe,
                                pplan.flat_wgt, need_got) for i in sweep]
@@ -1188,23 +1285,35 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
             nxt = torch.where(stepped_m, nxt, active)
         return new, nxt
 
-    def lane_step(values, active, sweep, pull_rows, pushes):
+    def lane_step(values, active, sweep, pull_rows, pushes, m_f):
         if pushes and not lane_push:
             raise ValueError("this program's lanes push one at a time")
         pulls = [i for i, pull in zip(sweep, pull_rows) if pull]
+        narrow, flags, touched = {}, None, None
+        if bitmap is None:
+            pending = {i: (num_edges, 0, 0) for i in pulls}
+        else:
+            narrow, flags, touched, pending = skip_flags(
+                active, sweep, pull_rows, m_f)
+        # the pull rows' got: the touched tables when every pull row has
+        # one, else the sweep's any-live flags (the same where both exist)
+        need_got = masked_got and any(i not in narrow for i in pulls)
         if not fold:
-            red, got = sweep_lanes(values, active, sweep, pulls)
-            return finish(values, active, red, got, sweep, pulls)
-        need_got = masked_got and bool(pulls)
-        red = torch.full(values.shape, ident, dtype=dtype,
-                         device=values.device)
-        got = None
-        if sweep:
-            red, got = edge_block_kernel.edge_block_fold_lanes(
-                pplan, values, out_deg, active, sweep,
-                gather=fused.gather.module, reduce=op,
-                mask_inactive=program.mask_inactive, need_got=need_got,
-                red=red)
+            red, got = sweep_lanes(values, active, sweep, pulls, need_got,
+                                   flags)
+        else:
+            red = torch.full(values.shape, ident, dtype=dtype,
+                             device=values.device)
+            got = None
+            if sweep:
+                red, got = edge_block_kernel.edge_block_fold_lanes(
+                    pplan, values, out_deg, active, sweep,
+                    gather=fused.gather.module, reduce=op,
+                    mask_inactive=program.mask_inactive, need_got=need_got,
+                    red=red, block_live=flags,
+                    block_rows=bitmap and bitmap[1])
+        if masked_got and narrow and not need_got:
+            got = touched
         if pushes:
             rows_per_pe, intervals, pe_deg, devices, home, combine = pe_push
             parts, on_dev, into = [], {}, red
@@ -1230,8 +1339,9 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
                 into = None
             if parts:
                 red = combine_settled(red, combine(parts, device=home), op)
-        return finish(values, active, red, got, sorted(sweep + pushes),
-                      pulls)
+        new, nxt = finish(values, active, red, got, sorted(sweep + pushes),
+                          pulls)
+        return new, nxt, pending
 
     return lane_step, lane_push
 
@@ -1774,12 +1884,14 @@ def translate(
         pes = 1
 
     lane_step, lane_push = None, False
-    if dense and pull_sweep != "bitmap":
+    if dense:
         fwd = push_layout == "fwd_ell"
         lane_step, lane_push = _emit_lane_step(
             ir, fused, on["pplan"], out_deg, sub_sweep, apply_fn,
             frontier_op, touched_free, use_kernels,
-            push_op if fwd else None, pe_push)
+            push_op if fwd else None, pe_push, E,
+            (on["fe"], schedule.block_rows) if pull_sweep == "bitmap"
+            else None)
 
     base_values = program.materialize_init(V, device)
 

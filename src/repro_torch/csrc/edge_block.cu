@@ -311,6 +311,27 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 // OR.  An owner's rows lie in several partitions, and each partition's
 // launch folds its own runs into the running table.
 //
+// 2L, the lane sweep with a per-lane early-out (the counterpart of
+// repro/kernels/edge_block.py::_kernel_skip under jax.vmap, which the JAX
+// package's batched runs reach on the bitmap plane: each lane's block flags
+// batched into one launch of the early-out kernel).  Both lane kernels take
+// an optional (k', nblk) flag table, a byte a lane row and grid block of
+// block_rows sub-rows; a null table is 1L, unchanged.  A small pass
+// (lanes_flags_pack_kernel, one thread a grid block) first packs the
+// launch's k lanes' flags of block b into one word, bit l for lane l, as
+// the pre-pass packs a vertex's K frontier bits.  A row then reads its
+// block's word (one broadcast load: with block_rows >= 32 a warp shares
+// it) and ANDs it into each slot's frontier bits (lanes_row's `on`): a
+// lane whose flag is 0 keeps the identity and any 0 and reads none of its
+// messages, and a row whose word is 0 loads no ids, no weights and no
+// messages.  The fold kernel's rows with a zero word still take part in
+// the warp's scan, with identity partials.  On the bitmap plane the flags
+// come from each lane's touched table, and a dead block's owners have no
+// active in-neighbour in that lane, so 2L on those flags equals 1L bit for
+// bit; on any flags it equals k single-lane kernel-2 sweeps (and, in the
+// fold, their sub-row fold).  Bound: as 1L's, but only the live (row,
+// lane) pairs' id and message reads count, plus the flags (k x nblk B).
+//
 // What bounds the fold kernel on an H100: bytes.  It must read the ids once
 // (R8 x 32 B, 0.40 GB at scale 22), owner8 (R8 x 4 B), each lane's values
 // and frontier (k x V x 5 B) and write each lane's (V,) table and flags (k
@@ -320,11 +341,36 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 // fill.
 // ---------------------------------------------------------------------------
 
+// 2L's flag words: word b holds bit l where lane l's flag of grid block b
+// is nonzero (flags is the (k', nblk) table, lane l its row map.row[l]).
+__global__ void lanes_flags_pack_kernel(const uint8_t* __restrict__ flags,
+                                        LaneMap map, int k, long long nblk,
+                                        unsigned* __restrict__ words) {
+  const long long b = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (b >= nblk) return;
+  unsigned w = 0u;
+#pragma unroll
+  for (int l = 0; l < kMaxLanes; ++l) {
+    if (l < k && flags[map.row[l] * nblk + b] != 0) w |= 1u << l;
+  }
+  words[b] = w;
+}
+
+// The lanes whose flags let row r be read: its grid block's word, or every
+// lane without flags (1L).
+__device__ __forceinline__ unsigned row_lanes_on(
+    const unsigned* __restrict__ words, long long block_rows, long long r) {
+  return words == nullptr ? ~0u : __ldg(words + r / block_rows);
+}
+
 template <typename T, int GW, int R, int K>
 __global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,
                                         const float* __restrict__ wgt,
                                         const unsigned* __restrict__ bits,
                                         const T* __restrict__ msg,
+                                        const unsigned* __restrict__ words,
+                                        long long block_rows,
                                         T* __restrict__ out,
                                         uint8_t* __restrict__ any_out,
                                         long long rows, int width, int k,
@@ -336,7 +382,11 @@ __global__ void edge_block_lanes_kernel(const int* __restrict__ nbr,
 #pragma unroll
   for (int l = 0; l < K; ++l) acc[l] = reduce_identity<T, R>();
   unsigned any = 0;
-  lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc, any);
+  const unsigned on = row_lanes_on(words, block_rows, r);
+  if (on != 0u) {
+    lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc, any,
+                           on);
+  }
 #pragma unroll
   for (int l = 0; l < K; ++l) {
     if (l < k) {
@@ -350,7 +400,8 @@ template <typename T, int GW, int R, int K>
 __global__ void __launch_bounds__(256) edge_block_fold_kernel(
     const int* __restrict__ nbr, const float* __restrict__ wgt,
     const int* __restrict__ owner8, const unsigned* __restrict__ bits,
-    const T* __restrict__ msg, LaneMap map, T* red, uint8_t* got,
+    const T* __restrict__ msg, const unsigned* __restrict__ words,
+    long long block_rows, LaneMap map, T* red, uint8_t* got,
     long long rows, long long V, int width, int k, bool mask, bool w8,
     bool accumulate) {
   const T ident = reduce_identity<T, R>();
@@ -364,8 +415,11 @@ __global__ void __launch_bounds__(256) edge_block_fold_kernel(
   int o = -1;                            // past the view: no owner
   if (r < rows) {
     o = __ldg(owner8 + r);
-    lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc,
-                           any);
+    const unsigned on = row_lanes_on(words, block_rows, r);
+    if (on != 0u) {
+      lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc,
+                             any, on);
+    }
   }
   // bit t of `same`: threads t and t + 1 hold sub-rows of one owner
   const int o_next = __shfl_down_sync(~0u, o, 1);
@@ -425,6 +479,9 @@ struct LaneArgs {
   int k;
   long long rows;
   int width;
+  const void* block_live;   // (k', nblk) bytes, or null: no flags (1L)
+  long long block_rows;
+  void* words;              // nblk words of scratch for the packed flags
   int stage;                // Stage
   cudaStream_t stream;
 };
@@ -471,18 +528,30 @@ cudaError_t launch_lanes(const LaneArgs& a, const Out& o) {
     const float* wgt = static_cast<const float*>(a.wgt);
     const unsigned* bits = static_cast<const unsigned*>(a.bits);
     const T* msg = static_cast<const T*>(a.msg);
+    const unsigned* words = nullptr;
+    if (a.block_live != nullptr) {         // 2L: pack the flags first
+      const long long nblk = (a.rows + a.block_rows - 1) / a.block_rows;
+      lanes_flags_pack_kernel<<<(nblk + kThreads - 1) / kThreads, kThreads,
+                                0, a.stream>>>(
+          static_cast<const uint8_t*>(a.block_live), a.map, a.k, nblk,
+          static_cast<unsigned*>(a.words));
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      words = static_cast<const unsigned*>(a.words);
+    }
     if constexpr (std::is_same<Out, SubRowOut>::value) {
       edge_block_lanes_kernel<T, GW, R, K>
           <<<blocks, kThreads, 0, a.stream>>>(
-              nbr, wgt, bits, msg, static_cast<T*>(o.out),
-              static_cast<uint8_t*>(o.any), a.rows, a.width, a.k, a.mask,
-              w8);
+              nbr, wgt, bits, msg, words, a.block_rows,
+              static_cast<T*>(o.out), static_cast<uint8_t*>(o.any), a.rows,
+              a.width, a.k, a.mask, w8);
     } else {
       edge_block_fold_kernel<T, GW, R, K>
           <<<blocks, kThreads, 0, a.stream>>>(
-              nbr, wgt, static_cast<const int*>(o.owner8), bits, msg, a.map,
-              static_cast<T*>(o.red), static_cast<uint8_t*>(o.got), a.rows,
-              a.V, a.width, a.k, a.mask, w8, o.accumulate);
+              nbr, wgt, static_cast<const int*>(o.owner8), bits, msg, words,
+              a.block_rows, a.map, static_cast<T*>(o.red),
+              static_cast<uint8_t*>(o.got), a.rows, a.V, a.width, a.k,
+              a.mask, w8, o.accumulate);
     }
     return cudaGetLastError();
   }
@@ -577,6 +646,8 @@ extern "C" int edge_block_reduce_launch(
 // mask_inactive) and `msg` ((V, K) of the value type) are scratch for the
 // pre-pass; `out` is (k, rows) of the value type and `any` (k, rows)
 // bytes, or null when the caller needs no flags, row l for lanes[l].
+// `block_live`, a (lane_rows, ceil(rows / block_rows)) byte table, or null,
+// selects 2L (`words`, ceil(rows / block_rows) words, is its scratch).
 // `stage` as edge_block_reduce_launch's.  Returns the cudaError_t of the
 // launch (0 = success).
 extern "C" int edge_block_lanes_launch(
@@ -584,16 +655,19 @@ extern "C" int edge_block_lanes_launch(
     int K, const void* nbr, const void* wgt, const void* values,
     const void* degrees, const void* active, const int* lanes, int k,
     long long lane_rows, void* bits, void* msg, long long V, void* out,
-    void* any, long long rows, int width, int stage, void* stream) {
+    void* any, long long rows, int width, const void* block_live,
+    long long block_rows, void* words, int stage, void* stream) {
   using namespace repro_torch;
   LaneMap map;
-  if (!make_lane_map(lanes, k, K, lane_rows, &map) || !valid_stage(stage)) {
+  if (!make_lane_map(lanes, k, K, lane_rows, &map) || !valid_stage(stage) ||
+      (block_live != nullptr && (block_rows < 1 || words == nullptr))) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
-                   map, bits, msg, V, k, rows, width, stage,
+                   map, bits, msg, V, k, rows, width, block_live,
+                   block_rows, words, stage,
                    static_cast<cudaStream_t>(stream)};
   const SubRowOut o{out, any};
   return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)
@@ -605,7 +679,8 @@ extern "C" int edge_block_lanes_launch(
 // for pad sub-rows).  `red` is (lane_rows, V) of the value type holding
 // the reduce identity in the listed rows on entry, `got` (lane_rows, V)
 // bytes holding 0 there, or null; with `accumulate` they hold running
-// partials instead, which the launch combines into.  `stage` as
+// partials instead, which the launch combines into.  `block_live`,
+// `block_rows` and `words` as edge_block_lanes_launch's (2L).  `stage` as
 // edge_block_reduce_launch's.  Returns the cudaError_t of the launch (0 =
 // success).
 extern "C" int edge_block_fold_launch(
@@ -614,17 +689,20 @@ extern "C" int edge_block_fold_launch(
     const void* values, const void* degrees, const void* active,
     const int* lanes, int k, long long lane_rows, void* bits, void* msg,
     long long V, void* red, void* got, long long rows, int width,
-    int accumulate, int stage, void* stream) {
+    int accumulate, const void* block_live, long long block_rows,
+    void* words, int stage, void* stream) {
   using namespace repro_torch;
   LaneMap map;
   if (owner8 == nullptr || !make_lane_map(lanes, k, K, lane_rows, &map) ||
-      !valid_stage(stage)) {
+      !valid_stage(stage) ||
+      (block_live != nullptr && (block_rows < 1 || words == nullptr))) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
-                   map, bits, msg, V, k, rows, width, stage,
+                   map, bits, msg, V, k, rows, width, block_live,
+                   block_rows, words, stage,
                    static_cast<cudaStream_t>(stream)};
   const FoldOut o{owner8, red, got, accumulate != 0};
   return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)

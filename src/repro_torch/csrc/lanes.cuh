@@ -303,7 +303,9 @@ __device__ __forceinline__ void lanes_combine(T (&acc)[K], unsigned live,
 }
 
 // One sub-row's partials: acc[l] is lane l's reduce over the row's slots,
-// bit l of any whether lane l had a live slot.
+// bit l of any whether lane l had a live slot.  Only the lanes whose bit
+// is set in `on` read the row (2L's block flags): in the others every slot
+// is dead, so they keep the identity, any 0, and read no message.
 template <typename T, int GW, int R, int K>
 __device__ __forceinline__ void lanes_row(const int* __restrict__ nbr,
                                           const float* __restrict__ wgt,
@@ -311,9 +313,9 @@ __device__ __forceinline__ void lanes_row(const int* __restrict__ nbr,
                                           const T* __restrict__ msg,
                                           long long r, int width, bool mask,
                                           bool w8, T (&acc)[K],
-                                          unsigned& any) {
+                                          unsigned& any, unsigned on = ~0u) {
   constexpr bool kW = weighted(GW);
-  constexpr unsigned kAll = K == 32 ? ~0u : (1u << K) - 1u;
+  const unsigned all_on = (K == 32 ? ~0u : (1u << K) - 1u) & on;
   const uint64_t first = l2_policy_evict_first();
   const uint64_t last = l2_policy_evict_last();
   if (w8) {
@@ -324,8 +326,8 @@ __device__ __forceinline__ void lanes_row(const int* __restrict__ nbr,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {        // the row's frontier bits in flight
       live[j] = ids[j] == kPad ? 0u
-                : mask          ? lane_bits<K>(bits, ids[j], last)
-                                : kAll;
+                : mask          ? lane_bits<K>(bits, ids[j], last) & on
+                                : all_on;
     }
     float w[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if constexpr (kW) {
@@ -372,8 +374,8 @@ __device__ __forceinline__ void lanes_row(const int* __restrict__ nbr,
     for (int j = 0; j < width; ++j) {
       const int u = __ldg(row + j);
       const unsigned live = u == kPad ? 0u
-                            : mask    ? lane_bits<K>(bits, u, last)
-                                      : kAll;
+                            : mask    ? lane_bits<K>(bits, u, last) & on
+                                      : all_on;
       unsigned m[K];
       if (live) {
         load_lanes<K>(msg + static_cast<long long>(u) * K, last, m);

@@ -100,6 +100,12 @@
 //   message, which tripled the streamed partition's kernel time (7.2 M
 //   messages, a hub taking 15,351 of them); a test read before a
 //   conditional store cost a request and a wait of its own.
+// - Touched only (a null table): the bitmap plane's batched superstep needs,
+//   for each narrow pull lane, the touched table (which vertices have an
+//   active in-neighbour; repro/core/translator.py's touched_frontier, XLA
+//   in the JAX package).  3L's scan gives it with a one-byte message: each
+//   valid slot of a live row sets its got byte, and no value, test read or
+//   atomic is made.
 #include "lanes.cuh"
 
 namespace repro_torch {
@@ -389,6 +395,15 @@ __device__ __forceinline__ void push_lane_row(
     for (unsigned left = m; left != 0u; left &= left - 1u) {
       const long long base =
           static_cast<long long>(map.row[__ffs(left) - 1]) * V;
+      if (table == nullptr) {        // touched only: a got byte a slot
+#pragma unroll
+        for (int i = 0; i < kSlotBatch; ++i) {
+          if (static_cast<unsigned>(u[i]) < V) {
+            set_byte(got + base + u[i], keep);
+          }
+        }
+        continue;
+      }
       const T v = from_bits<T>(load_table(values + base + s, stream));
       T* lane_table = table + base;
       uint8_t* lane_got = got == nullptr ? nullptr : got + base;
@@ -625,7 +640,8 @@ extern "C" int push_ell_fused_launch(int device, int gather, int reduce,
 // `table` (lane_rows, V) holds the reduce identity in the listed rows on
 // entry (or running partials: the atomics combine into it either way);
 // `got` (lane_rows, V) bytes, or null, takes a 1 for each (lane, vertex)
-// a live message reached.  `stage` (lanes.cuh's Stage) launches the
+// a live message reached.  A null `table` (with a `got`) sets the got
+// bytes alone: values and degrees are then not read.  `stage` (lanes.cuh's Stage) launches the
 // pre-pass, or the kernel on the bits a pre-pass call wrote.  Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int push_ell_lanes_launch(int device, int gather, int reduce,
@@ -640,7 +656,8 @@ extern "C" int push_ell_lanes_launch(int device, int gather, int reduce,
                                      void* stream) {
   using namespace repro_torch;
   LaneMap map;
-  if (!make_lane_map(lanes, k, K, lane_rows, &map) || !valid_stage(stage)) {
+  if (!make_lane_map(lanes, k, K, lane_rows, &map) || !valid_stage(stage) ||
+      (stage == kMainOnly && table == nullptr && got == nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);

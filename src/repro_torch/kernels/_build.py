@@ -42,10 +42,10 @@ _ENTRY = {
                     _L, _P, _P, _L, _I, _I, _P],
                    "edge_block_lanes_launch":
                    [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _IP, _I, _L,
-                    _P, _P, _L, _P, _P, _L, _I, _I, _P],
+                    _P, _P, _L, _P, _P, _L, _I, _P, _L, _P, _I, _P],
                    "edge_block_fold_launch":
                    [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _I,
-                    _L, _P, _P, _L, _P, _P, _L, _I, _I, _I, _P]},
+                    _L, _P, _P, _L, _P, _P, _L, _I, _I, _P, _L, _P, _I, _P]},
     "push_ell": {"push_ell_message_launch":
                  [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
                  "push_ell_fused_launch":

@@ -34,6 +34,14 @@ the same rows of its tables.  Count: ``launches``.  Both lane kernels
 read the lanes they sweep in place, through a lane map that goes to the
 kernel by value (no index tensor is copied to the device).
 
+Both lane kernels take ``block_live=``, a ``(k', nblk)`` table of one flag
+a lane row and grid block of ``block_rows`` rows: 2L, the counterpart of
+the early-out kernel under ``jax.vmap`` (the JAX package's batched runs on
+the bitmap plane).  A (lane, block) pair whose flag is 0 holds the
+identity and any 0 there and reads none of that lane's messages; a row
+dead in every lane loads nothing.  Launches with flags count apart
+(``skip_launches`` of each wrapper), as kernel 2's do.
+
 The streamed engine (``core/stream.py``) sweeps one state over many
 partitions.  Its pull partitions go through the fused lane sweep in
 accumulate mode (``accumulate=True``): the ``(k', V)`` tables hold the
@@ -96,10 +104,29 @@ def edge_block_reduce_plain(nbr, wgt, values, degrees, active, *, gather: str,
                                           mask_inactive=mask_inactive)
     if block_live is None:
         return red, any_live
-    R = nbr.shape[0]
-    dead = (block_live == 0).repeat_interleave(block_rows)[:R]
+    dead = _dead_rows(block_live, block_rows, nbr.shape[0])
     return (torch.where(dead, _identity(reduce, red.dtype), red),
             any_live & ~dead)
+
+
+def _check_lane_flags(block_live, block_rows, kk: int, R: int, device):
+    """Raise unless ``block_live`` is a contiguous ``(kk, ceil(R /
+    block_rows))`` flag table on ``device``."""
+    if block_rows is None or block_rows < 1:
+        raise ValueError("block_live needs block_rows >= 1")
+    nb = -(-R // block_rows)
+    if tuple(block_live.shape) != (kk, nb) or \
+            block_live.dtype not in _FLAG_DTYPES or \
+            block_live.device != device or not block_live.is_contiguous():
+        raise ValueError(
+            f"block_live: want a contiguous ({kk}, {nb}) bool/int8/uint8 "
+            f"tensor on {device}, got {block_live.dtype} "
+            f"{tuple(block_live.shape)} on {block_live.device}")
+
+
+def _dead_rows(flags, block_rows: int, R: int) -> torch.Tensor:
+    """``(R,)`` bool: the rows whose block's flag (of one lane) is 0."""
+    return (flags == 0).repeat_interleave(block_rows)[:R]
 
 
 def edge_block_reduce(
@@ -282,7 +309,7 @@ def lanes_prepare(values, degrees, active, lanes, *, gather: str,
             _VALUE_DTYPES[values.dtype], int(mask_inactive), K, None, None,
             values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
             lane_map, k, kk, None if bits is None else bits.data_ptr(),
-            msg.data_ptr(), V, None, None, 0, 8, _PACK_ONLY,
+            msg.data_ptr(), V, None, None, 0, 8, None, 0, None, _PACK_ONLY,
             torch.cuda.current_stream(values.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"edge_block lane pre-pass launch failed: "
@@ -300,16 +327,21 @@ lanes_prepare.launches = 0
 def edge_block_reduce_lanes_plain(nbr, wgt, values, degrees, active,
                                   lanes=None, *, gather: str, reduce: str,
                                   mask_inactive: bool = True,
+                                  block_live=None,
+                                  block_rows: int | None = None,
                                   prepared: Prepared | None = None):
     """Plain version of the lane-axis kernel: the single-lane plain
-    version applied to each listed lane, stacked to ``(k, R)``
+    version applied to each listed lane, with that lane's row of
+    ``block_live`` (kernel 2's) when given, stacked to ``(k, R)``
     (``prepared`` only checked)."""
     rows = list(range(values.shape[0])) if lanes is None \
         else lane_list(lanes, values.shape[0])
     check_prepared(prepared, rows, gather, mask_inactive)
-    outs = [edge_block_reduce_plain(nbr, wgt, values[i], degrees, active[i],
-                                    gather=gather, reduce=reduce,
-                                    mask_inactive=mask_inactive)
+    outs = [edge_block_reduce_plain(
+                nbr, wgt, values[i], degrees, active[i], gather=gather,
+                reduce=reduce, mask_inactive=mask_inactive,
+                block_live=None if block_live is None else block_live[i],
+                block_rows=block_rows)
             for i in rows]
     R = nbr.shape[0]
     if not outs:
@@ -331,6 +363,8 @@ def edge_block_reduce_lanes(
     reduce: str,
     mask_inactive: bool = True,
     need_any: bool = True,
+    block_live: torch.Tensor | None = None,   # (k', ceil(R/block_rows))
+    block_rows: int | None = None,
     prepared: Prepared | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Kernel 1 over k lanes: per lane and row, the reduce of the menu
@@ -340,7 +374,10 @@ def edge_block_reduce_lanes(
     ``j`` of each is what :func:`edge_block_reduce` gives for lane
     ``lanes[j]`` alone, bit for bit (each lane reduces its slots in kernel
     1's order).  ``need_any=False`` skips the flags (returned as
-    ``None``).  A lane map longer than
+    ``None``).  ``block_live`` (bool, int8 or uint8, a row a lane of the
+    state; nonzero is live) with ``block_rows`` selects 2L: row ``j`` is
+    then kernel 2's for lane ``lanes[j]`` and its row of flags (count
+    ``skip_launches``).  A lane map longer than
     :data:`~repro_torch.kernels.lanes.MAX_LANES` runs as several
     launches.  ``prepared`` (:func:`lanes_prepare`'s tables of this very
     state and lanes) spares the call its own pre-pass.
@@ -353,10 +390,14 @@ def edge_block_reduce_lanes(
     if values.dim() != 2 or tuple(active.shape) != tuple(values.shape):
         raise ValueError(f"values and active: want (k, V) each, got "
                          f"{tuple(values.shape)} and {tuple(active.shape)}")
+    if block_live is not None:
+        _check_lane_flags(block_live, block_rows, values.shape[0],
+                          nbr.shape[0], values.device)
     if values.device.type == "cpu":
         red, any_live = edge_block_reduce_lanes_plain(
             nbr, wgt, values, degrees, active, lanes, gather=gather,
-            reduce=reduce, mask_inactive=mask_inactive, prepared=prepared)
+            reduce=reduce, mask_inactive=mask_inactive,
+            block_live=block_live, block_rows=block_rows, prepared=prepared)
         return red, any_live if need_any else None
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_reduce_lanes runs on CPU or CUDA "
@@ -391,6 +432,7 @@ def edge_block_reduce_lanes(
     if prepared is None:
         prepared = lanes_prepare(values, degrees, active, lanes,
                                  gather=gather, mask_inactive=mask_inactive)
+    words = _flag_words(block_live, R, block_rows)
     for lo, lane_map, kc, K, bits, msg in prepared.chunks:
         err = lib.edge_block_lanes_launch(
             values.device.index or 0, GATHER_OPS.index(gather),
@@ -400,16 +442,38 @@ def edge_block_reduce_lanes(
             lane_map, kc, kk, None if bits is None else bits.data_ptr(),
             msg.data_ptr(), V, out[lo].data_ptr(),
             None if any_live is None else any_live[lo].data_ptr(), R, W,
-            _MAIN_ONLY, stream)
+            *_flag_args(block_live, block_rows, words), _MAIN_ONLY, stream)
         if err != 0:
             raise RuntimeError(f"edge_block lane kernel launch failed: "
                                f"cudaError_t {err}")
-        edge_block_reduce_lanes.lane_launches += 1
+        if block_live is None:
+            edge_block_reduce_lanes.lane_launches += 1
+        else:
+            edge_block_reduce_lanes.skip_launches += 1
     return out, None if any_live is None else any_live.view(torch.bool)
 
 
-# launches of the lane-axis kernel since the count was last set to 0
+# launches of the lane-axis kernel since the counts were last set to 0:
+# without flags (1L) and with them (2L)
 edge_block_reduce_lanes.lane_launches = 0
+edge_block_reduce_lanes.skip_launches = 0
+
+
+def _flag_words(block_live, R: int, block_rows):
+    """2L's scratch for the packed flags, one int32 word a grid block (one
+    for all of a call's launches, which run in stream order); None
+    without flags."""
+    if block_live is None:
+        return None
+    return torch.empty((-(-R // block_rows),), dtype=torch.int32,
+                       device=block_live.device)
+
+
+def _flag_args(block_live, block_rows, words) -> tuple:
+    """The C entries' ``(block_live, block_rows, words)`` arguments."""
+    if block_live is None:
+        return None, 0, None
+    return block_live.data_ptr(), block_rows, words.data_ptr()
 
 
 def _fold_check(gather, reduce, values, active):
@@ -443,10 +507,13 @@ def edge_block_fold_lanes_plain(plan, values, degrees, active, lanes, *,
                                 gather: str, reduce: str,
                                 mask_inactive: bool = True,
                                 need_got: bool = True, red=None, got=None,
-                                accumulate: bool = False,
+                                accumulate: bool = False, block_live=None,
+                                block_rows: int | None = None,
                                 prepared: Prepared | None = None):
     """Plain version of the fused lane sweep: for each listed lane, the
-    single-lane plain sweep over the flat view, then
+    single-lane plain sweep over the flat view (kernel 2's with that
+    lane's row of ``block_live``: a dead block's rows all identity and
+    not live), then
     :func:`~repro_torch.kernels.pull_bitmap.subrow_combine` of its
     reductions and of its any-live flags, into that lane's row; a float
     min/max's tied zeros settled as the kernel's combines settle them
@@ -477,6 +544,11 @@ def edge_block_fold_lanes_plain(plan, values, degrees, active, lanes, *,
         msg, live = edge_block_messages(
             plan.flat_dst, plan.flat_wgt, values[i], degrees, active[i],
             gather=gather, reduce=reduce, mask_inactive=mask_inactive)
+        if block_live is not None:
+            dead = _dead_rows(block_live[i], block_rows,
+                              msg.shape[0])[:, None]
+            msg = torch.where(dead, ident, msg)
+            live = live & ~dead
         red_i = fold(row_reduce(reduce, msg, 1), reduce, ident)
         if values.dtype.is_floating_point:      # min or max
             red_i = settle_zero_ties(red_i, fold(
@@ -509,6 +581,8 @@ def edge_block_fold_lanes(
     red: torch.Tensor | None = None,
     got: torch.Tensor | None = None,
     accumulate: bool = False,
+    block_live: torch.Tensor | None = None,   # (k', ceil(R8/block_rows))
+    block_rows: int | None = None,
     prepared: Prepared | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The lane sweep with the sub-row fold fused in (min, max, int add).
@@ -533,18 +607,26 @@ def edge_block_fold_lanes(
     required with ``need_got``) hold running partials, which the call
     combines the listed lanes' reductions into and ORs the flags into.
     ``got`` may be given without it too, holding 0 in the listed rows.
-    ``prepared`` (:func:`lanes_prepare`'s tables of this very state and
-    lanes) spares the call its own pre-pass.
+    ``block_live`` (bool, int8 or uint8, a row a lane of the state; nonzero
+    is live) with ``block_rows`` selects 2L: each lane's rows in a block
+    its flag marks dead hold the identity and are not live, as kernel 2
+    gives them, before the fold (count ``skip_launches`` besides
+    ``launches``).  ``prepared`` (:func:`lanes_prepare`'s tables of this
+    very state and lanes) spares the call its own pre-pass.
     """
     _fold_check(gather, reduce, values, active)
     if accumulate and (red is None or (need_got and got is None)):
         raise ValueError("accumulate mode needs the running red table "
                          "(and got, with need_got)")
+    if block_live is not None:
+        _check_lane_flags(block_live, block_rows, values.shape[0],
+                          plan.flat_dst.shape[0], values.device)
     if values.device.type == "cpu":
         return edge_block_fold_lanes_plain(
             plan, values, degrees, active, lanes, gather=gather,
             reduce=reduce, mask_inactive=mask_inactive, need_got=need_got,
-            red=red, got=got, accumulate=accumulate, prepared=prepared)
+            red=red, got=got, accumulate=accumulate, block_live=block_live,
+            block_rows=block_rows, prepared=prepared)
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_fold_lanes runs on CPU or CUDA "
                          f"tensors, got {values.device}")
@@ -587,6 +669,7 @@ def edge_block_fold_lanes(
     if prepared is None:
         prepared = lanes_prepare(values, degrees, active, lanes,
                                  gather=gather, mask_inactive=mask_inactive)
+    words = _flag_words(block_live, R, block_rows)
     for _, lane_map, k, K, bits, msg in prepared.chunks:
         err = lib.edge_block_fold_launch(
             values.device.index or 0, GATHER_OPS.index(gather),
@@ -596,20 +679,24 @@ def edge_block_fold_lanes(
             active.data_ptr(), lane_map, k, kk,
             None if bits is None else bits.data_ptr(), msg.data_ptr(), V,
             red.data_ptr(), None if got is None else got.data_ptr(), R, W,
-            int(accumulate), _MAIN_ONLY, stream)
+            int(accumulate), *_flag_args(block_live, block_rows, words),
+            _MAIN_ONLY, stream)
         if err != 0:
             raise RuntimeError(f"edge_block fold kernel launch failed: "
                                f"cudaError_t {err}")
         edge_block_fold_lanes.launches += 1
         if accumulate:
             edge_block_fold_lanes.accumulate_launches += 1
+        if block_live is not None:
+            edge_block_fold_lanes.skip_launches += 1
     return red, got
 
 
-# launches of the fused lane sweep since the counts were last set to 0, all
-# of them and those in accumulate mode
+# launches of the fused lane sweep since the counts were last set to 0: all
+# of them, those in accumulate mode and those with flags (2L)
 edge_block_fold_lanes.launches = 0
 edge_block_fold_lanes.accumulate_launches = 0
+edge_block_fold_lanes.skip_launches = 0
 
 
 def edge_block_add_fold_lanes_plain(view, values, degrees, active, lanes, *,

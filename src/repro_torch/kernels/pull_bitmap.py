@@ -9,7 +9,7 @@ these is a TPU kernel):
   and :func:`block_range_live` / :func:`word_prefix`, the conservative
   word-range form over the packed touched bitmap;
 * :func:`grid_block_live` — the kernel path's ``block_live`` flags, one
-  per grid block of sub-rows;
+  per grid block of sub-rows (a lane or a ``(k, ·)`` batch of lanes);
 * :func:`subrow_combine` — per-sub-row reductions back to per-vertex
   values, scatter-free but for split hubs, one lane or a ``(k, R8)``
   batch of lanes;
@@ -18,7 +18,10 @@ these is a TPU kernel):
 
 The translator's bitmap plane (``translator._emit_pull_bitmap``) builds
 on these; its kernel path skips dead blocks inside
-``edge_block.edge_block_reduce(block_live=...)``.
+``edge_block.edge_block_reduce(block_live=...)``, and its batched
+superstep (``translator._emit_lane_step``) inside the lane kernels'
+``block_live=`` (2L), on touched tables from
+``push_ell.push_lanes_touched``.
 """
 from __future__ import annotations
 
@@ -59,18 +62,42 @@ def touched_table(row_src: torch.Tensor, ell_dst: torch.Tensor,
 def block_liveness(touched_u8: torch.Tensor, sid_blocked: torch.Tensor,
                    block_rows: int) -> torch.Tensor:
     """Exact per-block liveness: any sub-row owner touched (pad owners
-    are ``V`` and read the table's always-zero dummy slot)."""
-    t = touched_u8[sid_blocked.long()] != 0
-    return t.reshape(-1, block_rows).any(dim=1)
+    are ``V`` and read the table's always-zero dummy slot).  A ``(k,
+    V+1)`` table of k lanes gives ``(k, blocks)``."""
+    t = touched_u8[..., sid_blocked.long()] != 0
+    return t.reshape(*t.shape[:-1], -1, block_rows).any(dim=-1)
 
 
 def grid_block_live(touched_u8: torch.Tensor, owner8: torch.Tensor,
                     grid_rows: int) -> torch.Tensor:
     """``block_live`` flags for ``edge_block_reduce``: per grid block of
-    ``grid_rows`` sub-rows (the last one ragged), any owner touched."""
-    t8 = touched_u8[owner8.long()] != 0
-    pad = (-t8.shape[0]) % grid_rows
-    return torch.cat([t8, t8.new_zeros(pad)]).reshape(-1, grid_rows).any(1)
+    ``grid_rows`` sub-rows (the last one ragged), any owner touched.
+
+    A ``(k, V)`` or ``(k, V+1)`` table of k lanes gives the ``(k, grid
+    blocks)`` flags of the lane kernels (``edge_block_fold_lanes(
+    block_live=...)``): the lanes go in groups of 8, a vertex's 8 flags
+    one int64 word, so a sub-row's owner gathers one word a group, not a
+    byte a lane; pad owners read a zero word past the table.
+    """
+    idx = owner8.long()
+    pad = (-idx.shape[0]) % grid_rows
+    if touched_u8.dim() == 1:
+        t8 = touched_u8[idx] != 0
+        return torch.cat([t8, t8.new_zeros(pad)]).reshape(-1, grid_rows) \
+            .any(1)
+    lanes, nv = touched_u8.shape
+    if pad:
+        idx = torch.cat([idx, idx.new_full((pad,), nv)])
+    groups = -(-lanes // 8)
+    t = torch.zeros((groups * 8, nv + 1), dtype=torch.bool,
+                    device=touched_u8.device)
+    t[:lanes, :nv] = touched_u8 if touched_u8.dtype == torch.bool \
+        else touched_u8 != 0
+    words = t.view(groups, 8, nv + 1).transpose(1, 2).contiguous() \
+        .view(torch.int64).view(groups, nv + 1)
+    live = words.index_select(1, idx).view(torch.bool) \
+        .view(groups, -1, grid_rows, 8).any(2)
+    return live.transpose(1, 2).reshape(groups * 8, -1)[:lanes].contiguous()
 
 
 def block_range_live(word_prefix: torch.Tensor, word_lo: torch.Tensor,

@@ -37,6 +37,12 @@ one running ``(k', V)`` table (its atomics combine into the earlier
 partitions' partials) with ``got=`` (where a live message landed), after
 one pre-pass a superstep (:func:`push_lanes_prepare`, ``prepared=``).
 
+:func:`push_lanes_touched` is the lane push's scan with a one-byte
+message (the kernel given no table): for each listed lane, which
+vertices have an active in-neighbour, the touched table the bitmap
+plane's batched superstep builds its block flags from (the JAX package's
+``touched_frontier``, there XLA and one lane at a time under ``vmap``).
+
 Work is O(R + capacity·width) per superstep; the translator picks the
 capacity tier from the live row count ``r_f`` (or the dense fallback).
 """
@@ -506,3 +512,99 @@ def push_ell_lanes_reduce(
 
 # launches of the lane push kernel since the count was last set to 0
 push_ell_lanes_reduce.launches = 0
+
+
+def push_lanes_touched_plain(row_src, ell_dst, active, lanes, *,
+                             num_rows: int, got=None,
+                             prepared: Prepared | None = None):
+    """Plain version of :func:`push_lanes_touched`: for each listed lane,
+    the destinations of its live rows set in its row of ``got``.
+    ``prepared`` is only checked."""
+    kk, V = active.shape
+    lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, "copy", True)
+    if got is None:
+        got = torch.zeros((kk, V), dtype=torch.bool, device=active.device)
+    src = row_src[:num_rows].long()
+    dst = ell_dst[:num_rows]
+    for i in lanes:
+        d = dst[active[i][src]]
+        got[i, d[d != PAD].long()] = True
+    return got
+
+
+def push_lanes_touched(
+    row_src: torch.Tensor,    # (R,) int32 source vertex a forward-ELL row
+    ell_dst: torch.Tensor,    # (R, W) int32 destinations, PAD-padded
+    active: torch.Tensor,     # (k', V) bool frontiers
+    lanes,                    # the rows to scan, distinct, in [0, k')
+    *,
+    num_rows: int,
+    got: torch.Tensor | None = None,
+    prepared: Prepared | None = None,
+) -> torch.Tensor:
+    """The touched tables of the listed lanes: ``(k', V)`` bool.
+
+    Row ``i`` of a listed lane is True where a vertex has an active
+    in-neighbour in that lane (the destination of a valid slot of one of
+    the first ``num_rows`` forward-ELL rows whose source is active): bit
+    for bit ``pull_bitmap.touched_table`` of that lane alone, at any
+    capacity that covers its live rows.  ``got``, when given, is a
+    ``(k', V)`` bool table holding False in the listed rows, which the
+    call fills; else a fresh one holds False in every row not listed.  On
+    CUDA it is the lane push's kernel given no table (one launch of at
+    most 32 lanes, count ``launches``), after its pre-pass
+    (:func:`push_lanes_prepare`, or ``prepared=``).
+    """
+    if active.dim() != 2 or active.dtype != torch.bool:
+        raise ValueError(f"active: want a (k', V) bool frontier, got "
+                         f"{active.dtype} {tuple(active.shape)}")
+    if active.device.type == "cpu":
+        return push_lanes_touched_plain(row_src, ell_dst, active, lanes,
+                                        num_rows=num_rows, got=got,
+                                        prepared=prepared)
+    if active.device.type != "cuda":
+        raise ValueError(f"push_lanes_touched runs on CPU or CUDA tensors, "
+                         f"got {active.device}")
+    kk, V = active.shape
+    lanes = lane_list(lanes, kk)
+    check_prepared(prepared, lanes, "copy", True)
+    R, W = ell_dst.shape
+    if not 0 <= num_rows <= R:
+        raise ValueError(f"num_rows {num_rows} outside [0, {R}]")
+    want = {"row_src": (row_src, torch.int32, (R,)),
+            "ell_dst": (ell_dst, torch.int32, (R, W))}
+    if got is not None:
+        want["got"] = (got, torch.bool, (kk, V))
+    for name, (t, dtype, shape) in want.items():
+        if t.device != active.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape {shape} "
+                f"on {active.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    if got is None:
+        got = torch.zeros((kk, V), dtype=torch.bool, device=active.device)
+    if not lanes or V == 0:
+        return got
+    lib = _build.library("push_ell")
+    stream = torch.cuda.current_stream(active.device).cuda_stream
+    if prepared is None:
+        prepared = push_lanes_prepare(active, lanes)
+    for _, lane_map, k, K, bits, _ in prepared.chunks:
+        err = lib.push_ell_lanes_launch(
+            active.device.index or 0, GATHER_OPS.index("copy"),
+            REDUCE_OPS.index("max"), 0, K, row_src.data_ptr(),
+            ell_dst.data_ptr(), None, None, None, active.data_ptr(),
+            lane_map, k, kk, bits.data_ptr(), None, got.data_ptr(),
+            num_rows, W, V, _MAIN_ONLY, stream)
+        if err != 0:
+            raise RuntimeError(f"push_ell touched launch failed: "
+                               f"cudaError_t {err}")
+        push_lanes_touched.launches += 1
+    return got
+
+
+# launches of the lane push's touched-only kernel since the count was last
+# set to 0
+push_lanes_touched.launches = 0

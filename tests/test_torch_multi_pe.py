@@ -195,8 +195,8 @@ def test_push_bit_exact_across_pes(graphs, template, mode, pes):
 @pytest.mark.parametrize("template", ["bfs", "sssp"])
 def test_bitmap_plane_under_multi_pe(graphs, template):
     """The block-skipping pull plane stays replicated beside the sharded
-    push: equal to the JAX package at pes=2; its lanes (stepped one at a
-    time) equal the sequential runs."""
+    push: equal to the JAX package at pes=2; its lanes (batched
+    supersteps, the pull lanes through 2L) equal the sequential runs."""
     rg, tg = graphs
     rprog = RT.translate(RD.PROGRAM_TEMPLATES[template](), rg,
                          RS.ScheduleConfig(pes=2, pull_sweep="bitmap"))
