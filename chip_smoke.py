@@ -184,8 +184,9 @@ and the script exits non-zero):
    = its plain version and 1L bit for bit, the touched pass = its plain
    version; the batched bitmap superstep = k single-lane bitmap
    supersteps (values, frontiers, counters) = the dense batched
-   superstep; 2L, 1L and the touched pass timed (CUDA events, the
-   profiler's device time) beside 2L's plain version and bound, and the
+   superstep; 2L, 1L, the touched pass and 2L's flags pass and pre-pass
+   timed (CUDA events, the profiler's device time) beside 2L's plain
+   version and bound, and the
    three routes on the BFS and narrow sets (on the 1% sets every lane is
    past the tiers: the route is 1L's).
 8. stream  — out-of-core streaming on the main phase's scale-22 graph
@@ -1222,25 +1223,83 @@ def _check_tie_routes(torch, rng):
 
 
 # 2L's ragged cases: (LANE_GRAPHS entry, grid block rows, lane counts); a
-# grid of 5 rows puts a block edge inside every warp
-LANE_SKIP_CASES = ((0, 128, (1, 8, 33)), (1, 128, (4, 32)), (2, 5, (3, 17)))
+# grid of 5 rows leaves most of a warp's row streams empty at K = 1, one of
+# 37 puts a ragged block of 37 rows in every stream shape
+LANE_SKIP_CASES = ((0, 128, (1, 8, 33)), (1, 128, (1, 4, 8, 32)),
+                   (2, 5, (3, 17)),
+                   (0, 37, (4, 32)))
+
+
+def _lane_skip_flags(torch, rng, kk, nblk):
+    """Random (kk, nblk) flags on the card with an all-dead grid block, a
+    block live in one lane only and a lane dead everywhere."""
+    flags = rng.random((kk, nblk)) < 0.5
+    flags[:, 0] = False
+    if nblk > 1:
+        flags[:, 1] = False
+        flags[kk // 2, 1] = True
+    flags[kk - 1] = False
+    return torch.as_tensor(flags).to("cuda")
+
+
+def _prepass_err(prep, want, V, tag):
+    """The lane pre-pass's tables on the card (``prep``) against its plain
+    version's (``want``): frontier bits equal everywhere, messages equal
+    at every vertex whose row the kernel writes (under mask_inactive those
+    active in some lane of the launch, else all).  Raises on a mismatch;
+    returns the largest ``|message - plain|`` over the written rows."""
+    worst = 0.0
+    if len(prep.chunks) != len(want):
+        raise AssertionError(f"lanes_prepare {tag}: {len(prep.chunks)} "
+                             f"launches, the plain version {len(want)}")
+    for (lo, _, k, K, bits, msg), (lo2, k2, K2, wbits, wmsg, written) \
+            in zip(prep.chunks, want):
+        m, wm = msg.view(V, K)[written], wmsg.view(V, K)[written]
+        if (lo, k, K) != (lo2, k2, K2) or (bits is None) != (wbits is None) \
+                or (bits is not None and not _same(bits, wbits)) \
+                or not _same_bits(m, wm):
+            raise AssertionError(f"lanes_prepare {tag} != its plain "
+                                 f"version")
+        worst = max(worst, _max_err(m, wm))
+    return worst
+
+
+def _check_lane_prepass(torch, eb, vals, deg, act, lanes, gather):
+    """The lane pre-pass's tables on the card against its plain version,
+    masked (the messages of active vertices only) and unmasked (every
+    message): see ``_prepass_err``."""
+    V = vals.shape[1]
+    for mask in (True, False):
+        prep = eb.lanes_prepare(vals, deg, act, lanes, gather=gather,
+                                mask_inactive=mask)
+        want = eb.lanes_prepare_plain(vals, deg, act, lanes, gather=gather,
+                                      mask_inactive=mask)
+        torch.cuda.synchronize()
+        _prepass_err(prep, want, V, f"mask={mask} {gather} {vals.dtype} "
+                                    f"V={V} k={len(lanes)}")
 
 
 def _check_lane_skip(torch, rng):
     """2L, the lane sweep with a per-lane early-out (both lane kernels with
-    ``block_live=``), on ``LANE_GRAPHS``: every gather x reduce x dtype x
+    flags), on ``LANE_GRAPHS``: every gather x reduce x dtype x
     mask_inactive, k lanes listed out of order in a state with two left
-    out, NaN, +0 and -0.  On random flags (a ragged last grid block, and
-    grids of 5 rows, whose block edges fall inside warps) the sub-row
-    kernel equals k single-lane kernel-2 launches bit for bit (the same
-    slot order: float add too) and its plain version (float add within
-    1e-5 of the sum of |terms|), and the fused fold (min, max, int add)
-    its plain version bit for bit.  On flags from the lanes' touched
-    tables (``push_lanes_touched``, held against its plain version) 2L
-    equals 1L bit for bit.  Returns the count of cases and the largest
-    ``|kernel - plain|``."""
+    out, NaN, +0 and -0.  On random flags (a ragged last grid block, an
+    all-dead block, a one-lane block, a dead lane; grids of 128, 37 and 5
+    rows, so row streams end inside runs of owners and hubs' runs cross
+    streams, warps and grid blocks) the sub-row kernel equals k single-lane
+    kernel-2 launches bit for bit (the same slot order: float add too) and
+    its plain version (float add within 1e-5 of the sum of |terms|); the
+    fold (min, max, int add: the warp-a-grid-block kernel) equals its plain
+    version bit for bit, and without mask_inactive raises.  The kernels
+    take the flags as words (``block_words_from_flags``), the plain
+    versions the flag table.  The pre-pass, masked (live messages only)
+    and unmasked, equals its plain version.
+    On the lanes' touched tables (``push_lanes_touched``, held against its
+    plain version) the flags pass (``lane_block_words``, words and
+    counters) equals its plain version, and 2L on its words equals 1L bit
+    for bit.  Returns the count of cases and the largest ``|kernel -
+    plain|``."""
     from repro_torch.kernels import edge_block as eb
-    from repro_torch.kernels import pull_bitmap as pb
     from repro_torch.kernels import push_ell as pe
     from repro_torch.kernels.ref import GATHER_OPS, REDUCE_OPS
     checked, worst, dead = 0, 0.0, 0
@@ -1248,23 +1307,28 @@ def _check_lane_skip(torch, rng):
         V, E, hub, max_width, _ = LANE_GRAPHS[gi]
         plan, fe, deg = _lane_graph(torch, V, E, hub, max_width, rng)
         R = plan.flat_dst.shape[0]
+        nblk = -(-R // br)
         for k in ks:
             kk = k + 2
             lanes = [int(i) for i in rng.permutation(kk)[:k]]
-            flags = torch.as_tensor(
-                rng.random((kk, -(-R // br))) < 0.5).to("cuda")
+            flags = _lane_skip_flags(torch, rng, kk, nblk)
+            words = eb.block_words_from_flags(flags, lanes, br)
             dead += int((~flags[lanes]).sum())
             for dtype in (np.int32, np.float32):
                 vals, act = _lane_state(torch, rng, kk, V, dtype, 0.3)
                 for gather in GATHER_OPS:
                     if gather == "div_deg" and dtype == np.int32:
                         continue
+                    _check_lane_prepass(torch, eb, vals, deg, act, lanes,
+                                        gather)
+                    checked += 1
                     for reduce in REDUCE_OPS:
                         exact = not (reduce == "add" and dtype == np.float32)
                         for mask in (True, False):
                             kw = dict(gather=gather, reduce=reduce,
                                       mask_inactive=mask)
-                            fl = dict(block_live=flags, block_rows=br)
+                            fl = dict(block_words=words)
+                            table = dict(block_live=flags, block_rows=br)
                             tag = (f"{gather}/{reduce}/{dtype.__name__}/"
                                    f"mask={mask} V={V} br={br} k={k}")
                             got = eb.edge_block_reduce_lanes(
@@ -1272,7 +1336,7 @@ def _check_lane_skip(torch, rng):
                                 lanes, **kw, **fl)
                             want = eb.edge_block_reduce_lanes_plain(
                                 plan.flat_dst, plan.flat_wgt, vals, deg, act,
-                                lanes, **kw, **fl)
+                                lanes, **kw, **table)
                             one = [eb.edge_block_reduce(
                                 plan.flat_dst, plan.flat_wgt, vals[i], deg,
                                 act[i], block_live=flags[i], block_rows=br,
@@ -1296,10 +1360,21 @@ def _check_lane_skip(torch, rng):
                             checked += 1
                             if not exact:
                                 continue
+                            if not mask:
+                                try:
+                                    eb.edge_block_fold_lanes(
+                                        plan, vals, deg, act, lanes, **kw,
+                                        **fl)
+                                except ValueError:
+                                    checked += 1
+                                    continue
+                                raise AssertionError(
+                                    f"edge_block_fold 2L {tag}: a flagged "
+                                    "fold without mask_inactive ran")
                             got = eb.edge_block_fold_lanes(
                                 plan, vals, deg, act, lanes, **kw, **fl)
                             want = eb.edge_block_fold_lanes_plain(
-                                plan, vals, deg, act, lanes, **kw, **fl)
+                                plan, vals, deg, act, lanes, **kw, **table)
                             torch.cuda.synchronize()
                             if not (_same_bits(got[0], want[0])
                                     and _same(got[1], want[1])):
@@ -1310,20 +1385,34 @@ def _check_lane_skip(torch, rng):
                             worst = max(worst, _max_err(got[0], want[0]))
                             checked += 1
                 # the bitmap plane's flags: each lane's touched table, a
-                # flag a grid block; 2L on them = 1L
+                # word a grid block built on the card; 2L on them = 1L
                 touched = pe.push_lanes_touched(fe.row_src, fe.dst, act,
                                                 lanes, num_rows=fe.num_rows)
                 t_want = pe.push_lanes_touched_plain(
                     fe.row_src, fe.dst, act, lanes, num_rows=fe.num_rows)
-                tflags = pb.grid_block_live(touched, plan.owner8, br)
+                wide = lanes[1:2]
+                gcount = torch.as_tensor(
+                    rng.integers(1, 9, nblk).astype(np.int64)).to("cuda")
+                gedges = torch.as_tensor(
+                    rng.integers(0, 5000, nblk).astype(np.int64)).to("cuda")
+                tw, tc = eb.lane_block_words(
+                    touched, plan.owner8, lanes, br, wide=wide,
+                    grid_blocks=gcount, grid_edges=gedges)
+                tw_want, tc_want = eb.lane_block_words_plain(
+                    t_want, plan.owner8, lanes, br, wide=wide,
+                    grid_blocks=gcount, grid_edges=gedges)
                 torch.cuda.synchronize()
-                if not _same(touched, t_want):
-                    raise AssertionError(f"push_lanes_touched V={V} k={k} "
-                                         "!= its plain version")
-                checked += 1
+                if not (_same(touched, t_want) and _same(tw.words,
+                                                         tw_want.words)
+                        and _same(tc, tc_want)):
+                    raise AssertionError(f"push_lanes_touched or the flags "
+                                         f"pass V={V} br={br} k={k} != its "
+                                         "plain version")
+                tw, _ = eb.lane_block_words(touched, plan.owner8, lanes, br)
+                checked += 2
                 for gather in ("copy", "plus_one", "add_w", "mul_w"):
                     for reduce in REDUCE_OPS:
-                        tf = dict(block_live=tflags, block_rows=br)
+                        tf = dict(block_words=tw)
                         kw = dict(gather=gather, reduce=reduce)
                         a = eb.edge_block_reduce_lanes(
                             plan.flat_dst, plan.flat_wgt, vals, deg, act,
@@ -1350,9 +1439,12 @@ def _check_lane_skip(torch, rng):
     log(f"[kernels] 2L (the lane kernels with block flags): {checked} cases "
         f"({dead} dead lane-blocks in the random flags): the sub-row "
         "kernel = kernel 2 a lane bit for bit and = plain (float add within "
-        "1e-5 of the sum of |terms|), the fused fold = plain bit for bit, "
-        "push_lanes_touched = plain, and 2L on touched-derived flags = 1L "
-        f"bit for bit; max |err| against plain {worst}")
+        "1e-5 of the sum of |terms|), the warp-a-grid-block fold = plain "
+        "bit for bit (and raises without mask_inactive), the pre-pass "
+        "masked (live messages only) and unmasked = plain, "
+        "push_lanes_touched and the flags pass (words, counters) = plain, "
+        f"and 2L on touched words = 1L bit for bit; max |err| against plain "
+        f"{worst}")
     return checked, worst
 
 
@@ -2232,6 +2324,7 @@ def _counters():
                                     "launches"),
             "edge_block_prepare": (eb.edge_block_prepare, "launches"),
             "lanes_prepare": (eb.lanes_prepare, "launches"),
+            "lane_block_words": (eb.lane_block_words, "launches"),
             "push_lanes_prepare": (pe.push_lanes_prepare, "launches"),
             "push_ell": (pe.push_ell_message_block, "launches"),
             "push_ell_fused": (pe.push_ell_fused_reduce, "launches"),
@@ -3419,20 +3512,23 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
     BFS frontiers (lane i at level i mod the levels, with the BFS's state
     then), a random narrow frontier a lane (1,000 vertices, inside the
     plane's narrow tiers) and a random 1% frontier a lane (past them).
-    2L on each lane's touched-derived flags is held bit for bit against
-    its plain version and 1L (the same fold without flags); the batched
+    2L on each lane's touched-derived flags (the flags pass,
+    ``lane_block_words``, held against its plain version) is held bit for
+    bit against its plain version and 1L (the same fold without flags),
+    and its pre-pass (``lanes_prepare``: the messages of vertices active
+    in some lane only) against its plain version's tables; the batched
     superstep (``lane_step``: touched tables, flags, 2L, apply) against
     the route it replaces (k single-lane bitmap supersteps,
     ``_pull_step``: k touched tables, kernel 2, ``subrow_combine``) and
     the dense plane's batched superstep (1L), values, frontiers and each
     lane's counters.  Each is timed (CUDA-event medians, and the
-    profiler's device time) beside 2L's plain version and byte bound;
-    the routes on the BFS and narrow sets only."""
+    profiler's device time: 2L's fold kernel, its pre-pass and the flags
+    pass apart) beside 2L's plain version and byte bound; the routes on
+    the BFS and narrow sets only."""
     from repro_torch.core import dsl, preprocess
     from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
     from repro_torch.core.translator import translate
     from repro_torch.kernels import edge_block as eb
-    from repro_torch.kernels import pull_bitmap as pb
     from repro_torch.kernels import push_ell as pe
     lay = preprocess.layouts_for(g)
     pplan = lay.on(lay.pull_plan(64), "cuda")
@@ -3474,8 +3570,12 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
             narrow = sum(m <= caps[1] for m in m_f)
             touched = pe.push_lanes_touched(fe.row_src, fe.dst, active,
                                             lanes, num_rows=fe.num_rows)
-            flags = pb.grid_block_live(touched, pplan.owner8, grid_br)
-            fl = dict(block_live=flags, block_rows=grid_br)
+            words, _ = eb.lane_block_words(touched, pplan.owner8, lanes,
+                                           grid_br)
+            w_want, _ = eb.lane_block_words_plain(touched, pplan.owner8,
+                                                  lanes, grid_br)
+            flags = eb.block_words_flags(words, k)
+            fl = dict(block_words=words)
 
             def skip(values=values, active=active, fl=fl):
                 return eb.edge_block_fold_lanes(pplan, values, out_deg,
@@ -3493,10 +3593,14 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
             torch.cuda.synchronize()
             if not (_same_bits(got[0], want[0]) and _same(got[1], want[1])
                     and _same_bits(got[0], l1[0]) and _same(got[1], l1[1])
-                    and _same(touched, t_want)):
+                    and _same(touched, t_want)
+                    and _same(words.words, w_want.words)):
                 raise AssertionError(f"2L disagrees at the main shape, k={k},"
                                      f" {label} frontiers")
             err = _max_err(got[0], want[0])
+            words_err = _max_err(words.words, w_want.words)
+            touched_err = _max_err(touched.to(torch.int32),
+                                   t_want.to(torch.int32))
             del got, l1, want, t_want
             # the batched superstep against k single-lane supersteps and
             # the dense plane's batched superstep, lane by lane (on the
@@ -3531,8 +3635,37 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
             swept = sum(c[1] for c in s_cnt)
             reps = 10
             ms = _time_ms(torch, skip, reps=reps)
-            dev_ms = _device_ms(torch, skip, "edge_block_fold")
+            dev_ms = _device_ms(torch, skip, "edge_block_skip_fold")
+            pre_dev = _device_ms(torch, skip, "lanes_pack")
             l1_ms = _time_ms(torch, full, reps=reps)
+            l1_dev = _device_ms(torch, full, "edge_block_fold")
+
+            def words_pass(touched=touched):
+                return eb.lane_block_words(touched, pplan.owner8, lanes,
+                                           grid_br)
+
+            def prepass(values=values, active=active):
+                return eb.lanes_prepare(values, out_deg, active, lanes,
+                                        gather="plus_one")
+
+            def prepass_plain(values=values, active=active):
+                return eb.lanes_prepare_plain(values, out_deg, active,
+                                              lanes, gather="plus_one")
+
+            prep, prep_want = prepass(), prepass_plain()
+            torch.cuda.synchronize()
+            prepass_err = _prepass_err(prep, prep_want, V,
+                                       f"k={k} {label} at the main shape")
+            del prep, prep_want
+            prepass_ms = _time_ms(torch, prepass, reps=reps)
+            prepass_plain_ms = _time_ms(torch, prepass_plain, reps=3,
+                                        warmup=1)
+            words_ms = _time_ms(torch, words_pass, reps=reps)
+            words_dev = _device_ms(torch, words_pass, "words_kernel")
+            words_plain_ms = _time_ms(
+                torch, lambda touched=touched: eb.lane_block_words_plain(
+                    touched, pplan.owner8, lanes, grid_br), reps=3,
+                warmup=1)
             touched_ms = _time_ms(torch, lambda active=active: (
                 pe.push_lanes_touched(fe.row_src, fe.dst, active, lanes,
                                       num_rows=fe.num_rows)), reps=reps)
@@ -3570,6 +3703,15 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
                 + k * V * 4
             bound = 1e3 * max(nbytes / _BANDWIDTH,
                               lane_rows * W / _SCALAR_OPS)
+            # the flags pass's bytes: the touched tables, owner8 and the
+            # words out; the live-only pre-pass's: the frontiers, the values
+            # of vertices active in some lane, the bits and their messages
+            w_bytes = k * V + R8 * 4 + nblk * 4
+            w_bound = 1e3 * w_bytes / _BANDWIDTH
+            n_live = int(active.any(0).sum())
+            K = next(x for x in (1, 4, 8, 32) if x >= k)
+            p_bytes = k * V + n_live * k * 4 + V * K // 8 + n_live * K * 4
+            p_bound = 1e3 * p_bytes / _BANDWIDTH
             # the touched pass's bytes: row_src, each lane's frontier, the
             # live rows' ids, each lane's (V,) table out
             live_rows = int(torch.where(active, fe.rows_per_vertex, 0).sum())
@@ -3577,6 +3719,14 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
             t_bound = 1e3 * t_bytes / _BANDWIDTH
             rows[(k, label)] = {
                 "ms": ms, "device_ms": dev_ms, "l1_ms": l1_ms,
+                "l1_device_ms": l1_dev, "prepass_device_ms": pre_dev,
+                "prepass_ms": prepass_ms, "prepass_plain_ms": prepass_plain_ms,
+                "prepass_bound_ms": p_bound, "live_vertices": n_live,
+                "prepass_max_abs_err": prepass_err,
+                "words_ms": words_ms, "words_device_ms": words_dev,
+                "words_plain_ms": words_plain_ms, "words_bound_ms": w_bound,
+                "words_max_abs_err": words_err,
+                "touched_max_abs_err": touched_err,
                 "plain_ms": plain_ms, "bound_ms": bound, "bytes": nbytes,
                 "max_abs_err": err, "live_blocks": int(flags.sum()),
                 "blocks": k * nblk, "narrow_lanes": narrow,
@@ -3593,12 +3743,18 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
             log(f"[serve_bitmap] 2L (plus_one/min, touched flags) k={k} "
                 f"{label} frontiers ({narrow} of {k} lanes narrow, "
                 f"{int(flags.sum())}/{k * nblk} lane-blocks live): "
-                f"{ms:.4f} ms (device {fmt(dev_ms)}) against 1L "
-                f"{l1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+                f"{ms:.4f} ms (device: fold {fmt(dev_ms)}, pre-pass "
+                f"{fmt(pre_dev)}, bound {p_bound:.4f} for {n_live} live "
+                f"vertices; alone {prepass_ms:.4f} ms, plain "
+                f"{prepass_plain_ms:.4f}, = plain) against 1L {l1_ms:.4f} ms "
+                f"(fold "
+                f"device {fmt(l1_dev)}); plain {plain_ms:.4f} ms; bound "
                 f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB); touched pass "
                 f"{touched_ms:.4f} ms (device {fmt(touched_dev)}, plain "
-                f"{t_plain_ms:.4f}, bound {t_bound:.4f}); = plain and = 1L "
-                f"bit for bit, on {smi}")
+                f"{t_plain_ms:.4f}, bound {t_bound:.4f}); flags pass "
+                f"{words_ms:.4f} ms (device {fmt(words_dev)}, plain "
+                f"{words_plain_ms:.4f}, bound {w_bound:.4f}); = plain and "
+                f"= 1L bit for bit, on {smi}")
             if route:
                 log(f"[serve_bitmap] route A/B k={k} {label}: batched bitmap"
                     f" superstep {step_ms:.4f} ms (device {fmt(step_dev)}) "
@@ -3607,7 +3763,7 @@ def _bitmap_lane_timing(torch, g, oracle, smi):
                     f"superstep (1L) {dense_ms:.4f} ms (device "
                     f"{fmt(dense_dev)}); values, frontiers and counters "
                     f"equal, on {smi}")
-            del values, active, touched, flags
+            del values, active, touched, flags, words
     torch.cuda.empty_cache()
     return rows
 
@@ -3681,6 +3837,10 @@ def phase_serve_bitmap(torch, dev_info, main):
         if launches["edge_block_skip"] != 0 or launches["edge_block"] != 0 \
                 or launches["push_ell_fused"] != 0 \
                 or launches["push_lanes_touched"] != skip_2l \
+                or launches["lane_block_words"] != skip_2l \
+                or launches["lanes_prepare"] != launches["edge_block_fold"] \
+                + launches["edge_block_lanes"] \
+                + launches["edge_block_lanes_skip"] \
                 or launches["edge_block_lanes"] != ppr_sweeps \
                 or launches["edge_block_fold"] != cnt["masked_sweeps"] \
                 - ppr_sweeps \
@@ -3746,7 +3906,9 @@ def phase_serve_bitmap(torch, dev_info, main):
             f"; launches: 2L {skip_2l} (fused fold "
             f"{launches['edge_block_fold_skip']}, sub-row "
             f"{launches['edge_block_lanes_skip']}), touched passes "
-            f"{launches['push_lanes_touched']}, single-lane kernel 2 "
+            f"{launches['push_lanes_touched']}, flags passes "
+            f"{launches['lane_block_words']}, pre-passes "
+            f"{launches['lanes_prepare']}, single-lane kernel 2 "
             f"{launches['edge_block_skip']}, 1L fold "
             f"{launches['edge_block_fold'] - launches['edge_block_fold_skip']}"
             f", 1L sub-row (ppr) {launches['edge_block_lanes']}, 3L "
@@ -3785,9 +3947,27 @@ def phase_serve_bitmap(torch, dev_info, main):
          "replaces": "src/repro/kernels/push_ell.py:134",
          "launches": results["pull"]["launches"]["push_lanes_touched"]
          + results["auto"]["launches"]["push_lanes_touched"],
-         "max_abs_err": 0.0, "ms": row["touched_ms"],
+         "max_abs_err": row["touched_max_abs_err"], "ms": row["touched_ms"],
          "plain_ms": row["touched_plain_ms"],
          "bound_ms": row["touched_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": row["shape"]},
+        {"name": "lane_block_words (2L's flags pass)", "route": "cuda",
+         "source": "src/repro_torch/csrc/edge_block.cu",
+         "replaces": "src/repro/kernels/edge_block.py:141",
+         "launches": results["pull"]["launches"]["lane_block_words"]
+         + results["auto"]["launches"]["lane_block_words"],
+         "max_abs_err": row["words_max_abs_err"], "ms": row["words_ms"],
+         "plain_ms": row["words_plain_ms"],
+         "bound_ms": row["words_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": row["shape"]},
+        {"name": "lanes_prepare (the lane pre-pass, live messages only)",
+         "route": "cuda", "source": "src/repro_torch/csrc/lanes.cuh",
+         "replaces": "src/repro/kernels/edge_block.py:147",
+         "launches": results["pull"]["launches"]["lanes_prepare"]
+         + results["auto"]["launches"]["lanes_prepare"],
+         "max_abs_err": row["prepass_max_abs_err"], "ms": row["prepass_ms"],
+         "plain_ms": row["prepass_plain_ms"],
+         "bound_ms": row["prepass_bound_ms"], "bound_by": "bytes",
          "library_ms": None, "shape": row["shape"]}]
 
 

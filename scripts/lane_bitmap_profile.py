@@ -37,6 +37,8 @@ def main():
     from repro_torch.core import graph as G
     from repro_torch.core.scheduler import DirectionPolicy, ScheduleConfig
     from repro_torch.core.translator import translate
+    from repro_torch.kernels import _build
+    _build.SOURCES = ("edge_block", "push_ell")     # the kernels it runs
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

@@ -1132,16 +1132,21 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
     rows whose ``m_f`` falls in a narrow tier of
     :func:`~repro_torch.core.scheduler.pull_block_capacities` take their
     touched tables in one pass (``push_ell.push_lanes_touched``, the lane
-    push's scan with a one-byte message), one flag a grid block of
-    ``grid_rows`` sub-rows (``pull_bitmap.grid_block_live``), and the
-    same sweep launch as the other sweep rows, which read every block; a
-    superstep with no narrow row launches 1L.  Skipping a block whose
-    owners no active source reaches changes no value, so each lane's
-    table is its single-lane superstep's bit for bit, and its counters
-    are those :func:`_emit_pull_bitmap` counts: grid-granular on the
-    kernel path, exact blocks with the ``4 · cap`` overflow on the plain
-    path, ``E`` edges and every block in the wide tier.  The touched
-    table doubles as ``got`` when every pull row is narrow.
+    push's scan with a one-byte message), one flag a lane and grid block
+    of ``grid_rows`` sub-rows in one more pass
+    (``edge_block.lane_block_words``: a word a grid block, built on the
+    card, which on the kernel path also sums the narrow lanes' counters),
+    and the same sweep launch as the other sweep rows, whose bits are set
+    in every word (they read every block; on root 0's BFS frontiers at
+    scale 22 the one shared launch measured faster than sending them to a
+    1L launch of their own at 8 lanes, and even at 32); a superstep with
+    no narrow row launches 1L.  Skipping a block whose owners no active
+    source reaches changes no value, so each lane's table is its
+    single-lane superstep's bit for bit, and its counters are those
+    :func:`_emit_pull_bitmap` counts: grid-granular on the kernel path,
+    exact blocks with the ``4 · cap`` overflow on the plain path, ``E``
+    edges and every block in the wide tier.  The touched table doubles as
+    ``got`` when every pull row is narrow.
 
     ``pe_push`` is the forward-ELL push's PE group (see
     :func:`_emit_push_ell`; ``None``: no forward-ELL push twin): each
@@ -1189,20 +1194,21 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
             new[i] = apply_fn(values[i], red[i])
         return new
 
-    def narrow_counters(touched, flags, narrow):
+    def narrow_counters(touched, counts, sweep, narrow):
         """Each narrow pull row's ``(swept_edges, blocks_swept,
-        blocks_skipped)``, as the single-lane plane counts them."""
-        if use_kernels and grid_br % br == 0:
-            live = flags.to(torch.int64)
-            swept_b = (live * grid_blocks).sum(1)
-            swept_e = (live * grid_edges).sum(1)
-        else:    # exact (plain path), or the odd grid's fine count
-            table = torch.cat([touched, touched.new_zeros(
-                (touched.shape[0], 1))], 1)       # pad owners read slot V
-            live = pull_bitmap_kernel.block_liveness(table, pplan.owner8,
-                                                     br)
-            swept_b = live.sum(1)
-            swept_e = torch.where(live, pplan.block_edges, 0).sum(1)
+        blocks_skipped)``, as the single-lane plane counts them: from the
+        flags pass's ``(2, len(sweep))`` sums on the kernel path's grids of
+        whole plan blocks, else from the touched tables."""
+        if counts is not None:    # on the device until the superstep's read
+            col = {i: j for j, i in enumerate(sweep)}
+            return {i: (counts[1, col[i]], counts[0, col[i]],
+                        b_total - counts[0, col[i]]) for i in narrow}
+        # exact (plain path), or the odd grid's fine count
+        table = torch.cat([touched, touched.new_zeros(
+            (touched.shape[0], 1))], 1)           # pad owners read slot V
+        live = pull_bitmap_kernel.block_liveness(table, pplan.owner8, br)
+        swept_b = live.sum(1)
+        swept_e = torch.where(live, pplan.block_edges, 0).sum(1)
         if use_kernels:     # on the device until the superstep's read
             skipped = b_total - swept_b
             return {i: (swept_e[i], swept_b[i], skipped[i]) for i in narrow}
@@ -1218,9 +1224,9 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
         return out
 
     def skip_flags(active, sweep, pull_rows, m_f):
-        """The narrow pull rows (row → m_f), 2L's flags over the state's
-        rows (``None``: no narrow pull row, 1L), their touched tables and
-        each pull row's counters."""
+        """The narrow pull rows (row → m_f), 2L's flags for the sweep
+        rows (``edge_block.BlockWords``; ``None``: no narrow pull row, 1L),
+        their touched tables and each pull row's counters."""
         narrow = {i: m for i, pull, m in zip(sweep, pull_rows, m_f)
                   if pull and m <= caps[1]}
         pending = {i: (num_edges, b_total, 0)
@@ -1230,13 +1236,15 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
             return narrow, None, None, pending
         touched = push_ell_kernel.push_lanes_touched(
             fe.row_src, fe.dst, active, list(narrow), num_rows=fe.num_rows)
-        flags = pull_bitmap_kernel.grid_block_live(touched, pplan.owner8,
-                                                   grid_br)
-        for i in sweep:
-            if i not in narrow:
-                flags[i] = True       # the dense sweep: every block read
-        pending.update(narrow_counters(touched, flags, narrow))
-        return narrow, flags, touched, pending
+        counted = use_kernels and grid_br % br == 0
+        # the other sweep rows take the dense sweep: every block read
+        words, counts = edge_block_kernel.lane_block_words(
+            touched, pplan.owner8, sweep, grid_br,
+            wide=[i for i in sweep if i not in narrow],
+            grid_blocks=grid_blocks if counted else None,
+            grid_edges=grid_edges if counted else None)
+        pending.update(narrow_counters(touched, counts, sweep, narrow))
+        return narrow, words, touched, pending
 
     def sweep_lanes(values, active, sweep, pulls, need_got, flags):
         """The listed rows' masked sweep (float add, unmatched gathers):
@@ -1247,7 +1255,7 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
                 pplan.flat_dst, pplan.flat_wgt, values, out_deg, active,
                 sweep, gather=fused.gather.module, reduce=op,
                 mask_inactive=program.mask_inactive, need_any=need_got,
-                block_live=flags, block_rows=bitmap and bitmap[1])
+                block_words=flags)
         else:
             parts = [sub_sweep(values[i], active[i], pplan.flat_dst_safe,
                                pplan.flat_wgt, need_got) for i in sweep]
@@ -1310,8 +1318,7 @@ def _emit_lane_step(ir: SuperstepIR, fused: FusedGatherReduceOp,
                     pplan, values, out_deg, active, sweep,
                     gather=fused.gather.module, reduce=op,
                     mask_inactive=program.mask_inactive, need_got=need_got,
-                    red=red, block_live=flags,
-                    block_rows=bitmap and bitmap[1])
+                    red=red, block_words=flags)
         if masked_got and narrow and not need_got:
             got = touched
         if pushes:

@@ -314,23 +314,19 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 // 2L, the lane sweep with a per-lane early-out (the counterpart of
 // repro/kernels/edge_block.py::_kernel_skip under jax.vmap, which the JAX
 // package's batched runs reach on the bitmap plane: each lane's block flags
-// batched into one launch of the early-out kernel).  Both lane kernels take
-// an optional (k', nblk) flag table, a byte a lane row and grid block of
-// block_rows sub-rows; a null table is 1L, unchanged.  A small pass
-// (lanes_flags_pack_kernel, one thread a grid block) first packs the
-// launch's k lanes' flags of block b into one word, bit l for lane l, as
-// the pre-pass packs a vertex's K frontier bits.  A row then reads its
-// block's word (one broadcast load: with block_rows >= 32 a warp shares
-// it) and ANDs it into each slot's frontier bits (lanes_row's `on`): a
-// lane whose flag is 0 keeps the identity and any 0 and reads none of its
-// messages, and a row whose word is 0 loads no ids, no weights and no
-// messages.  The fold kernel's rows with a zero word still take part in
-// the warp's scan, with identity partials.  On the bitmap plane the flags
-// come from each lane's touched table, and a dead block's owners have no
-// active in-neighbour in that lane, so 2L on those flags equals 1L bit for
-// bit; on any flags it equals k single-lane kernel-2 sweeps (and, in the
-// fold, their sub-row fold).  Bound: as 1L's, but only the live (row,
-// lane) pairs' id and message reads count, plus the flags (k x nblk B).
+// batched into one launch of the early-out kernel).  A launch's flags are
+// one word a grid block of block_rows sub-rows, bit l for its lane l,
+// built on the card from the lanes' touched tables (lanes_vertex_words_
+// kernel, then lanes_block_words_kernel, below).  The sub-row kernel
+// (edge_block_lanes_kernel, float add) ANDs its row's word into each slot's
+// frontier bits (lanes_row's `on`), since its order belongs to
+// subrow_combine.  The fold of the order-free reduces takes a
+// kernel of its own, edge_block_skip_fold_kernel, described at it.  On the
+// bitmap plane the flags come from each lane's touched table, and a dead
+// block's owners have no active in-neighbour in that lane, so 2L on those
+// flags equals 1L bit for bit; on any flags it equals k single-lane
+// kernel-2 sweeps (and, in the fold, their sub-row fold).  Bound: as 1L's,
+// but only the rows of a block live in some lane count, plus the flags.
 //
 // What bounds the fold kernel on an H100: bytes.  It must read the ids once
 // (R8 x 32 B, 0.40 GB at scale 22), owner8 (R8 x 4 B), each lane's values
@@ -340,22 +336,6 @@ cudaError_t by_gather(const Args& a, int gather, int reduce, int mask) {
 // row a live slot: 134 MB at k = 8, past the 50 MB L2) and the table's
 // fill.
 // ---------------------------------------------------------------------------
-
-// 2L's flag words: word b holds bit l where lane l's flag of grid block b
-// is nonzero (flags is the (k', nblk) table, lane l its row map.row[l]).
-__global__ void lanes_flags_pack_kernel(const uint8_t* __restrict__ flags,
-                                        LaneMap map, int k, long long nblk,
-                                        unsigned* __restrict__ words) {
-  const long long b = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (b >= nblk) return;
-  unsigned w = 0u;
-#pragma unroll
-  for (int l = 0; l < kMaxLanes; ++l) {
-    if (l < k && flags[map.row[l] * nblk + b] != 0) w |= 1u << l;
-  }
-  words[b] = w;
-}
 
 // The lanes whose flags let row r be read: its grid block's word, or every
 // lane without flags (1L).
@@ -400,8 +380,7 @@ template <typename T, int GW, int R, int K>
 __global__ void __launch_bounds__(256) edge_block_fold_kernel(
     const int* __restrict__ nbr, const float* __restrict__ wgt,
     const int* __restrict__ owner8, const unsigned* __restrict__ bits,
-    const T* __restrict__ msg, const unsigned* __restrict__ words,
-    long long block_rows, LaneMap map, T* red, uint8_t* got,
+    const T* __restrict__ msg, LaneMap map, T* red, uint8_t* got,
     long long rows, long long V, int width, int k, bool mask, bool w8,
     bool accumulate) {
   const T ident = reduce_identity<T, R>();
@@ -415,11 +394,8 @@ __global__ void __launch_bounds__(256) edge_block_fold_kernel(
   int o = -1;                            // past the view: no owner
   if (r < rows) {
     o = __ldg(owner8 + r);
-    const unsigned on = row_lanes_on(words, block_rows, r);
-    if (on != 0u) {
-      lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc,
-                             any, on);
-    }
+    lanes_row<T, GW, R, K>(nbr, wgt, bits, msg, r, width, mask, w8, acc,
+                           any);
   }
   // bit t of `same`: threads t and t + 1 hold sub-rows of one owner
   const int o_next = __shfl_down_sync(~0u, o, 1);
@@ -463,6 +439,416 @@ __global__ void __launch_bounds__(256) edge_block_fold_kernel(
   }
 }
 
+// Lane l's row of the state, read from the lane map by an unrolled select
+// (no dynamic index into the launch's parameters).
+__device__ __forceinline__ long long lane_row(const LaneMap& map, int l) {
+  int row = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxLanes; ++i) row = i == l ? map.row[i] : row;
+  return row;
+}
+
+// 2L's fold, the Hopper redesign: flagged launches of min, max and int32
+// add over the flat width-8 view, under mask_inactive.  What the first
+// design (edge_block_fold_kernel with a word a row) paid, and what this one
+// does about it:
+// - A thread a sub-row over all ~11.9 M sub-rows at scale 22, each reading
+//   owner8, its block's word and joining the warp's scan, dead or alive.
+//   Here a warp owns one grid block of block_rows sub-rows and reads its
+//   word first: a zero word returns at once, so a dead block costs one
+//   4-byte load a warp and reads no owner8, no id, no weight, no message.
+// - K accumulators and K-wide message rows a thread (128 B a live slot at
+//   K = 32, 680-880 bytes of spills).  Here the warp is 32 / K row streams
+//   x K lanes, a thread one (stream, lane) pair: it holds one accumulator,
+//   one any-bit and its stream's current owner, nothing K wide, and loads
+//   only its own lane's 4-byte message where its lane's bit is set.  The
+//   live lanes of one slot read neighbouring words of the vertex-major
+//   table, so they share one request.  A thread whose lane's bit of the
+//   word is 0 folds nothing.
+// - Loads in flight.  A step takes K consecutive rows of each stream, one a
+//   thread: its 8 ids as two 16-byte loads, its owner (and weights) beside
+//   them, its slots' K frontier bits (the pre-pass's words, ANDed with the
+//   block's word) all at once, as kernel 1 reads a row.  K ballots tell each
+//   thread which of its stream's K rows hold a live slot of its own lane;
+//   the rows' ids, bits, owners and weights go through the warp's shared
+//   memory, and each thread takes its live rows two at a time, their
+//   messages (up to 16) in flight before it combines them in row order.
+//   At K = 1 a thread reads and folds its own rows alone, two rows a step
+//   with all their loads in flight.
+// - Owners.  A stream's rows are consecutive (ceil(n / S) of the block's n
+//   rows a stream), so it folds each run of equal owners in row order in a
+//   register and flushes it when the owner changes (at its next live slot)
+//   or at the end.  A run that is whole inside the stream (not the stream's
+//   first owner continuing from the row before it, nor its last owner
+//   continuing past it) takes a plain store, or a read-combine-store under
+//   accumulate; a piece that crosses a stream, warp or grid-block edge
+//   combines by atomic_combine after a plain test read.  Combines settle a
+//   +0/-0 tie as combine() does (a min keeps -0, a max +0), so the bits do
+//   not depend on the order.  A run whose combine is the identity writes no
+//   value; got takes a plain store of 1 for a run with a live slot.
+// The same bytes bound it as the first design, but only the rows of blocks
+// live in some lane are read: their ids and owners (36 B a sub-row), a
+// frontier word a valid slot (from L2), a message a live (slot, lane) pair.
+constexpr int kFoldThreads = 256;
+
+template <typename T, int GW, int R, int K>
+__global__ void __launch_bounds__(kFoldThreads, 4) edge_block_skip_fold_kernel(
+    const int* __restrict__ nbr, const float* __restrict__ wgt,
+    const int* __restrict__ owner8, const unsigned* __restrict__ bits,
+    const T* __restrict__ msg, const unsigned* __restrict__ words,
+    long long block_rows, long long nblk, LaneMap map, T* red, uint8_t* got,
+    long long rows, long long V, int k, bool accumulate) {
+  constexpr int S = 32 / K;                  // row streams a warp
+  constexpr int P = 2;                       // rows whose loads fly together
+  constexpr int kWarps = kFoldThreads / 32;
+  constexpr bool kW = weighted(GW);
+  constexpr unsigned kPos = K == 32 ? ~0u : (1u << K) - 1u;
+  // a warp's rows of a step: ids and bits (K > 1: read by the stream's
+  // other threads), weights (weighted gathers) and owners
+  __shared__ uint4 s_id[K > 1 ? kWarps : 1][32][2];
+  __shared__ uint4 s_fb[K > 1 ? kWarps : 1][32][2];
+  __shared__ uint4 s_w[K > 1 && kW ? kWarps : 1][32][2];
+  __shared__ int s_o[K > 1 ? kWarps : 1][32];
+  const long long b =
+      (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  if (b >= nblk) return;                     // warp-uniform
+  const unsigned word =
+      __ldg(words + b) & (k >= 32 ? ~0u : (1u << k) - 1u);
+  if (word == 0u) return;                    // a dead block reads nothing
+  const int wi = K > 1 ? static_cast<int>(threadIdx.x >> 5) : 0;
+  const int t = threadIdx.x & 31;
+  const int l = t % K;
+  const int s = t / K;
+  const T ident = reduce_identity<T, R>();
+  const uint64_t first = l2_policy_evict_first();
+  const uint64_t last = l2_policy_evict_last();
+  const long long r0 = b * block_rows;
+  const long long n = min(block_rows, rows - r0);
+  const long long per = (n + S - 1) / S;     // rows a stream
+  const long long sa = r0 + min(n, s * per);  // this stream's rows [sa, sb)
+  const long long sb = r0 + min(n, (s + 1) * per);
+  constexpr int kRows = K == 1 ? 2 : K;      // a stream's rows a step
+  const int steps = static_cast<int>((per + kRows - 1) / kRows);
+  const bool on = (word >> l) & 1u;
+  // the stream's first and last owners, and whether their runs go on past
+  // the stream's rows (read once a live block, only by a thread that folds)
+  int head = -1, tail = -1;
+  bool head_shared = false, tail_shared = false;
+  if (on && sa < sb) {
+    head = __ldg(owner8 + sa);
+    tail = __ldg(owner8 + sb - 1);
+    head_shared = sa > 0 && __ldg(owner8 + sa - 1) == head;
+    tail_shared = sb < rows && __ldg(owner8 + sb) == tail;
+  }
+  const long long base = on ? lane_row(map, l) * V : 0;
+  T acc = ident;
+  bool any = false;
+  int cur = -1;                              // the owner acc folds
+  auto flush = [&]() {
+    if (any && cur >= 0 && cur < V) {
+      const long long at = base + cur;
+      if (got != nullptr) got[at] = 1;
+      if (acc != ident) {
+        const bool piece = (cur == head && head_shared) ||
+                           (cur == tail && tail_shared);
+        if (!piece) {
+          red[at] = accumulate ? combine<T, R>(red[at], acc) : acc;
+        } else {
+          atomic_combine<T, R>(red + at, acc,
+                               R == kAdd ? T(0) : __ldcg(red + at));
+        }
+      }
+    }
+    acc = ident;
+    any = false;
+  };
+  for (int step = 0; step < steps; ++step) {
+    if constexpr (K == 1) {
+      // a stream a thread: two of its rows a step, all their loads in
+      // flight (ids, owners, weights, then 16 bits, then the messages)
+      const long long r = sa + 2LL * step;
+      unsigned id[2][8], w[2][8], sel[2] = {0u, 0u};
+      int o[2] = {-1, -1};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          id[h][c] = static_cast<unsigned>(kPad);
+          w[h][c] = 0u;
+        }
+        if (r + h < sb) {
+          const int4 lo = load_stream(nbr + (r + h) * 8, first);
+          const int4 hi = load_stream(nbr + (r + h) * 8 + 4, first);
+          id[h][0] = lo.x; id[h][1] = lo.y; id[h][2] = lo.z;
+          id[h][3] = lo.w; id[h][4] = hi.x; id[h][5] = hi.y;
+          id[h][6] = hi.z; id[h][7] = hi.w;
+          o[h] = __ldg(owner8 + r + h);
+          if constexpr (kW) {
+            const int4 wl = load_stream(wgt + (r + h) * 8, first);
+            const int4 wh = load_stream(wgt + (r + h) * 8 + 4, first);
+            w[h][0] = wl.x; w[h][1] = wl.y; w[h][2] = wl.z;
+            w[h][3] = wl.w; w[h][4] = wh.x; w[h][5] = wh.y;
+            w[h][6] = wh.z; w[h][7] = wh.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {          // the rows' bits in flight
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int u = static_cast<int>(id[h][c]);
+          if (u != kPad && (lane_bits<1>(bits, u, last) & word)) {
+            sel[h] |= 1u << c;
+          }
+        }
+      }
+      if ((sel[0] | sel[1]) != 0u) {
+        unsigned m[2][8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            m[h][c] = (sel[h] >> c) & 1u
+                          ? load_table(msg + static_cast<int>(id[h][c]), last)
+                          : 0u;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (sel[h] == 0u) continue;
+          if (o[h] != cur) {                 // a row has one owner
+            flush();
+            cur = o[h];
+          }
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if ((sel[h] >> c) & 1u) {
+              T x = from_bits<T>(m[h][c]);
+              if constexpr (kW) {
+                x = gather_op<T, GW>(x, __uint_as_float(w[h][c]), 0);
+              }
+              acc = combine<T, R>(acc, x);
+              any = true;
+            }
+          }
+        }
+      }
+    } else {
+      // this thread's row: the stream's row step * K + l
+      const long long r = sa + static_cast<long long>(step) * K + l;
+      unsigned id[8], fb[8], w[8];
+      int o = -1;
+      unsigned live = 0u;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        id[c] = static_cast<unsigned>(kPad);
+        fb[c] = 0u;
+        w[c] = 0u;
+      }
+      if (r < sb) {
+        const int4 lo = load_stream(nbr + r * 8, first);
+        const int4 hi = load_stream(nbr + r * 8 + 4, first);
+        id[0] = lo.x; id[1] = lo.y; id[2] = lo.z; id[3] = lo.w;
+        id[4] = hi.x; id[5] = hi.y; id[6] = hi.z; id[7] = hi.w;
+        o = __ldg(owner8 + r);
+        if constexpr (kW) {
+          const int4 wl = load_stream(wgt + r * 8, first);
+          const int4 wh = load_stream(wgt + r * 8 + 4, first);
+          w[0] = wl.x; w[1] = wl.y; w[2] = wl.z; w[3] = wl.w;
+          w[4] = wh.x; w[5] = wh.y; w[6] = wh.z; w[7] = wh.w;
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {        // the row's bits in flight
+          fb[c] = static_cast<int>(id[c]) == kPad
+                      ? 0u
+                      : lane_bits<K>(bits, static_cast<int>(id[c]), last) &
+                            word;
+          live |= fb[c];
+        }
+      }
+      // the rows of this thread's stream holding a live slot of its lane
+      unsigned mine = 0u;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const unsigned bj = __ballot_sync(~0u, (live >> j) & 1u);
+        if (j == l) mine = (bj >> (s * K)) & kPos;
+      }
+      if (__any_sync(~0u, mine != 0u)) {
+        s_id[wi][t][0] = make_uint4(id[0], id[1], id[2], id[3]);
+        s_id[wi][t][1] = make_uint4(id[4], id[5], id[6], id[7]);
+        s_fb[wi][t][0] = make_uint4(fb[0], fb[1], fb[2], fb[3]);
+        s_fb[wi][t][1] = make_uint4(fb[4], fb[5], fb[6], fb[7]);
+        if constexpr (kW) {
+          s_w[wi][t][0] = make_uint4(w[0], w[1], w[2], w[3]);
+          s_w[wi][t][1] = make_uint4(w[4], w[5], w[6], w[7]);
+        }
+        s_o[wi][t] = o;
+        __syncwarp();
+        while (mine != 0u) {                 // P live rows at a time
+          unsigned sel[P], m[P][8];          // sel: the row's live slots
+          int src[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const int q = __ffs(mine) - 1;   // -1: no row left
+            mine &= mine - 1u;
+            src[p] = s * K + (q < 0 ? 0 : q);
+            const uint4 f0 = s_fb[wi][src[p]][0], f1 = s_fb[wi][src[p]][1];
+            const unsigned f[8] = {f0.x, f0.y, f0.z, f0.w,
+                                   f1.x, f1.y, f1.z, f1.w};
+            sel[p] = 0u;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) sel[p] |= ((f[c] >> l) & 1u) << c;
+            if (q < 0) sel[p] = 0u;
+          }
+#pragma unroll
+          for (int p = 0; p < P; ++p) {      // this lane's messages in flight
+            const unsigned* ids =
+                reinterpret_cast<const unsigned*>(s_id[wi][src[p]]);
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              m[p][c] = (sel[p] >> c) & 1u
+                            ? load_table(msg + static_cast<long long>(
+                                                   static_cast<int>(ids[c])) *
+                                                   K + l,
+                                         last)
+                            : 0u;
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < P; ++p) {      // then combined in row order
+            if (sel[p] == 0u) continue;
+            const int o_p = s_o[wi][src[p]];
+            if (o_p != cur) {                // a row has one owner
+              flush();
+              cur = o_p;
+            }
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              if ((sel[p] >> c) & 1u) {
+                T x = from_bits<T>(m[p][c]);
+                if constexpr (kW) {
+                  const unsigned* wts =
+                      reinterpret_cast<const unsigned*>(s_w[wi][src[p]]);
+                  x = gather_op<T, GW>(x, __uint_as_float(wts[c]), 0);
+                }
+                acc = combine<T, R>(acc, x);
+                any = true;
+              }
+            }
+          }
+        }
+        __syncwarp();                        // before the next step's rows
+      }
+    }
+  }
+  flush();
+}
+
+// (c) 2L's flags built on the card from the lanes' touched tables, in two
+// passes.  First a lane word a vertex: bit l set where lane l's touched
+// table (row map.row[l] of the (k', V) bytes) holds a nonzero byte; word V
+// (the pad sub-rows' owner) is 0.  A thread takes four vertices u0 .. u0 +
+// 3: with `vec` (V a multiple of 4 and the table on 4-byte boundaries) one
+// 4-byte read of each lane's bytes, else (and for the last V % 4 vertices)
+// a byte read a vertex; its four words as one 16-byte store where they lie
+// inside the (V + 1,) table and vword is on 16-byte boundaries.
+__global__ void lanes_vertex_words_kernel(const uint8_t* __restrict__ touched,
+                                          LaneMap map, int k, long long V,
+                                          bool vec,
+                                          unsigned* __restrict__ vword) {
+  const long long u0 = 4 * (blockIdx.x * static_cast<long long>(blockDim.x) +
+                            threadIdx.x);
+  if (u0 > V) return;
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+  const bool whole = vec && u0 + 4 <= V;
+#pragma unroll
+  for (int l = 0; l < kMaxLanes; ++l) {
+    if (l < k) {
+      const uint8_t* row = touched + map.row[l] * V + u0;
+      unsigned a = 0u;
+      if (whole) {
+        a = *reinterpret_cast<const unsigned*>(row);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (u0 + i < V) a |= static_cast<unsigned>(row[i]) << (8 * i);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        w[i] |= (((a >> (8 * i)) & 0xffu) != 0u ? 1u : 0u) << l;
+      }
+    }
+  }
+  if (u0 + 4 <= V + 1 && reinterpret_cast<uintptr_t>(vword) % 16 == 0) {
+    *reinterpret_cast<uint4*>(vword + u0) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (u0 + i <= V) vword[u0 + i] = w[i];
+    }
+  }
+}
+
+// Then a warp a grid block ORs its sub-rows' owners' words (the (V + 1,)
+// words, 16.8 MB at scale 22, stay in L2; a thread reads an owner's word
+// once a run) and sets the `wide` lanes' bits in every word: words[b].  With
+// counters, each narrow lane l (its bit of `wide` 0) whose bit is set adds
+// grid_blocks[b] and grid_edges[b] (the plan blocks and edges of grid block
+// b) to counters[l] and counters[k + l], summed a thread over the warp's
+// grid blocks, then in shared memory, then once a CTA into the table.
+__global__ void __launch_bounds__(256) lanes_block_words_kernel(
+    const int* __restrict__ owner8, const unsigned* __restrict__ vword,
+    long long rows, long long block_rows, long long nblk, unsigned wide,
+    int k, unsigned* __restrict__ words,
+    const long long* __restrict__ grid_blocks,
+    const long long* __restrict__ grid_edges,
+    unsigned long long* __restrict__ counters) {
+  __shared__ unsigned long long sums[2 * kMaxLanes];
+  const bool count = counters != nullptr;
+  if (count) {
+    if (threadIdx.x < 2 * kMaxLanes) sums[threadIdx.x] = 0ull;
+    __syncthreads();
+  }
+  const int t = threadIdx.x & 31;
+  const long long warps =
+      (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  unsigned long long nb = 0ull, ne = 0ull;
+  for (long long b = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x) >> 5;
+       b < nblk; b += warps) {
+    const long long r0 = b * block_rows;
+    const long long r1 = min(rows, r0 + block_rows);
+    unsigned w = 0u;
+    int prev = -1;
+    for (long long r = r0 + t; r < r1; r += 32) {
+      const int o = __ldg(owner8 + r);
+      if (o != prev) {
+        w |= __ldg(vword + o);
+        prev = o;
+      }
+    }
+    w = __reduce_or_sync(~0u, w) | wide;
+    if (t == 0) words[b] = w;
+    if (count && t < k && !((wide >> t) & 1u) && ((w >> t) & 1u)) {
+      nb += static_cast<unsigned long long>(grid_blocks[b]);
+      ne += static_cast<unsigned long long>(grid_edges[b]);
+    }
+  }
+  if (count) {
+    if (nb != 0ull) atomicAdd(&sums[t], nb);
+    if (ne != 0ull) atomicAdd(&sums[kMaxLanes + t], ne);
+    __syncthreads();
+    if (threadIdx.x < 2 * kMaxLanes) {
+      const int l = threadIdx.x % kMaxLanes;
+      const unsigned long long v = sums[threadIdx.x];
+      if (l < k && v != 0ull) {
+        atomicAdd(counters + (threadIdx.x / kMaxLanes) * k + l, v);
+      }
+    }
+  }
+}
+
 // What both lane kernels read: the graph, the (k', V) state through the
 // lane map, and the pre-pass's scratch.
 struct LaneArgs {
@@ -479,9 +865,9 @@ struct LaneArgs {
   int k;
   long long rows;
   int width;
-  const void* block_live;   // (k', nblk) bytes, or null: no flags (1L)
   long long block_rows;
-  void* words;              // nblk words of scratch for the packed flags
+  const void* words;        // nblk words, the launch's flags (2L); null: no
+                            // flags (1L)
   int stage;                // Stage
   cudaStream_t stream;
 };
@@ -528,30 +914,31 @@ cudaError_t launch_lanes(const LaneArgs& a, const Out& o) {
     const float* wgt = static_cast<const float*>(a.wgt);
     const unsigned* bits = static_cast<const unsigned*>(a.bits);
     const T* msg = static_cast<const T*>(a.msg);
-    const unsigned* words = nullptr;
-    if (a.block_live != nullptr) {         // 2L: pack the flags first
-      const long long nblk = (a.rows + a.block_rows - 1) / a.block_rows;
-      lanes_flags_pack_kernel<<<(nblk + kThreads - 1) / kThreads, kThreads,
-                                0, a.stream>>>(
-          static_cast<const uint8_t*>(a.block_live), a.map, a.k, nblk,
-          static_cast<unsigned*>(a.words));
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      words = static_cast<const unsigned*>(a.words);
-    }
+    const unsigned* words = static_cast<const unsigned*>(a.words);
     if constexpr (std::is_same<Out, SubRowOut>::value) {
       edge_block_lanes_kernel<T, GW, R, K>
           <<<blocks, kThreads, 0, a.stream>>>(
               nbr, wgt, bits, msg, words, a.block_rows,
               static_cast<T*>(o.out), static_cast<uint8_t*>(o.any), a.rows,
               a.width, a.k, a.mask, w8);
+    } else if (words != nullptr) {
+      // 2L: a warp a grid block, on the flat width-8 view under
+      // mask_inactive
+      if (!a.mask || !w8) return cudaErrorInvalidValue;
+      const long long nblk = (a.rows + a.block_rows - 1) / a.block_rows;
+      edge_block_skip_fold_kernel<T, GW, R, K>
+          <<<(nblk * 32 + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0,
+             a.stream>>>(
+              nbr, wgt, static_cast<const int*>(o.owner8), bits, msg, words,
+              a.block_rows, nblk, a.map, static_cast<T*>(o.red),
+              static_cast<uint8_t*>(o.got), a.rows, a.V, a.k,
+              o.accumulate);
     } else {
       edge_block_fold_kernel<T, GW, R, K>
           <<<blocks, kThreads, 0, a.stream>>>(
-              nbr, wgt, static_cast<const int*>(o.owner8), bits, msg, words,
-              a.block_rows, a.map, static_cast<T*>(o.red),
-              static_cast<uint8_t*>(o.got), a.rows, a.V, a.width, a.k,
-              a.mask, w8, o.accumulate);
+              nbr, wgt, static_cast<const int*>(o.owner8), bits, msg, a.map,
+              static_cast<T*>(o.red), static_cast<uint8_t*>(o.got), a.rows,
+              a.V, a.width, a.k, a.mask, w8, o.accumulate);
     }
     return cudaGetLastError();
   }
@@ -646,29 +1033,29 @@ extern "C" int edge_block_reduce_launch(
 // mask_inactive) and `msg` ((V, K) of the value type) are scratch for the
 // pre-pass; `out` is (k, rows) of the value type and `any` (k, rows)
 // bytes, or null when the caller needs no flags, row l for lanes[l].
-// `block_live`, a (lane_rows, ceil(rows / block_rows)) byte table, or null,
-// selects 2L (`words`, ceil(rows / block_rows) words, is its scratch).
-// `stage` as edge_block_reduce_launch's.  Returns the cudaError_t of the
-// launch (0 = success).
+// Non-null `words` (ceil(rows / block_rows) words; bit l of word b: lane
+// lanes[l] reads grid block b) selects 2L; null, 1L.  `stage` as
+// edge_block_reduce_launch's; under mask_inactive the pre-pass writes the
+// messages of vertices active in some lane only (lanes.cuh).  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int edge_block_lanes_launch(
     int device, int gather, int reduce, int value_is_float, int mask_inactive,
     int K, const void* nbr, const void* wgt, const void* values,
     const void* degrees, const void* active, const int* lanes, int k,
     long long lane_rows, void* bits, void* msg, long long V, void* out,
-    void* any, long long rows, int width, const void* block_live,
-    long long block_rows, void* words, int stage, void* stream) {
+    void* any, long long rows, int width, long long block_rows,
+    const void* words, int stage, void* stream) {
   using namespace repro_torch;
   LaneMap map;
   if (!make_lane_map(lanes, k, K, lane_rows, &map) || !valid_stage(stage) ||
-      (block_live != nullptr && (block_rows < 1 || words == nullptr))) {
+      (words != nullptr && block_rows < 1)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
-                   map, bits, msg, V, k, rows, width, block_live,
-                   block_rows, words, stage,
-                   static_cast<cudaStream_t>(stream)};
+                   map, bits, msg, V, k, rows, width, block_rows, words,
+                   stage, static_cast<cudaStream_t>(stream)};
   const SubRowOut o{out, any};
   return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)
                         : lanes_by_gather<int>(a, o, gather, reduce, K);
@@ -679,32 +1066,80 @@ extern "C" int edge_block_lanes_launch(
 // for pad sub-rows).  `red` is (lane_rows, V) of the value type holding
 // the reduce identity in the listed rows on entry, `got` (lane_rows, V)
 // bytes holding 0 there, or null; with `accumulate` they hold running
-// partials instead, which the launch combines into.  `block_live`,
-// `block_rows` and `words` as edge_block_lanes_launch's (2L).  `stage` as
-// edge_block_reduce_launch's.  Returns the cudaError_t of the launch (0 =
-// success).
+// partials instead, which the launch combines into.  `block_rows` and
+// `words` as edge_block_lanes_launch's (2L: the warp-a-grid-block kernel,
+// which needs mask_inactive and the width-8 view on 16-byte boundaries).
+// `stage` as edge_block_reduce_launch's.  Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int edge_block_fold_launch(
     int device, int gather, int reduce, int value_is_float, int mask_inactive,
     int K, const void* nbr, const void* wgt, const void* owner8,
     const void* values, const void* degrees, const void* active,
     const int* lanes, int k, long long lane_rows, void* bits, void* msg,
     long long V, void* red, void* got, long long rows, int width,
-    int accumulate, const void* block_live, long long block_rows,
-    void* words, int stage, void* stream) {
+    int accumulate, long long block_rows, const void* words, int stage,
+    void* stream) {
   using namespace repro_torch;
   LaneMap map;
   if (owner8 == nullptr || !make_lane_map(lanes, k, K, lane_rows, &map) ||
-      !valid_stage(stage) ||
-      (block_live != nullptr && (block_rows < 1 || words == nullptr))) {
+      !valid_stage(stage) || (words != nullptr && block_rows < 1)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const LaneArgs a{mask_inactive != 0, nbr, wgt, values, degrees, active,
-                   map, bits, msg, V, k, rows, width, block_live,
-                   block_rows, words, stage,
-                   static_cast<cudaStream_t>(stream)};
+                   map, bits, msg, V, k, rows, width, block_rows, words,
+                   stage, static_cast<cudaStream_t>(stream)};
   const FoldOut o{owner8, red, got, accumulate != 0};
   return value_is_float ? lanes_by_gather<float>(a, o, gather, reduce, K)
                         : lanes_by_gather<int>(a, o, gather, reduce, K);
+}
+
+// C entry point of 2L's flags pass (c): from the (lane_rows, V) touched
+// bytes of the k rows listed in `lanes` (1 <= k <= 32) and owner8 ((rows,)
+// owner vertices, V for pad sub-rows), one word a grid block of block_rows
+// sub-rows into `words` (ceil(rows / block_rows) words), bit l set where
+// lane lanes[l] touches an owner of the block or bit l of `wide` is set;
+// `vword` ((V + 1,) words) is scratch.  With `counters` ((2, k) int64,
+// zero on entry; null: none), each lane l outside `wide` adds the
+// grid_blocks and grid_edges entries ((nblk,) int64 each) of its live
+// blocks to counters[0][l] and counters[1][l].  Returns the cudaError_t of
+// the launches (0 = success).
+extern "C" int edge_block_words_launch(
+    int device, const void* touched, const int* lanes, int k,
+    long long lane_rows, long long V, const void* owner8, long long rows,
+    long long block_rows, unsigned wide, void* vword, void* words,
+    const void* grid_blocks, const void* grid_edges, void* counters,
+    void* stream) {
+  using namespace repro_torch;
+  constexpr int kThreads = 256;
+  LaneMap map;
+  if (!make_lane_map(lanes, k, kMaxLanes, lane_rows, &map) ||
+      block_rows < 1 || owner8 == nullptr || vword == nullptr ||
+      words == nullptr ||
+      (counters != nullptr &&
+       (grid_blocks == nullptr || grid_edges == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec =
+      V % 4 == 0 && reinterpret_cast<uintptr_t>(touched) % 4 == 0;
+  lanes_vertex_words_kernel<<<(V / 4 + 1 + kThreads - 1) / kThreads,
+                              kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(touched), map, k, V, vec,
+      static_cast<unsigned*>(vword));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || rows == 0) return err;
+  const long long nblk = (rows + block_rows - 1) / block_rows;
+  const long long need = (nblk * 32 + kThreads - 1) / kThreads;
+  const long long ctas = need < 1056 ? need : 1056;   // 8 CTAs an SM
+  lanes_block_words_kernel<<<ctas, kThreads, 0, st>>>(
+      static_cast<const int*>(owner8), static_cast<const unsigned*>(vword),
+      rows, block_rows, nblk, wide, k, static_cast<unsigned*>(words),
+      static_cast<const long long*>(grid_blocks),
+      static_cast<const long long*>(grid_edges),
+      static_cast<unsigned long long*>(counters));
+  return cudaGetLastError();
 }

@@ -129,6 +129,18 @@ __device__ __forceinline__ unsigned lane_bits(const unsigned* bits, int id,
 // with the same _rn arithmetic as the single-lane kernels, else the value.
 // Lane l reads row map.row[l] of the (k', V) values and active.  Pad
 // lanes (k <= l < K) get message 0 and frontier bit 0.
+//
+// Under `mask` the row of messages is written only for a vertex active in
+// some lane of the launch, and its values are read only then; other rows
+// are left as they were (unwritten scratch).  That is exact for every
+// masked launch of every kernel that reads these tables: each reads
+// msg[u * K + l] only where u's frontier bit of lane l is set (a kernel
+// that loads the whole row, the sub-row kernel's lanes_row, loads it only
+// where some bit of u is set, and uses only the set lanes' words), so no
+// unwritten entry is ever read.  An unmasked launch reads every vertex's
+// row, and then every row is written.  On narrow frontiers it reads the
+// launch's active bytes once (k x V B) where the full table writes k x V x
+// 4 B of messages and reads as many values.
 template <typename T, int G, int K, bool kMsg>
 __global__ void lanes_pack_kernel(const T* __restrict__ values,
                                   const int* __restrict__ degrees,
@@ -140,20 +152,27 @@ __global__ void lanes_pack_kernel(const T* __restrict__ values,
   const long long u = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   unsigned live = 0;
+  if (mask) {
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      if (u < V && l < k && active[map.row[l] * V + u] != 0) live |= 1u << l;
+    }
+  }
+  // under mask the messages of a vertex no lane of the launch holds active
+  // are never read (see above), so they are neither read nor written
+  const bool write = u < V && (!mask || live != 0u);
   unsigned row[K];
 #pragma unroll
   for (int l = 0; l < K; ++l) {
     row[l] = 0u;
-    if (u < V && l < k) {
-      const long long at = map.row[l] * V + u;
-      if constexpr (kMsg) {
-        const T v = values[at];
+    if constexpr (kMsg) {
+      if (write && l < k) {
+        const T v = values[map.row[l] * V + u];
         row[l] = to_bits<T>(
             kNeedsMsg ? gather_op<T, G>(v, 0.0f,
                                         G == kDivDeg ? degrees[u] : 0)
                       : v);
       }
-      if (mask && active[at] != 0) live |= 1u << l;
     }
   }
   if (mask) {
@@ -168,7 +187,7 @@ __global__ void lanes_pack_kernel(const T* __restrict__ values,
     if (t % kPer == 0 && u < V) bits[(u * K) >> 5] = word;
   }
   if constexpr (kMsg) {
-    if (u >= V) return;
+    if (!write) return;
     unsigned* dst = reinterpret_cast<unsigned*>(msg) + u * K;
     if constexpr (K == 1) {
       dst[0] = row[0];
@@ -188,7 +207,9 @@ __global__ void lanes_pack_kernel(const T* __restrict__ values,
 // 4 q .. 4 q + 3 (their values, degrees and messages as one vector each,
 // their frontier bytes as one word), and a frontier word built from 8
 // threads' 4 bits by three shuffles; the same tables as lanes_pack_kernel.
-// Needs V a multiple of 4 and the lane's rows on the vectors' grid.
+// Under mask, the active vertices' messages alone (a vector store when all
+// four are).  Needs V a multiple of 4 and the lane's rows on the
+// vectors' grid.
 template <typename T, int G, bool kMsg>
 __global__ void lanes_pack4_kernel(const T* __restrict__ values,
                                    const int* __restrict__ degrees,
@@ -201,8 +222,8 @@ __global__ void lanes_pack4_kernel(const T* __restrict__ values,
                             threadIdx.x);
   const bool in = u0 < V;
   const long long at = map.row[0] * V + u0;
+  unsigned live = 0u;
   if (mask) {
-    unsigned live = 0u;
     if (in) {
       const unsigned a = *reinterpret_cast<const unsigned*>(active + at);
 #pragma unroll
@@ -218,7 +239,7 @@ __global__ void lanes_pack4_kernel(const T* __restrict__ values,
     if ((t & 7) == 0 && in) bits[u0 >> 5] = word;
   }
   if constexpr (kMsg) {
-    if (!in) return;
+    if (!in || (mask && live == 0u)) return;
     const uint4 v = *reinterpret_cast<const uint4*>(values + at);
     unsigned r[4] = {v.x, v.y, v.z, v.w};
     if constexpr (kNeedsMsg) {
@@ -232,7 +253,17 @@ __global__ void lanes_pack4_kernel(const T* __restrict__ values,
         r[i] = to_bits<T>(gather_op<T, G>(from_bits<T>(r[i]), 0.0f, d[i]));
       }
     }
-    *reinterpret_cast<uint4*>(msg + u0) = make_uint4(r[0], r[1], r[2], r[3]);
+    if (!mask || live == 0xfu) {
+      *reinterpret_cast<uint4*>(msg + u0) =
+          make_uint4(r[0], r[1], r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if ((live >> i) & 1u) {
+          reinterpret_cast<unsigned*>(msg)[u0 + i] = r[i];
+        }
+      }
+    }
   }
 }
 

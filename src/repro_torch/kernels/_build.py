@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)       # a host int array (a lane map)
 # C signatures of each library's entry points: {symbol: argtypes}
@@ -42,10 +43,13 @@ _ENTRY = {
                     _L, _P, _P, _L, _I, _I, _P],
                    "edge_block_lanes_launch":
                    [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _IP, _I, _L,
-                    _P, _P, _L, _P, _P, _L, _I, _P, _L, _P, _I, _P],
+                    _P, _P, _L, _P, _P, _L, _I, _L, _P, _I, _P],
                    "edge_block_fold_launch":
                    [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _I,
-                    _L, _P, _P, _L, _P, _P, _L, _I, _I, _P, _L, _P, _I, _P]},
+                    _L, _P, _P, _L, _P, _P, _L, _I, _I, _L, _P, _I, _P],
+                   "edge_block_words_launch":
+                   [_I, _P, _IP, _I, _L, _L, _P, _L, _L, _U, _P, _P, _P, _P,
+                    _P, _P]},
     "push_ell": {"push_ell_message_launch":
                  [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
                  "push_ell_fused_launch":

@@ -34,13 +34,24 @@ the same rows of its tables.  Count: ``launches``.  Both lane kernels
 read the lanes they sweep in place, through a lane map that goes to the
 kernel by value (no index tensor is copied to the device).
 
-Both lane kernels take ``block_live=``, a ``(k', nblk)`` table of one flag
-a lane row and grid block of ``block_rows`` rows: 2L, the counterpart of
-the early-out kernel under ``jax.vmap`` (the JAX package's batched runs on
-the bitmap plane).  A (lane, block) pair whose flag is 0 holds the
-identity and any 0 there and reads none of that lane's messages; a row
-dead in every lane loads nothing.  Launches with flags count apart
-(``skip_launches`` of each wrapper), as kernel 2's do.
+Both lane kernels take 2L's flags, the counterpart of the early-out
+kernel under ``jax.vmap`` (the JAX package's batched runs on the bitmap
+plane): ``block_words=``, a word a grid block of ``block_rows`` sub-rows
+with a bit a lane, built on the card from the lanes' touched tables by
+:func:`lane_block_words` (one pass over the touched bytes and ``owner8``,
+which also sums the narrow lanes' swept blocks and edges), or from a
+``(k', nblk)`` flag table by :func:`block_words_from_flags`.  A (lane,
+block) pair whose bit is 0 holds the identity and any 0 there and reads
+none of that lane's messages.  The fold runs a kernel of its own on them
+(a warp a grid block, a thread a (row stream, lane) pair; a dead block
+reads its word and nothing else), which needs ``mask_inactive`` on CUDA.
+The plain versions take the flag table itself (``block_live=`` with
+``block_rows=``), kernel 2's argument, as the reference.  Launches with
+flags count apart (``skip_launches`` of each wrapper), as kernel 2's do.
+
+Under ``mask_inactive`` the lane pre-pass writes the messages of the
+launch's active vertices only, which is exact because every masked launch
+of every lane kernel reads a message only where its frontier bit is set.
 
 The streamed engine (``core/stream.py``) sweeps one state over many
 partitions.  Its pull partitions go through the fused lane sweep in
@@ -66,14 +77,17 @@ other.
 """
 from __future__ import annotations
 
+import typing
+
 import torch
 
 from . import _build
 from .lanes import Prepared, check_prepared, lane_chunks, lane_list
-from .pull_bitmap import subrow_combine
+from .pull_bitmap import grid_block_live, subrow_combine
 from .ref import (GATHER_OPS, REDUCE_OPS, _identity, combine_settled,
-                  edge_block_messages, edge_block_reduce_ref, row_reduce,
-                  segment_reduce_ref, settle_zero_ties, zero_wins)
+                  edge_block_messages, edge_block_reduce_ref, gather_msg,
+                  row_reduce, segment_reduce_ref, settle_zero_ties,
+                  zero_wins)
 
 _VALUE_DTYPES = {torch.float32: 1, torch.int32: 0}
 _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
@@ -285,9 +299,15 @@ def lanes_prepare(values, degrees, active, lanes, *, gather: str,
     the K-bit frontier words (with ``mask_inactive``) and the vertex-major
     messages, for the ``prepared=`` launches of
     :func:`edge_block_fold_lanes` and :func:`edge_block_reduce_lanes` over
-    any number of edge blocks of this very state.  CPU tensors get no
-    tables (the plain versions need none); CUDA tensors launch the
-    pre-pass (``lanes_prepare.launches``, one a launch)."""
+    any number of edge blocks of this very state.  Under
+    ``mask_inactive`` it writes the messages of vertices active in some
+    lane of the launch only, reading ``active`` once instead of writing k
+    x V messages: exact, since a masked launch reads a message only where
+    its frontier bit is set; an unmasked launch reads every vertex's
+    messages and gets them all (:func:`lanes_prepare_plain` models the
+    tables).  CPU tensors get no tables (the plain versions need none);
+    CUDA tensors launch the pre-pass (``lanes_prepare.launches``, one a
+    launch)."""
     if gather not in GATHER_OPS:
         raise ValueError(f"not a menu gather: {gather!r}")
     kk, V = values.shape
@@ -309,7 +329,7 @@ def lanes_prepare(values, degrees, active, lanes, *, gather: str,
             _VALUE_DTYPES[values.dtype], int(mask_inactive), K, None, None,
             values.data_ptr(), degrees.data_ptr(), active.data_ptr(),
             lane_map, k, kk, None if bits is None else bits.data_ptr(),
-            msg.data_ptr(), V, None, None, 0, 8, None, 0, None, _PACK_ONLY,
+            msg.data_ptr(), V, None, None, 0, 8, 0, None, _PACK_ONLY,
             torch.cuda.current_stream(values.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"edge_block lane pre-pass launch failed: "
@@ -324,19 +344,71 @@ def lanes_prepare(values, degrees, active, lanes, *, gather: str,
 lanes_prepare.launches = 0
 
 
+def lanes_prepare_plain(values, degrees, active, lanes, *, gather: str,
+                        mask_inactive: bool = True) -> list:
+    """Plain version of the pre-pass's tables (``lanes_pack_kernel``):
+    per launch of at most 32 lanes, ``(lo, k, K, bits, msg, written)``.
+    ``bits`` holds the int32 words of the K-bit frontier (vertex u's bit
+    l, lane ``lanes[lo + l]``'s ``active[u]``, at bit ``u * K + l`` of the
+    table; ``None`` without ``mask_inactive``), ``msg`` the ``(V * K,)``
+    vertex-major messages (the gather's for ``plus_one`` and ``div_deg``,
+    else the value; pad lanes 0), and ``written`` the ``(V,)`` vertices
+    whose row the kernel writes: under ``mask_inactive`` those active in
+    some lane of the launch (``msg`` is 0 in the others), else every
+    one."""
+    kk, V = values.shape
+    lanes = lane_list(lanes, kk)
+    dev = values.device
+    out = []
+    for lo, _, k, K in lane_chunks(lanes):
+        rows = lanes[lo:lo + k]
+        act = torch.zeros((K, V), dtype=torch.bool, device=dev)
+        if mask_inactive:
+            act[:k] = active[rows]
+        msg = torch.zeros((K, V), dtype=values.dtype, device=dev)
+        for j, i in enumerate(rows):
+            msg[j] = gather_msg(gather, values[i], torch.ones_like(
+                values[i]), degrees) if gather in _MESSAGE_TABLE \
+                else values[i]
+        written = act.any(0) if mask_inactive else \
+            torch.ones((V,), dtype=torch.bool, device=dev)
+        msg = torch.where(written, msg, torch.zeros((), dtype=msg.dtype,
+                                                    device=dev))
+        bits = None
+        if mask_inactive:
+            n = -(-V * K // 32)
+            flat = torch.zeros((n * 32,), dtype=torch.int64, device=dev)
+            flat[:V * K] = act.t().reshape(-1).to(torch.int64)
+            words = (flat.view(n, 32) << torch.arange(
+                32, device=dev)).sum(1)
+            bits = (words - (words >= 2**31).to(torch.int64) * 2**32) \
+                .to(torch.int32)
+        out.append((lo, k, K, bits, msg.t().reshape(-1), written))
+    return out
+
+
 def edge_block_reduce_lanes_plain(nbr, wgt, values, degrees, active,
                                   lanes=None, *, gather: str, reduce: str,
                                   mask_inactive: bool = True,
                                   block_live=None,
                                   block_rows: int | None = None,
-                                  prepared: Prepared | None = None):
+                                  prepared: Prepared | None = None,
+                                  block_words: BlockWords | None = None):
     """Plain version of the lane-axis kernel: the single-lane plain
     version applied to each listed lane, with that lane's row of
-    ``block_live`` (kernel 2's) when given, stacked to ``(k, R)``
-    (``prepared`` only checked)."""
+    ``block_live`` (kernel 2's; or the flags ``block_words`` encodes) when
+    given, stacked to ``(k, R)`` (``prepared`` only checked)."""
     rows = list(range(values.shape[0])) if lanes is None \
         else lane_list(lanes, values.shape[0])
     check_prepared(prepared, rows, gather, mask_inactive)
+    if block_live is not None:
+        _check_lane_flags(block_live, block_rows, values.shape[0],
+                          nbr.shape[0], values.device)
+    _check_block_words(block_words, block_live, rows, nbr.shape[0],
+                       values.device)
+    if block_words is not None:
+        block_live = block_words_flags(block_words, values.shape[0])
+        block_rows = block_words.block_rows
     outs = [edge_block_reduce_plain(
                 nbr, wgt, values[i], degrees, active[i], gather=gather,
                 reduce=reduce, mask_inactive=mask_inactive,
@@ -363,9 +435,8 @@ def edge_block_reduce_lanes(
     reduce: str,
     mask_inactive: bool = True,
     need_any: bool = True,
-    block_live: torch.Tensor | None = None,   # (k', ceil(R/block_rows))
-    block_rows: int | None = None,
     prepared: Prepared | None = None,
+    block_words: BlockWords | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Kernel 1 over k lanes: per lane and row, the reduce of the menu
     gather over the row's live slots.
@@ -374,13 +445,13 @@ def edge_block_reduce_lanes(
     ``j`` of each is what :func:`edge_block_reduce` gives for lane
     ``lanes[j]`` alone, bit for bit (each lane reduces its slots in kernel
     1's order).  ``need_any=False`` skips the flags (returned as
-    ``None``).  ``block_live`` (bool, int8 or uint8, a row a lane of the
-    state; nonzero is live) with ``block_rows`` selects 2L: row ``j`` is
-    then kernel 2's for lane ``lanes[j]`` and its row of flags (count
-    ``skip_launches``).  A lane map longer than
-    :data:`~repro_torch.kernels.lanes.MAX_LANES` runs as several
-    launches.  ``prepared`` (:func:`lanes_prepare`'s tables of this very
-    state and lanes) spares the call its own pre-pass.
+    ``None``).  ``block_words`` (:func:`lane_block_words`' or
+    :func:`block_words_from_flags`' words for these lanes) selects 2L: row
+    ``j`` is then kernel 2's for lane ``lanes[j]`` and its flags (count
+    ``skip_launches``).  A lane map longer than :data:`~repro_torch.kernels.lanes.MAX_LANES`
+    runs as several launches.  ``prepared`` (:func:`lanes_prepare`'s
+    tables of this very state and lanes) spares the call its own
+    pre-pass.
     """
     if gather not in GATHER_OPS or reduce not in REDUCE_OPS:
         raise ValueError(f"not a menu module: gather={gather!r}, "
@@ -390,14 +461,11 @@ def edge_block_reduce_lanes(
     if values.dim() != 2 or tuple(active.shape) != tuple(values.shape):
         raise ValueError(f"values and active: want (k, V) each, got "
                          f"{tuple(values.shape)} and {tuple(active.shape)}")
-    if block_live is not None:
-        _check_lane_flags(block_live, block_rows, values.shape[0],
-                          nbr.shape[0], values.device)
     if values.device.type == "cpu":
         red, any_live = edge_block_reduce_lanes_plain(
             nbr, wgt, values, degrees, active, lanes, gather=gather,
-            reduce=reduce, mask_inactive=mask_inactive,
-            block_live=block_live, block_rows=block_rows, prepared=prepared)
+            reduce=reduce, mask_inactive=mask_inactive, prepared=prepared,
+            block_words=block_words)
         return red, any_live if need_any else None
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_reduce_lanes runs on CPU or CUDA "
@@ -409,6 +477,8 @@ def edge_block_reduce_lanes(
     kk, V = values.shape
     lanes = list(range(kk)) if lanes is None else lane_list(lanes, kk)
     check_prepared(prepared, lanes, gather, mask_inactive)
+    _check_block_words(block_words, None, lanes, nbr.shape[0],
+                       values.device)
     k = len(lanes)
     want = {"nbr": (nbr, torch.int32, (R, W)),
             "wgt": (wgt, torch.float32, (R, W)),
@@ -432,8 +502,7 @@ def edge_block_reduce_lanes(
     if prepared is None:
         prepared = lanes_prepare(values, degrees, active, lanes,
                                  gather=gather, mask_inactive=mask_inactive)
-    words = _flag_words(block_live, R, block_rows)
-    for lo, lane_map, kc, K, bits, msg in prepared.chunks:
+    for c, (lo, lane_map, kc, K, bits, msg) in enumerate(prepared.chunks):
         err = lib.edge_block_lanes_launch(
             values.device.index or 0, GATHER_OPS.index(gather),
             REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
@@ -442,14 +511,14 @@ def edge_block_reduce_lanes(
             lane_map, kc, kk, None if bits is None else bits.data_ptr(),
             msg.data_ptr(), V, out[lo].data_ptr(),
             None if any_live is None else any_live[lo].data_ptr(), R, W,
-            *_flag_args(block_live, block_rows, words), _MAIN_ONLY, stream)
+            *_flag_args(block_words, c), _MAIN_ONLY, stream)
         if err != 0:
             raise RuntimeError(f"edge_block lane kernel launch failed: "
                                f"cudaError_t {err}")
-        if block_live is None:
-            edge_block_reduce_lanes.lane_launches += 1
-        else:
+        if block_words is not None:
             edge_block_reduce_lanes.skip_launches += 1
+        else:
+            edge_block_reduce_lanes.lane_launches += 1
     return out, None if any_live is None else any_live.view(torch.bool)
 
 
@@ -459,21 +528,198 @@ edge_block_reduce_lanes.lane_launches = 0
 edge_block_reduce_lanes.skip_launches = 0
 
 
-def _flag_words(block_live, R: int, block_rows):
-    """2L's scratch for the packed flags, one int32 word a grid block (one
-    for all of a call's launches, which run in stream order); None
-    without flags."""
-    if block_live is None:
-        return None
-    return torch.empty((-(-R // block_rows),), dtype=torch.int32,
-                       device=block_live.device)
+class BlockWords(typing.NamedTuple):
+    """2L's flags as the kernels read them: for the lanes ``lanes`` (rows
+    of a ``(k', V)`` state, in launch order), ``words[c, b]`` holds bit l
+    where lane ``lanes[32 c + l]`` reads grid block b of ``block_rows``
+    sub-rows (one int32 row a launch of at most 32 lanes)."""
+
+    lanes: tuple
+    block_rows: int
+    words: torch.Tensor       # (launches, nblk) int32
 
 
-def _flag_args(block_live, block_rows, words) -> tuple:
-    """The C entries' ``(block_live, block_rows, words)`` arguments."""
-    if block_live is None:
-        return None, 0, None
-    return block_live.data_ptr(), block_rows, words.data_ptr()
+def block_words_flags(bw: BlockWords, lane_rows: int) -> torch.Tensor:
+    """The ``(lane_rows, nblk)`` bool flag table ``bw``'s words encode
+    (rows not listed: all False)."""
+    nblk = bw.words.shape[1]
+    flags = torch.zeros((lane_rows, nblk), dtype=torch.bool,
+                        device=bw.words.device)
+    w = bw.words.to(torch.int64) & 0xFFFFFFFF
+    for j, i in enumerate(bw.lanes):
+        flags[i] = ((w[j // 32] >> (j % 32)) & 1) != 0
+    return flags
+
+
+def block_words_from_flags(flags, lanes, block_rows: int) -> BlockWords:
+    """The words the rows ``lanes`` of a ``(k', nblk)`` flag table pack
+    into: the ``block_words=`` that runs the lane kernels on that table's
+    flags (the plain versions' ``block_live=``)."""
+    lanes = lane_list(lanes, flags.shape[0])
+    nblk = flags.shape[1]
+    chunks = -(-len(lanes) // 32)
+    bit = torch.zeros((chunks * 32, nblk), dtype=torch.int64,
+                      device=flags.device)
+    if lanes:
+        bit[:len(lanes)] = (flags[lanes] != 0).to(torch.int64)
+    words = (bit.view(chunks, 32, nblk) << torch.arange(
+        32, device=flags.device)[:, None]).sum(1)
+    words = (words - (words >= 2**31).to(torch.int64) * 2**32) \
+        .to(torch.int32)
+    return BlockWords(tuple(lanes), int(block_rows), words)
+
+
+def _lanes_mask(lanes, rows) -> int:
+    """The 32-bit mask of a launch whose lanes ``lanes`` lists: bit l for
+    lane ``lanes[l]`` in ``rows``."""
+    rows = set(rows)
+    return sum(1 << l for l, i in enumerate(lanes) if i in rows)
+
+
+def lane_block_words_plain(touched, owner8, lanes, block_rows: int, *,
+                           wide=(), grid_blocks=None, grid_edges=None):
+    """Plain version of :func:`lane_block_words`: the lanes' grid flags
+    from ``pull_bitmap.grid_block_live`` over their touched tables (the
+    ``wide`` lanes all live), packed a launch of 32 lanes a word, and the
+    narrow lanes' counters from the flags."""
+    kk, V = touched.shape
+    lanes = lane_list(lanes, kk)
+    R = owner8.shape[0]
+    nblk = -(-R // block_rows)
+    flags = torch.zeros((len(lanes), nblk), dtype=torch.bool,
+                        device=touched.device)
+    if lanes and R:
+        flags = grid_block_live(touched[lanes], owner8, block_rows)
+    wide = set(lane_list(wide, kk))
+    for j, i in enumerate(lanes):
+        if i in wide:
+            flags[j] = True
+    words = block_words_from_flags(flags, range(len(lanes)), block_rows)
+    counters = None
+    if grid_blocks is not None:
+        narrow = torch.as_tensor([i not in wide for i in lanes],
+                                 device=touched.device)
+        live = (flags & narrow[:, None]).to(torch.int64)
+        counters = torch.stack([(live * grid_blocks).sum(1),
+                                (live * grid_edges).sum(1)])
+    return BlockWords(tuple(lanes), int(block_rows), words.words), counters
+
+
+def lane_block_words(
+    touched: torch.Tensor,    # (k', V) bool/uint8 touched tables
+    owner8: torch.Tensor,     # (R8,) int32 owner of each sub-row, V for pad
+    lanes,                    # the launch's rows, distinct, in [0, k')
+    block_rows: int,          # sub-rows a grid block
+    *,
+    wide=(),                  # lanes of ``lanes`` whose every block is live
+    grid_blocks: torch.Tensor | None = None,   # (nblk,) int64
+    grid_edges: torch.Tensor | None = None,    # (nblk,) int64
+) -> tuple[BlockWords, torch.Tensor | None]:
+    """2L's flags built on the card: per launch of at most 32 of
+    ``lanes``, a word a grid block of ``block_rows`` sub-rows, bit l set
+    where an owner of the block is touched in lane ``lanes[l]`` (exactly
+    ``pull_bitmap.grid_block_live``'s flags) or the lane is in ``wide``.
+
+    Returns ``(BlockWords, counters)``: with ``grid_blocks`` and
+    ``grid_edges`` (each grid block's plan blocks and edges), ``counters``
+    is a ``(2, len(lanes))`` int64 table, each narrow lane's swept plan
+    blocks and edges summed over its live grid blocks (0 for ``wide``
+    lanes), on the device; else ``None``.  On CUDA (count ``launches``,
+    one a launch of at most 32 lanes) two kernels: a lane word a vertex
+    from a coalesced read of the touched bytes, then a warp a grid block
+    ORing its owners' words and summing the counters."""
+    if touched.dim() != 2:
+        raise ValueError(f"touched: want a (k', V) table, got "
+                         f"{tuple(touched.shape)}")
+    if (grid_blocks is None) != (grid_edges is None):
+        raise ValueError("grid_blocks and grid_edges go together")
+    if block_rows < 1:
+        raise ValueError("block_rows must be >= 1")
+    if touched.device.type == "cpu":
+        return lane_block_words_plain(touched, owner8, lanes, block_rows,
+                                      wide=wide, grid_blocks=grid_blocks,
+                                      grid_edges=grid_edges)
+    if touched.device.type != "cuda":
+        raise ValueError(f"lane_block_words runs on CPU or CUDA tensors, "
+                         f"got {touched.device}")
+    kk, V = touched.shape
+    lanes = lane_list(lanes, kk)
+    wide = lane_list(wide, kk)
+    R = owner8.shape[0]
+    nblk = -(-R // block_rows)
+    want = {"touched": (touched, touched.dtype, (kk, V)),
+            "owner8": (owner8, torch.int32, (R,))}
+    if grid_blocks is not None:
+        want["grid_blocks"] = (grid_blocks, torch.int64, (nblk,))
+        want["grid_edges"] = (grid_edges, torch.int64, (nblk,))
+    for name, (t, dtype, shape) in want.items():
+        if t.device != touched.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous() \
+                or (name == "touched" and dtype not in _FLAG_DTYPES):
+            raise ValueError(
+                f"{name}: want a contiguous {dtype} tensor of shape {shape} "
+                f"on {touched.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    chunks = list(lane_chunks(lanes))
+    words = torch.empty((len(chunks), nblk), dtype=torch.int32,
+                        device=touched.device)
+    counters = None if grid_blocks is None else torch.zeros(
+        (2, len(lanes)), dtype=torch.int64, device=touched.device)
+    if not lanes or nblk == 0:
+        return BlockWords(tuple(lanes), int(block_rows), words), counters
+    vword = torch.empty((V + 1,), dtype=torch.int32, device=touched.device)
+    lib = _build.library("edge_block")
+    stream = torch.cuda.current_stream(touched.device).cuda_stream
+    for c, (lo, lane_map, k, _) in enumerate(chunks):
+        cnt = None if counters is None else counters[:, lo:lo + k] \
+            .contiguous()
+        err = lib.edge_block_words_launch(
+            touched.device.index or 0, touched.data_ptr(), lane_map, k, kk,
+            V, owner8.data_ptr(), R, block_rows,
+            _lanes_mask(lanes[lo:lo + k], wide), vword.data_ptr(),
+            words[c].data_ptr(),
+            None if cnt is None else grid_blocks.data_ptr(),
+            None if cnt is None else grid_edges.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"edge_block flags pass launch failed: "
+                               f"cudaError_t {err}")
+        if cnt is not None and len(chunks) > 1:
+            counters[:, lo:lo + k] = cnt
+        lane_block_words.launches += 1
+    return BlockWords(tuple(lanes), int(block_rows), words), counters
+
+
+# launches of 2L's flags pass since the count was last set to 0
+lane_block_words.launches = 0
+
+
+def _flag_args(block_words, c) -> tuple:
+    """The C entries' ``(block_rows, words)`` arguments of launch ``c``:
+    its row of ``block_words``, or no flags."""
+    if block_words is None:
+        return 0, None
+    return block_words.block_rows, block_words.words[c].data_ptr()
+
+
+def _check_block_words(block_words, block_live, lanes, R: int, device):
+    """Raise unless ``block_words`` (or None) holds the words of these
+    very lanes over ``R`` sub-rows on ``device``, and ``block_live`` is
+    not given beside it."""
+    if block_words is None:
+        return
+    if block_live is not None:
+        raise ValueError("give block_live or block_words, not both")
+    nblk = -(-R // block_words.block_rows)
+    if tuple(block_words.lanes) != tuple(lanes) or \
+            tuple(block_words.words.shape) != (-(-len(lanes) // 32), nblk) \
+            or block_words.words.dtype != torch.int32 or \
+            block_words.words.device != device:
+        raise ValueError(
+            f"block_words: want the int32 words of lanes {list(lanes)} over "
+            f"{nblk} grid blocks on {device}, got lanes "
+            f"{list(block_words.lanes)}, {block_words.words.dtype} "
+            f"{tuple(block_words.words.shape)} on {block_words.words.device}")
 
 
 def _fold_check(gather, reduce, values, active):
@@ -509,7 +755,8 @@ def edge_block_fold_lanes_plain(plan, values, degrees, active, lanes, *,
                                 need_got: bool = True, red=None, got=None,
                                 accumulate: bool = False, block_live=None,
                                 block_rows: int | None = None,
-                                prepared: Prepared | None = None):
+                                prepared: Prepared | None = None,
+                                block_words: BlockWords | None = None):
     """Plain version of the fused lane sweep: for each listed lane, the
     single-lane plain sweep over the flat view (kernel 2's with that
     lane's row of ``block_live``: a dead block's rows all identity and
@@ -521,11 +768,20 @@ def edge_block_fold_lanes_plain(plan, values, degrees, active, lanes, *,
     ``flat_dst``, ``flat_wgt`` and ``owner8`` are read) each lane's rows
     fold into their owners by an order-free scatter and combine into the
     running ``red`` (``ref.combine_settled``), ``got`` OR-ed.
-    ``prepared`` is only checked."""
+    ``block_words`` stands for the flags it encodes; ``prepared`` is only
+    checked."""
     _fold_check(gather, reduce, values, active)
     kk, V = values.shape
     lanes = lane_list(lanes, kk)
     check_prepared(prepared, lanes, gather, mask_inactive)
+    if block_live is not None:
+        _check_lane_flags(block_live, block_rows, kk,
+                          plan.flat_dst.shape[0], values.device)
+    _check_block_words(block_words, block_live, lanes,
+                       plan.flat_dst.shape[0], values.device)
+    if block_words is not None:
+        block_live = block_words_flags(block_words, kk)
+        block_rows = block_words.block_rows
     ident = _identity(reduce, values.dtype)
     if red is None:
         red = torch.full((kk, V), ident, dtype=values.dtype,
@@ -581,9 +837,8 @@ def edge_block_fold_lanes(
     red: torch.Tensor | None = None,
     got: torch.Tensor | None = None,
     accumulate: bool = False,
-    block_live: torch.Tensor | None = None,   # (k', ceil(R8/block_rows))
-    block_rows: int | None = None,
     prepared: Prepared | None = None,
+    block_words: BlockWords | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The lane sweep with the sub-row fold fused in (min, max, int add).
 
@@ -607,26 +862,29 @@ def edge_block_fold_lanes(
     required with ``need_got``) hold running partials, which the call
     combines the listed lanes' reductions into and ORs the flags into.
     ``got`` may be given without it too, holding 0 in the listed rows.
-    ``block_live`` (bool, int8 or uint8, a row a lane of the state; nonzero
-    is live) with ``block_rows`` selects 2L: each lane's rows in a block
-    its flag marks dead hold the identity and are not live, as kernel 2
-    gives them, before the fold (count ``skip_launches`` besides
-    ``launches``).  ``prepared`` (:func:`lanes_prepare`'s tables of this
-    very state and lanes) spares the call its own pre-pass.
+    ``block_words`` (:func:`lane_block_words`' or
+    :func:`block_words_from_flags`' words for these lanes) selects 2L:
+    each lane's rows in a block its bit marks dead hold the identity and
+    are not live, as kernel 2 gives them, before the fold (count
+    ``skip_launches`` besides ``launches``).  On CUDA a flagged call runs
+    2L's own kernel (a warp a grid block: a dead block reads its word
+    alone; a thread a row stream and lane, one accumulator, its own lane's
+    message a live slot) over the flat width-8 view; it needs
+    ``mask_inactive`` and raises without it (the plain version takes
+    either).  ``prepared``
+    (:func:`lanes_prepare`'s tables of this very state and lanes) spares
+    the call its own pre-pass.
     """
     _fold_check(gather, reduce, values, active)
     if accumulate and (red is None or (need_got and got is None)):
         raise ValueError("accumulate mode needs the running red table "
                          "(and got, with need_got)")
-    if block_live is not None:
-        _check_lane_flags(block_live, block_rows, values.shape[0],
-                          plan.flat_dst.shape[0], values.device)
     if values.device.type == "cpu":
         return edge_block_fold_lanes_plain(
             plan, values, degrees, active, lanes, gather=gather,
             reduce=reduce, mask_inactive=mask_inactive, need_got=need_got,
-            red=red, got=got, accumulate=accumulate, block_live=block_live,
-            block_rows=block_rows, prepared=prepared)
+            red=red, got=got, accumulate=accumulate, prepared=prepared,
+            block_words=block_words)
     if values.device.type != "cuda":
         raise ValueError(f"edge_block_fold_lanes runs on CPU or CUDA "
                          f"tensors, got {values.device}")
@@ -638,6 +896,14 @@ def edge_block_fold_lanes(
     check_prepared(prepared, lanes, gather, mask_inactive)
     nbr, wgt, owner8 = plan.flat_dst, plan.flat_wgt, plan.owner8
     R, W = nbr.shape
+    _check_block_words(block_words, None, lanes, R, values.device)
+    flagged = block_words is not None
+    if flagged and not mask_inactive:
+        raise ValueError("2L's fold on CUDA needs mask_inactive: its "
+                         "kernel reads no message of an inactive slot")
+    if flagged and W != 8:
+        raise ValueError(f"2L's fold sweeps the flat width-8 view, got "
+                         f"width {W}")
     want = {"flat_dst": (nbr, torch.int32, (R, W)),
             "flat_wgt": (wgt, torch.float32, (R, W)),
             "owner8": (owner8, torch.int32, (R,)),
@@ -669,8 +935,7 @@ def edge_block_fold_lanes(
     if prepared is None:
         prepared = lanes_prepare(values, degrees, active, lanes,
                                  gather=gather, mask_inactive=mask_inactive)
-    words = _flag_words(block_live, R, block_rows)
-    for _, lane_map, k, K, bits, msg in prepared.chunks:
+    for c, (_, lane_map, k, K, bits, msg) in enumerate(prepared.chunks):
         err = lib.edge_block_fold_launch(
             values.device.index or 0, GATHER_OPS.index(gather),
             REDUCE_OPS.index(reduce), _VALUE_DTYPES[values.dtype],
@@ -679,15 +944,15 @@ def edge_block_fold_lanes(
             active.data_ptr(), lane_map, k, kk,
             None if bits is None else bits.data_ptr(), msg.data_ptr(), V,
             red.data_ptr(), None if got is None else got.data_ptr(), R, W,
-            int(accumulate), *_flag_args(block_live, block_rows, words),
-            _MAIN_ONLY, stream)
+            int(accumulate), *_flag_args(block_words, c), _MAIN_ONLY,
+            stream)
         if err != 0:
             raise RuntimeError(f"edge_block fold kernel launch failed: "
                                f"cudaError_t {err}")
         edge_block_fold_lanes.launches += 1
         if accumulate:
             edge_block_fold_lanes.accumulate_launches += 1
-        if block_live is not None:
+        if flagged:
             edge_block_fold_lanes.skip_launches += 1
     return red, got
 

@@ -52,7 +52,10 @@ class Prepared(typing.NamedTuple):
     launch ``(lo, lane_map, k, K, bits, msg)``: ``bits`` the int32 words
     of the K-bit frontier (``None`` without ``mask_inactive``), ``msg`` the
     ``(V * K,)`` vertex-major messages (``None`` where the kernel reads the
-    values themselves).  ``chunks`` is empty for CPU tensors."""
+    values themselves).  ``chunks`` is empty for CPU tensors.  Under
+    ``mask_inactive`` the pre-pass leaves the ``msg`` rows of vertices
+    active in no lane of the launch unwritten, which no masked launch
+    reads."""
 
     lanes: tuple
     gather: str

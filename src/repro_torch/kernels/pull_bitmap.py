@@ -20,8 +20,10 @@ The translator's bitmap plane (``translator._emit_pull_bitmap``) builds
 on these; its kernel path skips dead blocks inside
 ``edge_block.edge_block_reduce(block_live=...)``, and its batched
 superstep (``translator._emit_lane_step``) inside the lane kernels'
-``block_live=`` (2L), on touched tables from
-``push_ell.push_lanes_touched``.
+``block_words=`` (2L), words built on the card by
+``edge_block.lane_block_words`` from touched tables of
+``push_ell.push_lanes_touched``; :func:`grid_block_live` is those
+words' plain version.
 """
 from __future__ import annotations
 
@@ -74,10 +76,12 @@ def grid_block_live(touched_u8: torch.Tensor, owner8: torch.Tensor,
     ``grid_rows`` sub-rows (the last one ragged), any owner touched.
 
     A ``(k, V)`` or ``(k, V+1)`` table of k lanes gives the ``(k, grid
-    blocks)`` flags of the lane kernels (``edge_block_fold_lanes(
-    block_live=...)``): the lanes go in groups of 8, a vertex's 8 flags
-    one int64 word, so a sub-row's owner gathers one word a group, not a
-    byte a lane; pad owners read a zero word past the table.
+    blocks)`` flags of the lane kernels (the plain versions'
+    ``block_live=``; the plain version of ``edge_block.lane_block_words``,
+    which builds them on the card): the lanes go in groups of 8, a
+    vertex's 8 flags one int64 word, so a sub-row's owner gathers one word
+    a group, not a byte a lane; pad owners read a zero word past the
+    table.
     """
     idx = owner8.long()
     pad = (-idx.shape[0]) % grid_rows

@@ -171,27 +171,41 @@ def test_lane_flags_plain_equals_single_lane_kernel2(graphs, gather, reduce,
             singles = [teb.edge_block_reduce(
                 plan.flat_dst, plan.flat_wgt, vals[i], deg, act[i],
                 block_live=flags[i], block_rows=br, **kw) for i in lanes]
+            # the flag table itself (the plain version's reference input)
+            # and its words (what the wrapper takes) give the same sweep
+            table = dict(block_live=flags, block_rows=br)
+            words = dict(block_words=teb.block_words_from_flags(
+                flags, lanes, br))
             if not fold:
-                red, anys = teb.edge_block_reduce_lanes(
-                    plan.flat_dst, plan.flat_wgt, vals, deg, act, lanes,
-                    block_live=flags, block_rows=br, **kw)
-                for j, (s_red, s_any) in enumerate(singles):
-                    np.testing.assert_array_equal(_bits(red[j]),
-                                                  _bits(s_red))
-                    assert torch.equal(anys[j], s_any)
+                for red, anys in (
+                        teb.edge_block_reduce_lanes_plain(
+                            plan.flat_dst, plan.flat_wgt, vals, deg, act,
+                            lanes, **table, **kw),
+                        teb.edge_block_reduce_lanes(
+                            plan.flat_dst, plan.flat_wgt, vals, deg, act,
+                            lanes, **words, **kw)):
+                    for j, (s_red, s_any) in enumerate(singles):
+                        np.testing.assert_array_equal(_bits(red[j]),
+                                                      _bits(s_red))
+                        assert torch.equal(anys[j], s_any)
                 continue
-            red, got = teb.edge_block_fold_lanes(
-                plan, vals, deg, act, lanes, block_live=flags,
-                block_rows=br, **kw)
-            for i, (s_red, s_any) in zip(lanes, singles):
-                want = tpb.subrow_combine(s_red, plan, ident, reduce, tdtype)
-                want_got = tpb.subrow_combine(s_any.to(torch.int8), plan, 0,
-                                              "max", torch.int8) != 0
-                np.testing.assert_array_equal(_bits(red[i]), _bits(want))
-                assert torch.equal(got[i], want_got)
-            left_out = [i for i in range(kk) if i not in lanes]
-            assert bool((red[left_out] == ident).all())
-            assert not bool(got[left_out].any())
+            for red, got in (
+                    teb.edge_block_fold_lanes_plain(plan, vals, deg, act,
+                                                    lanes, **table, **kw),
+                    teb.edge_block_fold_lanes(plan, vals, deg, act, lanes,
+                                              **words, **kw)):
+                for i, (s_red, s_any) in zip(lanes, singles):
+                    want = tpb.subrow_combine(s_red, plan, ident, reduce,
+                                              tdtype)
+                    want_got = tpb.subrow_combine(
+                        s_any.to(torch.int8), plan, 0, "max",
+                        torch.int8) != 0
+                    np.testing.assert_array_equal(_bits(red[i]),
+                                                  _bits(want))
+                    assert torch.equal(got[i], want_got)
+                left_out = [i for i in range(kk) if i not in lanes]
+                assert bool((red[left_out] == ident).all())
+                assert not bool(got[left_out].any())
 
 
 @pytest.mark.parametrize("reduce,dtype", [("min", np.int32),
@@ -223,7 +237,7 @@ def test_lane_flags_match_jax_kernel2_under_vmap(graphs, reduce, dtype):
     r_red, r_any = jax.jit(jax.vmap(one))(
         jnp.asarray(vals.numpy()), jnp.asarray(act.numpy()),
         jnp.asarray(flags.numpy()))
-    red, anys = teb.edge_block_reduce_lanes(
+    red, anys = teb.edge_block_reduce_lanes_plain(
         plan.flat_dst, plan.flat_wgt, vals, deg, act, block_live=flags,
         block_rows=br, **kw)
     np.testing.assert_array_equal(np.asarray(r_red), red.numpy())
@@ -275,11 +289,11 @@ def test_touched_flags_lane_sweep_equals_1l(graphs):
             assert torch.equal(flags[i], tpb.grid_block_live(
                 table[i], plan.owner8, br))
         assert not flags[lanes].all()
+        words = teb.block_words_from_flags(flags, lanes, br)
         for reduce in ("min", "max"):
             kw = dict(gather="add_w", reduce=reduce)
             skip = teb.edge_block_fold_lanes(plan, vals, deg, act, lanes,
-                                             block_live=flags,
-                                             block_rows=br, **kw)
+                                             block_words=words, **kw)
             full = teb.edge_block_fold_lanes(plan, vals, deg, act, lanes,
                                              **kw)
             for a, b in zip(skip, full):
@@ -287,7 +301,7 @@ def test_touched_flags_lane_sweep_equals_1l(graphs):
         kw = dict(gather="mul_w", reduce="add", need_any=True)
         skip = teb.edge_block_reduce_lanes(
             plan.flat_dst, plan.flat_wgt, vals, deg, act, lanes,
-            block_live=flags, block_rows=br, **kw)
+            block_words=words, **kw)
         full = teb.edge_block_reduce_lanes(plan.flat_dst, plan.flat_wgt,
                                            vals, deg, act, lanes, **kw)
         for a, b in zip(skip, full):
@@ -295,8 +309,9 @@ def test_touched_flags_lane_sweep_equals_1l(graphs):
 
 
 def test_lane_flag_wrappers_on_cpu(graphs):
-    """Flags of the wrong shape, dtype or grid raise; on CPU tensors no
-    launch is counted."""
+    """Flags of the wrong shape, dtype or grid raise: a flag table in the
+    plain versions, its words in the wrappers (words of other lanes or
+    another grid); on CPU tensors no launch is counted."""
     _, tg = graphs
     plan = _plan(tg)
     R = plan.flat_dst.shape[0]
@@ -307,12 +322,26 @@ def test_lane_flag_wrappers_on_cpu(graphs):
     for bad, rows in ((good[:3], 4), (good.float(), 4), (good, 3),
                       (good, None), (good[:, ::2], 8)):
         with pytest.raises(ValueError, match="block_live"):
-            teb.edge_block_fold_lanes(plan, vals, deg, act, [0, 2],
-                                      block_live=bad, block_rows=rows, **kw)
+            teb.edge_block_fold_lanes_plain(plan, vals, deg, act, [0, 2],
+                                            block_live=bad, block_rows=rows,
+                                            **kw)
         with pytest.raises(ValueError, match="block_live"):
-            teb.edge_block_reduce_lanes(plan.flat_dst, plan.flat_wgt, vals,
-                                        deg, act, [1], block_live=bad,
-                                        block_rows=rows, **kw)
+            teb.edge_block_reduce_lanes_plain(
+                plan.flat_dst, plan.flat_wgt, vals, deg, act, [1],
+                block_live=bad, block_rows=rows, **kw)
+    for lanes, rows in (([0, 2], 8), ([2, 0], 4), ([1], 4)):
+        bad = teb.block_words_from_flags(
+            torch.ones((4, -(-R // rows)), dtype=torch.bool), lanes, rows)
+        if rows == 8:                # the words of another grid
+            bad = bad._replace(block_rows=4)
+        with pytest.raises(ValueError, match="block_words"):
+            teb.edge_block_fold_lanes(plan, vals, deg, act, [0, 2],
+                                      block_words=bad, **kw)
+        if lanes != [1]:
+            with pytest.raises(ValueError, match="block_words"):
+                teb.edge_block_reduce_lanes(plan.flat_dst, plan.flat_wgt,
+                                            vals, deg, act, [1],
+                                            block_words=bad, **kw)
     with pytest.raises(ValueError, match="distinct rows"):
         tpe.push_lanes_touched(plan.flat_dst[:, 0], plan.flat_dst, act,
                                [1, 1], num_rows=1)
@@ -467,15 +496,17 @@ def test_lanes_on_a_pe_group_of_two(graphs, template):
 
 @pytest.mark.parametrize("template", TEMPLATES)
 def test_batched_superstep_route(graphs, template, monkeypatch):
-    """Each batched superstep with narrow pull lanes runs one touched pass
-    and one 2L sweep, no single-lane pull step, and one host read; the
-    lanes in the wide tier share that sweep, all blocks live."""
+    """Each batched superstep with narrow pull lanes runs one touched pass,
+    one flags pass and one 2L sweep, no single-lane pull step, and one
+    host read; the lanes in the wide tier share that sweep, all blocks
+    live."""
     _, tg = graphs
     tp = TT.translate(TD.PROGRAM_TEMPLATES[template](), tg,
                       _cfg(TS, "auto-mixed"), device="cpu")
     spy = _Spy(monkeypatch, [
         ("fold", (teb, "edge_block_fold_lanes")),
         ("touched", (tpe, "push_lanes_touched")),
+        ("words", (teb, "lane_block_words")),
         ("push", (tpe, "push_ell_lanes_reduce"))])
     singles = []
     pull_step = tp._pull_step
@@ -497,18 +528,21 @@ def test_batched_superstep_route(graphs, template, monkeypatch):
                  if stepped[i] and state.direction[i] == 0
                  and occ.n_f[i] > 0]
         skips = [c for c in spy.calls["fold"]
-                 if c.get("block_live") is not None]
+                 if c.get("block_words") is not None]
         n_narrow = sum(occ.m_f[i] <= caps[1] for i in pulls)
         if n_narrow:
             narrow += 1
             assert len(spy.calls["touched"]) == 1
+            assert len(spy.calls["words"]) == 1
             assert len(skips) == 1 and len(spy.calls["fold"]) == 1
-            flags = skips[0]["block_live"]
+            flags = teb.block_words_flags(skips[0]["block_words"],
+                                          len(ROOTS))
             for i in pulls:
                 if occ.m_f[i] > caps[1]:
                     assert bool(flags[i].all())
         else:
             assert not spy.calls["touched"] and not skips
+            assert not spy.calls["words"]
         assert len(spy.calls["fold"]) <= 1 and len(spy.calls["push"]) <= 1
     assert narrow > 0
     assert not singles
