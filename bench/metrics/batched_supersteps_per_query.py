@@ -1,0 +1,9 @@
+"""Batched supersteps (``GraphServer.counters()['batched_supersteps']``)
+in the window, per query the engine answered (landmark answers aside)."""
+
+
+def read(rec):
+    engine = sum(q["served_by"] != "landmark" for q in rec.queries)
+    if not engine:
+        return None
+    return rec.counters["batched_supersteps"] / engine
