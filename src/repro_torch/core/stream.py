@@ -94,6 +94,7 @@ from . import checkpoint as ckpt
 from . import faults
 from . import graph as G
 from . import preprocess
+from . import tracing
 from .analysis import analyze_program
 from .comm import CommManager
 from .diagnostics import max_severity, render_table
@@ -250,10 +251,11 @@ class PartitionedGraphProgram:
         self._buffers: dict = {}          # plane → _Buffers, on first use
         self._memo = None                 # (active, counts, n_f, m_f)
         # device→host reads (liveness reads, the lanes' table copies),
-        # streamed supersteps, and those that swept pull and push
-        # partitions, since construction
+        # streamed supersteps, the lanes they stepped, and those that
+        # swept pull and push partitions, since construction
         self.lane_reads = 0
         self.lane_supersteps = 0
+        self.lane_steps = 0
         self.lane_sweeps = 0
         self.lane_pushes = 0
 
@@ -596,7 +598,11 @@ class PartitionedGraphProgram:
 
     def _advance(self, state: PartitionedLaneState,
                  budget: int | None) -> PartitionedLaneState:
-        """Run up to ``budget`` streamed supersteps (None: to the end)."""
+        """Run up to ``budget`` streamed supersteps (None: to the end).
+
+        A superstep's sweep is one ``lane.step`` span and its liveness read
+        one ``lane.read`` span; ``lane_steps`` counts the lanes it stepped.
+        """
         counts, n_f, m_f = self._state_liveness(state)
         P = self.store.partitions
         steps = 0
@@ -614,16 +620,18 @@ class PartitionedGraphProgram:
             live_parts = self._live_partitions(counts, alive)
             lanes = [int(i) for i in np.nonzero(alive)[0]]
             t_wall = time.perf_counter()
-            red, got, fetches, compute = self._sweep(
-                state.values, state.active, lanes, live_parts, plane,
-                trip=True)
-            values, active = self._finish(state.values, state.active, red,
-                                          got, lanes)
-            if self._probe and self._dtype.is_floating_point:
-                # a lane whose table picked up a NaN freezes (partial
-                # values kept) and reports terminated='diverged'
-                active &= ~torch.isnan(values).any(1, keepdim=True)
-            new_live = self._liveness(active)
+            with tracing.span("lane.step"):
+                red, got, fetches, compute = self._sweep(
+                    state.values, state.active, lanes, live_parts, plane,
+                    trip=True)
+                values, active = self._finish(state.values, state.active,
+                                              red, got, lanes)
+                if self._probe and self._dtype.is_floating_point:
+                    # a lane whose table picked up a NaN freezes (partial
+                    # values kept) and reports terminated='diverged'
+                    active &= ~torch.isnan(values).any(1, keepdim=True)
+            with tracing.span("lane.read"):
+                new_live = self._liveness(active)
             wall_s = time.perf_counter() - t_wall
             stats = self._comm.stats
             for f in fetches:
@@ -636,6 +644,7 @@ class PartitionedGraphProgram:
             stats.record_partition_skip(P - len(live_parts))
             stats.record_partition_superstep(wall_s, compute_s)
             self.lane_supersteps += 1
+            self.lane_steps += len(lanes)
             if live_parts:
                 if direction:
                     self.lane_pushes += 1

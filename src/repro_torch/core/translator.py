@@ -105,6 +105,7 @@ from . import comm as C
 from . import faults
 from . import graph as G
 from . import preprocess
+from . import tracing
 from .analysis import analyze_program, apply_batches_over_lanes
 from .comm import CommManager, resolve_device
 from .diagnostics import max_severity, render_table
@@ -283,11 +284,12 @@ class CompiledGraphProgram:
         self.last_run_stats: dict | None = None
         self.last_run_syncs: int | None = None
         # the lane API's device→host reads (occupancy reads and the
-        # snapshots' copies), batched supersteps, those that ran the
-        # batched masked sweep and those that ran the batched push, since
-        # construction
+        # snapshots' copies), batched supersteps, the lanes they stepped,
+        # those that ran the batched masked sweep and those that ran the
+        # batched push, since construction
         self.lane_reads = 0
         self.lane_supersteps = 0
+        self.lane_steps = 0
         self.lane_sweeps = 0
         self.lane_pushes = 0
 
@@ -447,6 +449,10 @@ class CompiledGraphProgram:
         ``exchange_bytes``) and each PE's live rows summed over the push
         supersteps (``push_live_rows_per_pe``); the exchanges accumulate
         on the translation's comm manager.
+
+        Each occupancy read is a ``run.read`` span, each superstep's
+        enqueue a ``run.pull`` or ``run.push`` span
+        (:mod:`~repro_torch.core.tracing`).
         """
         if checkpoint_dir is None:
             checkpoint_dir = self._checkpoint_dir
@@ -462,7 +468,8 @@ class CompiledGraphProgram:
         pending = ()     # the last pull superstep's counters, read next
         probe = self._probe and values.dtype.is_floating_point
         while True:
-            m_f, n_f, r_f, done = self._occupancy(active, pending)
+            with tracing.span("run.read"):
+                m_f, n_f, r_f, done = self._occupancy(active, pending)
             syncs += 1
             if done:
                 pull_edges += done[0]
@@ -475,7 +482,8 @@ class CompiledGraphProgram:
                 break
             new_dir = self._choose(direction, m_f, n_f, pull_cost)
             if new_dir:
-                values, active, _ = self._push_step(values, active, r_f)
+                with tracing.span("run.push"):
+                    values, active, _ = self._push_step(values, active, r_f)
                 pushes += 1
                 # a coo_chunks push has no dense fallback: it counts as
                 # compacted, as in the JAX package
@@ -483,8 +491,9 @@ class CompiledGraphProgram:
                 live_rows = [a + b for a, b in zip(live_rows, r_f)]
                 push_edges += m_f
             else:
-                values, active, pending = self._pull_step(values, active,
-                                                          m_f)
+                with tracing.span("run.pull"):
+                    values, active, pending = self._pull_step(values, active,
+                                                              m_f)
             if probe:
                 # a NaN anywhere freezes the frontier: the loop exits next
                 # superstep and the run reads terminated='diverged'
@@ -816,7 +825,9 @@ class CompiledGraphProgram:
         slice read nothing.  Under a multi-PE plan the comm manager
         records the batched supersteps that exchanged and the tables
         they carried: a batched push exchanges the batch's ``(k, V)``
-        partials, a lane stepped alone its ``(V,)`` table.
+        partials, a lane stepped alone its ``(V,)`` table.  A batched
+        superstep's steps are one ``lane.step`` span and its read one
+        ``lane.read`` span; ``lane_steps`` counts the lanes it stepped.
         """
         occ = self._lane_occupancy(state).copy()
         k = state.iters.shape[0]
@@ -851,37 +862,42 @@ class CompiledGraphProgram:
                        if i not in sweep and i not in pushes]
             pending = {}
             tables = 0
-            if sweep or pushes:
-                # one batched superstep over those lanes, read and written
-                # in place: fresh tensors, other rows as they were; the
-                # pull lanes' counters stay pending until the read below
-                values, active, pending = self._lane_step(
-                    values, active, sweep, [dirs[i] == 0 for i in sweep],
-                    pushes, [int(occ.m_f[i]) for i in sweep])
-                owned = True
-            if sweep:
-                self.lane_sweeps += 1
-            if pushes:
-                self.lane_pushes += 1
-                tables += values.shape[0] * (self._exchange_plane == "push")
-            if singles and not owned:
-                values, active = values.clone(), active.clone()
-                owned = True
-            for i in singles:
-                if dirs[i]:
-                    r_f = occ.r_f[i].tolist()
-                    new, nxt, _ = self._push_step(values[i], active[i], r_f)
-                    if tiers is None or max(r_f) <= tiers[-1]:
-                        tables += self._exchange_plane == "push"
-                else:
-                    tables += self._exchange_plane == "pull"
-                    new, nxt, pending[i] = self._pull_step(
-                        values[i], active[i], int(occ.m_f[i]))
-                values[i] = new
-                active[i] = nxt
-            if probe:
-                for i in stepping:
-                    active[i] &= ~torch.isnan(values[i]).any()
+            with tracing.span("lane.step"):
+                if sweep or pushes:
+                    # one batched superstep over those lanes, read and
+                    # written in place: fresh tensors, other rows as they
+                    # were; the pull lanes' counters stay pending until
+                    # the read below
+                    values, active, pending = self._lane_step(
+                        values, active, sweep,
+                        [dirs[i] == 0 for i in sweep], pushes,
+                        [int(occ.m_f[i]) for i in sweep])
+                    owned = True
+                if sweep:
+                    self.lane_sweeps += 1
+                if pushes:
+                    self.lane_pushes += 1
+                    tables += values.shape[0] * (
+                        self._exchange_plane == "push")
+                if singles and not owned:
+                    values, active = values.clone(), active.clone()
+                    owned = True
+                for i in singles:
+                    if dirs[i]:
+                        r_f = occ.r_f[i].tolist()
+                        new, nxt, _ = self._push_step(values[i], active[i],
+                                                      r_f)
+                        if tiers is None or max(r_f) <= tiers[-1]:
+                            tables += self._exchange_plane == "push"
+                    else:
+                        tables += self._exchange_plane == "pull"
+                        new, nxt, pending[i] = self._pull_step(
+                            values[i], active[i], int(occ.m_f[i]))
+                    values[i] = new
+                    active[i] = nxt
+                if probe:
+                    for i in stepping:
+                        active[i] &= ~torch.isnan(values[i]).any()
             for i in stepping:
                 d = dirs[i]
                 if d:
@@ -898,9 +914,11 @@ class CompiledGraphProgram:
                 steps[i] += 1
             ex_steps += tables > 0
             ex_tables += tables
-            m_f, n_f, r_f, nan, done = self._lane_read(values, active,
-                                                       stepping, pending)
+            with tracing.span("lane.read"):
+                m_f, n_f, r_f, nan, done = self._lane_read(
+                    values, active, stepping, pending)
             self.lane_supersteps += 1
+            self.lane_steps += len(stepping)
             for j, i in enumerate(stepping):
                 occ.m_f[i], occ.n_f[i], occ.r_f[i], occ.nan[i] = \
                     m_f[j], n_f[j], r_f[j], nan[j]

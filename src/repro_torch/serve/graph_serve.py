@@ -59,6 +59,7 @@ from ..core import checkpoint as ckpt
 from ..core import dsl
 from ..core import faults
 from ..core import graph as G
+from ..core import tracing
 from ..core.comm import CommManager, resolve_device
 from ..core.scheduler import AdmissionPolicy, ScheduleConfig
 from ..core.stream import PartitionedGraphProgram
@@ -89,6 +90,8 @@ class GraphQuery:
     ``'exact'`` (landmark fallback through the batch plane),
     ``'deadline'`` (degraded or truncated by deadline expiry).
 
+    ``submitted_s``, ``admitted_s`` (when a lane took the query; None if
+    none did) and ``finished_s`` are ``time.perf_counter()`` instants.
     ``deadline_s`` is an *absolute* ``time.perf_counter()`` instant
     (``submit(deadline_s=...)`` takes relative seconds and converts);
     past it the server stops spending supersteps on the query and
@@ -112,6 +115,7 @@ class GraphQuery:
     stats: dict | None = None
     served_by: str | None = None
     submitted_s: float = 0.0
+    admitted_s: float | None = None
     finished_s: float = 0.0
     deadline_s: float | None = None
     answer_quality: str = "exact"
@@ -264,14 +268,18 @@ class _BatchGroup:
         self.occupants: list[GraphQuery | None] = [None] * slots
         self.waiting: collections.deque[GraphQuery] = collections.deque()
         self.supersteps = 0            # sliced supersteps executed (max lane)
-        # batched supersteps run, those that ran the batched masked sweep
-        # and those that ran the batched push, slices that stepped a lane,
+        # batched supersteps run, the lanes they stepped, those that ran
+        # the batched masked sweep and those that ran the batched push,
         # and reads of finished lanes' tables
         self.batched_supersteps = 0
+        self.lane_steps = 0
         self.masked_sweeps = 0
         self.lane_pushes = 0
-        self.slices = 0
         self.harvests = 0
+        # queries a lane took, and their summed seconds from submission
+        # to admission
+        self.admitted = 0
+        self.queue_wait_s = 0.0
         self._reads0 = compiled.lane_reads
 
     @property
@@ -294,7 +302,10 @@ class _BatchGroup:
                                                       q.root)
                 self.occupants[lane] = q
                 q.status = "running"
+                q.admitted_s = time.perf_counter()
+                self.queue_wait_s += q.admitted_s - q.submitted_s
                 n += 1
+        self.admitted += n
         return n
 
     def slice(self, budget: int) -> None:
@@ -303,14 +314,14 @@ class _BatchGroup:
             return
         c = self.compiled
         before = int(np.max(self.state.iters))
-        steps, sweeps, pushes = c.lane_supersteps, c.lane_sweeps, \
-            c.lane_pushes
+        steps, stepped, sweeps, pushes = c.lane_supersteps, c.lane_steps, \
+            c.lane_sweeps, c.lane_pushes
         self.state = c.run_batch_slice(self.state, budget)
         self.supersteps += int(np.max(self.state.iters)) - before
         self.batched_supersteps += c.lane_supersteps - steps
+        self.lane_steps += c.lane_steps - stepped
         self.masked_sweeps += c.lane_sweeps - sweeps
         self.lane_pushes += c.lane_pushes - pushes
-        self.slices += int(c.lane_supersteps > steps)
 
     def harvest(self, now: float) -> list[GraphQuery]:
         """Complete queries in converged lanes; free their slots."""
@@ -895,6 +906,10 @@ class GraphServer:
         coalesced follower or free outright, and parked dist queries past
         deadline degrade to landmark bounds (``answer_quality='bounded'``)
         — a deadline never hangs a slot or silently drops a query.
+
+        Each group's admit and harvest are the spans ``serve.admit`` and
+        ``serve.harvest`` (:mod:`~repro_torch.core.tracing`); its slice
+        is the lane loop's ``lane.step`` and ``lane.read`` spans.
         """
         self._route()
         # crash point between routing and slicing: a killed server is
@@ -911,24 +926,29 @@ class GraphServer:
             if grp.idle:
                 continue
             progressed = True
-            grp.admit()
+            with tracing.span("serve.admit"):
+                grp.admit()
             grp.slice(budget)
             now = time.perf_counter()
-            for q in grp.harvest(now):
+            with tracing.span("serve.harvest"):
+                finished = grp.harvest(now)
+            for q in finished:
                 self._retire(q)
         self._resolve_parked(time.perf_counter())
         return progressed or bool(self._queue) or bool(self._parked)
 
     def counters(self) -> dict:
         """The serving plane's work so far, summed over its batch groups:
-        batched supersteps, those that ran the batched masked sweep and
-        those that ran the batched push, slices that stepped a lane, reads
-        of finished lanes' tables, and all device→host reads."""
+        batched supersteps, the lanes they stepped, those that ran the
+        batched masked sweep and those that ran the batched push, queries
+        admitted to a lane and their summed seconds from submission to
+        admission, reads of finished lanes' tables, and all device→host
+        reads."""
         groups = list(self._groups.values())
         return {k: sum(getattr(grp, k) for grp in groups)
-                for k in ("batched_supersteps", "masked_sweeps",
-                          "lane_pushes", "slices", "harvests",
-                          "host_reads")}
+                for k in ("batched_supersteps", "lane_steps",
+                          "masked_sweeps", "lane_pushes", "admitted",
+                          "queue_wait_s", "harvests", "host_reads")}
 
     def run(self) -> list[GraphQuery]:
         """Drain every pending query; returns them in completion order."""
