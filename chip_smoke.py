@@ -244,7 +244,8 @@ and the script exits non-zero):
    and auto at p = 1, 2 and 4 (the sharded push: kernel 3f a PE on its
    forward-ELL interval, the collective, kernel 1 on the replicated
    fallback), each equal to ``numpy_bfs`` and to p = 1 bitwise, its
-   ``run_stats`` equal to p = 1's but for the multi-PE fields, and those
+   ``run_stats`` equal to p = 1's but for the multi-PE fields (and the
+   CUDA graphs' engagement, which p = 1 alone has), and those
    (each PE's live rows, the compacted/fallback split, the exchanges and
    their bytes) equal to a numpy replay from the oracle's levels and the
    JAX package's byte formulas; 3f launches = compacted supersteps ×
@@ -4971,9 +4972,11 @@ def phase_stream(torch, dev_info, main):
 MULTI_PES = (2, 4)          # the PE counts of the multi-PE phase
 MULTI_BATCH = 8             # run_batch roots at pes=2
 MULTI_QUERIES = 16          # bfs queries served at pes=2
+# the fields a PE group reports otherwise than one PE; the last two are
+# the run loop's CUDA graphs, which a single-PE dense plan alone replays
 MULTI_KEYS = ("pes", "push_live_rows_per_pe", "push_compacted_supersteps",
               "push_fallback_supersteps", "exchange_supersteps",
-              "exchange_bytes")
+              "exchange_bytes", "replayed_supersteps", "graph_captures")
 
 
 def _pe_replay(oracle, deg, rpv, cuts, tiers, mode, policy, num_edges):

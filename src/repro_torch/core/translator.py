@@ -34,7 +34,11 @@ count ``n_f``, its live forward-ELL rows ``r_f`` and the previous pull
 superstep's sweep counters, and branches on the host: one device→host
 sync per superstep.  The direction choice is computed in float32 exactly
 as the staged loop computes it, and the counters are Python integers, so
-``run_stats`` equal the JAX package's.
+``run_stats`` equal the JAX package's.  On a single-PE plan over the
+dense pull plane on CUDA each superstep, with the occupancy sums of the
+frontier it makes, is one replay of a CUDA graph a route
+(:mod:`~repro_torch.core.step_graphs`); every other plan enqueues its
+supersteps op by op.
 
 Batched runs (:meth:`CompiledGraphProgram.run_batch` and the lane API the
 serving plane builds on: :class:`BatchLaneState`, ``batch_init``,
@@ -115,6 +119,7 @@ from .ir import (ApplyOp, ExchangeOp, FrontierUpdateOp, FusedGatherReduceOp,
 from .passes import PassContext, classify_gather, default_pipeline
 from .scheduler import (DirectionPolicy, ScheduleConfig, SchedulePlan, plan,
                         pull_block_capacities, push_capacity_tiers)
+from .step_graphs import EagerSteps, GraphSteps
 
 __all__ = ["classify_gather", "TranslationReport", "CompiledGraphProgram",
            "BatchLaneState", "translate"]
@@ -239,7 +244,7 @@ class CompiledGraphProgram:
                  collective_bytes_per_superstep: int = 0,
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int | None = None,
-                 fingerprints_fn=None):
+                 fingerprints_fn=None, graph_supersteps: bool = False):
         # (values, active, m_f) → (new, nxt, (swept_edges, blocks_swept,
         # blocks_skipped)); each counter a Python int or a 0-d tensor
         self._pull_step = pull_step
@@ -279,6 +284,9 @@ class CompiledGraphProgram:
         self._checkpoint_every = checkpoint_every
         self._fingerprints_fn = fingerprints_fn
         self._fingerprints_cache: dict | None = None
+        # run()'s supersteps as CUDA graph replays (a single-PE dense plan
+        # on CUDA; translate decides), else None: the eager loop
+        self._graphs = GraphSteps(self) if graph_supersteps else None
         self.report = report
         self.max_iters = max_iters
         self.last_run_stats: dict | None = None
@@ -302,10 +310,11 @@ class CompiledGraphProgram:
             self._fingerprints_cache = self._fingerprints_fn()
         return self._fingerprints_cache
 
-    def init_state(self, roots=None, values=None):
+    def init_state(self, roots=None, values=None, out=None):
         """``(values, active)`` on the run's device; ``values`` may be a
-        numpy array or a tensor."""
-        return self._init_state(roots=roots, values=values)
+        numpy array or a tensor.  With ``out=(values, active)``, the state
+        is written into those tensors, which are returned."""
+        return self._init_state(roots=roots, values=values, out=out)
 
     def superstep(self, values, active):
         """One pull-direction superstep (the canonical form)."""
@@ -343,20 +352,43 @@ class CompiledGraphProgram:
         ``pull_stats`` comes back as Python ints, its tensors read in the
         same transfer.
         """
+        return self._decode_occupancy(
+            self._occupancy_vector(active, pull_stats).tolist(), pull_stats)
+
+    def _occupancy_vector(self, active, pull_stats=()):
+        """The occupancy read's int64 device vector: ``m_f``, ``n_f``,
+        the live rows a PE (with a forward-ELL push twin), then the
+        tensors of ``pull_stats``."""
         parts = [torch.where(active, self._out_degrees, 0).sum(
                      dtype=torch.int64),
                  active.sum(dtype=torch.int64)]
         if self._with_rf:
             parts += self._live_rows(active)
-        n = len(parts)
         parts += [s.reshape(()).to(torch.int64) for s in pull_stats
                   if isinstance(s, torch.Tensor)]
-        host = torch.stack(parts).tolist()
+        return torch.stack(parts)
+
+    def _decode_occupancy(self, host: list, pull_stats=()):
+        """:meth:`_occupancy`'s tuple from the vector read to the host."""
+        n = 2 + self._npe if self._with_rf else 2
         rest = iter(host[n:])
         stats = tuple(next(rest) if isinstance(s, torch.Tensor) else int(s)
                       for s in pull_stats)
         r_f = host[2:n] if n > 2 else [0] * self._npe
         return host[0], host[1], r_f, stats
+
+    def _push_route(self, r_f) -> int:
+        """A push superstep's route: its capacity tier, ``len(tiers)`` for
+        the dense fallback, 0 for a push without tiers."""
+        tiers = self._push_tiers
+        return 0 if tiers is None else sum(int(max(r_f) > c) for c in tiers)
+
+    def _route_rows(self, route: int) -> list:
+        """Live rows a PE that take a push superstep down ``route``."""
+        tiers = self._push_tiers
+        if tiers is None:
+            return [0] * self._npe
+        return [tiers[route] if route < len(tiers) else tiers[-1] + 1]
 
     def _choose(self, prev_dir: int, m_f: int, n_f: int,
                 pull_cost: int) -> int:
@@ -387,9 +419,11 @@ class CompiledGraphProgram:
 
     def _scalar_stats(self, iters, pushes, compact, switches, push_edges,
                       live_rows, pull_edges, swept, skipped, pull_cost,
-                      live, nanfree) -> dict:
+                      live, nanfree, replayed=0, captures=0) -> dict:
         """run()'s stats dict from host counters, shared by :meth:`run`
-        and the checkpointed slice driver so both report identically."""
+        and the checkpointed slice driver so both report identically;
+        ``replayed`` and ``captures`` are the CUDA graphs' engagement
+        (supersteps replayed, graphs captured by the run)."""
         if not nanfree:
             terminated = "diverged"
         elif live and iters >= self.max_iters:
@@ -412,6 +446,8 @@ class CompiledGraphProgram:
             "exchange_supersteps": exchanges,
             "exchange_bytes": exchanges * self._collective_bytes,
             "terminated": terminated,
+            "replayed_supersteps": replayed,
+            "graph_captures": captures,
         }
 
     def _record_exchanges(self, supersteps: int, tables: int | None = None):
@@ -450,8 +486,22 @@ class CompiledGraphProgram:
         supersteps (``push_live_rows_per_pe``); the exchanges accumulate
         on the translation's comm manager.
 
+        On a single-PE plan whose pull plane is the dense sweep, on CUDA
+        (the translator decides), each superstep is one replay of a CUDA
+        graph of its route (the pull, the push at each capacity tier, the
+        push's dense fallback; :mod:`~repro_torch.core.step_graphs`),
+        which also copies the next occupancy to pinned host memory, so a
+        read waits on an event; the host makes every decision as before.
+        The routes are captured at the program's first run.  ``run_stats``
+        then hold ``replayed_supersteps`` (supersteps replayed) and
+        ``graph_captures`` (graphs captured by this run), both 0 on the
+        eager loop, and ``graph_replays`` counts every replay since
+        construction; the values returned are a copy the caller owns.
+        The CPU, a PE group, the bitmap and sparse planes and checkpointed
+        runs keep the eager loop, one launch at a time.
+
         Each occupancy read is a ``run.read`` span, each superstep's
-        enqueue a ``run.pull`` or ``run.push`` span
+        enqueue (or replay) a ``run.pull`` or ``run.push`` span
         (:mod:`~repro_torch.core.tracing`).
         """
         if checkpoint_dir is None:
@@ -459,31 +509,33 @@ class CompiledGraphProgram:
         if checkpoint_dir is not None:
             return self._run_checkpointed(roots, values, checkpoint_dir,
                                           checkpoint_every, resume)
-        values, active = self.init_state(roots=roots, values=values)
+        if self._graphs is None:
+            steps, captures = EagerSteps(self, *self.init_state(
+                roots=roots, values=values)), 0
+        else:
+            steps = self._graphs
+            captures = steps.start(roots, values)
         tiers = self._push_tiers
         it = direction = pushes = compact = switches = syncs = 0
         push_edges = pull_edges = swept = skipped = 0
         live_rows = [0] * self._npe
         pull_cost = self._num_edges
-        pending = ()     # the last pull superstep's counters, read next
-        probe = self._probe and values.dtype.is_floating_point
         while True:
             with tracing.span("run.read"):
-                m_f, n_f, r_f, done = self._occupancy(active, pending)
+                m_f, n_f, r_f, done = steps.read()
             syncs += 1
             if done:
                 pull_edges += done[0]
                 swept += done[1]
                 skipped += done[2]
                 pull_cost = done[0]
-            pending = ()
             live = n_f > 0
             if not live or it >= self.max_iters:
                 break
             new_dir = self._choose(direction, m_f, n_f, pull_cost)
             if new_dir:
                 with tracing.span("run.push"):
-                    values, active, _ = self._push_step(values, active, r_f)
+                    steps.push(r_f)
                 pushes += 1
                 # a coo_chunks push has no dense fallback: it counts as
                 # compacted, as in the JAX package
@@ -492,27 +544,30 @@ class CompiledGraphProgram:
                 push_edges += m_f
             else:
                 with tracing.span("run.pull"):
-                    values, active, pending = self._pull_step(values, active,
-                                                              m_f)
-            if probe:
-                # a NaN anywhere freezes the frontier: the loop exits next
-                # superstep and the run reads terminated='diverged'
-                active = active & ~torch.isnan(values).any()
+                    steps.pull(m_f)
             switches += int(new_dir != direction)
             direction = new_dir
             it += 1
+        values = steps.result()
         nanfree = True
-        if probe:
+        if self._probe and values.dtype.is_floating_point:
             nanfree = not bool(torch.isnan(values).any())
             syncs += 1
-        stats = self._scalar_stats(it, pushes, compact, switches, push_edges,
-                                   live_rows, pull_edges, swept, skipped,
-                                   pull_cost, live, nanfree)
+        stats = self._scalar_stats(
+            it, pushes, compact, switches, push_edges, live_rows, pull_edges,
+            swept, skipped, pull_cost, live, nanfree,
+            replayed=0 if self._graphs is None else it, captures=captures)
         self._record_exchanges(stats["exchange_supersteps"])
         self.last_run_stats = stats
         self.last_run_syncs = syncs
         self.report.run_stats = stats
         return values, it
+
+    @property
+    def graph_replays(self) -> int:
+        """CUDA graph replays since construction (each superstep of a
+        graphed run, and its first read); 0 on the eager loop."""
+        return 0 if self._graphs is None else self._graphs.replays
 
     def _initial_lane_state(self, roots, values) -> BatchLaneState:
         """A one-lane :class:`BatchLaneState` for run()'s request shapes."""
@@ -1920,21 +1975,30 @@ def translate(
 
     base_values = program.materialize_init(V, device)
 
-    def init_state(roots=None, values=None):
+    def init_state(roots=None, values=None, out=None):
         if values is None:
             values = base_values
         elif not isinstance(values, torch.Tensor):
             values = torch.as_tensor(np.asarray(values))
         values = values.to(device=device, dtype=dtype)
+        if out is None:
+            if roots is None:
+                return values, torch.ones((V,), dtype=torch.bool,
+                                          device=device)
+            out = (values.clone(), torch.empty((V,), dtype=torch.bool,
+                                               device=device))
+        else:
+            out[0].copy_(values)
         if roots is None:
-            return values, torch.ones((V,), dtype=torch.bool, device=device)
-        idx = torch.as_tensor(np.asarray(roots), dtype=torch.int64,
-                              device=device)
-        values = values.clone()
-        values[idx] = 0
-        active = torch.zeros((V,), dtype=torch.bool, device=device)
-        active[idx] = True
-        return values, active
+            out[1].fill_(True)
+            return out
+        # one root indexes by a Python int: no index tensor to copy over
+        idx = int(roots) if np.ndim(roots) == 0 else torch.as_tensor(
+            np.asarray(roots), dtype=torch.int64, device=device)
+        out[0][idx] = 0
+        out[1].zero_()
+        out[1][idx] = True
+        return out
 
     emit_s = time.perf_counter() - t_emit0 - preprocess_s - transfer_s \
         - build_s
@@ -1994,4 +2058,8 @@ def translate(
         exchange_plane=exchange_plane,
         collective_bytes_per_superstep=est_collective + est_frontier,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-        fingerprints_fn=lambda: ckpt.run_fingerprints(program, g, schedule))
+        fingerprints_fn=lambda: ckpt.run_fingerprints(program, g, schedule),
+        # the dense pull plane on one PE (no exchange), on CUDA: the run
+        # loop replays a CUDA graph a superstep (core/step_graphs.py)
+        graph_supersteps=use_kernels and dense and pull_sweep == "dense"
+        and exchange_plane is None)

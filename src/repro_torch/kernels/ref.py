@@ -112,9 +112,11 @@ def settle_zero_ties(red: torch.Tensor, wins: torch.Tensor,
     order.  Integer tables and add come back as they were."""
     if reduce == "add" or not red.dtype.is_floating_point:
         return red
-    win = torch.tensor(-0.0 if reduce == "min" else 0.0, dtype=red.dtype,
-                       device=red.device)
-    return torch.where(red == 0, torch.where(wins, win, -win), red)
+    # Python scalars, not a tensor made on the device: that would be a
+    # host→device copy, which a CUDA graph cannot capture
+    win = -0.0 if reduce == "min" else 0.0
+    zero = torch.where(wins, win, -win).to(red.dtype)
+    return torch.where(red == 0, zero, red)
 
 
 def row_reduce_settled(reduce: str, x: torch.Tensor,

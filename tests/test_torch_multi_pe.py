@@ -42,6 +42,7 @@ from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
 from repro_torch.errors import CheckpointMismatchError, InjectedFault
 from repro_torch.serve.graph_serve import GraphServer
+from torch_stats import jax_stats
 from torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
@@ -177,7 +178,7 @@ def test_push_bit_exact_across_pes(graphs, template, mode, pes):
     tv, ti = prog.run(roots=roots)
     _agree(template, np.asarray(rv), tv)
     assert int(ri) == ti
-    assert rprog.last_run_stats == prog.last_run_stats
+    assert rprog.last_run_stats == jax_stats(prog.last_run_stats)
     rep, rrep = prog.report, rprog.report
     for f in ("pes", "directions", "exchange_plane", "exchange_quantized",
               "push_pe_rows", "push_pe_edges", "push_tiers",
@@ -207,7 +208,7 @@ def test_bitmap_plane_under_multi_pe(graphs, template):
     tv, ti = prog.run(roots=0)
     _agree(template, np.asarray(rv), tv)
     assert int(ri) == ti
-    assert rprog.last_run_stats == prog.last_run_stats
+    assert rprog.last_run_stats == jax_stats(prog.last_run_stats)
     assert prog.report.pull_sweep == "bitmap"
     assert prog.report.exchange_plane == "push"
     roots = [0, 5, 9]

@@ -22,6 +22,7 @@ from repro_torch.core import dsl as TD
 from repro_torch.core import graph as G
 from repro_torch.core import scheduler as TS
 from repro_torch.core import translator as TT
+from torch_stats import jax_stats
 from torch_threads import one_thread  # noqa: F401
 
 FLAVOR = {"dense_pallas": "dense_cuda", "dense_xla": "dense_torch"}
@@ -216,7 +217,7 @@ def test_unported_paths_raise_with_roadmap_item(graphs, tmp_path):
     tv, ti = prog.run(roots=0)
     _same(rv, tv)
     assert int(ri) == ti
-    assert rprog.last_run_stats == prog.last_run_stats
+    assert rprog.last_run_stats == jax_stats(prog.last_run_stats)
     path = TDATA.container_from_graph(str(tmp_path / "c.npz"), tg, 3)
     for rsrc, tsrc, kw in (
             (rg, tg, dict(partitions=3)),
@@ -253,3 +254,25 @@ def test_unported_paths_raise_with_roadmap_item(graphs, tmp_path):
     assert _stats(rprog.last_run_stats) == _stats(prog.last_run_stats)
     assert prog.last_run_stats["checkpoint_saves"] == \
         rprog.last_run_stats["checkpoint_saves"]
+
+
+@pytest.mark.parametrize("pes", [1, 2])
+def test_eager_runs_report_no_graph_replays(graphs, pes):
+    """Off the CUDA graph path (here: the CPU, and a PE group of two CPU
+    devices) ``run_stats`` read ``replayed_supersteps`` and
+    ``graph_captures`` 0 and every other key is the JAX package's, at the
+    first run and after it; the program counts no replay."""
+    rg, tg = graphs
+    rprog = RT.translate(RD.bfs_program(), rg, RS.ScheduleConfig(pes=pes))
+    prog = TT.translate(TD.bfs_program(), tg, TS.ScheduleConfig(pes=pes),
+                        device="cpu", devices=["cpu"] * pes)
+    assert prog.report.pes == pes
+    for root in (0, 3, 0):
+        rv, ri = rprog.run(roots=root)
+        tv, ti = prog.run(roots=root)
+        _same(rv, tv)
+        assert int(ri) == ti
+        s = prog.last_run_stats
+        assert s["replayed_supersteps"] == s["graph_captures"] == 0
+        assert rprog.last_run_stats == jax_stats(s)
+    assert prog.graph_replays == 0
